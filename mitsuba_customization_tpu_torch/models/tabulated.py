@@ -1,0 +1,319 @@
+"""Tabulated measured BRDF (MERL grid): trilinear eval and luminance-weighted
+importance sampling.
+
+PyTorch port of mitsuba_customization_tpu/models/tabulated.py:
+`TabulatedBRDF.build` / `build_stack`, `_build_sampling`, `_grid_coords`,
+`eval_raw`, `eval_f` and the fused per-bounce `bounce_shade`. Storage is
+over (theta_h, theta_d, phi_d) with the sqrt warp on theta_h; phi_d wraps
+with period pi. Sampling draws a half vector from a per-incident-angle
+Marginal2D built from the table's luminance, mixed with a cosine lobe.
+
+eval_f runs kernel K1 (ops/merl_sorted) and bounce_shade runs kernel K2
+(ops/marginal_sorted) once, then K1 once over [wo_nee ; wo_sampled].
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mitsuba_customization_tpu_torch.core import math as m
+from mitsuba_customization_tpu_torch.core.distr import (
+    Marginal2D,
+    _invert_cdf,
+    _select_at,
+)
+from mitsuba_customization_tpu_torch.core.rusinkiewicz import dirs_to_half_diff
+from mitsuba_customization_tpu_torch.core.spectrum import luminance
+from mitsuba_customization_tpu_torch.core.warp import (
+    square_to_cosine_hemisphere,
+    square_to_cosine_hemisphere_pdf,
+)
+from mitsuba_customization_tpu_torch.ops import marginal_sorted, merl_sorted
+
+HALF_PI = math.pi / 2.0
+
+# Probability of the defensive cosine lobe in the sampling mixture.
+COSINE_MIX = 0.1
+
+# Sampler resolution: incident-angle slices and the (theta_h, phi_h) grid.
+N_THETA_I = 32
+SAMPLE_RES_H = 32
+SAMPLE_RES_PHI = 64
+
+
+class TabulatedBRDF(NamedTuple):
+    """A measured BRDF table plus its sampling distributions.
+
+    table:    (n_th, n_td, n_pd, 3) float32, or stacked (n_mat, ...).
+    sampling: Marginal2D with leading axes ([n_mat,] N_THETA_I): one
+              half-vector distribution per incident-angle bin.
+    """
+
+    table: torch.Tensor
+    sampling: Marginal2D
+
+    @staticmethod
+    def build(table):
+        """From one (n_th, n_td, n_pd, 3) table; builds the sampling CDFs."""
+        return TabulatedBRDF(table=table, sampling=_build_sampling(table))
+
+    @staticmethod
+    def build_stack(tables):
+        """From a stacked (n_mat, n_th, n_td, n_pd, 3) tensor."""
+        per = [_build_sampling(t) for t in tables]
+        sampling = Marginal2D(*(torch.stack(f) for f in zip(*per)))
+        return TabulatedBRDF(table=tables, sampling=sampling)
+
+
+# --------------------------------------------------------------------------
+# Index math + trilinear interpolation
+# --------------------------------------------------------------------------
+
+
+def _grid_coords(table_shape, theta_h, theta_d, phi_d):
+    """Continuous cell-centred grid coordinates for the three axes."""
+    n_th, n_td, n_pd = table_shape[-4], table_shape[-3], table_shape[-2]
+    return merl_sorted.grid_coords(n_th, n_td, n_pd, theta_h, theta_d, phi_d)
+
+
+def _trilinear_gather(table, u_th, u_td, u_pd, slot=None):
+    """Trilinear interpolation over (theta_h, theta_d, phi_d): theta axes
+    clamp at the borders, phi_d wraps."""
+    n_th, n_td, n_pd = table.shape[-4], table.shape[-3], table.shape[-2]
+    i0 = torch.floor(u_th).long()
+    j0 = torch.floor(u_td).long()
+    k0 = torch.floor(u_pd).long()
+    fth = u_th - i0
+    ftd = u_td - j0
+    fpd = u_pd - k0
+    i0c, i1c = i0.clamp(0, n_th - 1), (i0 + 1).clamp(0, n_th - 1)
+    j0c, j1c = j0.clamp(0, n_td - 1), (j0 + 1).clamp(0, n_td - 1)
+    k0c, k1c = k0 % n_pd, (k0 + 1) % n_pd
+
+    def corner(ii, jj, kk):
+        if slot is None:
+            return table[ii, jj, kk]
+        return table[slot, ii, jj, kk]
+
+    wth1, wth0 = fth[..., None], (1.0 - fth)[..., None]
+    wtd1, wtd0 = ftd[..., None], (1.0 - ftd)[..., None]
+    wpd1, wpd0 = fpd[..., None], (1.0 - fpd)[..., None]
+    c00 = corner(i0c, j0c, k0c) * wpd0 + corner(i0c, j0c, k1c) * wpd1
+    c01 = corner(i0c, j1c, k0c) * wpd0 + corner(i0c, j1c, k1c) * wpd1
+    c10 = corner(i1c, j0c, k0c) * wpd0 + corner(i1c, j0c, k1c) * wpd1
+    c11 = corner(i1c, j1c, k0c) * wpd0 + corner(i1c, j1c, k1c) * wpd1
+    c0 = c00 * wtd0 + c01 * wtd1
+    c1 = c10 * wtd0 + c11 * wtd1
+    return c0 * wth0 + c1 * wth1
+
+
+def eval_raw(table, wi, wo, slot=None):
+    """Interpolated f(wi, wo) (no cosine), zero below the horizon. The
+    reference formula; the sampling build uses it."""
+    theta_h, _, theta_d, phi_d = dirs_to_half_diff(wi, wo)
+    u_th, u_td, u_pd = _grid_coords(table.shape[-4:], theta_h, theta_d, phi_d)
+    val = _trilinear_gather(table, u_th, u_td, u_pd, slot=slot)
+    above = (m.cos_theta(wi) > 0.0) & (m.cos_theta(wo) > 0.0)
+    return torch.where(above[..., None], torch.clamp(val, min=0.0), 0.0)
+
+
+def _normalize_slot(params, slot):
+    """A slot only selects from a stacked build; drop it otherwise."""
+    return slot if params.table.dim() == 5 else None
+
+
+def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None):
+    """Interpolated f(wi, wo) (no cosine) through kernel K1."""
+    return merl_sorted.eval_trilinear(
+        params.table, wi, wo, _normalize_slot(params, slot), mask
+    )
+
+
+# --------------------------------------------------------------------------
+# Luminance-weighted importance sampling (half-vector square, per wi bin):
+#   y in [0,1): theta_h = (pi/2) y^2;  x in [0,1): phi_h = 2 pi x - pi
+#   d(omega_h) = 2 pi^2 y sin(theta_h) dy dx;  d(omega_o) = 4 |wo.h| d(omega_h)
+# --------------------------------------------------------------------------
+
+
+def _halfvec_from_square(y, x):
+    """Unit-square coords -> (half vector in the canonical frame, |J|)."""
+    theta_h = HALF_PI * y * y
+    phi_h = 2.0 * math.pi * x - math.pi
+    h = m.sph_to_dir(theta_h, phi_h)
+    jac = 2.0 * math.pi * math.pi * y * torch.sin(theta_h)
+    return h, jac
+
+
+def _square_from_halfvec(h):
+    """Half vector (canonical frame) -> unit-square coords (y, x)."""
+    theta_h, phi_h = m.dir_to_sph(h)
+    y = m.safe_sqrt(theta_h / HALF_PI)
+    x = (phi_h + math.pi) / (2.0 * math.pi)
+    return y, torch.clamp(x, 0.0, 1.0 - 1e-7)
+
+
+def _build_sampling(table):
+    """Per-incident-angle-bin Marginal2D stack from one 4-D table."""
+    dev = table.device
+    ti = (torch.arange(N_THETA_I, dtype=torch.float32, device=dev) + 0.5) \
+        / N_THETA_I * HALF_PI
+    yy = (torch.arange(SAMPLE_RES_H, dtype=torch.float32, device=dev) + 0.5) \
+        / SAMPLE_RES_H
+    xx = (torch.arange(SAMPLE_RES_PHI, dtype=torch.float32, device=dev) + 0.5) \
+        / SAMPLE_RES_PHI
+    ti_g, y_g, x_g = torch.meshgrid(ti, yy, xx, indexing="ij")
+    wi = m.sph_to_dir(ti_g, torch.zeros_like(ti_g))  # canonical phi_i = 0
+    h, jac_h = _halfvec_from_square(y_g, x_g)
+    wo = 2.0 * m.dot_keep(wi, h) * h - wi
+    lum = luminance(eval_raw(table, wi, wo))
+    weight = lum * jac_h * 4.0 * m.dot(wo, h).abs()
+    weight = torch.where(m.cos_theta(wo) > 0.0, weight, 0.0)
+    return Marginal2D.build(weight)
+
+
+def _slice_index(theta_i):
+    return torch.clamp(
+        (theta_i / HALF_PI * N_THETA_I).long(), 0, N_THETA_I - 1
+    )
+
+
+def _rotate_phi(v, phi):
+    c, s = torch.cos(phi), torch.sin(phi)
+    return torch.stack(
+        [c * v[..., 0] - s * v[..., 1], s * v[..., 0] + c * v[..., 1], v[..., 2]],
+        -1,
+    )
+
+
+def _row_mass_at(rows, r):
+    """Marginal-CDF cell mass at per-lane row r from (lanes, H) rows."""
+    hi = _select_at(rows, r)
+    lo = torch.where(r > 0, _select_at(rows, (r - 1).clamp(min=0)), 0.0)
+    return hi - lo
+
+
+def _square_cells(wi_c, wo_c):
+    """Canonical direction pair -> (y, x, r, c, denom); denom = jac_h *
+    4 |wo.h| converts the square density to solid angle at wo."""
+    h = m.normalize(wi_c + wo_c)
+    y, x = _square_from_halfvec(h)
+    r = torch.clamp((y * SAMPLE_RES_H).long(), 0, SAMPLE_RES_H - 1)
+    c = torch.clamp((x * SAMPLE_RES_PHI).long(), 0, SAMPLE_RES_PHI - 1)
+    theta_h = HALF_PI * y * y
+    jac_h = 2.0 * math.pi * math.pi * y * torch.sin(theta_h)
+    denom = jac_h * 4.0 * m.dot(wo_c, h).abs()
+    return y, x, r, c, denom
+
+
+def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
+                 slot=None, mask=None, mask_nee=None):
+    """All tabulated-BRDF work of one path-tracer bounce.
+
+    One K2 pass (conditional-CDF inversion for the luminance sample plus
+    the cell masses of the NEE and cosine-branch pdfs), the marginal-row
+    work as plain indexing, and ONE K1 pass over [wo_nee ; wo_sampled].
+    Returns (f_nee, pdf_nee, wo, pdf_s, weight, is_delta); f_nee and
+    weight include the cosine term.
+    """
+    slot = _normalize_slot(params, slot)
+    n = wi.shape[0]
+    cos_wi_ok = m.cos_theta(wi) > 0.0
+    any_mask = cos_wi_ok
+    if mask is not None and mask_nee is not None:
+        any_mask = any_mask & (mask | mask_nee)
+    elif mask is not None:
+        any_mask = any_mask & mask
+
+    theta_i, phi_i = m.dir_to_sph(wi)
+    wi_c = m.sph_to_dir(theta_i, torch.zeros_like(theta_i))
+    tbin = torch.where(any_mask, _slice_index(theta_i), 0)
+    slot_safe = None if slot is None else torch.where(any_mask, slot.long(), 0)
+
+    # ---- mixture branch selection ----
+    if sample1 is None:
+        u0 = sample2[..., 0]
+        use_cos = u0 < COSINE_MIX
+        u0r = torch.where(
+            use_cos, u0 / COSINE_MIX, (u0 - COSINE_MIX) / (1.0 - COSINE_MIX)
+        )
+        sample2 = torch.stack(
+            [torch.clamp(u0r, 0.0, 1.0 - 1e-7), sample2[..., 1]], -1
+        )
+    else:
+        use_cos = sample1 < COSINE_MIX
+    u_row, u_col = sample2[..., 0], sample2[..., 1]
+
+    # ---- marginal-row work ----
+    cdf_row = params.sampling.cdf_row
+    cdf_rows = cdf_row[tbin] if slot_safe is None else cdf_row[slot_safe, tbin]
+    r_own, row_lo, row_mass_own = _invert_cdf(cdf_rows, u_row)
+    dy = torch.clamp(
+        (u_row - row_lo) / torch.clamp(row_mass_own, min=1e-20), 0.0, 1.0 - 1e-7
+    )
+
+    # NEE / cosine-branch half-vector cells (canonical frame)
+    wo_nee_c = _rotate_phi(wo_nee, -phi_i)
+    nee_ok = m.cos_theta(wo_nee) > 0.0
+    if mask_nee is not None:
+        nee_ok = nee_ok & mask_nee
+    wo_nee_c = torch.where(nee_ok[..., None], wo_nee_c, wi_c)  # NaN-free
+    _, _, r_nee, c_nee, denom_nee = _square_cells(wi_c, wo_nee_c)
+    wo_cos = square_to_cosine_hemisphere(sample2)
+    _, _, r_cos, c_cos, denom_cos = _square_cells(wi_c, wo_cos)
+
+    # ---- K2: conditional-CDF work ----
+    flat_key = tbin if slot_safe is None else slot_safe * N_THETA_I + tbin
+    cdf_cond = params.sampling.cdf_cond
+    x, mass_own, mass_nee, mass_cos = marginal_sorted.cond_sample_pdf(
+        cdf_cond.reshape(-1, cdf_cond.shape[-2], cdf_cond.shape[-1]),
+        flat_key, u_col, r_own, r_nee, c_nee, r_cos, c_cos, any_mask,
+    )
+    hw = SAMPLE_RES_H * SAMPLE_RES_PHI
+
+    # ---- the sampled direction + its pdf ----
+    y = (r_own.to(torch.float32) + dy) / SAMPLE_RES_H
+    h, jac_h = _halfvec_from_square(y, x)
+    wo_tab = 2.0 * m.dot_keep(wi_c, h) * h - wi_c
+    denom_own = jac_h * 4.0 * m.dot(wo_tab, h).abs()
+    p_tab_own = m.safe_div(row_mass_own * mass_own * hw, denom_own)
+    row_mass_cos = _row_mass_at(cdf_rows, r_cos)
+    p_tab_cos = m.safe_div(row_mass_cos * mass_cos * hw, denom_cos)
+
+    wo_c = torch.where(use_cos[..., None], wo_cos, wo_tab)
+    wo = _rotate_phi(wo_c, phi_i)
+    p_tab = torch.where(use_cos, p_tab_cos, p_tab_own)
+    p_cos = square_to_cosine_hemisphere_pdf(wo_c)
+    pdf_s = (1.0 - COSINE_MIX) * p_tab + COSINE_MIX * p_cos
+    valid_s = (pdf_s > 1e-12) & (m.cos_theta(wo_c) > 0.0) & cos_wi_ok
+    valid_s_m = valid_s if mask is None else valid_s & mask
+
+    # ---- NEE pdf (MIS) ----
+    row_mass_nee = _row_mass_at(cdf_rows, r_nee)
+    p_tab_nee = m.safe_div(row_mass_nee * mass_nee * hw, denom_nee)
+    p_cos_nee = square_to_cosine_hemisphere_pdf(wo_nee_c)
+    pdf_nee = (1.0 - COSINE_MIX) * p_tab_nee + COSINE_MIX * p_cos_nee
+    pdf_nee = torch.where(nee_ok & cos_wi_ok, pdf_nee, 0.0)
+
+    # ---- K1: one combined trilinear eval over [wo_nee ; wo_sampled] ----
+    wi2 = torch.cat([wi, wi], 0)
+    wo2 = torch.cat([wo_nee, wo], 0)
+    slot2 = None if slot_safe is None else torch.cat([slot_safe, slot_safe], 0)
+    mask2 = torch.cat([nee_ok & cos_wi_ok, valid_s_m], 0)
+    f2 = eval_f(params, wi2, wo2, slot=slot2, mask=mask2)
+    f2 = f2 * torch.clamp(m.cos_theta(wo2), min=0.0)[..., None]
+    f_nee, f_s = f2[:n], f2[n:]
+
+    weight = m.safe_div(f_s, pdf_s[..., None])
+    weight = torch.where(valid_s[..., None], weight, 0.0)
+    return (
+        f_nee,
+        pdf_nee,
+        wo,
+        torch.where(valid_s, pdf_s, 0.0),
+        weight,
+        torch.zeros_like(valid_s),
+    )
