@@ -39,10 +39,11 @@ def _select_at(rows, idx):
 
 
 class DiscreteDistribution(NamedTuple):
-    """Normalized discrete distribution over K outcomes (one shared row)."""
+    """Normalized discrete distribution over K outcomes: one shared row, or
+    a stack of rows (R, K) of which each lane names one (`row=`)."""
 
-    pmf: torch.Tensor  # (K,)
-    cdf: torch.Tensor  # (K,)
+    pmf: torch.Tensor  # (K,) or (R, K)
+    cdf: torch.Tensor  # (K,) or (R, K)
 
     @staticmethod
     def build(weights):
@@ -50,14 +51,17 @@ class DiscreteDistribution(NamedTuple):
         pmf = w / w.sum(-1, keepdim=True)
         return DiscreteDistribution(pmf=pmf, cdf=torch.cumsum(pmf, -1))
 
-    def sample_reuse(self, u):
-        """Sample an index and re-uniformize the used random number."""
-        idx, lo, p = _invert_cdf(self.cdf, u)
+    def sample_reuse(self, u, row=None):
+        """Sample an index and re-uniformize the used random number (per
+        lane from stacked row `row` when given)."""
+        cdf = self.cdf if row is None else self.cdf[row]
+        idx, lo, p = _invert_cdf(cdf, u)
         u2 = torch.clamp((u - lo) / torch.clamp(p, min=_TINY), 0.0, 1.0 - 1e-7)
         return idx, u2
 
-    def eval_pmf(self, idx):
-        return self.pmf[torch.clamp(idx, 0, self.pmf.shape[0] - 1)]
+    def eval_pmf(self, idx, row=None):
+        idx = torch.clamp(idx, 0, self.pmf.shape[-1] - 1)
+        return self.pmf[idx] if row is None else self.pmf[row, idx]
 
 
 class Marginal2D(NamedTuple):

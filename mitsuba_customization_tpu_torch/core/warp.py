@@ -1,7 +1,7 @@
 """Sampling warps: [0,1)^2 -> disk / hemisphere / sphere, with pdfs.
 
 PyTorch port of the warps of mitsuba_customization_tpu/core/warp.py that
-the flagship path uses.
+the flagship and matpreview paths use.
 """
 
 from __future__ import annotations
@@ -53,3 +53,9 @@ def square_to_uniform_sphere(sample):
     r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * math.pi * sample[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def square_to_uniform_triangle(sample):
+    """Uniform barycentrics (b1, b2) on the unit triangle (sqrt mapping)."""
+    t = safe_sqrt(1.0 - sample[..., 0])
+    return torch.stack([1.0 - t, t * sample[..., 1]], -1)

@@ -3,9 +3,11 @@
 The kernels have a plain C interface and are bound with ctypes, like
 mitsuba_customization_tpu/native.py binds native/. The library is built
 with nvcc for sm_90a at first use into build/torch_kernels/<hash>/ under
-the repository root, keyed by a hash of the sources alone; a later call
-with the same sources loads the cached build. A missing nvcc or a failed
-build raises: there is no fallback.
+the repository root, keyed by a hash of the sources and headers alone; a
+later call with the same sources loads the cached build. Each source is
+compiled by its own nvcc process, all started together, and the objects
+are linked into one shared library. A missing nvcc or a failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("merl_eval.cu", "cond_sample.cu")
+SOURCES = ("merl_eval.cu", "cond_sample.cu", "cluster_closest.cu",
+           "cluster_shadow.cu")
+HEADERS = ("cluster_common.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libmct_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +42,10 @@ _SIGNATURES = {
     "mct_merl_eval": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I64, _P],
     "mct_cond_sample": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _I64, _P],
+    "mct_cluster_closest": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,
+                            _P, _P, _P, _P, _P],
+    "mct_cluster_shadow": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,
+                           _P, _P],
 }
 
 _lib = None
@@ -46,7 +54,7 @@ build_seconds = None  # wall time of the build this process ran (None: cached)
 
 def _source_hash():
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -72,22 +80,36 @@ def library_path():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build to a private name, then rename: concurrent builders never see
+    nvcc = _nvcc()
+    # build to private names, then rename: concurrent builders never see
     # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "nvcc failed (%d):\n%s\n%s"
-            % (proc.returncode, " ".join(cmd), proc.stderr[-8000:])
-        )
-    os.replace(tmp, lib)
+    tmp_dir = tempfile.mkdtemp(dir=out_dir)
+    objs = [os.path.join(tmp_dir, s + ".o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+            for src, obj in zip(SOURCES, objs)]
+    tmp = os.path.join(tmp_dir, LIB_NAME)
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        errs = [proc.communicate()[1] for proc in procs]  # wait for all
+        for cmd, proc, err in zip(cmds, procs, errs):
+            _raise_if_failed(proc.returncode, cmd, err)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_if_failed(proc.returncode, link, proc.stderr)
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return lib
+
+
+def _raise_if_failed(returncode, cmd, stderr):
+    if returncode != 0:
+        raise RuntimeError(
+            "nvcc failed (%d):\n%s\n%s" % (returncode, " ".join(cmd), stderr[-8000:])
+        )
 
 
 def library():

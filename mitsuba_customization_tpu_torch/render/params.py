@@ -5,7 +5,11 @@
 example ".geometry.p0" or ".bsdfs.stacks[4].sampling.cdf_cond"), and its
 SceneConfig (any object with the same attribute names). The parity tests
 use it to run both packages on identical arrays. Only the subset the port
-renders is accepted; anything else raises NotImplementedError.
+renders is accepted (brute or cluster intersector, area and constant
+emitters, an optional compaction schedule); anything else raises
+NotImplementedError. The JAX package's BVH and its TPU-only copies
+(`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are
+not read.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from mitsuba_customization_tpu_torch.models.roughconductor import (
     RoughConductorParams,
 )
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
+from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
@@ -41,11 +46,11 @@ def _config(config):
     cfg = SceneConfig(**{
         f: getattr(config, f) for f in SceneConfig.__dataclass_fields__
     })
-    intersector = getattr(config, "intersector", "brute")
-    if (cfg.integrator, cfg.rfilter, cfg.sampler, intersector) != (
-        "path", "box", "independent", "brute"
-    ) or getattr(config, "compact", None) is not None:
+    if ((cfg.integrator, cfg.rfilter, cfg.sampler) != ("path", "box", "independent")
+            or cfg.intersector not in ("brute", "cluster")):
         raise NotImplementedError(f"scene configuration not ported: {config}")
+    if cfg.compact is not None:
+        cfg.compact = tuple(float(f) for f in cfg.compact)
     return cfg
 
 
@@ -62,8 +67,6 @@ def scene_from_numpy(arrays, config, device="cpu"):
         {f: a[f"geometry.{f}"] for f in geo.Geometry._fields}, device
     )
     used.update(f"geometry.{f}" for f in geo.Geometry._fields)
-    if (geometry.prim_type == geo.CYLINDER).any() or (geometry.emitter_id >= 0).any():
-        raise NotImplementedError("cylinders and area emitters are not ported")
 
     stacks = {}
     kids = sorted({int(mt.group(1)) for mt in map(_STACK.match, a) if mt})
@@ -96,7 +99,7 @@ def scene_from_numpy(arrays, config, device="cpu"):
     if not ((em_type == em_mod.CONSTANT) | (em_type == em_mod.AREA)).all() or (
         int(a["emitters.env_index"]) >= 0 or "emitters.proj_index" in a
     ):
-        raise NotImplementedError("only constant emitters are ported")
+        raise NotImplementedError("only area and constant emitters are ported")
     emitters = em_mod.EmitterTable(
         em_type=em_type,
         select=DiscreteDistribution(
@@ -104,8 +107,26 @@ def scene_from_numpy(arrays, config, device="cpu"):
         ),
         radiance=get("emitters.radiance"),
         background_index=int(a["emitters.background_index"]),
+        prim_dist=DiscreteDistribution(
+            get("emitters.prim_dist.pmf"), get("emitters.prim_dist.cdf")
+        ),
+        em_prims=get("emitters.em_prims", torch.int64),
+        prim_area=get("emitters.prim_area"),
+        prim_to_q=get("emitters.prim_to_q", torch.int64),
+        has_area=bool((a["emitters.em_type"] == em_mod.AREA).any()),
     )
     used.add("emitters.background_index")
+
+    clusters = None
+    if "clusters.slabs" in a:
+        used.update(f"clusters.{f}" for f in ("sc_box", "cl_box", "cl_meta", "slabs"))
+        # the JAX slabs are (C, NFIELDS, 128) field-major with padding
+        # lanes; the port's are (C, L, NFIELDS) slot-major
+        slabs = a["clusters.slabs"].transpose(0, 2, 1)[:, :cl_mod.L, :cl_mod.NFIELDS]
+        clusters = cl_mod.cluster_set(
+            a["clusters.sc_box"], a["clusters.cl_box"], a["clusters.cl_meta"],
+            np.ascontiguousarray(slabs), device,
+        )
 
     if int(a["sensor.sensor_type"]) != sensor_mod.PERSPECTIVE:
         raise NotImplementedError("only the perspective sensor is ported")
@@ -117,11 +138,16 @@ def scene_from_numpy(arrays, config, device="cpu"):
     )
     if a.get("media.m_type", np.zeros(0)).size:
         raise NotImplementedError("participating media are not ported")
+    checked = ("shadow_geometry.", "shadow_clusters.", "clusters.", "sdf.",
+               "bsdfs.")
     for k in a:
-        if k.startswith(("shadow_geometry.", "clusters.", "sdf.", "bsdfs.")) \
-                and k not in used:
+        if k.startswith(checked) and k not in used:
             raise NotImplementedError(f"scene leaf '{k}' is not ported")
+    cfg = _config(config)
+    if (cfg.intersector == "cluster") != (clusters is not None):
+        raise NotImplementedError("cluster intersector without clusters")
     return Scene(
         geometry=geometry, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
-        config=_config(config),
+        config=cfg, clusters=clusters,
+        has_cylinders=bool((a["geometry.prim_type"] == geo.CYLINDER).any()),
     )

@@ -1,23 +1,29 @@
 """Scene container + dict-based scene loader.
 
 PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
-`SceneConfig`, `Scene`) for the subset of the flagship scene:
+`SceneConfig`, `Scene`) for the subset of the flagship and matpreview
+scenes:
 
-* shapes: sphere, rectangle (with a rotate / scale / translate to_world);
+* shapes: sphere, rectangle and mesh (vertices, faces, optional normals
+  and uvs), with a rotate / scale / translate to_world;
+* an "area" emitter on a shape;
 * sensor, sampler, film filter: perspective, independent, box;
-* integrator: path;
+* integrator: path, with an optional wavefront-compaction schedule
+  ("compact");
 * emitter: constant;
 * BSDFs: merl from a "table" array, roughconductor (GGX), diffuse.
 
 Any other type raises NotImplementedError. Scenes past
-BRUTE_FORCE_MAX_PRIMS primitives need the cluster intersector, which is not
-ported yet. The device is explicit: `load_dict(d, device)`. The host-side
-numpy helpers are copied from the JAX package, not imported.
+BRUTE_FORCE_MAX_PRIMS primitives get the cluster structure
+(ops/clusters.py) and intersector = "cluster"; past clusters.MAX_PRIMS
+the loader raises. The device is explicit: `load_dict(d, device)`. The
+host-side numpy helpers are copied from the JAX package, not imported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
 from mitsuba_customization_tpu_torch.models import diffuse as diffuse_mod
 from mitsuba_customization_tpu_torch.models import roughconductor as rough_mod
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
+from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
@@ -54,6 +61,12 @@ class SceneConfig:
     # False when the scene has no emitter at all: the integrator then
     # skips NEE sampling and shadow rays statically.
     nee: bool = True
+    # "brute" (all pairs) or "cluster" (ops/clusters.py, K3 and K4)
+    intersector: str = "brute"
+    # Per-bounce wavefront-compaction fraction schedule (None = off):
+    # entering bounce b keeps ceil(n * compact[min(b, len-1)]) lanes
+    # (render/integrator._run_bounces_compact).
+    compact: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -65,20 +78,32 @@ class Scene:
     emitters: em_mod.EmitterTable
     sensor: sensor_mod.Sensor
     config: SceneConfig
+    clusters: Optional[cl_mod.ClusterSet] = None
+    # whether the prim soup holds cylinders (a host fact: without them the
+    # cylinder tests, normals and uvs are not computed)
+    has_cylinders: bool = False
 
     @property
     def device(self):
         return self.geometry.p0.device
 
     def ray_intersect(self, ray):
-        """Nearest hit -> SurfaceInteraction (brute force)."""
-        t, prim, u, v = geo.intersect_brute(self.geometry, ray)
-        return geo.compute_interaction(self.geometry, ray, t, prim, u, v)
+        """Nearest hit -> SurfaceInteraction (K3 in cluster mode, else
+        brute force)."""
+        cyl = self.has_cylinders
+        if self.config.intersector == "cluster":
+            t, prim, u, v, g = cl_mod.intersect(self.clusters, ray)
+            return geo.interaction_from_g(g, ray, t, prim, u, v, cyl)
+        t, prim, u, v = geo.intersect_brute(self.geometry, ray, cyl)
+        return geo.compute_interaction(self.geometry, ray, t, prim, u, v, cyl)
 
     def ray_test(self, ray):
-        """Shadow-ray occlusion (no null-material prims are ported, so the
-        shadow geometry is the geometry)."""
-        return geo.occluded_brute(self.geometry, ray)
+        """Shadow-ray occlusion (K4 in cluster mode, else brute force). No
+        null-material prims are ported, so the shadow geometry is the
+        geometry."""
+        if self.config.intersector == "cluster":
+            return cl_mod.occluded(self.clusters, ray)
+        return geo.occluded_brute(self.geometry, ray, self.has_cylinders)
 
 
 # --------------------------------------------------------------------------
@@ -141,6 +166,13 @@ def _apply_transform(mat, pts):
     return pts @ mat[:3, :3].T + mat[:3, 3]
 
 
+def _apply_normal_transform(mat, normals):
+    inv_t = np.linalg.inv(mat[:3, :3]).T
+    n = normals @ inv_t.T
+    ln = np.linalg.norm(n, axis=-1, keepdims=True)
+    return n / np.maximum(ln, 1e-12)
+
+
 class _GeomBuilder:
     """Accumulates per-primitive rows (numpy) for the Geometry soup."""
 
@@ -167,16 +199,19 @@ class _GeomBuilder:
             shape_id=np.asarray([shape_id], np.int32),
         )
 
-    def add_mesh(self, v, f, uv, mat_id, emitter_id, shape_id):
-        """Triangles with area-weighted vertex normals (the JAX package's
-        fallback when a mesh carries no normals)."""
+    def add_mesh(self, v, f, n, uv, mat_id, emitter_id, shape_id):
+        """Triangles with vertex normals n, or area-weighted ones when n is
+        None (the JAX package's fallback), and uvs (zeros when None)."""
         v = np.asarray(v, np.float32)
         f = np.asarray(f, np.int64)
-        n = np.zeros_like(v)
-        fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
-        for k in range(3):
-            np.add.at(n, f[:, k], fn)
-        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        if n is None:
+            n = np.zeros_like(v)
+            fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+            for k in range(3):
+                np.add.at(n, f[:, k], fn)
+            n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        if uv is None:
+            uv = np.zeros((len(v), 2), np.float32)
         p0 = v[f[:, 0]]
         cnt = len(f)
         self._push(
@@ -219,7 +254,7 @@ def geometry_from_numpy(arrays, device):
 # --------------------------------------------------------------------------
 
 _SENSOR_TYPES = {"perspective"}
-_SHAPE_TYPES = {"sphere", "rectangle"}
+_SHAPE_TYPES = {"sphere", "rectangle", "mesh"}
 _BSDF_TYPES = {"diffuse", "roughconductor", "merl"}
 
 
@@ -235,6 +270,7 @@ def load_dict(d: dict, device) -> Scene:
     tab_tables: list[np.ndarray] = []
     named_bsdfs: dict[str, int] = {}
     em_rows: list[dict] = []
+    emissive_prim_ranges: list[tuple] = []  # (emitter_id, prim_start, prim_end)
     const_row = -1
 
     def rgb(bd, key, default):
@@ -293,11 +329,24 @@ def load_dict(d: dict, device) -> Scene:
     def add_shape(val):
         nonlocal shape_count
         t = val.get("type")
-        if "emitter" in val:
-            raise NotImplementedError("area emitters are not ported")
         if "interior" in val or "exterior" in val:
             raise NotImplementedError("participating media are not ported")
+        if val.get("face_normals", False) or "vertex_colors" in val:
+            raise NotImplementedError("face_normals / vertex_colors are not ported")
         mat_id = compile_bsdf(val.get("bsdf", {"type": "diffuse"}))
+        emitter_id = -1
+        if "emitter" in val:
+            espec = val["emitter"]
+            if espec.get("type") != "area":
+                raise NotImplementedError(
+                    f"shape emitter '{espec.get('type')}' is not ported"
+                )
+            em_rows.append(dict(
+                type=em_mod.AREA,
+                radiance=resolve_spectrum(espec.get("radiance", [1, 1, 1])),
+            ))
+            emitter_id = len(em_rows) - 1
+        prim_start = gb.count
         to_w = _as_transform(val.get("to_world"))
         if t == "sphere":
             center = _apply_transform(
@@ -305,11 +354,23 @@ def load_dict(d: dict, device) -> Scene:
             )
             scale = np.cbrt(abs(np.linalg.det(to_w[:3, :3])))
             gb.add_sphere(center, float(val.get("radius", 1.0)) * scale,
-                          mat_id, -1, shape_count)
-        else:  # rectangle
-            v, f, uv = _unit_rectangle()
+                          mat_id, emitter_id, shape_count)
+        else:
+            if t == "mesh":
+                v = np.asarray(val["vertices"], np.float32)
+                f = np.asarray(val["faces"], np.int32)
+                n, uv = val.get("normals"), val.get("uvs")
+                n = None if n is None else np.asarray(n, np.float32)
+                uv = None if uv is None else np.asarray(uv, np.float32)
+            else:  # rectangle
+                v, f, uv = _unit_rectangle()
+                n = None
             v = _apply_transform(to_w, v.astype(np.float64)).astype(np.float32)
-            gb.add_mesh(v, f, uv, mat_id, -1, shape_count)
+            if n is not None:
+                n = _apply_normal_transform(to_w, n)
+            gb.add_mesh(v, f, n, uv, mat_id, emitter_id, shape_count)
+        if emitter_id >= 0:
+            emissive_prim_ranges.append((emitter_id, prim_start, gb.count))
         shape_count += 1
 
     # Pass 1: named top-level BSDFs (so shapes can reference them).
@@ -332,7 +393,7 @@ def load_dict(d: dict, device) -> Scene:
             cfg.rr_depth = int(val.get("rr_depth", cfg.rr_depth))
             cfg.hide_emitters = bool(val.get("hide_emitters", False))
             if val.get("compact") is not None:
-                raise NotImplementedError("wavefront compaction is not ported")
+                cfg.compact = tuple(float(f) for f in val["compact"])
             continue
         if t in _SENSOR_TYPES:
             film = val.get("film", {})
@@ -366,11 +427,18 @@ def load_dict(d: dict, device) -> Scene:
             continue
         raise NotImplementedError(f"scene entry '{key}' (type={t}) is not ported")
 
-    if gb.count > BRUTE_FORCE_MAX_PRIMS:
+    if gb.count > cl_mod.MAX_PRIMS:
         raise NotImplementedError(
-            f"{gb.count} primitives need the cluster intersector, not ported yet"
+            f"scene has {gb.count} primitives, past the cluster structure's "
+            f"capacity ({cl_mod.MAX_PRIMS}); the JAX package's skip-link BVH "
+            "for such scenes is not ported"
         )
-    geometry = geometry_from_numpy(gb.arrays(), device)
+    arrays = gb.arrays()
+    geometry = geometry_from_numpy(arrays, device)
+    clusters = None
+    if gb.count > BRUTE_FORCE_MAX_PRIMS:
+        cfg.intersector = "cluster"
+        clusters = cl_mod.build(geo.Geometry(**arrays), device)
 
     def stack_params(plist):
         return type(plist[0])(*(
@@ -395,18 +463,26 @@ def load_dict(d: dict, device) -> Scene:
     return Scene(
         geometry=geometry,
         bsdfs=bsdfs,
-        emitters=_build_emitter_table(em_rows, const_row, device),
+        emitters=_build_emitter_table(em_rows, emissive_prim_ranges, arrays,
+                                      const_row, device),
         sensor=sensor,
         config=cfg,
+        clusters=clusters,
+        has_cylinders=bool((arrays["prim_type"] == geo.CYLINDER).any()),
     )
 
 
-def _build_emitter_table(em_rows, const_row, device):
-    """EmitterTable with uniform NEE selection over the emitters.
+def _build_emitter_table(em_rows, emissive_prim_ranges, arrays, const_row,
+                         device):
+    """EmitterTable: the emissive prims with their per-emitter area pmfs,
+    and uniform NEE selection over the emitters.
 
-    Every ported emitter is a constant sky, so the JAX package's branch
-    that weights a constant sky by 1e-20 beside other emitter types does
-    not arise here.
+    Beside other emitters a constant sky gets selection weight exactly 0:
+    for a constant radiance field BSDF sampling is already proportional to
+    the integrand, and pdf_miss_direction reads the same pmf, so escaped
+    BSDF rays then carry MIS weight 1. (The JAX package gives the sky
+    1e-20 instead, so a lane that drew it would be weighted by ~1e20.)
+    A sky that is the only emitter stays in NEE.
     """
     k = max(len(em_rows), 1)
     em_type = np.zeros(k, np.int64)
@@ -414,15 +490,52 @@ def _build_emitter_table(em_rows, const_row, device):
     for i, row in enumerate(em_rows):
         em_type[i] = row["type"]
         radiance[i] = row["radiance"]
+
+    q_ids = [p for _, start, end in emissive_prim_ranges for p in range(start, end)]
+    q_owner = [e for e, start, end in emissive_prim_ranges for _ in range(start, end)]
+    q = max(len(q_ids), 1)
+    em_prims = np.zeros(q, np.int64)
+    prim_area = np.ones(q, np.float32)
+    pmf = np.zeros((k, q), np.float32)
+    if q_ids:
+        em_prims = np.asarray(q_ids, np.int64)
+        e1, e2 = arrays["e1"][em_prims], arrays["e2"][em_prims]
+        pt = arrays["prim_type"][em_prims]
+        tri_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+        sph_area = 4.0 * np.pi * e1[:, 0] ** 2
+        cyl_area = 2.0 * np.pi * e2[:, 0] * np.linalg.norm(e1, axis=-1)
+        prim_area = np.where(
+            pt == geo.TRI, tri_area,
+            np.where(pt == geo.CYLINDER, cyl_area, sph_area),
+        ).astype(np.float32)
+        for qi, owner in enumerate(q_owner):
+            pmf[owner, qi] = prim_area[qi]
+    row_sums = pmf.sum(-1, keepdims=True)
+    pmf = np.where(row_sums > 0, pmf / np.maximum(row_sums, 1e-20), 0.0)
+    prim_to_q = np.full(len(arrays["prim_type"]), -1, np.int64)
+    prim_to_q[em_prims[:len(q_ids)]] = np.arange(len(q_ids))
+
     sel = (np.ones(k) if em_rows else np.zeros(k)) + 1e-20
+    is_const = em_type[:len(em_rows)] == em_mod.CONSTANT
+    if is_const.any() and (~is_const).any():
+        sel[:len(em_rows)][is_const] = 0.0
     sel_pmf = (sel / sel.sum()).astype(np.float32)
-    select = DiscreteDistribution(
-        pmf=torch.as_tensor(sel_pmf, device=device),
-        cdf=torch.as_tensor(np.cumsum(sel_pmf, dtype=np.float32), device=device),
-    )
+
+    def dist(p):
+        return DiscreteDistribution(
+            pmf=torch.as_tensor(p, device=device),
+            cdf=torch.as_tensor(np.cumsum(p, axis=-1, dtype=np.float32),
+                                device=device),
+        )
+
     return em_mod.EmitterTable(
         em_type=torch.as_tensor(em_type, device=device),
-        select=select,
+        select=dist(sel_pmf),
         radiance=torch.as_tensor(radiance, device=device),
         background_index=int(const_row),
+        prim_dist=dist(pmf.astype(np.float32)),
+        em_prims=torch.as_tensor(em_prims, device=device),
+        prim_area=torch.as_tensor(prim_area, device=device),
+        prim_to_q=torch.as_tensor(prim_to_q, device=device),
+        has_area=bool(q_ids),
     )

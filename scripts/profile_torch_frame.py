@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of one flagship frame goes, for the PyTorch port on a GPU.
+"""Where the time of one frame goes, for the PyTorch port on a GPU.
 
-    python3 scripts/profile_torch_frame.py [--res 512] [--spp 64] [--depth 4]
-                                           [--reps 3] [--top 20]
+    python3 scripts/profile_torch_frame.py [--scene flagship|matpreview]
+        [--res 512] [--spp N] [--depth N] [--reps 3] [--top 20]
 
-Prints the card's name and power limit; the frame's wall time and rays/s
-with the profiler off (median of --reps renders after one warm-up); then
-one render under torch.profiler: device time by kernel group and by kernel
-name, the number of kernels launched, the summed device time and its share
-of the profiled wall time (the device's busy share; kernels run on one
-stream). Needs a CUDA GPU; imports nothing of JAX.
+--scene flagship (default: 64 spp, depth 4) or matpreview (default: 8 spp,
+depth 8, with the compaction schedule of scenes.probe_compact_schedule at
+4 spp). Prints the card's name and power limit; the frame's wall time and
+rays/s with the profiler off (median of --reps renders after one warm-up);
+then one render under torch.profiler: device time by kernel group and by
+kernel name, the launches of K1-K4, the number of kernels launched, the
+summed device time and its share of the profiled wall time (the device's
+busy share; kernels run on one stream). Needs a CUDA GPU; imports nothing
+of JAX.
 """
 
 import argparse
@@ -28,6 +31,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GROUPS = (
     ("merl_eval", "K1 merl_eval (CUDA)"),
     ("cond_sample", "K2 cond_sample (CUDA)"),
+    ("cluster_closest", "K3 cluster_closest (CUDA)"),
+    ("cluster_shadow", "K4 cluster_shadow (CUDA)"),
+    ("sort", "torch sort"),
     ("index", "torch gather/scatter"),
     ("gather", "torch gather/scatter"),
     ("reduce", "torch reductions"),
@@ -44,9 +50,11 @@ def group_of(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("flagship", "matpreview"),
+                    default="flagship")
     ap.add_argument("--res", type=int, default=512)
-    ap.add_argument("--spp", type=int, default=64)
-    ap.add_argument("--depth", type=int, default=4)
+    ap.add_argument("--spp", type=int, default=None)
+    ap.add_argument("--depth", type=int, default=None)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
@@ -59,11 +67,23 @@ def main():
     print(f"card: {card}")
 
     import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
-    from mitsuba_customization_tpu_torch.scenes import flagship_dict
+    from mitsuba_customization_tpu_torch import scenes
 
-    scene = mt.load_dict(flagship_dict(args.res, args.spp, args.depth), "cuda")
+    if args.scene == "flagship":
+        args.spp = args.spp or 64
+        args.depth = args.depth or 4
+        scene = mt.load_dict(
+            scenes.flagship_dict(args.res, args.spp, args.depth), "cuda")
+    else:
+        args.spp = args.spp or 8
+        args.depth = args.depth or 8
+        scene = mt.load_dict(
+            scenes.matpreview_dict(args.res, args.spp, args.depth), "cuda")
+        scene, fracs = scenes.probe_compact_schedule(scene, spp=4)
+        print(f"compaction schedule {fracs}")
 
     def frame():
         img, stats = mt.render(scene, spp=args.spp, seed=0, return_stats=True)
@@ -77,11 +97,12 @@ def main():
         rays = frame()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
-    print(f"frame {args.res}x{args.res} {args.spp}spp depth {args.depth}: "
+    print(f"{args.scene} frame {args.res}x{args.res} {args.spp}spp depth {args.depth}: "
           f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)}), "
           f"{rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s")
 
     k1.LAUNCHES = k2.LAUNCHES = 0
+    cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -92,7 +113,8 @@ def main():
     dev_us = sum(e.device_time for e in kernels)
     print(f"profiled frame: wall {wall:.4f} s, {len(kernels)} kernels, device "
           f"{dev_us / 1e6:.4f} s, busy share {dev_us / 1e6 / wall:.3f}; "
-          f"launches K1 {k1.LAUNCHES} K2 {k2.LAUNCHES}")
+          f"launches K1 {k1.LAUNCHES} K2 {k2.LAUNCHES} "
+          f"K3 {cl.LAUNCHES['closest']} K4 {cl.LAUNCHES['shadow']}")
     by_group = collections.Counter()
     by_name = collections.Counter()
     count = collections.Counter()
