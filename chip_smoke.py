@@ -8,9 +8,13 @@ Phases, one printed line each; any failure raises (non-zero exit):
   1. the card's name and power limit (nvidia-smi); CUDA must be available;
   2. build the CUDA kernels from csrc/ (seconds printed);
   3. K1 (MERL trilinear eval) against its plain PyTorch version on the card
-     at 4,194,304 lanes: flagship table, 3-material stack, lane mask;
+     at 4,194,304 lanes, as two halves that share wi and the slot (the
+     main path's call): flagship table, 3-material stack, lane masks;
   4. K2 (conditional-CDF inversion) against its plain version at 2,097,152
-     lanes with the flagship's conditional CDFs, u at 0 and 1 - 1e-7 too;
+     lanes with the flagship's conditional CDFs, int64 indices, a strided
+     u column (u at 0 and 1 - 1e-7 too) and a bool mask, as the main path
+     hands them: the sampled cell equal on every lane, the values within
+     tolerance, and the lanes not bit-equal counted;
   5. the flagship frame (512x512, 64 spp, depth 4) through load_dict ->
      render: one warm-up, one timed render; launch counters > 0, finite;
   6. the entry-size frame (64x64, 4 spp, depth 4) on the card and on the
@@ -31,18 +35,24 @@ Phases, one printed line each; any failure raises (non-zero exit):
      recorded call is checked against its plain version (K3: hit/miss, t,
      prim, u, v and fields; K4: occlusion on every lane; K1, K2 as in
      phases 3-4) and timed, one line per bounce (lanes, live lanes, kernel
-     ms and bound ms of each kernel);
+     ms and bound ms of each kernel; K2's lanes not bit-equal);
  11. the matpreview frame at 64x64, 4 spp, depth 4 with that schedule, on
      the card and on the CPU (plain kernels): per-channel means within 2 %.
 Each phase's counts are set to 0 just before its render and read just
 after. It then prints a JSON line describing each kernel (launches per
-matpreview frame; `ms`, `plain_ms` and `bound_ms` of the phase 3, 4, 7
-and 8 call; `frame_ms` and `frame_bound_ms` summed over the recorded
-calls of phase 10) and, last, the device JSON line. A kernel's bound is
+matpreview frame; `ms`, `plain_ms`, `bound_ms` and `share` (bound over
+time) of the phase 3, 4, 7 and 8 call; `frame_ms`, `frame_bound_ms` and
+`frame_share` summed over the recorded calls of phase 10) and, last, the
+device JSON line. A kernel's bound is
 the larger of the bytes it must move (each input read once, each output
 written once) at 3.35 TB/s and the operations it must do at 67 TFLOP/s
 float32 (published H100 SXM peaks; the cluster kernels round every step
-without FMA, so at most half of that rate is reachable for them). For K3
+without FMA, so at most half of that rate is reachable for them). K1's
+bytes count a call as the main path makes it: wi and the slot once for
+both halves, wo only for live lanes, the masks and output of every lane,
+and the table bins of the lanes that evaluate. K2's count the indices and
+u of live lanes, the mask and outputs of every lane, and a CDF row a live
+lane. For K3
 and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
@@ -70,14 +80,16 @@ FRAME_MEAN_RTOL = 0.02
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# operations per live lane of K1 (half-vector map with acos/atan2, cell
-# indices, 8-corner trilinear over 3 channels) and K2 (a 64-float scan
-# with compares, three cell masses); K3 and K4 count box and slot tests
-# with ops/clusters.min_work
+# operations per evaluated lane of K1 (half-vector map with acos/atan2,
+# cell indices, 8-corner trilinear over 3 channels) and per live lane of
+# K2 (inverting one 64-float row, three cell masses), counted generously:
+# both kernels are bound by bytes. K3 and K4 count box and slot tests with
+# ops/clusters.min_work.
 K1_OPS = 170
 K2_OPS = 220
 K1_CELL_BYTES = 96   # 4 corner rows x 2 phi_d bins x 3 floats per lane
 K2_ROW_BYTES = 256   # one 64-float CDF row per lane
+K1_OUT_BYTES, K2_OUT_BYTES = 12, 16
 # K3 / K4 bytes: a box row (8 floats); what a slot test reads of a slot
 # row (type, p0, e1, e2: 10 floats) and the rest of a winner's 32-float
 # row; per lane maxt, o and d (live lanes only), and the outputs (K3: t,
@@ -138,6 +150,23 @@ def _check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
+def check_k2(got, want, w):
+    """K2's gate: the sampled cell (x's column of W) equal on every lane,
+    x and the three masses within K2_RTOL / K2_ATOL. Returns (max abs
+    error, lanes on which any output is not bit-equal)."""
+    idx_got = torch.clamp((got[0] * w).floor(), max=w - 1)
+    idx_want = torch.clamp((want[0] * w).floor(), max=w - 1)
+    if not torch.equal(idx_got, idx_want):
+        raise AssertionError(f"K2: sampled cell differs on "
+                             f"{int((idx_got != idx_want).sum())} lanes")
+    err = max(_check_close(f"K2[{i}]", g, r, K2_RTOL, K2_ATOL)
+              for i, (g, r) in enumerate(zip(got, want)))
+    differ = torch.zeros_like(got[0], dtype=torch.bool)
+    for g, r in zip(got, want):
+        differ |= g.view(torch.int32) != r.view(torch.int32)
+    return err, int(differ.sum())
+
+
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
 
@@ -150,18 +179,36 @@ def _bound(nbytes, ops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def k1_bound(table, wi, slot, mask):
-    live = wi.shape[0] if mask is None else int(mask.sum())
-    table_bytes = min(_nbytes(table), live * K1_CELL_BYTES)
-    lanes = wi.shape[0] * (2 * 12 + 12 + (slot is not None) * 4 + (mask is not None))
-    return _bound(table_bytes + lanes, live * K1_OPS)
+def k1_bound(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
+    """K1's bound on one call, its arguments as eval_trilinear takes them:
+    wi and the slot once for the lanes where either half is live, wo of
+    the live lanes, the masks and the output of every lane, and the bins
+    of the lanes that evaluate (live, both cosines > 0; at most the
+    table), whose count also sets the operations."""
+    halves = [(wo, mask)] + ([] if wo_b is None else [(wo_b, mask_b)])
+    every = torch.ones(wi.shape[0], dtype=torch.bool, device=wi.device)
+    live = [every if m is None else m for _, m in halves]
+    either = int(torch.stack(live).any(0).sum())
+    evaluated = sum(int((m & (wi[:, 2] > 0) & (o[:, 2] > 0)).sum())
+                    for (o, _), m in zip(halves, live))
+    nbytes = (min(_nbytes(table), evaluated * K1_CELL_BYTES)
+              + either * (3 * wi.element_size() + (0 if slot is None else slot.element_size()))
+              + sum(int(m.sum()) * 3 * o.element_size() for (o, _), m in zip(halves, live))
+              + sum(_nbytes(m) for _, m in halves)
+              + len(halves) * wi.shape[0] * K1_OUT_BYTES)
+    return _bound(nbytes, evaluated * K1_OPS)
 
 
-def k2_bound(cdf, valid):
+def k2_bound(cdf, *lanes):
+    """K2's bound on one call, its arguments as cond_sample_pdf takes them:
+    the indices and u of the live lanes, the mask and the four outputs of
+    every lane, and a CDF row a live lane (at most the stack)."""
+    valid = lanes[-1]
     live = int(valid.sum())
-    n = valid.shape[0]
-    return _bound(min(_nbytes(cdf), live * K2_ROW_BYTES) + n * (7 * 4 + 1 + 16),
-                  live * K2_OPS)
+    nbytes = (min(_nbytes(cdf), live * K2_ROW_BYTES)
+              + live * sum(a.element_size() for a in lanes[:-1])
+              + valid.shape[0] * (valid.element_size() + K2_OUT_BYTES))
+    return _bound(nbytes, live * K2_OPS)
 
 
 def _cluster_work(cs, ray, out_bytes, **final):
@@ -198,9 +245,9 @@ def k4_bound(cs, ray, occ):
 def phase_k1(table, dev):
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
-    n = 1 << 22  # 2N lanes of the main path at 2,097,152 lanes per pass
+    n = 1 << 21  # one 2,097,152-lane pass; K1 evaluates two halves of it
     gen = torch.Generator(device=dev).manual_seed(1)
-    wi, wo = _unit_hemi(gen, n, dev), _unit_hemi(gen, n, dev)
+    wi, wo, wo_b = (_unit_hemi(gen, n, dev) for _ in range(3))
     # border lanes: wi == wo (theta_d = 0), normal incidence, grazing,
     # phi_d at the wrap (wo mirrored through the plane of incidence)
     wo[:4096] = wi[:4096]
@@ -208,21 +255,24 @@ def phase_k1(table, dev):
     wo[8192:12288, 2] = 1e-4
     wo[12288:16384] = wi[12288:16384] * torch.tensor([-1.0, -1.0, 1.0], device=dev)
     wo = wo / wo.norm(dim=-1, keepdim=True)
-    mask = torch.rand(n, generator=gen, device=dev) < 0.8
+    mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
 
     stack = torch.stack([table, table.flip(0) * 0.7, _phi_table(table.shape, dev)])
     slot = torch.randint(0, 3, (n,), generator=gen, device=dev)
     slot[:16384] %= 2  # the pole lanes above stay on phi_d-free tables
     err = 0.0
     for tbl, sl in ((table, None), (stack, slot)):
-        got = k1.eval_trilinear(tbl, wi, wo, sl, mask)
-        want = k1.eval_trilinear_plain(tbl, wi, wo, sl, mask)
-        torch.cuda.synchronize()
-        err = max(err, _check_close("K1", got, want, K1_RTOL, K1_ATOL))
-    ms = _time_ms(lambda: k1.eval_trilinear(table, wi, wo, None, mask))
-    plain_ms = _time_ms(lambda: k1.eval_trilinear_plain(table, wi, wo, None, mask))
-    bound_ms, bound_by = k1_bound(table, wi, None, mask)
-    print(f"K1 merl_eval: {n} lanes, max abs err {err:.3e} "
+        for lanes in ((wi, wo, sl, mask), (wi, wo, sl, mask, wo_b, mask_b)):
+            got = k1.eval_trilinear(tbl, *lanes)
+            want = k1.eval_trilinear_plain(tbl, *k1.concat_halves(*lanes))
+            torch.cuda.synchronize()
+            err = max(err, _check_close("K1", got, want, K1_RTOL, K1_ATOL))
+    lanes = (wi, wo, None, mask, wo_b, mask_b)
+    joined = k1.concat_halves(*lanes)
+    ms = _time_ms(lambda: k1.eval_trilinear(table, *lanes))
+    plain_ms = _time_ms(lambda: k1.eval_trilinear_plain(table, *joined))
+    bound_ms, bound_by = k1_bound(table, *lanes)
+    print(f"K1 merl_eval: {2 * n} lanes (two halves), max abs err {err:.3e} "
           f"(rtol {K1_RTOL}, atol {K1_ATOL}); kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -237,31 +287,26 @@ def phase_k2(cdf_cond, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def ints(hi):
-        return torch.randint(0, hi, (n,), generator=gen, device=dev,
-                             dtype=torch.int32)
+        return torch.randint(0, hi, (n,), generator=gen, device=dev)
 
-    args = (ints(n_sl), torch.rand(n, generator=gen, device=dev),
-            ints(h), ints(h), ints(w), ints(h), ints(w))
-    args[1][: n // 8] = 0.0
-    args[1][n // 8: n // 4] = 1.0 - 1e-7
+    # u is the second column of the (N, 2) sample, as bounce_shade passes it
+    u = torch.rand((n, 2), generator=gen, device=dev)[:, 1]
+    u[: n // 8] = 0.0
+    u[n // 8: n // 4] = 1.0 - 1e-7
+    args = (ints(n_sl), u, ints(h), ints(h), ints(w), ints(h), ints(w))
     valid = torch.rand(n, generator=gen, device=dev) < 0.9
     got = k2.cond_sample_pdf(cdf_cond, *args, valid)
     want = k2.cond_sample_pdf_plain(cdf_cond, *args, valid)
     torch.cuda.synchronize()
-    idx_got = torch.clamp((got[0] * w).floor(), max=w - 1)
-    idx_want = torch.clamp((want[0] * w).floor(), max=w - 1)
-    if not bool((idx_got == idx_want).all()):
-        raise AssertionError("K2: sampled cell index differs from the plain version")
-    err = max(_check_close(f"K2[{i}]", g, r, K2_RTOL, K2_ATOL)
-              for i, (g, r) in enumerate(zip(got, want)))
+    err, differ = check_k2(got, want, w)
     ms = _time_ms(lambda: k2.cond_sample_pdf(cdf_cond, *args, valid))
     plain_ms = _time_ms(lambda: k2.cond_sample_pdf_plain(cdf_cond, *args, valid))
-    bound_ms, bound_by = k2_bound(cdf_cond, valid)
-    print(f"K2 cond_sample: {n} lanes, idx equal, max abs err {err:.3e} "
-          f"(rtol {K2_RTOL}, atol {K2_ATOL}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    bound_ms, bound_by = k2_bound(cdf_cond, *args, valid)
+    print(f"K2 cond_sample: {n} lanes, cells equal, {differ} lanes not bit-equal, "
+          f"max abs err {err:.3e} (rtol {K2_RTOL}, atol {K2_ATOL}); kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, lanes_not_bit_equal=differ)
 
 
 def camera_wavefront(scene, spp, seed=0):
@@ -420,8 +465,9 @@ def record_wavefronts(scene, spp, seed):
     def keep_ray(ray):
         return Ray(*(t.clone() for t in cl._rays(ray)))
 
-    def keep_args(args):  # the table or CDF stack (first) is not copied
-        return (args[0],) + tuple(a.clone() if torch.is_tensor(a) else a for a in args[1:])
+    def keep_args(args, shared):  # the tables (first `shared`) are not copied
+        return args[:shared] + tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args[shared:])
 
     def rec_intersect(ray):
         rec["K3"].append(keep_ray(ray))
@@ -432,11 +478,11 @@ def record_wavefronts(scene, spp, seed):
         return ray_test(ray)
 
     def rec_k1(*args):
-        rec["K1"].append(keep_args(args))
+        rec["K1"].append(keep_args(args, 1))  # the table
         return k1_fn(*args)
 
     def rec_k2(*args):
-        rec["K2"].append(keep_args(args))
+        rec["K2"].append(keep_args(args, 1))  # the CDF stack
         return k2_fn(*args)
 
     scene.ray_intersect, scene.ray_test = rec_intersect, rec_test
@@ -480,16 +526,18 @@ def phase_bounces(scene, rec):
             total["K4"][0] += ms
             total["K4"][1] += bound
         if b < len(rec["K1"]):
-            table, wi, wo, slot, mask = rec["K1"][b]
-            got = k1.eval_trilinear(table, wi, wo, slot, mask)
-            want = k1.eval_trilinear_plain(table, wi, wo, slot, mask)
+            args = rec["K1"][b]
+            wi, _, _, mask = lanes = k1.concat_halves(*args[1:])
+            got = k1.eval_trilinear(*args)
+            want = k1.eval_trilinear_plain(args[0], *lanes)
             torch.cuda.synchronize()
             _check_close("K1", got, want, K1_RTOL, K1_ATOL)
-            ms = _time_ms(lambda: k1.eval_trilinear(table, wi, wo, slot, mask))
-            bound = k1_bound(table, wi, slot, mask)[0]
+            ms = _time_ms(lambda: k1.eval_trilinear(*args))
+            bound = k1_bound(*args)[0]
             live = wi.shape[0] if mask is None else int(mask.sum())
             parts.append(f"K1 {wi.shape[0]} lanes, {live} live, {ms:.4f} ms "
                          f"(bound {bound:.4f})")
+            del lanes, wi, mask
             total["K1"][0] += ms
             total["K1"][1] += bound
         if b < len(rec["K2"]):
@@ -497,12 +545,11 @@ def phase_bounces(scene, rec):
             got = k2.cond_sample_pdf(*args)
             want = k2.cond_sample_pdf_plain(*args)
             torch.cuda.synchronize()
-            for i, (g, w) in enumerate(zip(got, want)):
-                _check_close(f"K2[{i}]", g, w, K2_RTOL, K2_ATOL)
+            differ = check_k2(got, want, args[0].shape[-1])[1]
             ms = _time_ms(lambda: k2.cond_sample_pdf(*args))
-            bound = k2_bound(args[0], args[-1])[0]
+            bound = k2_bound(*args)[0]
             parts.append(f"K2 {args[-1].shape[0]} lanes, {int(args[-1].sum())} live, "
-                         f"{ms:.4f} ms (bound {bound:.4f})")
+                         f"{differ} not bit-equal, {ms:.4f} ms (bound {bound:.4f})")
             total["K2"][0] += ms
             total["K2"][1] += bound
         print(f"bounce {b}: " + "; ".join(parts))
@@ -658,8 +705,9 @@ def main():
              launches=mp_launches["K4"], **k4_stats),
     ]
     for k, key in zip(kernels, ("K1", "K2", "K3", "K4")):
-        k.update(frame_ms=frame[key][0], frame_bound_ms=frame[key][1],
-                 library_ms=None)
+        k.update(share=k["bound_ms"] / k["ms"], frame_ms=frame[key][0],
+                 frame_bound_ms=frame[key][1],
+                 frame_share=frame[key][1] / frame[key][0], library_ms=None)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

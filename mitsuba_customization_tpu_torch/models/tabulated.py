@@ -9,7 +9,8 @@ with period pi. Sampling draws a half vector from a per-incident-angle
 Marginal2D built from the table's luminance, mixed with a cosine lobe.
 
 eval_f runs kernel K1 (ops/merl_sorted) and bounce_shade runs kernel K2
-(ops/marginal_sorted) once, then K1 once over [wo_nee ; wo_sampled].
+(ops/marginal_sorted) once, then K1 once over the two halves wo_nee and
+wo_sampled.
 """
 
 from __future__ import annotations
@@ -125,10 +126,12 @@ def _normalize_slot(params, slot):
     return slot if params.table.dim() == 5 else None
 
 
-def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None):
-    """Interpolated f(wi, wo) (no cosine) through kernel K1."""
+def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None, wo_b=None,
+           mask_b=None):
+    """Interpolated f(wi, wo) (no cosine) through kernel K1; with wo_b,
+    also f(wi, wo_b) on the same slots, as rows N..2N-1."""
     return merl_sorted.eval_trilinear(
-        params.table, wi, wo, _normalize_slot(params, slot), mask
+        params.table, wi, wo, _normalize_slot(params, slot), mask, wo_b, mask_b
     )
 
 
@@ -215,7 +218,8 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
 
     One K2 pass (conditional-CDF inversion for the luminance sample plus
     the cell masses of the NEE and cosine-branch pdfs), the marginal-row
-    work as plain indexing, and ONE K1 pass over [wo_nee ; wo_sampled].
+    work as plain indexing, and ONE K1 pass over the halves wo_nee and
+    wo_sampled.
     Returns (f_nee, pdf_nee, wo, pdf_s, weight, is_delta); f_nee and
     weight include the cosine term.
     """
@@ -298,14 +302,10 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
     pdf_nee = (1.0 - COSINE_MIX) * p_tab_nee + COSINE_MIX * p_cos_nee
     pdf_nee = torch.where(nee_ok & cos_wi_ok, pdf_nee, 0.0)
 
-    # ---- K1: one combined trilinear eval over [wo_nee ; wo_sampled] ----
-    wi2 = torch.cat([wi, wi], 0)
-    wo2 = torch.cat([wo_nee, wo], 0)
-    slot2 = None if slot_safe is None else torch.cat([slot_safe, slot_safe], 0)
-    mask2 = torch.cat([nee_ok & cos_wi_ok, valid_s_m], 0)
-    f2 = eval_f(params, wi2, wo2, slot=slot2, mask=mask2)
-    f2 = f2 * torch.clamp(m.cos_theta(wo2), min=0.0)[..., None]
-    f_nee, f_s = f2[:n], f2[n:]
+    # ---- K1: one trilinear eval over the halves wo_nee and wo_sampled ----
+    f2 = eval_f(params, wi, wo_nee, slot_safe, nee_ok & cos_wi_ok, wo, valid_s_m)
+    f_nee = f2[:n] * torch.clamp(m.cos_theta(wo_nee), min=0.0)[..., None]
+    f_s = f2[n:] * torch.clamp(m.cos_theta(wo), min=0.0)[..., None]
 
     weight = m.safe_div(f_s, pdf_s[..., None])
     weight = torch.where(valid_s[..., None], weight, 0.0)

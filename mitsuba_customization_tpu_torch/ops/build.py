@@ -39,9 +39,10 @@ _I64 = ctypes.c_int64
 # C entry point -> argument types (see csrc/*.cu); every one returns the
 # cudaError_t of its launch as an int
 _SIGNATURES = {
-    "mct_merl_eval": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I64, _P],
-    "mct_cond_sample": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _I64, _P],
+    "mct_merl_eval": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
+                      _I, _P],
+    "mct_cond_sample": [_P, _I, _I, _I, _P, _P, _I64, _P, _P, _P, _P, _P,
+                        _P, _P, _I64, _P],
     "mct_cluster_closest": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,
                             _P, _P, _P, _P, _P],
     "mct_cluster_shadow": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,

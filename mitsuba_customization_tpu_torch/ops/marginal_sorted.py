@@ -6,11 +6,14 @@ Replaces the TPU kernel mitsuba_customization_tpu/ops/marginal_sorted.py
 lanes by CDF slice, DMAs each slice transposed (row axis on the 128-lane
 axis, padded with 2.0) and unsorts; none of that is needed here.
 
-What bounds it on the H100: each lane reads its own W-float row (256 B at
-W = 64) of the conditional CDF. The design keeps the (n_slices, H, W)
-layout, so a row is one contiguous 256 B read, and a material's whole
-sampling stack (256 KB) stays in L2. The outputs are sampling quantities
-consumed detached, so there is no backward.
+What bounds it on the H100: the L2 sectors each lane touches in its
+W-float row of the conditional CDF (a material's whole sampling stack,
+256 KB, stays in L2), and the lane I/O. The kernel keeps the
+(n_slices, H, W) layout and finds the count of values below u by binary
+search in the (nondecreasing) row: ceil(log2 W) one-sector loads instead
+of W. It reads the int64 indices, the bool mask and the strided u column
+as the caller holds them, so a call is one launch. The outputs are
+sampling quantities consumed detached, so there is no backward.
 
 `cond_sample_pdf` picks by device: a CPU tensor goes to the plain PyTorch
 version `cond_sample_pdf_plain`, a CUDA tensor to the kernel (or it raises).
@@ -60,9 +63,12 @@ def cond_sample_pdf_plain(cdf_cond, slice_key, u_col, r_own, r_nee, c_nee,
 
 def cond_sample_pdf(cdf_cond, slice_key, u_col, r_own, r_nee, c_nee, r_cos,
                     c_cos, valid):
-    """K2 wrapper; see cond_sample_pdf_plain for the contract.
+    """K2 wrapper; see cond_sample_pdf_plain for the contract. The rows of
+    cdf_cond must be nondecreasing (Marginal2D.build makes them so).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel. It
+    reads int64 indices, a bool `valid` and a strided float32 `u_col` in
+    place; other integer index types are converted to int64 first.
     """
     global LAUNCHES
     if not u_col.is_cuda:
@@ -72,23 +78,26 @@ def cond_sample_pdf(cdf_cond, slice_key, u_col, r_own, r_nee, c_nee, r_cos,
         raise ValueError("cond_sample_pdf: cdf_cond must be (S, H, W) float32")
     n_sl, h, w = cdf_cond.shape
     n = u_col.shape[0]
+    if u_col.dim() != 1 or u_col.dtype != torch.float32:
+        raise ValueError("cond_sample_pdf: u_col must be (N,) float32")
+    if valid.dtype != torch.bool:
+        raise ValueError("cond_sample_pdf: valid must be bool")
     cdf = cdf_cond.contiguous()
-    ints = [a.to(torch.int32).contiguous()
+    ints = [a.long().contiguous()
             for a in (slice_key, r_own, r_nee, c_nee, r_cos, c_cos)]
-    u = u_col.to(torch.float32).contiguous()
-    ok = valid.to(torch.uint8).contiguous()
-    for t in ints + [u, ok]:
-        if t.shape != (n,) or not t.is_cuda:
+    ok = valid.contiguous()
+    for t in ints + [ok]:
+        if t.shape != (n,) or t.device != u_col.device:
             raise ValueError("cond_sample_pdf: lane inputs must be (N,) on the GPU")
-    if not cdf.is_cuda:
+    if cdf.device != u_col.device:
         raise ValueError("cond_sample_pdf: cdf_cond must be on the GPU")
-    outs = torch.empty((4, n), dtype=torch.float32, device=u.device)
+    outs = torch.empty((4, n), dtype=torch.float32, device=u_col.device)
     key, ro, rn, cn, rc, cc = ints
     err = build.library().mct_cond_sample(
-        build.ptr(cdf), n_sl, h, w, build.ptr(key), build.ptr(u),
-        build.ptr(ro), build.ptr(rn), build.ptr(cn), build.ptr(rc),
-        build.ptr(cc), build.ptr(ok), build.ptr(outs[0]), build.ptr(outs[1]),
-        build.ptr(outs[2]), build.ptr(outs[3]), n, build.stream_of(u),
+        build.ptr(cdf), n_sl, h, w, build.ptr(key), build.ptr(u_col),
+        u_col.stride(0), build.ptr(ro), build.ptr(rn), build.ptr(cn),
+        build.ptr(rc), build.ptr(cc), build.ptr(ok), build.ptr(outs), n,
+        build.stream_of(u_col),
     )
     build.check(err, "cond_sample")
     LAUNCHES += 1

@@ -7,13 +7,14 @@ sorts lanes by table cell, walks the sorted wavefront segment by segment
 over DMA'd slabs and unsorts, with 16-bit fixed-point fractions; those are
 TPU workarounds for slow per-lane gathers and are not carried over.
 
-What bounds it on the H100: scattered reads of 4 corner rows x 2 phi_d
-bins x 3 floats per lane from the table. The design keeps the table in its
-natural (n_mat, n_th, n_td, n_pd, 3) float32 layout, where one MERL
-material (17.5 MB) fits in the 50 MB L2, so those reads hit L2; the kernel
-computes the angles, grid coordinates and clamping in registers, needs no
-sort, and uses full float32 fractions. Whether sorting lanes by cell pays
-on this card is left to measurement.
+What bounds it on the H100: the gathers of 4 corners x 2 phi_d bins x 3
+floats per lane from the table (a stack of MERL materials, 17.5 MB each,
+exceeds the 50 MB L2), and the lane I/O where most lanes are masked. The
+kernel reads the natural (n_mat, n_th, n_td, n_pd, 3) table, whose
+compactness lets L2 serve the cells nearby lanes share, each bin as two
+aligned float2 loads; a masked lane reads only its mask. One call
+evaluates both halves of a bounce (NEE and sampled directions) through
+two pointers. Full float32 fractions, no sort.
 
 `eval_trilinear` picks by device: a CPU tensor goes to the plain PyTorch
 version `eval_trilinear_plain`, a CUDA tensor to the kernel (or it raises).
@@ -48,6 +49,19 @@ def grid_coords(n_th, n_td, n_pd, theta_h, theta_d, phi_d):
 
 def _stacked(table):
     return table if table.dim() == 5 else table.unsqueeze(0)
+
+
+def concat_halves(wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
+    """The lanes a K1 call evaluates, as one set (wi, wo, slot, mask): with
+    wo_b, [wi ; wi] x [wo ; wo_b], the slot repeated and the masks joined
+    (a missing one all set); without, the arguments as they are."""
+    if wo_b is None:
+        return wi, wo, slot, mask
+    if mask is not None or mask_b is not None:
+        ones = torch.ones(wi.shape[0], dtype=torch.bool, device=wi.device)
+        mask = torch.cat([ones if m is None else m for m in (mask, mask_b)])
+    return (torch.cat([wi, wi]), torch.cat([wo, wo_b]),
+            None if slot is None else torch.cat([slot, slot]), mask)
 
 
 def eval_trilinear_plain(table, wi, wo, slot=None, mask=None):
@@ -99,35 +113,54 @@ def eval_trilinear_plain(table, wi, wo, slot=None, mask=None):
     return torch.where(valid[..., None], torch.clamp(val, min=0.0), 0.0)
 
 
-def eval_trilinear(table, wi, wo, slot=None, mask=None):
-    """K1 wrapper: f(wi, wo) (no cosine), (N, 3) float32.
+def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
+    """K1 wrapper: f(wi, wo) (no cosine), (N, 3) float32. With wo_b the
+    call evaluates two halves that share wi and slot, concat_halves(...)'s
+    2N lanes, and returns (2N, 3); the kernel reads both halves in place.
 
-    CPU tensors run eval_trilinear_plain; CUDA tensors launch the kernel.
+    table: (n_th, n_td, n_pd, 3) or stacked (n_mat, ...) float32; slot:
+    (N,) material index (None = 0; int64 is read in place); mask, mask_b:
+    (N,) bool (None = all lanes). CPU tensors run eval_trilinear_plain;
+    CUDA tensors launch the kernel.
     """
     global LAUNCHES
     if not wi.is_cuda:
-        return eval_trilinear_plain(table, wi, wo, slot, mask)
+        return eval_trilinear_plain(table, *concat_halves(wi, wo, slot, mask,
+                                                          wo_b, mask_b))
     tbl = _stacked(table).contiguous()
+    if tbl.data_ptr() % 8:  # a view at an odd float; the kernel reads float2 pairs
+        tbl = tbl.clone()
     n_mat, n_th, n_td, n_pd, c = tbl.shape
     n = wi.shape[0]
+    halves = [wo] if wo_b is None else [wo, wo_b]
     if (tbl.dtype != torch.float32 or c != 3 or n_th < 2 or n_td < 2
-            or wi.shape != (n, 3) or wo.shape != (n, 3)
-            or wi.dtype != torch.float32 or wo.dtype != torch.float32):
+            or any(v.shape != (n, 3) or v.dtype != torch.float32
+                   for v in [wi] + halves)):
         raise ValueError("eval_trilinear: unsupported table or direction shape")
-    if not (tbl.is_cuda and wo.is_cuda):
-        raise ValueError("eval_trilinear: all tensors must be on the GPU")
-    wi, wo = wi.contiguous(), wo.contiguous()
-    slot32 = None if slot is None else slot.to(torch.int32).contiguous()
-    mask8 = None if mask is None else mask.to(torch.uint8).contiguous()
-    for t in (slot32, mask8):
+    if wo_b is None and mask_b is not None:
+        raise ValueError("eval_trilinear: mask_b without wo_b")
+    if slot is not None:
+        slot = slot.long().contiguous()
+    masks = [None if m is None else m.contiguous() for m in (mask, mask_b)]
+    lanes = [v.contiguous() for v in [wi] + halves]
+    for t in lanes + [slot] + masks:
+        if t is not None and t.device != tbl.device:
+            raise ValueError("eval_trilinear: all tensors must be on the GPU")
+    for t in [slot] + masks:
         if t is not None and t.shape != (n,):
             raise ValueError("eval_trilinear: slot/mask must be (N,)")
-    out = torch.empty((n, 3), dtype=torch.float32, device=wi.device)
+    if any(m is not None and m.dtype != torch.bool for m in masks):
+        raise ValueError("eval_trilinear: masks must be bool")
+
+    def opt(t):
+        return None if t is None else build.ptr(t)
+
+    out = torch.empty((len(halves) * n, 3), dtype=torch.float32, device=wi.device)
     err = build.library().mct_merl_eval(
-        build.ptr(tbl), n_mat, n_th, n_td, n_pd, build.ptr(wi), build.ptr(wo),
-        None if slot32 is None else build.ptr(slot32),
-        None if mask8 is None else build.ptr(mask8),
-        build.ptr(out), n, build.stream_of(wi),
+        build.ptr(tbl), n_mat, n_th, n_td, n_pd, build.ptr(lanes[0]),
+        build.ptr(lanes[1]), opt(lanes[2] if wo_b is not None else None),
+        opt(slot), opt(masks[0]), opt(masks[1]), build.ptr(out), n,
+        len(halves), build.stream_of(wi),
     )
     build.check(err, "merl_eval")
     LAUNCHES += 1

@@ -15,19 +15,28 @@ summed device time and its share of the profiled wall time (the device's
 busy share; kernels run on one stream). Needs a CUDA GPU; imports nothing
 of JAX.
 
---against TREE [TREE ...] (matpreview only) builds the kernels of other
-source trees too, each with that tree's own ops/build.py, for example a
-parent commit's unpacked into an ignored directory (`git archive HEAD |
-tar -x -C build/parent`, then `--against build/parent`; the C interfaces
-must match), and before the profile compares them with this tree's, run
-through this tree's K3 and K4 wrappers, in turns (the others, this, this, the others in reverse): K3 and
-K4 on every wavefront that one render hands them (recorded as
-chip_smoke.record_wavefronts does; CUDA events, median of 5 each, the
-mean of a tree's two turns; the events hold the wrapper's output kernels
-too), the device time of each K3 and K4 launch inside one profiled
-render (the kernel alone, mean of the two turns), and the frame's wall
-time (median of --reps renders each). Every tree's outputs are checked
-equal to this tree's on every wavefront.
+--against TREE [TREE ...] builds the kernels of other source trees too,
+each with that tree's own ops/build.py, for example a parent commit's
+unpacked into an ignored directory (`git archive HEAD | tar -x -C
+build/parent`, then `--against build/parent`), and before the profile
+compares them with this tree's, in turns (the others, this, this, the
+others in reverse). K3 and K4 run through this tree's wrappers on each
+tree's library (their C interfaces must match). K1 and K2 run through
+each tree's own wrapper modules (its ops/merl_sorted.py and
+ops/marginal_sorted.py, loaded from its path, with their `build` set to
+that tree's builder), so their C interfaces may differ; their Python
+signatures must be this tree's (a tree whose wrapper differs gets an
+adapter in its own copy). Printed: each kernel on every call that one
+render hands it (recorded as chip_smoke.record_wavefronts does; CUDA
+events, median of 5 each, the mean of a tree's two turns; the events hold
+the wrapper's own casts and output kernels too) and summed over the
+frame; the device time of each K1-K4 launch inside one profiled render
+(the kernel alone, mean of the two turns); and the frame's wall time
+(median of --reps renders each). Every tree's outputs are checked against
+this tree's on every call: K3 and K4 equal, K1 within chip_smoke's K1
+tolerances, K2 with the sampled cell equal and the values within its K2
+tolerances (lanes not bit-equal are counted). K3 and K4 are compared only
+where the scene has clusters (matpreview).
 """
 
 import argparse
@@ -39,6 +48,8 @@ import statistics
 import subprocess
 import sys
 import time
+import types
+import typing
 
 import torch
 
@@ -65,34 +76,56 @@ def group_of(name):
     return next((g for key, g in GROUPS if key in low), "other")
 
 
-def _load_builder(tree, i):
-    """Another source tree's kernel builder (its ops/build.py, loaded from
-    its path), with its library built: it builds that tree's csrc/."""
-    path = os.path.join(tree, "mitsuba_customization_tpu_torch", "ops", "build.py")
-    spec = importlib.util.spec_from_file_location(f"_other_kernel_build_{i}", path)
+def _load(tree, name, i):
+    """Module ops/<name>.py of another source tree, loaded from its path
+    (its imports of the package resolve to this tree's)."""
+    path = os.path.join(tree, "mitsuba_customization_tpu_torch", "ops", name + ".py")
+    spec = importlib.util.spec_from_file_location(f"_other_{name}_{i}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.library()
     return mod
 
 
+class Tree(typing.NamedTuple):
+    """One source tree's kernels: its builder (an ops/build module) and its
+    K1 and K2 wrapper modules."""
+
+    builder: types.ModuleType
+    k1: types.ModuleType
+    k2: types.ModuleType
+
+
+def _other_tree(tree, i):
+    """Another source tree's kernels, with its library built."""
+    builder = _load(tree, "build", i)
+    builder.library()
+    k1, k2 = _load(tree, "merl_sorted", i), _load(tree, "marginal_sorted", i)
+    k1.build = k2.build = builder
+    return Tree(builder, k1, k2)
+
+
 @contextlib.contextmanager
-def _kernels(builder):
-    """Run the K3 and K4 wrappers on the library of `builder` (an
-    ops/build module) inside the block."""
+def _kernels(tree):
+    """Run the frame (and the K3 and K4 wrappers) on `tree`'s kernels
+    inside the block."""
+    from mitsuba_customization_tpu_torch.models import tabulated as tab
     from mitsuba_customization_tpu_torch.ops import clusters as cl
 
-    saved = cl.kbuild
-    cl.kbuild = builder
+    saved = cl.kbuild, tab.merl_sorted, tab.marginal_sorted
+    cl.kbuild, tab.merl_sorted, tab.marginal_sorted = tree.builder, tree.k1, tree.k2
     try:
         yield
     finally:
-        cl.kbuild = saved
+        cl.kbuild, tab.merl_sorted, tab.marginal_sorted = saved
+
+
+KERNEL_NAMES = (("K1", "merl_eval"), ("K2", "cond_sample"),
+                ("K3", "cluster_closest"), ("K4", "cluster_shadow"))
 
 
 def _launch_times(fn):
-    """Device ms of each K3 and K4 launch of fn(), in launch order, from
-    one run under torch.profiler: {"K3": [...], "K4": [...]}."""
+    """Device ms of each K1-K4 launch of fn(), in launch order, from one
+    run under torch.profiler: {"K1": [...], ..., "K4": [...]}."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
@@ -101,63 +134,107 @@ def _launch_times(fn):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     return {key: [e.device_time / 1e3 for e in kernels if name in e.name]
-            for key, name in (("K3", "cluster_closest"), ("K4", "cluster_shadow"))}
+            for key, name in KERNEL_NAMES}
+
+
+def _in_turns(names, turns, trees, fn):
+    """{name: mean of fn()'s CUDA-event ms over that tree's two turns}."""
+    from chip_smoke import _time_ms
+
+    ms = {name: [] for name in names}
+    for name in turns:
+        with _kernels(trees[name]):
+            ms[name].append(_time_ms(fn(trees[name])))
+    return {name: statistics.mean(ms[name]) for name in names}
+
+
+def _print_calls(key, rows, names):
+    """rows: [(description, {name: ms}, agreement)] per call."""
+    total = dict.fromkeys(names, 0.0)
+    for b, (what, ms, agree) in enumerate(rows):
+        for name in names:
+            total[name] += ms[name]
+        print(f"{key} call {b}: {what}; ms: "
+              + ", ".join(f"{name} {ms[name]:.4f}" for name in names) + f" ({agree})")
+    print(f"{key} summed over the frame's {len(rows)} calls, ms: "
+          + ", ".join(f"{name} {total[name]:.4f}" for name in names))
 
 
 def compare(scene, spp, reps, other_trees):
-    """K3 / K4 per recorded wavefront and the frame, this tree's kernels
-    against those of each of `other_trees`, in turns: every other, this,
-    this, every other in reverse (each time the mean of the two)."""
+    """K1-K4 per recorded call and the frame, this tree's kernels against
+    those of each of `other_trees`, in turns: every other, this, this,
+    every other in reverse (each time the mean of the two)."""
     import mitsuba_customization_tpu_torch as mt
-    from chip_smoke import _time_ms, record_wavefronts
+    from chip_smoke import (K1_ATOL, K1_RTOL, _check_close, check_k2,
+                            record_wavefronts)
     from mitsuba_customization_tpu_torch.ops import build
     from mitsuba_customization_tpu_torch.ops import clusters as cl
+    from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
-    builders = {os.path.relpath(t): _load_builder(t, i) for i, t in enumerate(other_trees)}
-    builders["this"] = build
-    names = list(builders)
+    trees = {os.path.relpath(t): _other_tree(t, i) for i, t in enumerate(other_trees)}
+    trees["this"] = Tree(build, k1, k2)
+    names = list(trees)
     turns = names + names[::-1]
     cs = scene.clusters
     rec = record_wavefronts(scene, spp, seed=1)
     for key, fn in (("K3", cl.intersect), ("K4", cl.occluded)):
-        total = dict.fromkeys(names, 0.0)
-        for b, r in enumerate(rec[key]):
-            with _kernels(builders["this"]):
+        if cs is None:
+            break
+        rows = []
+        for r in rec[key]:
+            with _kernels(trees["this"]):
                 want = fn(cs, r)
             for name in names:
-                with _kernels(builders[name]):
+                with _kernels(trees[name]):
                     got = fn(cs, r)
                 same = all(torch.equal(x, y) for x, y in zip(got[:4], want[:4])) \
                     if key == "K3" else torch.equal(got, want)
                 if not same:
-                    raise AssertionError(f"{key} bounce {b}: {name} disagrees with this tree's kernel")
-            ms = {name: [] for name in names}
-            for name in turns:
-                with _kernels(builders[name]):
-                    ms[name].append(_time_ms(lambda: fn(cs, r)))
-            line = []
-            for name in names:
-                total[name] += statistics.mean(ms[name])
-                line.append(f"{name} {statistics.mean(ms[name]):.4f}")
-            print(f"{key} bounce {b}: {r.o.shape[0]} lanes, {int((r.maxt > 0).sum())} live; "
-                  f"ms: {', '.join(line)} (outputs equal)")
-        print(f"{key} summed over the frame's {len(rec[key])} wavefronts, ms: "
-              + ", ".join(f"{name} {total[name]:.4f}" for name in names))
+                    raise AssertionError(f"{key}: {name} disagrees with this tree's kernel")
+            ms = _in_turns(names, turns, trees, lambda t: lambda: fn(cs, r))
+            rows.append((f"{r.o.shape[0]} lanes, {int((r.maxt > 0).sum())} live",
+                         ms, "outputs equal"))
+        _print_calls(key, rows, names)
+    rows = []
+    for args in rec["K1"]:
+        want = k1.eval_trilinear(*args)
+        for name in names:
+            _check_close(f"K1 {name}", trees[name].k1.eval_trilinear(*args), want,
+                         K1_RTOL, K1_ATOL)
+        lanes = k1.concat_halves(*args[1:])
+        live = lanes[0].shape[0] if lanes[3] is None else int(lanes[3].sum())
+        ms = _in_turns(names, turns, trees, lambda t: lambda: t.k1.eval_trilinear(*args))
+        rows.append((f"{lanes[0].shape[0]} lanes, {live} live", ms,
+                     f"within rtol {K1_RTOL} atol {K1_ATOL}"))
+    _print_calls("K1", rows, names)
+    rows = []
+    for args in rec["K2"]:
+        want = k2.cond_sample_pdf(*args)
+        off = {name: check_k2(trees[name].k2.cond_sample_pdf(*args), want,
+                              args[0].shape[-1])[1]
+               for name in names}
+        ms = _in_turns(names, turns, trees, lambda t: lambda: t.k2.cond_sample_pdf(*args))
+        rows.append((f"{args[-1].shape[0]} lanes, {int(args[-1].sum())} live", ms,
+                     "cells equal; lanes not bit-equal to this tree's: "
+                     + ", ".join(f"{name} {n}" for name, n in off.items())))
+    _print_calls("K2", rows, names)
     del rec
     # the same launches inside the frame, kernel time only (the events
-    # above also hold the wrapper's output kernels and launch gaps)
+    # above also hold the wrappers' own kernels and launch gaps)
     in_frame = {name: [] for name in names}
     for name in turns:
-        with _kernels(builders[name]):
+        with _kernels(trees[name]):
             in_frame[name].append(_launch_times(lambda: mt.render(scene, spp=spp, seed=0)))
-    for key in ("K3", "K4"):
+    for key, _ in KERNEL_NAMES:
         for name in names:
             per = [statistics.mean(x) for x in zip(*(run[key] for run in in_frame[name]))]
-            print(f"{key} in-frame kernel ms per launch (profiler, mean of "
-                  f"{len(in_frame[name])}), {name}: {', '.join(f'{x:.4f}' for x in per)}; "
-                  f"sum {sum(per):.4f}")
+            if per:
+                print(f"{key} in-frame kernel ms per launch (profiler, mean of "
+                      f"{len(in_frame[name])}), {name}: {', '.join(f'{x:.4f}' for x in per)}; "
+                      f"sum {sum(per):.4f}")
     for name in turns:
-        with _kernels(builders[name]):
+        with _kernels(trees[name]):
             secs = []
             for _ in range(reps):
                 t0 = time.perf_counter()
@@ -179,8 +256,6 @@ def main():
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--against", nargs="+", default=None)
     args = ap.parse_args()
-    if args.against and args.scene != "matpreview":
-        raise SystemExit("profile_torch_frame: --against needs --scene matpreview")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: CUDA is not available")
     card = subprocess.run(

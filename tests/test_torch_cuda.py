@@ -105,6 +105,173 @@ def test_wrappers_reject_mixed_devices(dev):
         k2.cond_sample_pdf(cdf, z, z.float(), z, z, z, z, z, z.bool())
 
 
+def _kernels_launched(fn):
+    """fn()'s result and the number of CUDA kernels it launched."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def _k2_cells(x, w):
+    return torch.clamp((x * w).floor(), max=w - 1)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_k2_search_edges(dev, index_dtype):
+    """The binary search on the rows Marginal2D.build makes: flat runs
+    (weights of exactly 0, so values repeat), u equal to a row value, u =
+    0, u above a row's last value below 1; int64 or int32 indices, u a
+    strided column and a bool mask. The sampled cell equals the plain
+    version's on every lane, the values within K2's tolerance."""
+    from mitsuba_customization_tpu_torch.core.distr import Marginal2D
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, n_sl, h, w = 200_000, 6, 32, 64
+    weights = torch.rand((n_sl, h, w), generator=gen, device=dev) ** 2
+    weights[0, :, 5:20] = 0.0
+    weights[1] *= torch.rand((h, w), generator=gen, device=dev) < 0.15  # zero-heavy
+    weights[2, 3] = 0.0  # a row of weight 1e-20 per cell
+    cdf = Marginal2D.build(weights).cdf_cond.contiguous()
+    cdf[3, 7] *= 0.999  # a row whose last value is below 1
+    assert bool((cdf[..., 1:] >= cdf[..., :-1]).all())
+    assert bool((cdf[0, :, 5:20] == cdf[0, :, 4:19]).any())  # flat runs
+
+    def ints(hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev)
+
+    key, r_own = ints(n_sl), ints(h)
+    sample = torch.rand((n, 2), generator=gen, device=dev)
+    u = sample[:, 1]
+    u[:20_000] = 0.0
+    on = slice(20_000, 60_000)  # u exactly on a value of the lane's row
+    u[on] = cdf[key[on], r_own[on], ints(w)[on]]
+    key[60_000:70_000], r_own[60_000:70_000] = 3, 7
+    u[60_000:70_000] = 0.9995  # above the last value 0.999 * ~1
+    key[70_000:80_000] = torch.randint(0, 3, (10_000,), generator=gen, device=dev)
+    args = [key, u, r_own, ints(h), ints(w), ints(h), ints(w)]
+    args = [a if a.dtype != torch.int64 else a.to(index_dtype) for a in args]
+    valid = torch.rand(n, generator=gen, device=dev) < 0.9
+    assert u.stride(0) == 2 and valid.dtype == torch.bool
+    before = k2.LAUNCHES
+    got, kernels = _kernels_launched(lambda: k2.cond_sample_pdf(cdf, *args, valid))
+    assert k2.LAUNCHES == before + 1
+    if index_dtype == torch.int64:
+        assert kernels == 1  # the caller's tensors are read in place
+    want = k2.cond_sample_pdf_plain(cdf, *args, valid)
+    assert torch.equal(_k2_cells(got[0], w), _k2_cells(want[0], w))
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-7)
+    last = valid[60_000:70_000]
+    assert bool((_k2_cells(got[0][60_000:70_000], w)[last] == w - 1).all())
+    assert bool((got[1][60_000:70_000][last] == 0).all())  # no mass above the last
+    assert bool((got[0][~valid] == 0).all())
+
+
+def _rgb_table(dev, shape, phase=1.0):
+    """Like _table, with the channels apart and a phi_d term whose bins
+    n_pd - 1 and 0 differ, so a wrong wrap neighbour shows."""
+    n_th, n_td, n_pd, _ = shape
+    th = ((torch.arange(n_th, device=dev) + 0.5) / n_th) ** 2 * (torch.pi / 2)
+    td = (torch.arange(n_td, device=dev) + 0.5) / n_td * (torch.pi / 2)
+    pd = (torch.arange(n_pd, device=dev) + 0.5) / n_pd * torch.pi
+    rgb = torch.tensor([1.0, 0.7, 0.4], device=dev)
+    return ((0.3 + 0.1 * torch.cos(3 * th)[:, None, None, None]
+             * torch.cos(2 * td)[None, :, None, None]
+             + 0.1 * torch.sin(th)[:, None, None, None] ** 2
+             * torch.sin(td)[None, :, None, None]
+             * torch.cos(2 * pd + phase)[None, None, :, None]) * rgb).contiguous()
+
+
+def _k1_check(table, wi, wo, slot=None, mask=None):
+    """The kernel against the plain version."""
+    got = k1.eval_trilinear(table, wi, wo, slot, mask)
+    want = k1.eval_trilinear_plain(table, wi, wo, slot, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("shape", [(90, 90, 180, 3), (6, 5, 4, 3), (5, 3, 3, 3)])
+def test_k1_phi_d_wrap(dev, shape):
+    """Lanes in the last phi_d bin (k0 = n_pd - 1, also reached from
+    u_pd < 0), whose second bin is bin 0, at MERL size and on small
+    tables where a quarter or a third of all lanes wrap; on the
+    (5, 3, 3, 3) table, whose float count is odd, the last bin starts at
+    an even offset and is read by scalars."""
+    from mitsuba_customization_tpu_torch.core.rusinkiewicz import dirs_to_half_diff_fast
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n = 200_000
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    table = _rgb_table(dev, shape)
+    u_pd = k1.grid_coords(*shape[:3], *dirs_to_half_diff_fast(wi, wo))[2]
+    wraps = torch.floor(u_pd) % shape[2] == shape[2] - 1
+    assert int(wraps.sum()) > n // (2 * shape[2])
+    _k1_check(table, wi, wo)
+    _k1_check(table, wi[wraps], wo[wraps])
+
+
+def test_k1_slot_clamping_and_masks(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = 100_000
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    stack = torch.stack([_rgb_table(dev, (16, 16, 32, 3), phase) for phase in (0.0, 1.0, 2.0)])
+    slot = torch.randint(-3, 6, (n,), generator=gen, device=dev)  # 3 materials
+    mask = torch.rand(n, generator=gen, device=dev) < 0.7
+    got = _k1_check(stack, wi, wo, slot, mask)
+    assert bool((got[~mask] == 0).all()) and bool((got[mask] > 0).all())
+    clamped = _k1_check(stack, wi, wo, slot.clamp(0, 2), mask)
+    assert torch.equal(got, clamped)
+
+
+def test_k1_table_view_at_an_odd_float(dev):
+    """A material of a stack whose tables hold an odd number of floats
+    starts 4 bytes past an 8-byte boundary; the wrapper evaluates such a
+    view (through an aligned copy) as the plain version does."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n = 100_000
+    stack = torch.stack([_rgb_table(dev, (5, 3, 3, 3), p) for p in (0.0, 1.0, 2.0)])
+    view = stack[1]
+    assert view.data_ptr() % 8 == 4 and view.is_contiguous()
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.8
+    got = _k1_check(view, wi, wo, mask=mask)
+    assert torch.equal(got, k1.eval_trilinear(view.clone(), wi, wo, mask=mask))
+
+
+def test_k1_stack_past_l2(dev):
+    """Ten MERL-size materials: 175 MB of table, past the 50 MB L2."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = 1 << 20
+    stack = torch.stack([_rgb_table(dev, (90, 90, 180, 3), 0.3 * m) * (1 + 0.1 * m)
+                         for m in range(10)])
+    assert stack.numel() * 4 > 50e6 * 3
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    slot = torch.randint(0, 10, (n,), generator=gen, device=dev)
+    _k1_check(stack, wi, wo, slot, torch.rand(n, generator=gen, device=dev) < 0.8)
+
+
+def test_k1_halves_equal_the_joined_call(dev):
+    """[wi ; wi] x [wo ; wo_b] through two pointers equals one call on the
+    joined lanes, bit for bit, and is one launch."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n = 100_003
+    wi, wo, wo_b = (_unit(gen, n, dev) for _ in range(3))
+    stack = torch.stack([_rgb_table(dev, (16, 16, 32, 3), p) for p in (0.0, 1.0)])
+    slot = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
+    for lanes in ((wi, wo, slot, mask, wo_b, mask_b), (wi, wo, None, None, wo_b, mask_b),
+                  (wi, wo, slot, None, wo_b, None)):
+        before = k1.LAUNCHES
+        got, kernels = _kernels_launched(lambda: k1.eval_trilinear(stack, *lanes))
+        assert k1.LAUNCHES == before + 1 and kernels == 1 and got.shape == (2 * n, 3)
+        joined = k1.concat_halves(*lanes)
+        assert torch.equal(got, k1.eval_trilinear(stack, *joined))
+        torch.testing.assert_close(got, k1.eval_trilinear_plain(stack, *joined),
+                                   rtol=1e-4, atol=1e-5)
+
+
 def test_frame_gpu_matches_cpu(dev):
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.scenes import flagship_dict

@@ -18,6 +18,7 @@ from mitsuba_customization_tpu.core.rusinkiewicz import half_diff_to_dirs
 from mitsuba_customization_tpu.models import tabulated as jtab
 from mitsuba_customization_tpu.ops import marginal_sorted as jk2
 from mitsuba_customization_tpu.ops import merl_sorted as jk1
+from mitsuba_customization_tpu_torch.core import distr as tdistr
 from mitsuba_customization_tpu_torch.ops import marginal_sorted as tk2
 from mitsuba_customization_tpu_torch.ops import merl_sorted as tk1
 
@@ -185,3 +186,189 @@ def test_wrappers_on_cpu_launch_nothing():
     assert (tk1.LAUNCHES, tk2.LAUNCHES) == before
     torch.testing.assert_close(out1, tk1.eval_trilinear_plain(table, wi, wo))
     assert len(out2) == 4 and all(o.shape == (500,) for o in out2)
+
+
+# ---------------------------------------------------------------------------
+# The premises of the CUDA designs, checked where the kernels cannot run:
+# K2 finds the count of CDF values below u by a lower-bound search, which
+# equals _invert_cdf's masked reductions only on nondecreasing rows; K1
+# reads each phi_d bin of the natural table as two aligned float2 pairs,
+# which must hold the bin and stay inside its sectors and the table.
+# ---------------------------------------------------------------------------
+
+
+def _k2_rows(kind, rng, n_sl=5, h=32, w=64):
+    weights = rng.random((n_sl, h, w)).astype(np.float32) ** 2
+    if kind == "zero_heavy":
+        weights *= rng.random((n_sl, h, w)) < 0.1
+        weights[0, :4] = 0.0  # rows of weight 1e-20 per cell
+    cdf = tdistr.Marginal2D.build(torch.as_tensor(weights)).cdf_cond
+    return cdf.reshape(-1, w)
+
+
+def _k2_lanes(rows, rng, n=20_000):
+    """Each lane's row and u: uniform, 0, 1 - 1e-7, 1, and exactly on a
+    value of its row."""
+    pick = torch.as_tensor(rng.integers(0, rows.shape[0], n))
+    u = torch.as_tensor(rng.random(n).astype(np.float32))
+    u[:500], u[500:1000], u[1000:1500] = 0.0, 1.0 - 1e-7, 1.0
+    col = torch.as_tensor(rng.integers(0, rows.shape[1], n))
+    u[1500:6000] = rows[pick, col][1500:6000]
+    return rows[pick], u
+
+
+def _search_kernel_steps(rows, u):
+    """csrc/cond_sample.cu's search, all lanes at once: the lower bound of
+    u in row[0 .. W-2], W-1 if every one of those is below u."""
+    lane = torch.arange(rows.shape[0])
+    c = torch.zeros_like(lane)
+    length = torch.full_like(lane, rows.shape[1] - 1)
+    while bool((length > 0).any()):
+        half = length >> 1
+        probe = rows[lane, (c + half).clamp(max=rows.shape[1] - 1)]
+        go = (length > 0) & (probe < u)
+        c = torch.where(go, c + half + 1, c)
+        length = torch.where(go, length - half - 1, torch.where(length > 0, half, 0))
+    hi = rows[lane, c]
+    below = torch.where(c > 0, rows[lane, (c - 1).clamp(min=0)], 0.0)
+    lo = torch.minimum(torch.where(hi < u, hi, below), hi)
+    return c, lo, hi - lo
+
+
+@pytest.mark.parametrize("kind", ["random", "zero_heavy"])
+@pytest.mark.parametrize("search", ["searchsorted", "kernel_steps"])
+def test_invert_cdf_is_a_lower_bound(kind, search):
+    """On Marginal2D rows, _invert_cdf's (idx, lo, mass) equal a
+    lower-bound search with lo and hi read at cnt - 1 and cnt, bit for
+    bit, flat runs and u on a value included."""
+    rng = np.random.default_rng(11)
+    rows = _k2_rows(kind, rng)
+    assert bool((rows[:, 1:] >= rows[:, :-1]).all())  # nondecreasing
+    if kind == "zero_heavy":
+        assert bool((rows[:, 1:] == rows[:, :-1]).any())  # flat runs
+    lane_rows, u = _k2_lanes(rows, rng)
+    idx, lo, mass = tdistr._invert_cdf(lane_rows, u)
+    w = rows.shape[1]
+    if search == "searchsorted":
+        cnt = torch.searchsorted(lane_rows, u[:, None], right=False)[:, 0]
+        lane = torch.arange(u.shape[0])
+        hi = lane_rows[lane, cnt.clamp(max=w - 1)]
+        lo_s = torch.where(cnt > 0, lane_rows[lane, (cnt - 1).clamp(min=0)], 0.0)
+        lo_s = torch.minimum(lo_s, hi)
+        got = (cnt.clamp(max=w - 1), lo_s, hi - lo_s)
+    else:
+        got = _search_kernel_steps(lane_rows, u)
+    for g, want in zip(got, (idx, lo, mass)):
+        assert torch.equal(g, want)
+
+
+def _bin_reads(table):
+    """What csrc/merl_eval.cu's bin_rgb reads for every phi_d bin of the
+    flat table: off = 3 * bin; e = off rounded down to even; the float2
+    pairs [e, e + 2) and [e + 2, e + 4), or three scalars where e + 4 would
+    pass the end. Returns (the 3 floats it keeps, the float indices of
+    both pairs, -1 where scalars were read)."""
+    flat = table.reshape(-1)
+    off = torch.arange(0, flat.numel(), 3)
+    e = off & ~1
+    paired = e + 4 <= flat.numel()
+    idx = torch.where(paired[:, None], e[:, None] + torch.arange(4), -1)
+    window = flat[idx.clamp(min=0)]
+    odd = (off != e)[:, None]
+    kept = torch.where(odd, window[:, 1:4], window[:, 0:3])
+    kept = torch.where(paired[:, None], kept, flat[off[:, None] + torch.arange(3)])
+    return kept, idx, off
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 32, 3), (3, 5, 3, 7, 3), (2, 3, 2, 3, 3)])
+def test_k1_bin_reads_hold_the_bin(shape):
+    """The kernel's float2 reads of the natural table give every bin's 3
+    floats, touch only 8-byte pairs that hold one of them (so no sector
+    beyond the bin's own), and read past the end of the table nowhere.
+    Only a table of an odd number of floats (the kernel's kOddTotal
+    instance; here 3 x 5 x 3 x 7 x 3) has its last bin at an even offset,
+    read by scalars; elsewhere every bin takes the branch-free path."""
+    table = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+    kept, idx, off = _bin_reads(table)
+    assert torch.equal(kept, table.reshape(-1, 3))
+    paired = idx[:, 0] >= 0
+    assert bool((idx[paired] < table.numel()).all())
+    pair_of = idx[paired] // 2  # the 8-byte pair each read float lies in
+    needed = (off[paired, None] + torch.arange(3)) // 2
+    assert bool((pair_of[..., None] == needed[:, None, :]).any(-1).all())
+    assert bool(paired[:-1].all())
+    assert bool(paired[-1]) == bool(off[-1] % 2 == 1)  # table.numel() even
+
+
+def test_k1_halves_on_cpu_are_the_joined_lanes():
+    """With wo_b, the CPU wrapper evaluates [wi ; wi] x [wo ; wo_b] with the
+    slot repeated and the masks joined (a missing one all set)."""
+    rng = np.random.default_rng(13)
+    table = torch.as_tensor(np.stack([smooth_table(rng) for _ in range(2)]))
+    wi, wo = (torch.as_tensor(x) for x in k1_lanes(rng, 300))
+    wo_b = torch.as_tensor(k1_lanes(rng, 300)[1])
+    n = wi.shape[0]
+    slot = torch.as_tensor(rng.integers(0, 2, n))
+    mask = torch.as_tensor(rng.random(n) > 0.3)
+    before = tk1.LAUNCHES
+    got = tk1.eval_trilinear(table, wi, wo, slot, None, wo_b, mask)
+    assert tk1.LAUNCHES == before and got.shape == (2 * n, 3)
+    want = tk1.eval_trilinear_plain(
+        table, torch.cat([wi, wi]), torch.cat([wo, wo_b]), torch.cat([slot, slot]),
+        torch.cat([torch.ones(n, dtype=torch.bool), mask]))
+    assert torch.equal(got, want)
+
+
+def test_k1_bound_counts_a_call_as_made():
+    """chip_smoke's K1 bound on a call of two halves: wi and the slot once
+    for the lanes where either half is live, wo of live lanes only, the
+    masks and the output of every lane, and table bins only for lanes that
+    evaluate (live, both cosines > 0), at most the table."""
+    import chip_smoke as cs
+
+    n = 1000
+    wi = torch.zeros((n, 3))
+    wi[:, 2] = 1.0
+    wo, wo_b = wi.clone(), wi.clone()
+    wo_b[:60, 2] = -1.0  # live but below the horizon: no bins
+    table = torch.zeros((2, 4, 4, 8, 3))
+    slot = torch.zeros(n, dtype=torch.int64)
+    none = torch.zeros(n, dtype=torch.bool)
+    mask, mask_b = none.clone(), none.clone()
+    mask[:100] = True
+    mask_b[50:150] = True
+    per_ms = cs.HBM_BYTES_PER_S / 1e3
+    lane_io = 2 * n * (1 + 12)  # the two masks and outputs
+    assert cs.k1_bound(table, wi, wo, slot, none, wo_b, none)[0] * per_ms \
+        == pytest.approx(lane_io)
+    # 150 lanes live in either half, 200 live, 190 evaluate
+    bins = min(table.numel() * 4, 190 * cs.K1_CELL_BYTES)
+    want = bins + 150 * (12 + 8) + 200 * 12 + lane_io
+    ms, by = cs.k1_bound(table, wi, wo, slot, mask, wo_b, mask_b)
+    assert by == "bytes" and ms * per_ms == pytest.approx(want)
+    big = torch.zeros((2, 40, 40, 80, 3))
+    assert cs.k1_bound(big, wi, wo, slot, mask, wo_b, mask_b)[0] * per_ms \
+        == pytest.approx(want - bins + 190 * cs.K1_CELL_BYTES)
+    # one lane set, no slot, no mask: every lane live, wi once
+    assert cs.k1_bound(big, wi, wo)[0] * per_ms \
+        == pytest.approx(n * (cs.K1_CELL_BYTES + 12 + 12 + 12))
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_k2_bound_counts_a_call_as_made(index_dtype):
+    """chip_smoke's K2 bound: the indices (at their width) and u of live
+    lanes, the mask and four outputs of every lane, a CDF row a live lane
+    (at most the stack)."""
+    import chip_smoke as cs
+
+    n = 1000
+    idx = torch.zeros(n, dtype=index_dtype)
+    u = torch.zeros((n, 2))[:, 1]
+    valid = torch.zeros(n, dtype=torch.bool)
+    valid[:300] = True
+    per_ms = cs.HBM_BYTES_PER_S / 1e3
+    lanes = (idx, u, idx, idx, idx, idx, idx, valid)
+    for cdf in (torch.zeros((2, 4, 64)), torch.zeros((64, 32, 64))):
+        want = (min(cdf.numel() * 4, 300 * cs.K2_ROW_BYTES)
+                + 300 * (6 * idx.element_size() + 4) + n * (1 + 16))
+        assert cs.k2_bound(cdf, *lanes)[0] * per_ms == pytest.approx(want)
