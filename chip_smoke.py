@@ -37,13 +37,41 @@ Phases, one printed line each; any failure raises (non-zero exit):
      phases 3-4) and timed, one line per bounce (lanes, live lanes, kernel
      ms and bound ms of each kernel; K2's lanes not bit-equal);
  11. the matpreview frame at 64x64, 4 spp, depth 4 with that schedule, on
-     the card and on the CPU (plain kernels): per-channel means within 2 %.
-Each phase's counts are set to 0 just before its render and read just
-after. It then prints a JSON line describing each kernel (launches per
-matpreview frame; `ms`, `plain_ms`, `bound_ms` and `share` (bound over
-time) of the phase 3, 4, 7 and 8 call; `frame_ms`, `frame_bound_ms` and
-`frame_share` summed over the recorded calls of phase 10) and, last, the
-device JSON line. A kernel's bound is
+     the card and on the CPU (plain kernels): per-channel means within 2 %;
+ 12. K1's backward (scatter-add of K1's cotangent into the table's
+     gradient) against K1 and its plain version at 4,194,304 lanes as two
+     halves, on the flagship table and the matpreview's 10-material stack,
+     lane masks and a seeded cotangent: the linearity identity
+     <K1-bwd(g), d> = <g, K1(d)> within K1_BWD_ID_RTOL, and the relative L2
+     error against the plain version within K1_BWD_L2_RTOL;
+ 13. one AD step (render/ad.grad_render, MSE against a zero image) of the
+     matpreview scene at 256x256, 4 spp, depth 6 with the probed schedule,
+     gradients of the 10-table stack and the floor's alpha: one warm-up,
+     one timed step (seconds, loss, nonzero share of table-gradient bins,
+     alpha gradients, peak memory, launches of K1-K4 and K1-bwd); finite,
+     table gradient nonzero, K1-bwd launched; one more step records every
+     K1-bwd call, each checked as in phase 12 and timed;
+ 14. the AD step at 64x64, 4 spp, depth 3 on the card and on the CPU
+     (plain kernels): losses within 2 %, table gradients at cosine >= 0.98,
+     alpha gradients within 5 %; then, on the card, the floor alpha's
+     gradient by AD against a central difference of the same render
+     (64 spp, loss linear in the image): the means over 10 seeds within
+     5 % or 4 standard errors;
+ 15. compaction under AD at 256x256, 16 spp, depth 6: table gradients with
+     the probed schedule against compaction off, their correlation and
+     per-material sums, which agree within 10 % (or, for a material, 3x
+     the spread of its sums over two seeds without compaction, if larger);
+ 16. five Adam steps of render/ad.optimize on the phase 13 scene (target
+     the scene at 16 spp, alpha starting at 0.4), on the table and floor
+     alpha, then on the alpha alone: each step's seconds, loss and alpha;
+     finite throughout, the table >= 0.
+Each phase's counts are set to 0 just before its render (or AD step) and
+read just after. It then prints a JSON line describing each kernel
+(launches per matpreview frame, for K1's backward per AD step; `ms`,
+`plain_ms`, `bound_ms` and `share` (bound over time) of the phase 3, 4, 7,
+8 and 12 call; `frame_ms`, `frame_bound_ms` and `frame_share` summed over
+the recorded calls of phase 10, for K1's backward of phase 13) and, last,
+the device JSON line. A kernel's bound is
 the larger of the bytes it must move (each input read once, each output
 written once) at 3.35 TB/s and the operations it must do at 67 TFLOP/s
 float32 (published H100 SXM peaks; the cluster kernels round every step
@@ -52,7 +80,9 @@ bytes count a call as the main path makes it: wi and the slot once for
 both halves, wo only for live lanes, the masks and output of every lane,
 and the table bins of the lanes that evaluate. K2's count the indices and
 u of live lanes, the mask and outputs of every lane, and a CDF row a live
-lane. For K3
+lane. K1's backward counts K1's inputs on the same lanes (it reads the
+bins for K1's clamp test), the cotangent of the live lanes, and the dense
+gradient written once. For K3
 and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
@@ -77,6 +107,32 @@ K3_T_RTOL = 1e-6
 K3_PRIM_AGREE = 0.999
 PLAIN_SLICE_S = 30.0
 FRAME_MEAN_RTOL = 0.02
+# K1's backward. Against K1 itself, by linearity: <K1-bwd(g), d> equals
+# <g, K1(d)> for any table d >= 0 (where K1's clamp passes g), since both
+# kernels take each lane's bins and fractions from merl_lane.cuh; the two
+# sides differ only by float32 rounding (atomic sums of up to ~1e5 terms a
+# bin, K1's own), held within K1_BWD_ID_RTOL of sum |g| K1(d) (measured at
+# most 4e-6, every lane in one cell). Against the plain version, in norm:
+# the kernels contract into FMAs where torch rounds each step, and a
+# fraction an ulp apart moves a sliver of a lane's share between bins
+# (near theta_h = 0, where acos and the sqrt warp magnify an ulp of cos,
+# much more), so the gradient is held within K1_BWD_L2_RTOL relative L2
+# error of the plain one (measured at most 7.0e-4, on an AD step's call)
+K1_BWD_ID_RTOL = 1e-4
+K1_BWD_L2_RTOL = 5e-3
+# the AD slice: what it differentiates, and its gates
+AD_KEYS = ("bsdf.tabulated.table", "bsdf.roughconductor.alpha_u",
+           "bsdf.roughconductor.alpha_v")
+AD_LOSS_RTOL, AD_TABLE_COS, AD_ALPHA_RTOL = 0.02, 0.98, 0.05
+AD_COMPACT_RTOL = 0.10
+# the floor alpha's gradient by AD against a central difference (step
+# AD_FD_STEP) of the same render, at phase 16's start, over AD_FD_SEEDS
+# seeds: the central difference moves with each sample that crosses an
+# edge (about 10 % a seed at 64x64, 64 spp), the AD estimate hardly, so
+# the means are compared, within AD_FD_RTOL or 4 standard errors of the
+# mean paired difference (|t| > 4 on 9 degrees of freedom: 0.3 %)
+AD_FD_RTOL, AD_FD_STEP, AD_FD_ALPHA, AD_FD_SEEDS = 0.05, 0.05, 0.4, 10
+OPT_LR = 0.01
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -88,6 +144,9 @@ F32_OPS_PER_S = 67e12
 K1_OPS = 170
 K2_OPS = 220
 K1_CELL_BYTES = 96   # 4 corner rows x 2 phi_d bins x 3 floats per lane
+# K1's backward: K1's operations plus 3 products for each of 24 corner
+# channels
+K1_BWD_OPS = K1_OPS + 72
 K2_ROW_BYTES = 256   # one 64-float CDF row per lane
 K1_OUT_BYTES, K2_OUT_BYTES = 12, 16
 # K3 / K4 bytes: a box row (8 floats); what a slot test reads of a slot
@@ -179,24 +238,41 @@ def _bound(nbytes, ops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def k1_bound(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
-    """K1's bound on one call, its arguments as eval_trilinear takes them:
-    wi and the slot once for the lanes where either half is live, wo of
-    the live lanes, the masks and the output of every lane, and the bins
-    of the lanes that evaluate (live, both cosines > 0; at most the
-    table), whose count also sets the operations."""
+def _k1_work(table, wi, wo, slot, mask, wo_b, mask_b):
+    """(bytes, live lanes, lanes that evaluate) of the inputs of one K1 or
+    K1-backward call, its arguments as eval_trilinear takes them: wi and
+    the slot once for the lanes where either half is live, wo of the live
+    lanes, the masks of every lane, and the bins of the lanes that
+    evaluate (live, both cosines > 0; at most the table)."""
     halves = [(wo, mask)] + ([] if wo_b is None else [(wo_b, mask_b)])
     every = torch.ones(wi.shape[0], dtype=torch.bool, device=wi.device)
     live = [every if m is None else m for _, m in halves]
     either = int(torch.stack(live).any(0).sum())
+    n_live = sum(int(m.sum()) for m in live)
     evaluated = sum(int((m & (wi[:, 2] > 0) & (o[:, 2] > 0)).sum())
                     for (o, _), m in zip(halves, live))
     nbytes = (min(_nbytes(table), evaluated * K1_CELL_BYTES)
               + either * (3 * wi.element_size() + (0 if slot is None else slot.element_size()))
-              + sum(int(m.sum()) * 3 * o.element_size() for (o, _), m in zip(halves, live))
-              + sum(_nbytes(m) for _, m in halves)
-              + len(halves) * wi.shape[0] * K1_OUT_BYTES)
-    return _bound(nbytes, evaluated * K1_OPS)
+              + n_live * 3 * wo.element_size()
+              + sum(_nbytes(m) for _, m in halves))
+    return nbytes, n_live, evaluated
+
+
+def k1_bound(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
+    """K1's bound on one call: _k1_work's inputs and the output of every
+    lane; the lanes that evaluate set the operations."""
+    nbytes, _, evaluated = _k1_work(table, wi, wo, slot, mask, wo_b, mask_b)
+    halves = 1 if wo_b is None else 2
+    return _bound(nbytes + halves * wi.shape[0] * K1_OUT_BYTES, evaluated * K1_OPS)
+
+
+def k1_bwd_bound(table, g, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
+    """K1-backward's bound on one call: _k1_work's inputs (the table bins
+    are read for K1's clamp test), the cotangent g of the live lanes, and
+    the dense gradient written once (the table's size)."""
+    nbytes, n_live, evaluated = _k1_work(table, wi, wo, slot, mask, wo_b, mask_b)
+    return _bound(nbytes + n_live * 3 * g.element_size() + _nbytes(table),
+                  evaluated * K1_BWD_OPS)
 
 
 def k2_bound(cdf, *lanes):
@@ -447,9 +523,43 @@ def phase_k4(scene, hits):
                 bound_by=bound_by)
 
 
+def record_calls(fn, targets):
+    """Run fn() once with a recording wrapper on each target and keep the
+    inputs of every call, in call order: {key: [kept inputs]}. targets:
+    {key: (obj, name, keep)}: obj.name is wrapped for the run (a module
+    function, or a method set on that one object) and keep(args) makes
+    what is kept of a call."""
+    rec = {key: [] for key in targets}
+    saved = []
+    for key, (obj, name, keep) in targets.items():
+        orig = getattr(obj, name)
+        saved.append((obj, name, orig, name in vars(obj)))
+
+        def wrapper(*args, _orig=orig, _kept=rec[key], _keep=keep):
+            _kept.append(_keep(args))
+            return _orig(*args)
+
+        setattr(obj, name, wrapper)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, orig, own in saved:
+            if own:
+                setattr(obj, name, orig)
+            else:
+                delattr(obj, name)
+    return rec
+
+
+def _keep_args(args):
+    """A call's arguments, the first (a table or CDF stack) not copied."""
+    return args[:1] + tuple(a.clone() if torch.is_tensor(a) else a for a in args[1:])
+
+
 def record_wavefronts(scene, spp, seed):
     """Render `scene` once and keep the inputs of every K1-K4 call, in call
-    order: {"K3": [Ray], "K4": [Ray], "K1": [args], "K2": [args]}. The K3
+    order: {"K1": [args], "K2": [args], "K3": [Ray], "K4": [Ray]}. The K3
     and K4 calls are recorded by wrappers set on this Scene object, the K1
     and K2 calls by wrapping their module functions for this render."""
     import mitsuba_customization_tpu_torch as mt
@@ -458,42 +568,15 @@ def record_wavefronts(scene, spp, seed):
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch.render.records import Ray
 
-    rec = {"K1": [], "K2": [], "K3": [], "K4": []}
-    ray_intersect, ray_test = scene.ray_intersect, scene.ray_test
-    k1_fn, k2_fn = k1.eval_trilinear, k2.cond_sample_pdf
+    def keep_ray(args):
+        return Ray(*(t.clone() for t in cl._rays(args[0])))
 
-    def keep_ray(ray):
-        return Ray(*(t.clone() for t in cl._rays(ray)))
-
-    def keep_args(args, shared):  # the tables (first `shared`) are not copied
-        return args[:shared] + tuple(a.clone() if torch.is_tensor(a) else a
-                                     for a in args[shared:])
-
-    def rec_intersect(ray):
-        rec["K3"].append(keep_ray(ray))
-        return ray_intersect(ray)
-
-    def rec_test(ray):
-        rec["K4"].append(keep_ray(ray))
-        return ray_test(ray)
-
-    def rec_k1(*args):
-        rec["K1"].append(keep_args(args, 1))  # the table
-        return k1_fn(*args)
-
-    def rec_k2(*args):
-        rec["K2"].append(keep_args(args, 1))  # the CDF stack
-        return k2_fn(*args)
-
-    scene.ray_intersect, scene.ray_test = rec_intersect, rec_test
-    k1.eval_trilinear, k2.cond_sample_pdf = rec_k1, rec_k2
-    try:
-        mt.render(scene, spp=spp, seed=seed)
-        torch.cuda.synchronize()
-    finally:
-        del scene.ray_intersect, scene.ray_test
-        k1.eval_trilinear, k2.cond_sample_pdf = k1_fn, k2_fn
-    return rec
+    return record_calls(lambda: mt.render(scene, spp=spp, seed=seed), {
+        "K1": (k1, "eval_trilinear", _keep_args),
+        "K2": (k2, "cond_sample_pdf", _keep_args),
+        "K3": (scene, "ray_intersect", keep_ray),
+        "K4": (scene, "ray_test", keep_ray),
+    })
 
 
 def phase_bounces(scene, rec):
@@ -558,6 +641,300 @@ def phase_bounces(scene, rec):
     return {k: tuple(v) for k, v in total.items()}
 
 
+def k1_bwd_identity_err(table, g, *lanes):
+    """K1-backward against K1 by linearity: the relative error of
+    <K1-bwd(g), d> = <g, K1(d)> on a seeded table d >= 0, over sum |g|
+    K1(d). K1's clamp passes g where the value is >= 0: on a table with
+    negative entries, a channel where K1 returns 0 is left out of both
+    sides."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+
+    if bool((table < 0).any()):
+        g = torch.where(k1.eval_trilinear(table, *lanes) == 0, 0.0, g)
+    got = k1.eval_trilinear_bwd(table, g, *lanes).double()
+    gen = torch.Generator(device=table.device).manual_seed(7)
+    d = torch.rand(table.shape, generator=gen, device=table.device)
+    kd = k1.eval_trilinear(d, *lanes).double()
+    lhs = float((got * d.double()).sum())
+    rhs = float((g.double() * kd).sum())
+    return abs(lhs - rhs) / float((g.double().abs() * kd).sum())
+
+
+def rel_l2(got, want):
+    return float((got - want).double().norm() / want.double().norm())
+
+
+def check_k1_bwd(table, g, *lanes):
+    """K1-backward's gate on one call (see K1_BWD_ID_RTOL): the linearity
+    identity against K1, and the relative L2 error against the plain
+    version on the joined lanes. Returns (identity error, relative L2
+    error)."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+
+    got = k1.eval_trilinear_bwd(table, g, *lanes)
+    want = k1.eval_trilinear_bwd_plain(table, g, *k1.concat_halves(*lanes))
+    l2 = rel_l2(got, want)
+    id_err = k1_bwd_identity_err(table, g, *lanes)
+    if not (id_err <= K1_BWD_ID_RTOL and l2 <= K1_BWD_L2_RTOL
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(
+            f"K1-bwd: identity error {id_err:.3e} (limit {K1_BWD_ID_RTOL}), relative "
+            f"L2 error against plain {l2:.3e} (limit {K1_BWD_L2_RTOL})")
+    return id_err, l2
+
+
+def phase_k1_bwd(table, stack, dev, n=1 << 21):
+    """Phase 12: K1's backward against K1 and its plain version
+    (check_k1_bwd) at 4,194,304 lanes as two halves, on the flagship table
+    and on the matpreview's 10-material stack, with lane masks and a
+    seeded cotangent; times the flagship-table call."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    wi, wo, wo_b = (_unit_hemi(gen, n, dev) for _ in range(3))
+    mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
+    g = torch.randn((2 * n, 3), generator=gen, device=dev)
+    slot = torch.randint(0, stack.shape[0], (n,), generator=gen, device=dev)
+    errs = [check_k1_bwd(tbl, g, wi, wo, sl, mask, wo_b, mask_b)
+            for tbl, sl in ((table, None), (stack, slot))]
+    id_err, l2 = (max(e) for e in zip(*errs))
+    lanes = (wi, wo, None, mask, wo_b, mask_b)
+    joined = k1.concat_halves(*lanes)
+    ms = _time_ms(lambda: k1.eval_trilinear_bwd(table, g, *lanes))
+    plain_ms = _time_ms(lambda: k1.eval_trilinear_bwd_plain(table, g, *joined))
+    bound_ms, bound_by = k1_bwd_bound(table, g, *lanes)
+    err = float((k1.eval_trilinear_bwd(table, g, *lanes)
+                 - k1.eval_trilinear_bwd_plain(table, g, *joined)).abs().max())
+    print(f"K1-bwd merl_eval_bwd: {2 * n} lanes (two halves), identity error "
+          f"{id_err:.3e} (limit {K1_BWD_ID_RTOL}), relative L2 error against plain "
+          f"{l2:.3e} (limit {K1_BWD_L2_RTOL}), max abs err {err:.3e}; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, identity_err=id_err, rel_l2_err=l2, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ad_setup(dev, res=256, spp=4, depth=6):
+    """The AD slice's scene: matpreview_dict(res, spp, depth) at n_sub 5
+    with its 10 MERL tables, the probed compaction schedule, and the
+    parameters it differentiates (the table stack and the floor's
+    alpha)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import (
+        matpreview_dict,
+        probe_compact_schedule,
+    )
+
+    scene = mt.load_dict(matpreview_dict(res, spp, depth), dev)
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    full = traverse(scene)
+    return scene, fracs, {k: full[k] for k in AD_KEYS}
+
+
+def phase_ad_step(setup):
+    """Phase 13: one loss-and-gradient step (grad_render, MSE against a
+    zero image) of the matpreview scene at 256x256, 4 spp, depth 6 with
+    the probed schedule, on the table stack and the floor's alpha: one
+    warm-up, one timed step with the counts set to 0 just before it, then
+    one recorded step whose K1-backward calls are checked against the
+    plain version and timed."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import ad
+
+    scene, fracs, params = setup
+    res = scene.config.width
+    dev = scene.device
+    target = torch.zeros((res, res, 3), device=dev)
+    ad.grad_render(scene, params, target, spp=4, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = ad.grad_render(scene, params, target, spp=4, seed=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gt = grads[AD_KEYS[0]]
+    nz = float((gt != 0).any(-1).float().mean())
+    alpha = [float(grads[k][0]) for k in AD_KEYS[1:]]
+    print(f"AD step matpreview {res}x{res} 4spp depth 6 (table {tuple(gt.shape)}, "
+          f"floor alpha): {secs:.3f} s, loss {float(loss):.6e}, nonzero table-gradient "
+          f"bins {nz:.6f}, d loss / d alpha_u, alpha_v {alpha}, peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}")
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v).all())
+                                                for v in grads.values())
+    if not finite or nz <= 0 or launches["K1-bwd"] <= 0:
+        raise AssertionError(f"AD step: finite {finite}, nonzero share {nz}, launches {launches}")
+    rec = record_calls(lambda: ad.grad_render(scene, params, target, spp=4, seed=2),
+                       {"K1-bwd": (k1, "eval_trilinear_bwd", _keep_args)})["K1-bwd"]
+    if len(rec) != launches["K1-bwd"]:
+        raise AssertionError(f"recorded {len(rec)} K1-bwd calls != launches {launches}")
+    total = [0.0, 0.0]
+    for i, args in enumerate(rec):
+        id_err, l2 = check_k1_bwd(*args)
+        ms = _time_ms(lambda: k1.eval_trilinear_bwd(*args))
+        bound = k1_bwd_bound(*args)[0]
+        live = sum(int(m.sum()) for m in (args[5], args[7]) if m is not None)
+        print(f"AD K1-bwd call {i}: {args[2].shape[0]} lanes x 2 halves, {live} live, "
+              f"{ms:.4f} ms (bound {bound:.4f}); identity error {id_err:.2e}, relative "
+              f"L2 error against plain {l2:.2e}")
+        total[0] += ms
+        total[1] += bound
+    print(f"AD step K1-bwd sums over the recorded calls: {total[0]:.4f} ms "
+          f"(bound {total[1]:.4f})")
+    return launches, tuple(total)
+
+
+def phase_ad_cpu(dev, fracs, res=64):
+    """Phase 14: the gradient of the matpreview scene at 64x64, 4 spp,
+    depth 3 with the probed schedule, on the card and on the CPU (plain
+    kernels): losses within AD_LOSS_RTOL, table gradients at cosine
+    similarity >= AD_TABLE_COS, alpha gradients within AD_ALPHA_RTOL."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(res, 4, 3, compact=fracs)
+    out = {}
+    for where in (dev, "cpu"):
+        scene = mt.load_dict(d, where)
+        full = traverse(scene)
+        target = torch.zeros((res, res, 3), device=where)
+        loss, grads = ad.grad_render(scene, {k: full[k] for k in AD_KEYS}, target, spp=4)
+        out[str(where)] = (float(loss), {k: v.cpu() for k, v in grads.items()})
+    (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
+    a, b = gg[AD_KEYS[0]].flatten().double(), gc[AD_KEYS[0]].flatten().double()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    loss_rel = abs(lg - lc) / abs(lc)
+    alpha_rel = max(abs(float(gg[k][0]) - float(gc[k][0])) / abs(float(gc[k][0]))
+                    for k in AD_KEYS[1:])
+    print(f"AD matpreview {res}x{res} 4spp depth 3: loss gpu {lg:.6e} cpu {lc:.6e} (rel {loss_rel:.2e}, "
+          f"limit {AD_LOSS_RTOL}); table-gradient cosine {cos:.6f} (limit {AD_TABLE_COS}); "
+          f"alpha gradients gpu {[float(gg[k][0]) for k in AD_KEYS[1:]]} cpu "
+          f"{[float(gc[k][0]) for k in AD_KEYS[1:]]} (max rel {alpha_rel:.2e}, limit {AD_ALPHA_RTOL})")
+    if not (loss_rel <= AD_LOSS_RTOL and cos >= AD_TABLE_COS and alpha_rel <= AD_ALPHA_RTOL):
+        raise AssertionError("GPU and CPU gradients disagree")
+
+
+def phase_alpha_fd(dev, fracs, res=64, spp=64, depth=3, n_seeds=AD_FD_SEEDS, **scene_kw):
+    """Phase 14, second part: the floor alpha's gradient by AD against a
+    central difference (step AD_FD_STEP) of the same render, on the
+    matpreview scene at res x res, spp, depth with the schedule `fracs`,
+    at alpha AD_FD_ALPHA (alpha_u and alpha_v moved together), on n_seeds
+    seeds. The loss is mean(img * W), W the scene's own image (alpha 0.25,
+    64 spp): linear in the image, so a same-sample estimate of its
+    gradient carries no variance term, and W weighs the highlight. The
+    means within AD_FD_RTOL, or 4 standard errors of the mean paired
+    difference. Returns (mean AD, mean central difference, standard
+    error)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    scene = mt.load_dict(matpreview_dict(res, spp, depth, compact=fracs, **scene_kw), dev)
+    w = mt.render(scene, spp=64, seed=0)
+    x0 = torch.full_like(traverse(scene)[AD_KEYS[1]], AD_FD_ALPHA)
+
+    def loss(x, seed):
+        img = ad.render_ad(scene, {k: x for k in AD_KEYS[1:]}, spp=spp, seed=seed)
+        return (img * w).mean()
+
+    g_ad, g_fd = [], []
+    for seed in range(1, n_seeds + 1):
+        x = x0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss(x, seed), x)
+        with torch.no_grad():
+            fd = (loss(x0 + AD_FD_STEP, seed) - loss(x0 - AD_FD_STEP, seed)) / (2 * AD_FD_STEP)
+        g_ad.append(float(g.sum()))
+        g_fd.append(float(fd))
+    m_ad, m_fd = statistics.mean(g_ad), statistics.mean(g_fd)
+    se = statistics.stdev(a - f for a, f in zip(g_ad, g_fd)) / n_seeds ** 0.5
+    print(f"AD floor alpha {res}x{res} {spp}spp depth {depth} at alpha {AD_FD_ALPHA}, loss "
+          f"mean(img * W), {n_seeds} seeds: AD {[f'{x:.6e}' for x in g_ad]}, central "
+          f"difference (step {AD_FD_STEP}) {[f'{x:.6e}' for x in g_fd]}; means {m_ad:.6e} "
+          f"and {m_fd:.6e} (rel diff {abs(m_ad - m_fd) / abs(m_fd):.3e}, limit {AD_FD_RTOL} "
+          f"or 4 x the standard error {se:.3e})")
+    if not abs(m_ad - m_fd) <= max(AD_FD_RTOL * abs(m_fd), 4 * se):
+        raise AssertionError("the floor alpha's AD gradient disagrees with the central difference")
+    return m_ad, m_fd, se
+
+
+def _material_sums(g):
+    return g.sum(dim=tuple(range(1, g.dim()))).double()
+
+
+def phase_ad_compaction(setup):
+    """Phase 15: table gradients at 256x256, 16 spp, depth 6 with the
+    probed schedule against compaction off (seed 1), and a second seed
+    without compaction for the spread: their correlation, each material's
+    summed gradient, and the gate: each material's sums within
+    max(AD_COMPACT_RTOL, 3 x that material's two-seed spread)."""
+    import dataclasses
+
+    from mitsuba_customization_tpu_torch.render import ad
+
+    scene, _, params = setup
+    res = scene.config.width
+    off = dataclasses.replace(scene, config=dataclasses.replace(scene.config, compact=None))
+    target = torch.zeros((res, res, 3), device=scene.device)
+    table = {AD_KEYS[0]: params[AD_KEYS[0]]}
+    g_on = ad.grad_render(scene, table, target, spp=16, seed=1)[1][AD_KEYS[0]]
+    g_off = ad.grad_render(off, table, target, spp=16, seed=1)[1][AD_KEYS[0]]
+    g_off2 = ad.grad_render(off, table, target, spp=16, seed=2)[1][AD_KEYS[0]]
+    nz = (g_on != 0) | (g_off != 0)
+    corr = float(torch.corrcoef(torch.stack([g_on[nz], g_off[nz]]).double())[0, 1])
+    s_on, s_off, s_off2 = (_material_sums(x) for x in (g_on, g_off, g_off2))
+    rel = (s_on - s_off).abs() / s_off.abs()
+    spread = (s_off2 - s_off).abs() / s_off.abs()
+    limit = torch.clamp(3 * spread, min=AD_COMPACT_RTOL)
+    print(f"AD compaction {res}x{res} 16spp depth 6: table-gradient correlation on vs off "
+          f"{corr:.6f}; per-material sums on {s_on.tolist()} off {s_off.tolist()}; rel "
+          f"diff {rel.tolist()}; two-seed spread off {spread.tolist()}; limits "
+          f"{limit.tolist()}")
+    if not (bool((rel <= limit).all())
+            and all(bool(torch.isfinite(x).all()) for x in (g_on, g_off))):
+        raise AssertionError("compacted and uncompacted table gradients disagree")
+
+
+def phase_optimize(setup, steps=5):
+    """Phase 16: `optimize` for five Adam steps on the AD slice's scene
+    (256x256, 4 spp, depth 6, the probed schedule), on the table stack and
+    the floor's alpha, then on the alpha alone: the target is the scene
+    itself (floor alpha 0.25) at 16 spp; the optimiser starts from the
+    table as loaded and alpha 0.4. Each step's seconds, loss and alpha;
+    finite throughout, the table >= 0."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import update
+
+    scene, _, params = setup
+    target = mt.render(scene, spp=16, seed=0)
+    start = update(scene, {k: torch.full_like(params[k], 0.4) for k in AD_KEYS[1:]})
+    for keys, what in ((AD_KEYS, "table and alpha"), (AD_KEYS[1:], "alpha alone")):
+        times = [time.perf_counter()]
+        rows = []
+
+        def step_done(it, loss, p):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+            rows.append((it, times[-1] - times[-2], loss, float(p[AD_KEYS[1]][0].detach())))
+
+        p, losses = ad.optimize(start, target, list(keys), n_steps=steps, lr=OPT_LR,
+                                spp=4, callback=step_done)
+        for it, secs, loss, alpha in rows:
+            print(f"optimize ({what}) step {it}: {secs:.3f} s, loss {loss:.6e}, "
+                  f"floor alpha_u {alpha:.5f}")
+        ok = (all(torch.isfinite(torch.tensor(losses)))
+              and all(bool(torch.isfinite(v).all()) for v in p.values())
+              and bool((p.get(AD_KEYS[0], torch.zeros(1)) >= 0).all()))
+        if not ok:
+            raise AssertionError(f"optimize ({what}): a loss or parameter is not finite, "
+                                 "or the table < 0")
+
+
 def _launch_counts():
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
@@ -573,6 +950,7 @@ def _reset_counts():
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
     k1.LAUNCHES = 0
+    k1.LAUNCHES_BWD = 0
     k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = 0
     cl.LAUNCHES["shadow"] = 0
@@ -690,6 +1068,16 @@ def main():
     del rec
     phase_matpreview_cpu(dev, fracs)
 
+    bwd_stats = phase_k1_bwd(tab.table[0].contiguous(),
+                             mp_scene.bsdfs.stacks[bsdf_mod.TABULATED].table, dev)
+    del mp_scene
+    setup = ad_setup(dev)
+    ad_launches, ad_frame = phase_ad_step(setup)
+    phase_ad_cpu(dev, setup[1])
+    phase_alpha_fd(dev, setup[1])
+    phase_ad_compaction(setup)
+    phase_optimize(setup)
+
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
              replaces="mitsuba_customization_tpu/ops/merl_sorted.py:182",
@@ -708,6 +1096,15 @@ def main():
         k.update(share=k["bound_ms"] / k["ms"], frame_ms=frame[key][0],
                  frame_bound_ms=frame[key][1],
                  frame_share=frame[key][1] / frame[key][0], library_ms=None)
+    # K1's backward: launches and in-frame times per AD step (phase 13)
+    kernels.append(dict(
+        name="merl_eval_bwd", route="cuda", source=k1.SOURCE_BWD,
+        replaces="mitsuba_customization_tpu/ops/merl_sorted.py:439 "
+                 "(_eval_bwd, XLA VJP, no Pallas kernel)",
+        launches=ad_launches["K1-bwd"], **bwd_stats,
+        share=bwd_stats["bound_ms"] / bwd_stats["ms"], frame_ms=ad_frame[0],
+        frame_bound_ms=ad_frame[1], frame_share=ad_frame[1] / ad_frame[0],
+        library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

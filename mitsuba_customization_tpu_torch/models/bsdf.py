@@ -13,6 +13,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.models import diffuse, roughconductor, tabulated
 
 DIFFUSE = 0
@@ -46,8 +47,11 @@ class BSDFTable(NamedTuple):
 
 
 def _gather_params(stack, slot):
-    """Per-lane parameters from a stacked NamedTuple (plain indexing)."""
-    return type(stack)(*(f[slot] for f in stack))
+    """Per-lane parameters from a stacked NamedTuple. index_select, not
+    f[slot]: its backward is an index_add_, where the backward of advanced
+    indexing sorts the indices first, which took 9 ms a call on the card
+    when every lane reads one material's alpha (PERF.md §5, AD step)."""
+    return type(stack)(*(f.index_select(0, slot) for f in stack))
 
 
 def _where(mask, new, old):
@@ -94,13 +98,16 @@ def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None):
 
 
 def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
-                 has_nee=True, active=None, nee_mask=None):
+                 need_attached=False, has_nee=True, active=None, nee_mask=None):
     """All BSDF work of one path-tracer bounce in one dispatch pass.
 
     Fuses {eval and pdf toward wo_nee, sample at (sample2, sample1)}; the
     tabulated kernel runs its fused bounce_shade (one K2 pass + one K1
     pass over both directions). Returns (f_nee, pdf_nee, wo, pdf_s,
-    weight, is_delta). nee_mask: lanes whose NEE sample is live and
+    weight, is_delta). need_attached (ad_mode): the weight of a non-delta
+    lobe is the detached estimator's, eval at the sampled wo held fixed
+    over the detached pdf (the same value; its gradient in the parameters
+    is the right one). nee_mask: lanes whose NEE sample is live and
     unoccluded; the tabulated NEE eval skips the others (their f_nee /
     pdf_nee come back 0).
     """
@@ -122,6 +129,8 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
                 table.stacks[kid], wi, wo_nee, sample2, sample1,
                 slot=slot_safe, mask=mask, mask_nee=m_nee,
             )
+            # the tabulated weight is the detached estimator's already:
+            # K1's eval at wo over a pdf from the detached CDFs
         else:
             params = _gather_params(table.stacks[kid], slot_safe)
             wo, p_s, weight, is_delta = mod.sample(params, wi, sample2, sample1)
@@ -131,6 +140,12 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
             else:
                 f_nee = torch.zeros(shape + (3,), device=wi.device)
                 p_nee = torch.zeros(shape, device=wi.device)
+            if need_attached:
+                # the sampled wo depends on the parameters (GGX alpha): the
+                # detached estimator evaluates at wo held fixed
+                w_att = m.safe_div(mod.eval(params, wi, wo.detach()),
+                                   p_s.detach()[..., None])
+                weight = torch.where(is_delta[..., None], weight, w_att)
             res = (f_nee, p_nee, wo, p_s, weight, is_delta)
         if out is None:
             out = tuple(torch.zeros_like(r) for r in res)

@@ -160,7 +160,10 @@ def _square_from_halfvec(h):
 
 
 def _build_sampling(table):
-    """Per-incident-angle-bin Marginal2D stack from one 4-D table."""
+    """Per-incident-angle-bin Marginal2D stack from one 4-D table. The
+    sampling quantities are detached (the JAX package's stop_gradient on
+    the table), so the CDFs carry no autograd graph."""
+    table = table.detach()
     dev = table.device
     ti = (torch.arange(N_THETA_I, dtype=torch.float32, device=dev) + 0.5) \
         / N_THETA_I * HALF_PI
@@ -221,7 +224,9 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
     work as plain indexing, and ONE K1 pass over the halves wo_nee and
     wo_sampled.
     Returns (f_nee, pdf_nee, wo, pdf_s, weight, is_delta); f_nee and
-    weight include the cosine term.
+    weight include the cosine term. Only f_nee and weight carry the
+    table's gradient (through K1); the sampled direction and the pdfs come
+    from detached CDFs.
     """
     slot = _normalize_slot(params, slot)
     n = wi.shape[0]

@@ -23,9 +23,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("merl_eval.cu", "cond_sample.cu", "cluster_closest.cu",
-           "cluster_shadow.cu")
-HEADERS = ("cluster_common.cuh",)
+SOURCES = ("merl_eval.cu", "merl_eval_bwd.cu", "cond_sample.cu",
+           "cluster_closest.cu", "cluster_shadow.cu")
+HEADERS = ("merl_lane.cuh", "cluster_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libmct_torch_kernels.so"
 NVCC_FLAGS = (
@@ -41,6 +41,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "mct_merl_eval": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
                       _I, _P],
+    "mct_merl_eval_bwd": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I64, _I, _P],
     "mct_cond_sample": [_P, _I, _I, _I, _P, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _P, _I64, _P],
     "mct_cluster_closest": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,

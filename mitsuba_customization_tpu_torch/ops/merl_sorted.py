@@ -18,6 +18,14 @@ two pointers. Full float32 fractions, no sort.
 
 `eval_trilinear` picks by device: a CPU tensor goes to the plain PyTorch
 version `eval_trilinear_plain`, a CUDA tensor to the kernel (or it raises).
+
+The table's gradient (the JAX package's `_eval_bwd`, XLA's VJP of
+`eval_raw`) is K1's backward, `eval_trilinear_bwd`: a scatter-add of the
+cotangent into the 8 corners of every lane that evaluates, the CUDA kernel
+csrc/merl_eval_bwd.cu on the GPU, `eval_trilinear_bwd_plain` (index_add_)
+on the CPU. `eval_trilinear` reaches it through an autograd Function only
+where grad mode is on and the table requires grad; the primal render calls
+the forward directly.
 """
 
 from __future__ import annotations
@@ -30,9 +38,12 @@ from mitsuba_customization_tpu_torch.core.rusinkiewicz import (
 from mitsuba_customization_tpu_torch.ops import build
 
 SOURCE = "mitsuba_customization_tpu_torch/csrc/merl_eval.cu"
+SOURCE_BWD = "mitsuba_customization_tpu_torch/csrc/merl_eval_bwd.cu"
 
-# Kernel launches in this process (the wrapper adds one per launch).
+# Kernel launches in this process (each wrapper adds one per launch): K1
+# and its backward.
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
 HALF_PI = torch.pi / 2.0
 
@@ -64,14 +75,11 @@ def concat_halves(wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
             None if slot is None else torch.cat([slot, slot]), mask)
 
 
-def eval_trilinear_plain(table, wi, wo, slot=None, mask=None):
-    """Plain PyTorch K1: f(wi, wo) (no cosine) per lane, (N, 3).
-
-    table: (n_th, n_td, n_pd, 3) or stacked (n_mat, ...); slot: (N,)
-    material index (None = 0); mask: (N,) bool (None = all lanes).
-    The eval_raw trilinear formula, with `_fast` angles and eval_packed's
-    border clamping.
-    """
+def _corners(table, wi, wo, slot=None, mask=None):
+    """What K1 computes per lane before it reads the table: (valid, flat
+    bin index of the (theta_h, theta_d) corner (0, 0) at phi_d bins k0
+    and k1, the bin strides to corners (0, 1) and (1, 0), and the
+    fractions (fth, ftd, fpd))."""
     tbl = _stacked(table)
     n_mat, n_th, n_td, n_pd = tbl.shape[:4]
     valid = (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
@@ -94,23 +102,83 @@ def eval_trilinear_plain(table, wi, wo, slot=None, mask=None):
     k1 = (k0 + 1) % n_pd
     s = (torch.zeros_like(i0) if slot is None
          else torch.where(valid, slot.long().clamp(0, n_mat - 1), 0))
+    row = ((s * n_th + i0) * n_td + j0) * n_pd
+    return valid, (row + k0, row + k1), (n_pd, n_td * n_pd), (fth, ftd, fpd)
 
-    flat = tbl.reshape(-1, 3)
+
+def _trilinear(flat, bins, strides, fracs):
+    """The interpolated value of each lane (N, 3), before the clamp."""
+    (b0, b1), (sj, si), (fth, ftd, fpd) = bins, strides, fracs
 
     def corner(a, b, k):
-        return flat[((s * n_th + i0 + a) * n_td + j0 + b) * n_pd + k]
+        return flat[k + a * si + b * sj]
 
     wpd1, wpd0 = fpd[..., None], (1.0 - fpd)[..., None]
     wtd1, wtd0 = ftd[..., None], (1.0 - ftd)[..., None]
     wth1, wth0 = fth[..., None], (1.0 - fth)[..., None]
-    c00 = corner(0, 0, k0) * wpd0 + corner(0, 0, k1) * wpd1
-    c01 = corner(0, 1, k0) * wpd0 + corner(0, 1, k1) * wpd1
-    c10 = corner(1, 0, k0) * wpd0 + corner(1, 0, k1) * wpd1
-    c11 = corner(1, 1, k0) * wpd0 + corner(1, 1, k1) * wpd1
+    c00 = corner(0, 0, b0) * wpd0 + corner(0, 0, b1) * wpd1
+    c01 = corner(0, 1, b0) * wpd0 + corner(0, 1, b1) * wpd1
+    c10 = corner(1, 0, b0) * wpd0 + corner(1, 0, b1) * wpd1
+    c11 = corner(1, 1, b0) * wpd0 + corner(1, 1, b1) * wpd1
     c0 = c00 * wtd0 + c01 * wtd1
     c1 = c10 * wtd0 + c11 * wtd1
-    val = c0 * wth0 + c1 * wth1
+    return c0 * wth0 + c1 * wth1
+
+
+def eval_trilinear_plain(table, wi, wo, slot=None, mask=None):
+    """Plain PyTorch K1: f(wi, wo) (no cosine) per lane, (N, 3).
+
+    table: (n_th, n_td, n_pd, 3) or stacked (n_mat, ...); slot: (N,)
+    material index (None = 0); mask: (N,) bool (None = all lanes).
+    The eval_raw trilinear formula, with `_fast` angles and eval_packed's
+    border clamping.
+    """
+    valid, *cell = _corners(table, wi, wo, slot, mask)
+    val = _trilinear(_stacked(table).reshape(-1, 3), *cell)
     return torch.where(valid[..., None], torch.clamp(val, min=0.0), 0.0)
+
+
+def eval_trilinear_bwd_plain(table, g, wi, wo, slot=None, mask=None):
+    """Plain PyTorch K1 backward: the table's gradient (its shape) from the
+    cotangent g (N, 3) of eval_trilinear_plain(table, wi, wo, slot, mask).
+
+    The same corners and fractions as the forward; each lane that
+    evaluates adds g * w_th * w_td * w_pd at its 8 corners (index_add_),
+    in the order torch's autograd multiplies them. A channel whose value
+    before the clamp is below 0 adds nothing (torch.clamp's rule). wi and
+    wo get no gradient.
+    """
+    valid, bins, strides, fracs = _corners(table, wi, wo, slot, mask)
+    flat = _stacked(table).reshape(-1, 3)
+    keep = valid[..., None] & (_trilinear(flat, bins, strides, fracs) >= 0.0)
+    g = torch.where(keep, g, 0.0)
+    # the fractions of lanes that do not evaluate may be NaN: 0 * NaN
+    (fth, ftd, fpd) = (torch.where(valid, f, 0.0) for f in fracs)
+    (b0, b1), (sj, si) = bins, strides
+    grad = torch.zeros_like(flat)
+    for a, wth in ((0, 1.0 - fth), (1, fth)):
+        ga = g * wth[..., None]
+        for b, wtd in ((0, 1.0 - ftd), (1, ftd)):
+            gb = ga * wtd[..., None]
+            for k, wpd in ((b0, 1.0 - fpd), (b1, fpd)):
+                grad.index_add_(0, k + a * si + b * sj, gb * wpd[..., None])
+    return grad.reshape(table.shape)
+
+
+class _EvalTrilinear(torch.autograd.Function):
+    """K1 with the table's gradient: the backward is K1's backward kernel
+    (eval_trilinear_bwd). wi, wo, the slot and the masks get none, as in
+    the JAX package's `_eval_bwd`."""
+
+    @staticmethod
+    def forward(ctx, table, wi, wo, slot, mask, wo_b, mask_b):
+        ctx.save_for_backward(table, wi, wo, slot, mask, wo_b, mask_b)
+        return _eval(table, wi, wo, slot, mask, wo_b, mask_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, *lanes = ctx.saved_tensors
+        return (eval_trilinear_bwd(table, g, *lanes),) + (None,) * 6
 
 
 def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
@@ -121,14 +189,22 @@ def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
     table: (n_th, n_td, n_pd, 3) or stacked (n_mat, ...) float32; slot:
     (N,) material index (None = 0; int64 is read in place); mask, mask_b:
     (N,) bool (None = all lanes). CPU tensors run eval_trilinear_plain;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel. Where grad mode is on and the table
+    requires grad, the call goes through _EvalTrilinear, whose backward
+    gives the table's gradient.
     """
-    global LAUNCHES
-    if not wi.is_cuda:
-        return eval_trilinear_plain(table, *concat_halves(wi, wo, slot, mask,
-                                                          wo_b, mask_b))
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EvalTrilinear.apply(table, wi, wo, slot, mask, wo_b, mask_b)
+    return _eval(table, wi, wo, slot, mask, wo_b, mask_b)
+
+
+def _kernel_args(what, table, wi, wo, slot, mask, wo_b, mask_b):
+    """The checks of a K1 or K1-backward call on the GPU. Returns the
+    table as the kernels read it (stacked, contiguous, 8-byte aligned: a
+    view at an odd float is copied, as the kernels read float2 pairs), the
+    lanes [wi, wo, wo_b or None] contiguous, the slot int64 and the masks."""
     tbl = _stacked(table).contiguous()
-    if tbl.data_ptr() % 8:  # a view at an odd float; the kernel reads float2 pairs
+    if tbl.data_ptr() % 8:
         tbl = tbl.clone()
     n_mat, n_th, n_td, n_pd, c = tbl.shape
     n = wi.shape[0]
@@ -136,32 +212,74 @@ def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
     if (tbl.dtype != torch.float32 or c != 3 or n_th < 2 or n_td < 2
             or any(v.shape != (n, 3) or v.dtype != torch.float32
                    for v in [wi] + halves)):
-        raise ValueError("eval_trilinear: unsupported table or direction shape")
+        raise ValueError(f"{what}: unsupported table or direction shape")
     if wo_b is None and mask_b is not None:
-        raise ValueError("eval_trilinear: mask_b without wo_b")
+        raise ValueError(f"{what}: mask_b without wo_b")
     if slot is not None:
         slot = slot.long().contiguous()
     masks = [None if m is None else m.contiguous() for m in (mask, mask_b)]
     lanes = [v.contiguous() for v in [wi] + halves]
     for t in lanes + [slot] + masks:
         if t is not None and t.device != tbl.device:
-            raise ValueError("eval_trilinear: all tensors must be on the GPU")
+            raise ValueError(f"{what}: all tensors must be on the GPU")
     for t in [slot] + masks:
         if t is not None and t.shape != (n,):
-            raise ValueError("eval_trilinear: slot/mask must be (N,)")
+            raise ValueError(f"{what}: slot/mask must be (N,)")
     if any(m is not None and m.dtype != torch.bool for m in masks):
-        raise ValueError("eval_trilinear: masks must be bool")
+        raise ValueError(f"{what}: masks must be bool")
+    return tbl, lanes + [None] * (3 - len(lanes)), slot, masks
 
-    def opt(t):
-        return None if t is None else build.ptr(t)
 
-    out = torch.empty((len(halves) * n, 3), dtype=torch.float32, device=wi.device)
+def _opt(t):
+    return None if t is None else build.ptr(t)
+
+
+def _eval(table, wi, wo, slot, mask, wo_b, mask_b):
+    global LAUNCHES
+    if not wi.is_cuda:
+        return eval_trilinear_plain(table, *concat_halves(wi, wo, slot, mask,
+                                                          wo_b, mask_b))
+    tbl, lanes, slot, masks = _kernel_args("eval_trilinear", table, wi, wo, slot,
+                                           mask, wo_b, mask_b)
+    n_mat, n_th, n_td, n_pd, _ = tbl.shape
+    n, halves = wi.shape[0], 1 if wo_b is None else 2
+    out = torch.empty((halves * n, 3), dtype=torch.float32, device=wi.device)
     err = build.library().mct_merl_eval(
         build.ptr(tbl), n_mat, n_th, n_td, n_pd, build.ptr(lanes[0]),
-        build.ptr(lanes[1]), opt(lanes[2] if wo_b is not None else None),
-        opt(slot), opt(masks[0]), opt(masks[1]), build.ptr(out), n,
-        len(halves), build.stream_of(wi),
+        build.ptr(lanes[1]), _opt(lanes[2]), _opt(slot), _opt(masks[0]),
+        _opt(masks[1]), build.ptr(out), n, halves, build.stream_of(wi),
     )
     build.check(err, "merl_eval")
     LAUNCHES += 1
     return out
+
+
+def eval_trilinear_bwd(table, g, wi, wo, slot=None, mask=None, wo_b=None,
+                       mask_b=None):
+    """K1-backward wrapper: the gradient of the table (its shape, float32)
+    from the cotangent g of eval_trilinear(table, wi, wo, slot, mask,
+    wo_b, mask_b), (N, 3), or (2N, 3) with wo_b. CPU tensors run
+    eval_trilinear_bwd_plain on the joined lanes; CUDA tensors launch the
+    kernel (float atomics into a zeroed tensor, so the sums' order and
+    last bits vary from run to run)."""
+    global LAUNCHES_BWD
+    if not wi.is_cuda:
+        return eval_trilinear_bwd_plain(table, g, *concat_halves(
+            wi, wo, slot, mask, wo_b, mask_b))
+    tbl, lanes, slot, masks = _kernel_args("eval_trilinear_bwd", table, wi, wo,
+                                           slot, mask, wo_b, mask_b)
+    n_mat, n_th, n_td, n_pd, _ = tbl.shape
+    n, halves = wi.shape[0], 1 if wo_b is None else 2
+    g = g.contiguous()
+    if g.shape != (halves * n, 3) or g.dtype != torch.float32 or g.device != tbl.device:
+        raise ValueError("eval_trilinear_bwd: g must be float32 (halves * N, 3) on the GPU")
+    grad = torch.zeros(tbl.shape, dtype=torch.float32, device=tbl.device)
+    err = build.library().mct_merl_eval_bwd(
+        build.ptr(tbl), n_mat, n_th, n_td, n_pd, build.ptr(g),
+        build.ptr(lanes[0]), build.ptr(lanes[1]), _opt(lanes[2]), _opt(slot),
+        _opt(masks[0]), _opt(masks[1]), build.ptr(grad), n, halves,
+        build.stream_of(wi),
+    )
+    build.check(err, "merl_eval_bwd")
+    LAUNCHES_BWD += 1
+    return grad.reshape(table.shape)

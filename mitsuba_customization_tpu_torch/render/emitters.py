@@ -94,7 +94,10 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
     d = torch.where(is_const[..., None], square_to_uniform_sphere(u2), 0.0)
     dist = torch.full(p_ref.shape[:-1], float("inf"), device=p_ref.device)
     pdf = torch.where(is_const, INV_FOUR_PI, 0.0)
-    radiance = torch.where(is_const[..., None], table.radiance[k], 0.0)
+    # index_select: a cheap backward for emitter.radiance (see
+    # models/bsdf._gather_params)
+    rad_k = table.radiance.index_select(0, k)
+    radiance = torch.where(is_const[..., None], rad_k, 0.0)
 
     # ---- area ----
     if table.has_area:
@@ -113,7 +116,7 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
         d = torch.where(is_area[..., None], d_a, d)
         dist = torch.where(is_area, dist_a, dist)
         pdf = torch.where(is_area, pdf_a, pdf)
-        radiance = torch.where((is_area & front)[..., None], table.radiance[k],
+        radiance = torch.where((is_area & front)[..., None], rad_k,
                                torch.where(is_area[..., None], 0.0, radiance))
     return DirectionSample(
         d=d, dist=dist, pdf=pdf * sel_pmf, radiance=radiance,
@@ -165,5 +168,5 @@ def eval_hit(table: EmitterTable, si):
     front = (si.n * si.to_world(si.wi)).sum(-1) > 0.0
     is_area = table.em_type[em] == AREA
     return torch.where(
-        (valid & front & is_area)[..., None], table.radiance[em], 0.0
+        (valid & front & is_area)[..., None], table.radiance.index_select(0, em), 0.0
     )

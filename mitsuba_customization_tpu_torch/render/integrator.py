@@ -12,12 +12,18 @@ is skipped statically, as in the JAX package's unrolled loop.
 Sampler dimension layout (identical to the JAX package, so at a fixed seed
 both draw the same uniforms): dim = CAMERA_DIMS + bounce * BOUNCE_DIMS +
 offset.
+
+Gradients (`ad_mode=True`) follow the JAX package: the detached estimator
+of path-replay backpropagation, each bounce run under
+torch.utils.checkpoint so that the backward replays it forward with the
+stateless sampler (see `trace_paths`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.core.qmc import as_u32, hash_combine
@@ -54,9 +60,13 @@ def mis_weight(pdf_a, pdf_b):
     return torch.where(pdf_a > 0.0, w, 0.0)
 
 
-def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters):
+def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
+            ad_mode=False):
     """Bounce b of the path tracer over the lanes of `state` = (ray, thr,
-    L, active, prev_pdf, prev_delta). Returns (state, rays traced)."""
+    L, active, prev_pdf, prev_delta). Returns (state, rays traced).
+    Sampled directions, pdfs, MIS weights and the roulette probability are
+    detached, as the JAX package stop-grads them; in ad_mode the non-delta
+    throughput weight is the detached estimator's (bsdf.bounce_shade)."""
     ray, thr, L, active, prev_pdf, prev_delta = state
     has_emitters = scene.emitters.n_emitters > 0
     do_nee = has_emitters and scene.config.nee
@@ -77,7 +87,7 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters):
         bg_pdf = em_mod.pdf_miss_direction(scene.emitters, ray.d)
         rad = torch.where(si.valid[..., None], hit_rad, bg_rad)
         em_pdf = torch.where(si.valid, hit_pdf, bg_pdf)
-        w_mis = torch.where(prev_delta, 1.0, mis_weight(prev_pdf, em_pdf))
+        w_mis = torch.where(prev_delta, 1.0, mis_weight(prev_pdf, em_pdf)).detach()
         if show:
             L = L + torch.where(active[..., None], thr * rad * w_mis[..., None], 0.0)
 
@@ -118,15 +128,18 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters):
 
     f_nee, bsdf_pdf_nee, wo, bsdf_pdf, weight, is_delta = bsdf_mod.bounce_shade(
         scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe,
-        has_nee=do_nee, active=active, nee_mask=nee_vis,
+        need_attached=ad_mode, has_nee=do_nee, active=active, nee_mask=nee_vis,
     )
 
     if do_nee:
         w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_nee))
-        contrib = thr * f_nee * ds.radiance * m.safe_div(w_nee, ds.pdf)[..., None]
+        contrib = (thr * f_nee * ds.radiance
+                   * m.safe_div(w_nee, ds.pdf).detach()[..., None])
         L = L + torch.where(nee_vis[..., None], contrib, 0.0)
 
     # ---- BSDF-sampled continuation ----
+    wo = wo.detach()
+    bsdf_pdf = bsdf_pdf.detach()
     thr = thr * torch.where(active[..., None], weight, 1.0)
     new_ray = geo.spawn_ray(si, si.to_world(wo))
     ray = Ray(
@@ -140,21 +153,47 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters):
     # ---- Russian roulette after rr_depth bounces (offset 3) ----
     if b + 1 >= rr_depth:
         u_rr = smp.next_1d()
-        q = torch.clamp(thr.amax(-1), 0.05, 0.95)
+        q = torch.clamp(thr.amax(-1), 0.05, 0.95).detach()
         survive = u_rr < q
         thr = torch.where(survive[..., None], thr / q[..., None], thr)
         active = active & survive
     return (ray, thr, L, active, bsdf_pdf, is_delta), n_rays
 
 
+def _bounce_step(ad_mode):
+    """The bounce body a runner calls: _bounce itself, or in ad_mode
+    _bounce under a non-reentrant checkpoint. The backward then runs the
+    bounce forward again (path replay: the stateless sampler draws the
+    same numbers, the detached intersections find the same hits), so the
+    graph of only one bounce is held at a time. The bounce's inputs are
+    kept for that replay: a runner must not write them in place later."""
+    if not ad_mode:
+        return _bounce
+
+    def step(*args):
+        return checkpoint(_bounce, *args, ad_mode=True, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return step
+
+
 def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
-                compact_caps=None):
+                ad_mode=False, compact_caps=None):
     """Per-lane path-traced radiance for primary rays ray0.
 
     compact_caps: a wavefront-compaction fraction schedule (None = off,
     see _run_bounces_compact). Returns (L (N, 3), {"rays_per_bounce":
-    (max_depth,) float64 tensor}). Forward only: no backward pass is
-    ported.
+    (max_depth,) float64 tensor}).
+
+    Differentiable in the scene's parameters (MERL tables, BSDF fields,
+    emitter radiance) with the detached estimator of the reference's `prb`
+    integrator: sampled directions, pdfs and MIS weights are detached,
+    BSDF and emitter evaluations attached, intersections detached.
+    ad_mode=True takes the non-delta throughput weight as eval (attached,
+    at the sampled direction held fixed) over the detached pdf, the same
+    forward value with the right gradient, and checkpoints each bounce
+    (_bounce_step): path-replay backpropagation, with residual memory
+    independent of the depth.
     """
     n = ray0.o.shape[0]
     dev = ray0.o.device
@@ -169,13 +208,14 @@ def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
     if compact_caps is not None:
         L, rays_pb = _run_bounces_compact(
             scene, state, sampler, max_depth, rr_depth, hide_emitters,
-            compact_caps,
+            compact_caps, ad_mode,
         )
     else:
+        step = _bounce_step(ad_mode)
         rays_pb = []
         for b in range(max_depth):
-            state, n_rays = _bounce(scene, state, sampler, b, max_depth,
-                                    rr_depth, hide_emitters)
+            state, n_rays = step(scene, state, sampler, b, max_depth, rr_depth,
+                                 hide_emitters)
             rays_pb.append(n_rays)
         L = state[2]
     return L, {"rays_per_bounce": torch.stack(rays_pb).to(torch.float64)}
@@ -238,7 +278,7 @@ def _spatial_key(o, d, s_lo, s_span):
 
 
 def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
-                         hide_emitters, fracs):
+                         hide_emitters, fracs, ad_mode=False):
     """Bounce loop with per-bounce wavefront compaction.
 
     Entering bounce b the live lanes are thinned to the capacity caps[b]
@@ -252,9 +292,12 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     it draws uncompacted. A final scatter by lane tag restores film order.
     Returns (L (N, 3), per-bounce ray counts).
 
-    The ray state lives in full-width tensors updated in place on the
-    prefix (the JAX package rebuilds them by concatenation). maxt is not
-    carried: after bounce 0 every spawned ray has maxt = inf.
+    The ray state lives in full-width tensors. The primal render updates
+    them in place on the prefix. In ad_mode every update builds a new
+    tensor by concatenation, as the JAX package does: the checkpointed
+    bounce keeps views of its inputs for its replay, so no tensor it was
+    given may change afterwards. maxt is not carried: after bounce
+    0 every spawned ray has maxt = inf.
     """
     ray, thr, L, active, prev_pdf, prev_delta = state
     n = ray.o.shape[0]
@@ -276,6 +319,17 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     cur = n
     rays_pb = []
     compacted = False
+    step = _bounce_step(ad_mode)
+
+    def put(name, new, k):
+        """full[name][:k] = new (a tensor or a scalar), out of place in
+        ad_mode."""
+        if not ad_mode:
+            full[name][:k] = new
+        else:
+            head = new if torch.is_tensor(new) else torch.full_like(full[name][:k], new)
+            full[name] = torch.cat([head, full[name][k:]])
+
     for b in range(max_depth):
         cap = caps[b]
         need_thin = cap < cur
@@ -300,10 +354,10 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
                 key = torch.where(survive, iota, iota + cur)
             perm = torch.sort(key).indices
             for name in ("o", "d", "L", "pdf", "delta", "tag", "lane", "lane_key"):
-                full[name][:cur] = full[name][:cur][perm]
-            full["thr"][:cur] = thr_p[perm]
-            full["active"][:cur] = survive[perm]
-            full["maxt"][:cur] = float("inf")
+                put(name, full[name][:cur][perm], cur)
+            put("thr", thr_p[perm], cur)
+            put("active", survive[perm], cur)
+            put("maxt", float("inf"), cur)
             if need_thin:
                 cur = cap
 
@@ -314,13 +368,13 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
             full["thr"][:cur], full["L"][:cur], full["active"][:cur],
             full["pdf"][:cur], full["delta"][:cur],
         )
-        (ray_b, thr_b, L_b, act_b, pdf_b, delta_b), n_rays = _bounce(
+        (ray_b, thr_b, L_b, act_b, pdf_b, delta_b), n_rays = step(
             scene, state_b, smp_b, b, max_depth, rr_depth, hide_emitters
         )
         for name, new in (("o", ray_b.o), ("d", ray_b.d), ("maxt", ray_b.maxt),
                           ("thr", thr_b), ("L", L_b), ("active", act_b),
                           ("pdf", pdf_b), ("delta", delta_b)):
-            full[name][:cur] = new
+            put(name, new, cur)
         rays_pb.append(n_rays)
 
     L = full["L"]
@@ -332,7 +386,8 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     return L, rays_pb
 
 
-def render_lanes(scene, spp, seed, max_depth=None, pixel=None, sample_idx=None):
+def render_lanes(scene, spp, seed, max_depth=None, pixel=None, sample_idx=None,
+                 ad_mode=False):
     """Trace the lanes (pixel, sample_idx) (int64 tensors; all pixel * spp
     lanes when None). Returns (L (N, 3), film_xy (N, 2), stats). `spp` is
     the frame's total spp."""
@@ -352,7 +407,7 @@ def render_lanes(scene, spp, seed, max_depth=None, pixel=None, sample_idx=None):
     ray0 = sample_ray(scene.sensor, film_uv, w / h)
     L, stats = trace_paths(
         scene, ray0, smp, max_depth, cfg.rr_depth, cfg.hide_emitters,
-        compact_caps=cfg.compact,
+        ad_mode=ad_mode, compact_caps=cfg.compact,
     )
     return L, film_xy, stats
 
@@ -373,12 +428,14 @@ def _chunk_rows(h, w):
     return rows
 
 
-def render(scene, spp=None, seed=0, max_depth=None, return_stats=False):
+def render(scene, spp=None, seed=0, max_depth=None, return_stats=False,
+           ad_mode=False):
     """Full pipeline to an (H, W, 3) image (box filter).
 
     Renders in (row slab, spp slice) passes of at most MAX_WAVEFRONT lanes.
     return_stats=True also returns {"rays_traced": total rays including
-    shadow rays}.
+    shadow rays}. ad_mode: see trace_paths (render/ad.render_ad is the
+    differentiable entry).
     """
     cfg = scene.config
     spp = spp or cfg.spp
@@ -400,22 +457,24 @@ def render(scene, spp=None, seed=0, max_depth=None, return_stats=False):
     pixel0 = torch.as_tensor(order, device=dev).repeat_interleave(chunk)
     sidx_local = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(rows * w)
 
-    img = torch.zeros((h, w, 3), device=dev)
+    # row slabs summed out of place over spp passes (autograd keeps each)
+    slabs = [None] * n_row_pass
     rays = torch.zeros((), dtype=torch.float64, device=dev)
     for p in range(n_spp_pass * n_row_pass):
         row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
         L, _, stats = render_lanes(
             scene, spp, seed, max_depth,
             pixel=pixel0 + row_pass * rows * w,
-            sample_idx=sidx_local + spp_pass * chunk,
+            sample_idx=sidx_local + spp_pass * chunk, ad_mode=ad_mode,
         )
         rays = rays + stats["rays_per_bounce"].sum()
         if blocked:
             slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
         else:
             slab = film_mod.develop_box(L, rows, w, chunk)
-        img[row_pass * rows:(row_pass + 1) * rows] += slab
-    out = img / n_spp_pass
+        prev = slabs[row_pass]
+        slabs[row_pass] = slab if prev is None else prev + slab
+    out = torch.cat(slabs) / n_spp_pass
     if return_stats:
         return out, {"rays_traced": float(rays)}
     return out

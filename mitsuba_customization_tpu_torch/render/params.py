@@ -1,4 +1,19 @@
-"""Build a port Scene from the leaves of a JAX-package Scene.
+"""Differentiable scene parameters (`traverse` / `update`), and a port
+Scene from the leaves of a JAX-package Scene.
+
+`traverse(scene)` is the flat dict of a Scene's differentiable leaves and
+`update(scene, params)` writes them back into a new Scene, rebuilding the
+MERL luminance-sampling CDFs from a new table: the port of
+mitsuba_customization_tpu/render/params.py (mitsuba3's mi.traverse and
+SceneParameters), with the same dotted keys:
+    bsdf.<kernel>.<field>   e.g. bsdf.roughconductor.alpha_u, (M,) for
+                            the M materials of that kernel
+    bsdf.tabulated.table    the stacked (n_mat, n_th, n_td, n_pd, 3) tables
+    emitter.radiance        (K, 3) emitter radiances
+The port has no envmap and no media: their keys (`emitter.env_image`,
+`medium.*`) raise NotImplementedError. `params_from_numpy` takes a JAX
+`traverse` dict as numpy arrays, so both packages differentiate the same
+values.
 
 `scene_from_numpy(arrays, config, device)` takes the JAX Scene's leaves as
 {path: np.ndarray}, with paths as `jax.tree_util.keystr` writes them (for
@@ -14,6 +29,7 @@ not read.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
@@ -40,6 +56,67 @@ from mitsuba_customization_tpu_torch.render.scene import (
 )
 
 _STACK = re.compile(r"^bsdfs\.stacks\[(\d+)\]\.(.+)$")
+
+KERNEL_NAMES = {
+    bsdf_mod.DIFFUSE: "diffuse",
+    bsdf_mod.ROUGHCONDUCTOR: "roughconductor",
+    bsdf_mod.TABULATED: "tabulated",
+}
+_NOT_PORTED = ("emitter.env_image", "medium.")
+
+
+def traverse(scene):
+    """The differentiable parameter dict of a Scene: its own tensors."""
+    params = {}
+    for kid, stack in scene.bsdfs.stacks.items():
+        kname = KERNEL_NAMES[kid]
+        if kid == bsdf_mod.TABULATED:
+            params[f"bsdf.{kname}.table"] = stack.table
+        else:
+            for field, value in zip(stack._fields, stack):
+                if value.is_floating_point():
+                    params[f"bsdf.{kname}.{field}"] = value
+    params["emitter.radiance"] = scene.emitters.radiance
+    return params
+
+
+def update(scene, params):
+    """A new Scene with `params` (keys of traverse) written in. The tensors
+    go in as they are, not copied, so gradients reach the caller's
+    tensors; a new table gets its sampling CDFs rebuilt
+    (TabulatedBRDF.build_stack, from the detached table)."""
+    for key in params:
+        if key.startswith(_NOT_PORTED):
+            raise NotImplementedError(f"parameter '{key}' is not ported")
+    unknown = set(params) - set(traverse(scene))
+    if unknown:
+        raise KeyError(f"not parameters of this scene: {sorted(unknown)}")
+    stacks = dict(scene.bsdfs.stacks)
+    for kid, stack in stacks.items():
+        pre = f"bsdf.{KERNEL_NAMES[kid]}."
+        if kid == bsdf_mod.TABULATED:
+            if pre + "table" in params:
+                stacks[kid] = TabulatedBRDF.build_stack(params[pre + "table"])
+        else:
+            stacks[kid] = stack._replace(**{
+                f: params[pre + f] for f in stack._fields if pre + f in params
+            })
+    emitters = scene.emitters
+    if "emitter.radiance" in params:
+        emitters = emitters._replace(radiance=params["emitter.radiance"])
+    return dataclasses.replace(
+        scene, bsdfs=scene.bsdfs._replace(stacks=stacks), emitters=emitters
+    )
+
+
+def params_from_numpy(arrays, device):
+    """The port's parameter dict from a JAX `traverse` dict as numpy
+    arrays ({key: ndarray}), float32 on `device`."""
+    for key in arrays:
+        if key.startswith(_NOT_PORTED):
+            raise NotImplementedError(f"parameter '{key}' is not ported")
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+            for k, v in arrays.items()}
 
 
 def _config(config):

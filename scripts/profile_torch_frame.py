@@ -4,6 +4,8 @@
     python3 scripts/profile_torch_frame.py [--scene flagship|matpreview]
         [--res 512] [--spp N] [--depth N] [--reps 3] [--top 20]
         [--against TREE ...]
+    python3 scripts/profile_torch_frame.py --ad [--res 256] [--spp 4]
+        [--depth 6] [--reps 3] [--top 20]
 
 --scene flagship (default: 64 spp, depth 4) or matpreview (default: 8 spp,
 depth 8, with the compaction schedule of scenes.probe_compact_schedule at
@@ -14,6 +16,12 @@ kernel name, the launches of K1-K4, the number of kernels launched, the
 summed device time and its share of the profiled wall time (the device's
 busy share; kernels run on one stream). Needs a CUDA GPU; imports nothing
 of JAX.
+
+--ad profiles one AD step in place of a frame: render/ad.grad_render (MSE
+against a zero image) of the matpreview scene at --res 256, --spp 4,
+--depth 6 with the probed compaction schedule, on the 10-table stack and
+the floor's alpha (chip_smoke.ad_setup, phase 13); the launches of K1's
+backward are printed too.
 
 --against TREE [TREE ...] builds the kernels of other source trees too,
 each with that tree's own ops/build.py, for example a parent commit's
@@ -57,6 +65,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # kernel-name substring -> group, first match wins
 GROUPS = (
+    ("merl_eval_bwd", "K1-bwd merl_eval_bwd (CUDA)"),
     ("merl_eval", "K1 merl_eval (CUDA)"),
     ("cond_sample", "K2 cond_sample (CUDA)"),
     ("cluster_closest", "K3 cluster_closest (CUDA)"),
@@ -249,7 +258,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("flagship", "matpreview"),
                     default="flagship")
-    ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--ad", action="store_true")
+    ap.add_argument("--res", type=int, default=None)
     ap.add_argument("--spp", type=int, default=None)
     ap.add_argument("--depth", type=int, default=None)
     ap.add_argument("--reps", type=int, default=3)
@@ -258,6 +268,8 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: CUDA is not available")
+    if args.ad and args.against:
+        raise SystemExit("profile_torch_frame: --against compares frames, not AD steps")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -270,12 +282,22 @@ def main():
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch import scenes
 
-    if args.scene == "flagship":
+    if args.ad:
+        from chip_smoke import ad_setup
+        from mitsuba_customization_tpu_torch.render import ad
+
+        args.res, args.spp, args.depth = args.res or 256, args.spp or 4, args.depth or 6
+        scene, fracs, params = ad_setup("cuda", args.res, args.spp, args.depth)
+        target = torch.zeros((args.res, args.res, 3), device="cuda")
+        print(f"compaction schedule {fracs}")
+    elif args.scene == "flagship":
+        args.res = args.res or 512
         args.spp = args.spp or 64
         args.depth = args.depth or 4
         scene = mt.load_dict(
             scenes.flagship_dict(args.res, args.spp, args.depth), "cuda")
     else:
+        args.res = args.res or 512
         args.spp = args.spp or 8
         args.depth = args.depth or 8
         scene = mt.load_dict(
@@ -284,6 +306,10 @@ def main():
         print(f"compaction schedule {fracs}")
 
     def frame():
+        if args.ad:
+            ad.grad_render(scene, params, target, spp=args.spp, seed=0)
+            torch.cuda.synchronize()
+            return 0.0
         img, stats = mt.render(scene, spp=args.spp, seed=0, return_stats=True)
         torch.cuda.synchronize()
         return stats["rays_traced"]
@@ -297,11 +323,12 @@ def main():
         rays = frame()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
-    print(f"{args.scene} frame {args.res}x{args.res} {args.spp}spp depth {args.depth}: "
-          f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)}), "
-          f"{rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s")
+    what = "AD step (matpreview)" if args.ad else f"{args.scene} frame"
+    print(f"{what} {args.res}x{args.res} {args.spp}spp depth {args.depth}: "
+          f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)})"
+          + ("" if args.ad else f", {rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s"))
 
-    k1.LAUNCHES = k2.LAUNCHES = 0
+    k1.LAUNCHES = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -311,10 +338,12 @@ def main():
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time for e in kernels)
-    print(f"profiled frame: wall {wall:.4f} s, {len(kernels)} kernels, device "
+    print(f"profiled {'AD step' if args.ad else 'frame'}: wall {wall:.4f} s, "
+          f"{len(kernels)} kernels, device "
           f"{dev_us / 1e6:.4f} s, busy share {dev_us / 1e6 / wall:.3f}; "
           f"launches K1 {k1.LAUNCHES} K2 {k2.LAUNCHES} "
-          f"K3 {cl.LAUNCHES['closest']} K4 {cl.LAUNCHES['shadow']}")
+          f"K3 {cl.LAUNCHES['closest']} K4 {cl.LAUNCHES['shadow']} "
+          f"K1-bwd {k1.LAUNCHES_BWD}")
     by_group = collections.Counter()
     by_name = collections.Counter()
     count = collections.Counter()

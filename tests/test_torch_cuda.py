@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions,
-on a GPU.
+"""The port's CUDA kernels (K1-K4 and K1's backward) against their plain
+PyTorch versions, on a GPU.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips without one. This file imports
 no JAX, so on a machine without it run it past tests/conftest.py:
@@ -270,6 +270,196 @@ def test_k1_halves_equal_the_joined_call(dev):
         assert torch.equal(got, k1.eval_trilinear(stack, *joined))
         torch.testing.assert_close(got, k1.eval_trilinear_plain(stack, *joined),
                                    rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1's backward (csrc/merl_eval_bwd.cu), held as chip_smoke.check_k1_bwd
+# holds it: to K1 by the linearity identity (within chip_smoke's
+# K1_BWD_ID_RTOL) and to its plain version in norm (K1_BWD_L2_RTOL); see
+# there for why. Where phi_d is undefined (theta_d = 0; h rounding onto the
+# normal), the kernel and the plain version pick different phi_d bins for
+# the same lane, so there the gradient is compared summed over the phi_d
+# axis, where the lane's weights add up to its theta weights alike; a
+# channel whose value the two then clamp at 0 differently (the bins they
+# picked differ in sign) is left out of that comparison. Two
+# kernel gradients on the same lanes differ only by atomic order: two
+# orders of n float32 terms differ by ~sqrt(n) 2^-24 times the sum of their
+# magnitudes (n 2^-24 at worst), more than any tolerance relative to the
+# result where signed terms cancel, so each bin is held within rtol 1e-4
+# of the other plus 1e-5 times the sum of its terms' magnitudes (the plain
+# version on |g|).
+# ---------------------------------------------------------------------------
+
+K1_BWD_RTOL, K1_BWD_ATOL = 1e-4, 1e-5
+
+
+def _assert_grad_close(got, want, absum):
+    bad = (got - want).abs() > K1_BWD_RTOL * want.abs() + K1_BWD_ATOL * absum
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} bins; max abs err "
+        f"{float((got - want).abs().max()):.3e}, max |grad| {float(want.abs().max()):.3e}")
+
+
+def _k1_bwd_check(table, g, *lanes, over_phi_d=False):
+    """The kernel against K1 (the linearity identity) and against the plain
+    version on the joined lanes (in norm; summed over the phi_d axis if
+    over_phi_d); returns the kernel's gradient."""
+    import chip_smoke as cs
+
+    before = k1.LAUNCHES_BWD
+    got = k1.eval_trilinear_bwd(table, g, *lanes)
+    assert k1.LAUNCHES_BWD == before + 1 and got.shape == table.shape
+    joined = k1.concat_halves(*lanes)
+    want = k1.eval_trilinear_bwd_plain(table, g, *joined)
+    assert bool((want != 0).any())
+    if over_phi_d:
+        alike = ((k1.eval_trilinear(table, *lanes) > 0)
+                 == (k1.eval_trilinear_plain(table, *joined) > 0))
+        g_alike = torch.where(alike, g, 0.0)
+        l2 = cs.rel_l2(k1.eval_trilinear_bwd(table, g_alike, *lanes).sum(-2),
+                       k1.eval_trilinear_bwd_plain(table, g_alike, *joined).sum(-2))
+    else:
+        l2 = cs.rel_l2(got, want)
+    id_err = cs.k1_bwd_identity_err(table, g, *lanes)
+    print(f"K1-bwd {tuple(table.shape)}: identity error {id_err:.3e}, relative L2 "
+          f"error against plain {l2:.3e}{' over phi_d' if over_phi_d else ''}")
+    assert id_err <= cs.K1_BWD_ID_RTOL and l2 <= cs.K1_BWD_L2_RTOL, (id_err, l2)
+    return got
+
+
+def _cotangent(gen, n, dev):
+    return torch.randn((n, 3), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("shape", [(90, 90, 180, 3), (6, 5, 4, 3), (5, 3, 3, 3)])
+def test_k1_bwd_phi_d_wrap(dev, shape):
+    """Lanes whose second phi_d bin is bin 0 scatter there (as in
+    test_k1_phi_d_wrap; the (5, 3, 3, 3) table reads its last bin by
+    scalars)."""
+    from mitsuba_customization_tpu_torch.core.rusinkiewicz import dirs_to_half_diff_fast
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    n = 200_000
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    table = _rgb_table(dev, shape)
+    u_pd = k1.grid_coords(*shape[:3], *dirs_to_half_diff_fast(wi, wo))[2]
+    wraps = torch.floor(u_pd) % shape[2] == shape[2] - 1
+    _k1_bwd_check(table, _cotangent(gen, n, dev), wi, wo)
+    got = _k1_bwd_check(table, _cotangent(gen, int(wraps.sum()), dev), wi[wraps], wo[wraps])
+    assert bool((got[:, :, 0] != 0).any()) and bool((got[:, :, -1] != 0).any())
+
+
+def test_k1_bwd_border_cells(dev):
+    """theta_h at 0 and near pi/2, theta_d near 0 and pi/2: the clamped
+    cells at both ends of both theta axes, on a table with negative
+    entries (the clamp at 0 stops a channel's gradient)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = 100_000
+    wi = _unit(gen, n, dev)
+    wo = wi.clone()                                       # theta_d = 0
+    q = n // 4
+    wo[q:2 * q] = wi[q:2 * q] * torch.tensor([-1.0, -1.0, 1.0], device=dev)  # theta_h = 0
+    wi[2 * q:3 * q, 2] = 1e-3                             # grazing: theta_h, theta_d large
+    wo[2 * q:3 * q] = wi[2 * q:3 * q] * torch.tensor([-1.0, 1.0, 1.0], device=dev)
+    wi, wo = (v / v.norm(dim=-1, keepdim=True) for v in (wi, wo))
+    table = _rgb_table(dev, (16, 16, 32, 3)) - 0.3
+    got = _k1_bwd_check(table, _cotangent(gen, n, dev), wi, wo, over_phi_d=True)
+    assert bool((got[0] != 0).any()) and bool((got[:, 0] != 0).any())
+
+
+def test_k1_bwd_slot_clamping(dev):
+    """Slots out of range scatter into the first or last material, as K1
+    reads them."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n = 100_000
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    stack = torch.stack([_rgb_table(dev, (16, 16, 32, 3), p) for p in (0.0, 1.0, 2.0)])
+    slot = torch.randint(-3, 6, (n,), generator=gen, device=dev)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.7
+    g = _cotangent(gen, n, dev)
+    got = _k1_bwd_check(stack, g, wi, wo, slot, mask)
+    clamped = _k1_bwd_check(stack, g, wi, wo, slot.clamp(0, 2), mask)
+    absum = k1.eval_trilinear_bwd_plain(stack, g.abs(), wi, wo, slot, mask)
+    _assert_grad_close(got, clamped, absum)
+
+
+def test_k1_bwd_stack_past_l2(dev):
+    """Ten MERL-size materials (175 MB of table and of gradient), both
+    halves."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n = 1 << 20
+    stack = torch.stack([_rgb_table(dev, (90, 90, 180, 3), 0.3 * m) * (1 + 0.1 * m)
+                         for m in range(10)])
+    wi, wo, wo_b = (_unit(gen, n, dev) for _ in range(3))
+    slot = torch.randint(0, 10, (n,), generator=gen, device=dev)
+    mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
+    _k1_bwd_check(stack, _cotangent(gen, 2 * n, dev), wi, wo, slot, mask, wo_b, mask_b)
+
+
+def test_k1_bwd_one_half_fully_masked(dev):
+    """Both halves in one launch, one of them masked on every lane: it
+    adds nothing, whatever its cotangent."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    n = 100_003
+    wi, wo, wo_b = (_unit(gen, n, dev) for _ in range(3))
+    stack = torch.stack([_rgb_table(dev, (16, 16, 32, 3), p) for p in (0.0, 1.0)])
+    slot = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.8
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    g = _cotangent(gen, 2 * n, dev)
+    for lanes in ((wi, wo, slot, mask, wo_b, none), (wi, wo, slot, none, wo_b, mask)):
+        got = _k1_bwd_check(stack, g, *lanes)
+        live = lanes[3] if lanes[5] is none else lanes[5]
+        half = (g[:n], wo) if lanes[5] is none else (g[n:], wo_b)
+        alone = k1.eval_trilinear_bwd(stack, half[0], wi, half[1], slot, live)
+        absum = k1.eval_trilinear_bwd_plain(stack, half[0].abs(), wi, half[1], slot, live)
+        _assert_grad_close(got, alone, absum)
+
+
+def test_k1_bwd_table_view_at_an_odd_float(dev):
+    """A material of a stack of odd float count starts 4 bytes past an
+    8-byte boundary: its gradient comes out in the view's shape."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    n = 100_000
+    stack = torch.stack([_rgb_table(dev, (5, 3, 3, 3), p) for p in (0.0, 1.0, 2.0)])
+    view = stack[1]
+    assert view.data_ptr() % 8 == 4
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.8
+    _k1_bwd_check(view, _cotangent(gen, n, dev), wi, wo, None, mask)
+
+
+def test_k1_bwd_hot_cell(dev):
+    """Every lane in one cell (wi = wo: theta_d = 0 at one theta_h), so
+    every lane's 24 atomics land on the same 24 floats; the cotangents
+    are positive, so the sums hold no cancellation."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n = 1 << 18
+    w = torch.tensor([0.3, 0.2, 0.9], device=dev)
+    wi = (w / w.norm()).expand(n, 3).contiguous()
+    g = torch.rand((n, 3), generator=gen, device=dev) + 0.5
+    table = _rgb_table(dev, (16, 16, 32, 3))
+    got = _k1_bwd_check(table, g, wi, wi.clone(), over_phi_d=True)
+    assert int((got != 0).any(-1).sum()) <= 8
+
+
+def test_grad_render_launches_k1_bwd(dev):
+    """grad_render on the card goes through K1's backward kernel, and its
+    gradients are finite and nonzero."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import flagship_dict
+
+    scene = mt.load_dict(flagship_dict(32, 4, 3), dev)
+    full = traverse(scene)
+    keys = ("bsdf.tabulated.table", "bsdf.roughconductor.alpha_u")
+    before = k1.LAUNCHES_BWD
+    loss, grads = ad.grad_render(scene, {k: full[k] for k in keys},
+                                 torch.zeros((32, 32, 3), device=dev), spp=4)
+    assert k1.LAUNCHES_BWD > before and bool(torch.isfinite(loss))
+    for k in keys:
+        assert bool(torch.isfinite(grads[k]).all()) and bool((grads[k] != 0).any())
 
 
 def test_frame_gpu_matches_cpu(dev):

@@ -354,6 +354,36 @@ def test_k1_bound_counts_a_call_as_made():
         == pytest.approx(n * (cs.K1_CELL_BYTES + 12 + 12 + 12))
 
 
+def test_k1_bwd_bound_counts_a_call_as_made():
+    """chip_smoke's K1-backward bound: K1's inputs as the K1 bound counts
+    them (the bins for K1's clamp test), the cotangent of the live lanes
+    only, and the dense gradient written once; no per-lane output and no
+    read of the gradient."""
+    import chip_smoke as cs
+
+    n = 1000
+    wi = torch.zeros((n, 3))
+    wi[:, 2] = 1.0
+    wo, wo_b = wi.clone(), wi.clone()
+    wo_b[:60, 2] = -1.0  # live but below the horizon: no bins
+    table = torch.zeros((2, 4, 4, 8, 3))
+    dense = table.numel() * 4
+    slot = torch.zeros(n, dtype=torch.int64)
+    none = torch.zeros(n, dtype=torch.bool)
+    mask, mask_b = none.clone(), none.clone()
+    mask[:100] = True
+    mask_b[50:150] = True
+    g = torch.zeros((2 * n, 3))
+    per_ms = cs.HBM_BYTES_PER_S / 1e3
+    assert cs.k1_bwd_bound(table, g, wi, wo, slot, none, wo_b, none)[0] * per_ms \
+        == pytest.approx(2 * n + dense)
+    # 150 lanes live in either half, 200 live, 190 evaluate
+    bins = min(dense, 190 * cs.K1_CELL_BYTES)
+    want = bins + 150 * (12 + 8) + 200 * (12 + 12) + 2 * n + dense
+    ms, by = cs.k1_bwd_bound(table, g, wi, wo, slot, mask, wo_b, mask_b)
+    assert by == "bytes" and ms * per_ms == pytest.approx(want)
+
+
 @pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
 def test_k2_bound_counts_a_call_as_made(index_dtype):
     """chip_smoke's K2 bound: the indices (at their width) and u of live
