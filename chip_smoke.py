@@ -41,16 +41,20 @@ Phases, one printed line each; any failure raises (non-zero exit):
  12. K1's backward (scatter-add of K1's cotangent into the table's
      gradient) against K1 and its plain version at 4,194,304 lanes as two
      halves, on the flagship table and the matpreview's 10-material stack,
-     lane masks and a seeded cotangent: the linearity identity
-     <K1-bwd(g), d> = <g, K1(d)> within K1_BWD_ID_RTOL, and the relative L2
-     error against the plain version within K1_BWD_L2_RTOL;
+     lane masks and a seeded cotangent, without and with K1's output for
+     its clamp test: the linearity identity <K1-bwd(g), d> = <g, K1(d)>
+     within K1_BWD_ID_RTOL, and the relative L2 error against the plain
+     version within K1_BWD_L2_RTOL; timed as the main path calls it, and
+     torch's index_add_ of the same updates as a yardstick;
  13. one AD step (render/ad.grad_render, MSE against a zero image) of the
      matpreview scene at 256x256, 4 spp, depth 6 with the probed schedule,
      gradients of the 10-table stack and the floor's alpha: one warm-up,
      one timed step (seconds, loss, nonzero share of table-gradient bins,
-     alpha gradients, peak memory, launches of K1-K4 and K1-bwd); finite,
-     table gradient nonzero, K1-bwd launched; one more step records every
-     K1-bwd call, each checked as in phase 12 and timed;
+     alpha gradients, peak memory, launches of K1-K4 and K1-bwd, table-
+     gradient buffers); finite, table gradient nonzero, K1-bwd launched,
+     one buffer; one more step records every K1-bwd call, each checked as
+     in phase 12 and timed into one buffer, and holds the step's table
+     gradient to the sum of the calls' own gradients;
  14. the AD step at 64x64, 4 spp, depth 3 on the card and on the CPU
      (plain kernels): losses within 2 %, table gradients at cosine >= 0.98,
      alpha gradients within 5 %; then, on the card, the floor alpha's
@@ -70,8 +74,11 @@ read just after. It then prints a JSON line describing each kernel
 (launches per matpreview frame, for K1's backward per AD step; `ms`,
 `plain_ms`, `bound_ms` and `share` (bound over time) of the phase 3, 4, 7,
 8 and 12 call; `frame_ms`, `frame_bound_ms` and `frame_share` summed over
-the recorded calls of phase 10, for K1's backward of phase 13) and, last,
-the device JSON line. A kernel's bound is
+the recorded calls of phase 10, for K1's backward of phase 13 with the
+step's one buffer zeroing; K1's backward's `library_ms` is the index_add_
+yardstick of phase 12, the scatter part only, as its `library_note` says,
+to hold against its `ms_into`; the other kernels' null) and, last, the device
+JSON line. A kernel's bound is
 the larger of the bytes it must move (each input read once, each output
 written once) at 3.35 TB/s and the operations it must do at 67 TFLOP/s
 float32 (published H100 SXM peaks; the cluster kernels round every step
@@ -80,13 +87,14 @@ bytes count a call as the main path makes it: wi and the slot once for
 both halves, wo only for live lanes, the masks and output of every lane,
 and the table bins of the lanes that evaluate. K2's count the indices and
 u of live lanes, the mask and outputs of every lane, and a CDF row a live
-lane. K1's backward counts K1's inputs on the same lanes (it reads the
-bins for K1's clamp test), the cotangent of the live lanes, and the dense
-gradient written once. For K3
+lane. K1's backward counts K1's lane inputs, the cotangent of the live
+lanes, K1's output and the clamp test's bins as k1_bwd_bound says, and
+the dense gradient written once, or, into a given buffer, each bin it
+adds to read and written once (an AD step zeroes its one buffer). For K3
 and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
-single PyTorch call computes any of K1-K4, so `library_ms` is null.
+single PyTorch call computes any of K1-K4, so their `library_ms` is null.
 Imports nothing of JAX.
 """
 
@@ -144,6 +152,7 @@ F32_OPS_PER_S = 67e12
 K1_OPS = 170
 K2_OPS = 220
 K1_CELL_BYTES = 96   # 4 corner rows x 2 phi_d bins x 3 floats per lane
+K1_BIN_BYTES = 12    # one phi_d bin: 3 floats
 # K1's backward: K1's operations plus 3 products for each of 24 corner
 # channels
 K1_BWD_OPS = K1_OPS + 72
@@ -239,40 +248,65 @@ def _bound(nbytes, ops):
 
 
 def _k1_work(table, wi, wo, slot, mask, wo_b, mask_b):
-    """(bytes, live lanes, lanes that evaluate) of the inputs of one K1 or
-    K1-backward call, its arguments as eval_trilinear takes them: wi and
-    the slot once for the lanes where either half is live, wo of the live
-    lanes, the masks of every lane, and the bins of the lanes that
-    evaluate (live, both cosines > 0; at most the table)."""
+    """(bytes, live lanes, lanes that evaluate) of the lane inputs of one K1
+    or K1-backward call, its arguments as eval_trilinear takes them: wi
+    and the slot once for the lanes where either half is live, wo of the
+    live lanes and the masks of every lane; the lanes that evaluate (live,
+    both cosines > 0) as a bool over the joined lanes."""
     halves = [(wo, mask)] + ([] if wo_b is None else [(wo_b, mask_b)])
     every = torch.ones(wi.shape[0], dtype=torch.bool, device=wi.device)
     live = [every if m is None else m for _, m in halves]
     either = int(torch.stack(live).any(0).sum())
     n_live = sum(int(m.sum()) for m in live)
-    evaluated = sum(int((m & (wi[:, 2] > 0) & (o[:, 2] > 0)).sum())
-                    for (o, _), m in zip(halves, live))
-    nbytes = (min(_nbytes(table), evaluated * K1_CELL_BYTES)
-              + either * (3 * wi.element_size() + (0 if slot is None else slot.element_size()))
+    evaluates = torch.cat([m & (wi[:, 2] > 0) & (o[:, 2] > 0)
+                           for (o, _), m in zip(halves, live)])
+    nbytes = (either * (3 * wi.element_size() + (0 if slot is None else slot.element_size()))
               + n_live * 3 * wo.element_size()
               + sum(_nbytes(m) for _, m in halves))
-    return nbytes, n_live, evaluated
+    return nbytes, n_live, evaluates
 
 
 def k1_bound(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
-    """K1's bound on one call: _k1_work's inputs and the output of every
-    lane; the lanes that evaluate set the operations."""
-    nbytes, _, evaluated = _k1_work(table, wi, wo, slot, mask, wo_b, mask_b)
+    """K1's bound on one call: _k1_work's inputs, the bins of the lanes
+    that evaluate (at most the table) and the output of every lane; the
+    lanes that evaluate set the operations."""
+    nbytes, _, evaluates = _k1_work(table, wi, wo, slot, mask, wo_b, mask_b)
+    evaluated = int(evaluates.sum())
     halves = 1 if wo_b is None else 2
-    return _bound(nbytes + halves * wi.shape[0] * K1_OUT_BYTES, evaluated * K1_OPS)
+    return _bound(nbytes + min(_nbytes(table), evaluated * K1_CELL_BYTES)
+                  + halves * wi.shape[0] * K1_OUT_BYTES, evaluated * K1_OPS)
 
 
-def k1_bwd_bound(table, g, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
-    """K1-backward's bound on one call: _k1_work's inputs (the table bins
-    are read for K1's clamp test), the cotangent g of the live lanes, and
-    the dense gradient written once (the table's size)."""
-    nbytes, n_live, evaluated = _k1_work(table, wi, wo, slot, mask, wo_b, mask_b)
-    return _bound(nbytes + n_live * 3 * g.element_size() + _nbytes(table),
-                  evaluated * K1_BWD_OPS)
+def k1_bwd_bound(table, g, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None, *,
+                 value=None, out=None):
+    """K1-backward's bound on one call as made (eval_trilinear_bwd's
+    arguments): _k1_work's inputs and the cotangent g of the live lanes;
+    of the lanes that evaluate with a nonzero cotangent, K1's output
+    (`value`) and the bins of the clamp test, 96 B a lane at most the
+    table: with `value`, only on lanes where it is 0 in a channel whose
+    cotangent is not; without, on every such lane. Into a new gradient
+    (out None): the dense gradient written once; into `out`: each
+    gradient bin the call adds to (merl_sorted.scatter_pairs) read and
+    written once. A backward pass zeroes its one buffer besides (phase
+    13)."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+
+    nbytes, n_live, evaluates = _k1_work(table, wi, wo, slot, mask, wo_b, mask_b)
+    nonzero = g != 0
+    adds = evaluates & nonzero.any(-1)
+    reads = adds
+    if value is not None:
+        nbytes += int(adds.sum()) * K1_OUT_BYTES
+        reads = adds & (~(value > 0) & nonzero).any(-1)
+    nbytes += n_live * 3 * g.element_size() + min(_nbytes(table),
+                                                  int(reads.sum()) * K1_CELL_BYTES)
+    if out is None:
+        nbytes += _nbytes(table)
+    else:
+        idx = k1.scatter_pairs(table, g, *k1.concat_halves(wi, wo, slot, mask, wo_b, mask_b),
+                               value=value)[0]
+        nbytes += 2 * K1_BIN_BYTES * torch.unique(idx // 3).numel()
+    return _bound(nbytes, int(evaluates.sum()) * K1_BWD_OPS)
 
 
 def k2_bound(cdf, *lanes):
@@ -527,17 +561,17 @@ def record_calls(fn, targets):
     """Run fn() once with a recording wrapper on each target and keep the
     inputs of every call, in call order: {key: [kept inputs]}. targets:
     {key: (obj, name, keep)}: obj.name is wrapped for the run (a module
-    function, or a method set on that one object) and keep(args) makes
-    what is kept of a call."""
+    function, or a method set on that one object) and keep(args, kwargs)
+    makes what is kept of a call."""
     rec = {key: [] for key in targets}
     saved = []
     for key, (obj, name, keep) in targets.items():
         orig = getattr(obj, name)
         saved.append((obj, name, orig, name in vars(obj)))
 
-        def wrapper(*args, _orig=orig, _kept=rec[key], _keep=keep):
-            _kept.append(_keep(args))
-            return _orig(*args)
+        def wrapper(*args, _orig=orig, _kept=rec[key], _keep=keep, **kwargs):
+            _kept.append(_keep(args, kwargs))
+            return _orig(*args, **kwargs)
 
         setattr(obj, name, wrapper)
     try:
@@ -552,9 +586,18 @@ def record_calls(fn, targets):
     return rec
 
 
-def _keep_args(args):
-    """A call's arguments, the first (a table or CDF stack) not copied."""
+def _keep_args(args, kwargs=None):
+    """A call's positional arguments, the first (a table or CDF stack) not
+    copied; keyword arguments (K1's sink) are not kept."""
     return args[:1] + tuple(a.clone() if torch.is_tensor(a) else a for a in args[1:])
+
+
+def _keep_bwd(args, kwargs):
+    """A K1-backward call: (its positional arguments as _keep_args keeps
+    them, a copy of K1's output `value`); `out`, the pass's buffer, is not
+    kept."""
+    value = kwargs.get("value")
+    return _keep_args(args), None if value is None else value.clone()
 
 
 def record_wavefronts(scene, spp, seed):
@@ -568,7 +611,7 @@ def record_wavefronts(scene, spp, seed):
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch.render.records import Ray
 
-    def keep_ray(args):
+    def keep_ray(args, kwargs):
         return Ray(*(t.clone() for t in cl._rays(args[0])))
 
     return record_calls(lambda: mt.render(scene, spp=spp, seed=seed), {
@@ -641,17 +684,18 @@ def phase_bounces(scene, rec):
     return {k: tuple(v) for k, v in total.items()}
 
 
-def k1_bwd_identity_err(table, g, *lanes):
+def k1_bwd_identity_err(table, g, *lanes, value=None):
     """K1-backward against K1 by linearity: the relative error of
     <K1-bwd(g), d> = <g, K1(d)> on a seeded table d >= 0, over sum |g|
     K1(d). K1's clamp passes g where the value is >= 0: on a table with
     negative entries, a channel where K1 returns 0 is left out of both
-    sides."""
+    sides. value: K1's output on the lanes, handed to K1-bwd (or None)."""
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
     if bool((table < 0).any()):
-        g = torch.where(k1.eval_trilinear(table, *lanes) == 0, 0.0, g)
-    got = k1.eval_trilinear_bwd(table, g, *lanes).double()
+        k1_out = k1.eval_trilinear(table, *lanes) if value is None else value
+        g = torch.where(k1_out == 0, 0.0, g)
+    got = k1.eval_trilinear_bwd(table, g, *lanes, value=value).double()
     gen = torch.Generator(device=table.device).manual_seed(7)
     d = torch.rand(table.shape, generator=gen, device=table.device)
     kd = k1.eval_trilinear(d, *lanes).double()
@@ -664,17 +708,17 @@ def rel_l2(got, want):
     return float((got - want).double().norm() / want.double().norm())
 
 
-def check_k1_bwd(table, g, *lanes):
+def check_k1_bwd(table, g, *lanes, value=None):
     """K1-backward's gate on one call (see K1_BWD_ID_RTOL): the linearity
     identity against K1, and the relative L2 error against the plain
-    version on the joined lanes. Returns (identity error, relative L2
-    error)."""
+    version on the joined lanes, both handed K1's output `value` (or
+    None). Returns (identity error, relative L2 error)."""
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
-    got = k1.eval_trilinear_bwd(table, g, *lanes)
-    want = k1.eval_trilinear_bwd_plain(table, g, *k1.concat_halves(*lanes))
+    got = k1.eval_trilinear_bwd(table, g, *lanes, value=value)
+    want = k1.eval_trilinear_bwd_plain(table, g, *k1.concat_halves(*lanes), value=value)
     l2 = rel_l2(got, want)
-    id_err = k1_bwd_identity_err(table, g, *lanes)
+    id_err = k1_bwd_identity_err(table, g, *lanes, value=value)
     if not (id_err <= K1_BWD_ID_RTOL and l2 <= K1_BWD_L2_RTOL
             and bool(torch.isfinite(got).all())):
         raise AssertionError(
@@ -683,11 +727,33 @@ def check_k1_bwd(table, g, *lanes):
     return id_err, l2
 
 
+def _device_ms(fn, name, reps=5):
+    """Device time (ms) of the kernels whose name holds `name` in one fn(),
+    the mean of `reps` runs under torch.profiler after a warm-up: the
+    kernel alone, without the wrapper's host time that CUDA events around
+    fn() hold."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name) / 1e3 / reps
+
+
 def phase_k1_bwd(table, stack, dev, n=1 << 21):
     """Phase 12: K1's backward against K1 and its plain version
     (check_k1_bwd) at 4,194,304 lanes as two halves, on the flagship table
     and on the matpreview's 10-material stack, with lane masks and a
-    seeded cotangent; times the flagship-table call."""
+    seeded cotangent, without and with K1's output for the clamp test.
+    Times the flagship-table call as the main path makes it (with K1's
+    output) into a new gradient; into a given buffer (CUDA events; and the
+    kernel's device time); without K1's
+    output; the plain version; and the yardstick, torch's index_add_ of
+    the same updates into a flat buffer (the scatter part alone: the 24
+    (index, addend) pairs a lane, merl_sorted.scatter_pairs, made
+    beforehand)."""
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -695,22 +761,45 @@ def phase_k1_bwd(table, stack, dev, n=1 << 21):
     mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
     g = torch.randn((2 * n, 3), generator=gen, device=dev)
     slot = torch.randint(0, stack.shape[0], (n,), generator=gen, device=dev)
-    errs = [check_k1_bwd(tbl, g, wi, wo, sl, mask, wo_b, mask_b)
-            for tbl, sl in ((table, None), (stack, slot))]
+    errs = []
+    for tbl, sl in ((table, None), (stack, slot)):
+        lanes = (wi, wo, sl, mask, wo_b, mask_b)
+        errs.append(check_k1_bwd(tbl, g, *lanes))
+        errs.append(check_k1_bwd(tbl, g, *lanes, value=k1.eval_trilinear(tbl, *lanes)))
     id_err, l2 = (max(e) for e in zip(*errs))
     lanes = (wi, wo, None, mask, wo_b, mask_b)
+    value = k1.eval_trilinear(table, *lanes)
     joined = k1.concat_halves(*lanes)
-    ms = _time_ms(lambda: k1.eval_trilinear_bwd(table, g, *lanes))
-    plain_ms = _time_ms(lambda: k1.eval_trilinear_bwd_plain(table, g, *joined))
-    bound_ms, bound_by = k1_bwd_bound(table, g, *lanes)
-    err = float((k1.eval_trilinear_bwd(table, g, *lanes)
-                 - k1.eval_trilinear_bwd_plain(table, g, *joined)).abs().max())
+    buf = torch.zeros_like(table)
+
+    def call():
+        return k1.eval_trilinear_bwd(table, g, *lanes, value=value)
+
+    def into():
+        return k1.eval_trilinear_bwd(table, g, *lanes, value=value, out=buf)
+
+    times = dict(ms=_time_ms(call), ms_into=_time_ms(into),
+                 device_ms=_device_ms(into, "merl_eval_bwd"),
+                 ms_reading_bins=_time_ms(lambda: k1.eval_trilinear_bwd(table, g, *lanes)),
+                 plain_ms=_time_ms(lambda: k1.eval_trilinear_bwd_plain(
+                     table, g, *joined, value=value)))
+    idx, add = k1.scatter_pairs(table, g, *joined, value=value)
+    flat = torch.zeros(table.numel(), device=dev)
+    library_ms = _time_ms(lambda: flat.index_add_(0, idx, add))
+    bound_ms, bound_by = k1_bwd_bound(table, g, *lanes, value=value)
+    into_bound = k1_bwd_bound(table, g, *lanes, value=value, out=buf)[0]
+    err = float((call() - k1.eval_trilinear_bwd_plain(table, g, *joined, value=value))
+                .abs().max())
     print(f"K1-bwd merl_eval_bwd: {2 * n} lanes (two halves), identity error "
           f"{id_err:.3e} (limit {K1_BWD_ID_RTOL}), relative L2 error against plain "
-          f"{l2:.3e} (limit {K1_BWD_L2_RTOL}), max abs err {err:.3e}; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=err, identity_err=id_err, rel_l2_err=l2, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+          f"{l2:.3e} (limit {K1_BWD_L2_RTOL}), max abs err {err:.3e}; with K1's output: "
+          f"kernel {times['ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); into a given "
+          f"buffer {times['ms_into']:.3f} ms (kernel device time {times['device_ms']:.3f} "
+          f"ms), bound {into_bound:.4f} ms; reading the bins {times['ms_reading_bins']:.3f} ms; "
+          f"plain {times['plain_ms']:.3f} ms; index_add_ of the {idx.numel()} updates "
+          f"{library_ms:.3f} ms")
+    return dict(max_abs_err=err, identity_err=id_err, rel_l2_err=l2, bound_ms=bound_ms,
+                bound_by=bound_by, into_bound_ms=into_bound, library_ms=library_ms, **times)
 
 
 def ad_setup(dev, res=256, spp=4, depth=6):
@@ -735,9 +824,14 @@ def phase_ad_step(setup):
     """Phase 13: one loss-and-gradient step (grad_render, MSE against a
     zero image) of the matpreview scene at 256x256, 4 spp, depth 6 with
     the probed schedule, on the table stack and the floor's alpha: one
-    warm-up, one timed step with the counts set to 0 just before it, then
-    one recorded step whose K1-backward calls are checked against the
-    plain version and timed."""
+    warm-up, one timed step with the counts set to 0 just before it (one
+    table-gradient buffer allocated), then one recorded step whose K1-bwd
+    calls are each checked against the plain version and timed as made
+    (into one buffer: CUDA events, and the kernel's device time), and
+    whose accumulated table gradient is held to the sum of the calls'
+    standalone gradients (relative L2 within K1_BWD_L2_RTOL). Returns
+    (launches, (K1-bwd ms, bound ms) of the step: the calls and the one
+    buffer's zeroing)."""
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch.render import ad
 
@@ -754,6 +848,7 @@ def phase_ad_step(setup):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    buffers = k1.GRAD_BUFFERS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gt = grads[AD_KEYS[0]]
     nz = float((gt != 0).any(-1).float().mean())
@@ -761,29 +856,52 @@ def phase_ad_step(setup):
     print(f"AD step matpreview {res}x{res} 4spp depth 6 (table {tuple(gt.shape)}, "
           f"floor alpha): {secs:.3f} s, loss {float(loss):.6e}, nonzero table-gradient "
           f"bins {nz:.6f}, d loss / d alpha_u, alpha_v {alpha}, peak memory "
-          f"{peak_gb:.2f} GB; launches {launches}")
+          f"{peak_gb:.2f} GB; launches {launches}; table-gradient buffers {buffers}")
     finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v).all())
                                                 for v in grads.values())
-    if not finite or nz <= 0 or launches["K1-bwd"] <= 0:
-        raise AssertionError(f"AD step: finite {finite}, nonzero share {nz}, launches {launches}")
-    rec = record_calls(lambda: ad.grad_render(scene, params, target, spp=4, seed=2),
-                       {"K1-bwd": (k1, "eval_trilinear_bwd", _keep_args)})["K1-bwd"]
+    if not finite or nz <= 0 or launches["K1-bwd"] <= 0 or buffers != 1:
+        raise AssertionError(f"AD step: finite {finite}, nonzero share {nz}, launches "
+                             f"{launches}, table-gradient buffers {buffers}")
+    step = {}
+    rec = record_calls(
+        lambda: step.update(grads=ad.grad_render(scene, params, target, spp=4, seed=2)[1]),
+        {"K1-bwd": (k1, "eval_trilinear_bwd", _keep_bwd)})["K1-bwd"]
     if len(rec) != launches["K1-bwd"]:
         raise AssertionError(f"recorded {len(rec)} K1-bwd calls != launches {launches}")
-    total = [0.0, 0.0]
-    for i, args in enumerate(rec):
-        id_err, l2 = check_k1_bwd(*args)
-        ms = _time_ms(lambda: k1.eval_trilinear_bwd(*args))
-        bound = k1_bwd_bound(*args)[0]
+    table = rec[0][0][0]
+    buf = torch.zeros_like(table)
+    summed = torch.zeros_like(table)
+    total = dict(ms=0.0, bound=0.0, device=0.0)
+    for i, (args, value) in enumerate(rec):
+        id_err, l2 = check_k1_bwd(*args, value=value)
+        summed += k1.eval_trilinear_bwd(*args, value=value)
+
+        def into(args=args, value=value):
+            return k1.eval_trilinear_bwd(*args, value=value, out=buf)
+
+        ms = _time_ms(into)
+        device = _device_ms(into, "merl_eval_bwd")
+        bound = k1_bwd_bound(*args, value=value, out=buf)[0]
         live = sum(int(m.sum()) for m in (args[5], args[7]) if m is not None)
         print(f"AD K1-bwd call {i}: {args[2].shape[0]} lanes x 2 halves, {live} live, "
-              f"{ms:.4f} ms (bound {bound:.4f}); identity error {id_err:.2e}, relative "
-              f"L2 error against plain {l2:.2e}")
-        total[0] += ms
-        total[1] += bound
-    print(f"AD step K1-bwd sums over the recorded calls: {total[0]:.4f} ms "
-          f"(bound {total[1]:.4f})")
-    return launches, tuple(total)
+              f"{ms:.4f} ms into the buffer (bound {bound:.4f}); kernel device time "
+              f"{device:.4f} ms; identity error {id_err:.2e}, relative L2 error "
+              f"against plain {l2:.2e}")
+        total["ms"] += ms
+        total["bound"] += bound
+        total["device"] += device
+    zero_ms = _time_ms(lambda: torch.zeros(table.shape, device=dev))
+    zero_bound = _nbytes(table) / HBM_BYTES_PER_S * 1e3
+    l2 = rel_l2(step["grads"][AD_KEYS[0]], summed)
+    print(f"AD step K1-bwd: {len(rec)} calls into one buffer {total['ms']:.4f} ms "
+          f"(bound {total['bound']:.4f}; kernel device time {total['device']:.4f} ms), "
+          f"its zeroing {zero_ms:.4f} ms (bound {zero_bound:.4f}): {total['ms'] + zero_ms:.4f} "
+          f"ms (bound {total['bound'] + zero_bound:.4f}); the step's table gradient "
+          f"against the sum of the calls' own gradients: relative L2 error {l2:.2e} "
+          f"(limit {K1_BWD_L2_RTOL})")
+    if not l2 <= K1_BWD_L2_RTOL:
+        raise AssertionError("the step's accumulated table gradient disagrees with its calls' sum")
+    return launches, (total["ms"] + zero_ms, total["bound"] + zero_bound)
 
 
 def phase_ad_cpu(dev, fracs, res=64):
@@ -951,6 +1069,7 @@ def _reset_counts():
 
     k1.LAUNCHES = 0
     k1.LAUNCHES_BWD = 0
+    k1.GRAD_BUFFERS = 0
     k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = 0
     cl.LAUNCHES["shadow"] = 0
@@ -1102,9 +1221,10 @@ def main():
         replaces="mitsuba_customization_tpu/ops/merl_sorted.py:439 "
                  "(_eval_bwd, XLA VJP, no Pallas kernel)",
         launches=ad_launches["K1-bwd"], **bwd_stats,
+        library_note="index_add_ of precomputed (index, addend) pairs: the scatter part "
+                     "only, no cell, clamp test or zeroing; compare with ms_into",
         share=bwd_stats["bound_ms"] / bwd_stats["ms"], frame_ms=ad_frame[0],
-        frame_bound_ms=ad_frame[1], frame_share=ad_frame[1] / ad_frame[0],
-        library_ms=None))
+        frame_bound_ms=ad_frame[1], frame_share=ad_frame[1] / ad_frame[0]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,15 @@ Marginal2D built from the table's luminance, mixed with a cosine lobe.
 
 eval_f runs kernel K1 (ops/merl_sorted) and bounce_shade runs kernel K2
 (ops/marginal_sorted) once, then K1 once over the two halves wo_nee and
-wo_sampled.
+wo_sampled. A table that requires grad enters autograd once, through its
+GradSink: the K1 calls of a render all add their backward into one
+gradient buffer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -51,22 +53,27 @@ class TabulatedBRDF(NamedTuple):
     table:    (n_th, n_td, n_pd, 3) float32, or stacked (n_mat, ...).
     sampling: Marginal2D with leading axes ([n_mat,] N_THETA_I): one
               half-vector distribution per incident-angle bin.
+    sink:     where the table requires grad, its merl_sorted.GradSink:
+              every K1 call's backward adds into one table gradient.
     """
 
     table: torch.Tensor
     sampling: Marginal2D
+    sink: Optional[merl_sorted.GradSink] = None
 
     @staticmethod
     def build(table):
         """From one (n_th, n_td, n_pd, 3) table; builds the sampling CDFs."""
-        return TabulatedBRDF(table=table, sampling=_build_sampling(table))
+        return TabulatedBRDF(table=table, sampling=_build_sampling(table),
+                             sink=merl_sorted.grad_sink(table))
 
     @staticmethod
     def build_stack(tables):
         """From a stacked (n_mat, n_th, n_td, n_pd, 3) tensor."""
         per = [_build_sampling(t) for t in tables]
         sampling = Marginal2D(*(torch.stack(f) for f in zip(*per)))
-        return TabulatedBRDF(table=tables, sampling=sampling)
+        return TabulatedBRDF(table=tables, sampling=sampling,
+                             sink=merl_sorted.grad_sink(tables))
 
 
 # --------------------------------------------------------------------------
@@ -131,7 +138,8 @@ def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None, wo_b=None,
     """Interpolated f(wi, wo) (no cosine) through kernel K1; with wo_b,
     also f(wi, wo_b) on the same slots, as rows N..2N-1."""
     return merl_sorted.eval_trilinear(
-        params.table, wi, wo, _normalize_slot(params, slot), mask, wo_b, mask_b
+        params.table, wi, wo, _normalize_slot(params, slot), mask, wo_b, mask_b,
+        sink=params.sink,
     )
 
 

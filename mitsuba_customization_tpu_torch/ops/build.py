@@ -42,7 +42,7 @@ _SIGNATURES = {
     "mct_merl_eval": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
                       _I, _P],
     "mct_merl_eval_bwd": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I64, _I, _P],
+                          _P, _I64, _I, _P],
     "mct_cond_sample": [_P, _I, _I, _I, _P, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _P, _I64, _P],
     "mct_cluster_closest": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,

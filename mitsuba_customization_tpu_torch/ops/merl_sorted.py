@@ -25,10 +25,16 @@ cotangent into the 8 corners of every lane that evaluates, the CUDA kernel
 csrc/merl_eval_bwd.cu on the GPU, `eval_trilinear_bwd_plain` (index_add_)
 on the CPU. `eval_trilinear` reaches it through an autograd Function only
 where grad mode is on and the table requires grad; the primal render calls
-the forward directly.
+the forward directly. The Function hands the backward K1's output, whose
+channels > 0 pass K1's clamp without a read of the table. A render's
+table enters autograd once, through a GradSink (grad_sink): every K1
+backward of the render adds into one buffer, which autograd hands to the
+table, in place of a dense gradient per call summed by autograd.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -41,9 +47,11 @@ SOURCE = "mitsuba_customization_tpu_torch/csrc/merl_eval.cu"
 SOURCE_BWD = "mitsuba_customization_tpu_torch/csrc/merl_eval_bwd.cu"
 
 # Kernel launches in this process (each wrapper adds one per launch): K1
-# and its backward.
+# and its backward; and the table-shaped gradient buffers allocated
+# (new_grad): one per backward pass of a render through a GradSink.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+GRAD_BUFFERS = 0
 
 HALF_PI = torch.pi / 2.0
 
@@ -138,50 +146,147 @@ def eval_trilinear_plain(table, wi, wo, slot=None, mask=None):
     return torch.where(valid[..., None], torch.clamp(val, min=0.0), 0.0)
 
 
-def eval_trilinear_bwd_plain(table, g, wi, wo, slot=None, mask=None):
-    """Plain PyTorch K1 backward: the table's gradient (its shape) from the
-    cotangent g (N, 3) of eval_trilinear_plain(table, wi, wo, slot, mask).
+def _clamp_passes(flat, valid, bins, strides, fracs, value=None):
+    """(N, 3) bool: the channels whose cotangent K1's clamp at 0 passes
+    (the value before it >= 0, torch.clamp's rule), on lanes that evaluate.
+    With `value`, K1's output on these lanes, a channel > 0 passes as it
+    is, and only the lanes with another channel read their bins (as the
+    kernel does): exact, as an output > 0 means the value before the clamp
+    was > 0."""
+    if value is None:
+        return valid[..., None] & (_trilinear(flat, bins, strides, fracs) >= 0.0)
+    passes = valid[..., None] & (value > 0.0)
+    idx = (valid & ~passes.all(-1)).nonzero().squeeze(-1)
+    if idx.numel():
+        sub = _trilinear(flat, tuple(b[idx] for b in bins), strides,
+                         tuple(f[idx] for f in fracs))
+        passes[idx] |= sub >= 0.0
+    return passes
 
-    The same corners and fractions as the forward; each lane that
-    evaluates adds g * w_th * w_td * w_pd at its 8 corners (index_add_),
-    in the order torch's autograd multiplies them. A channel whose value
-    before the clamp is below 0 adds nothing (torch.clamp's rule). wi and
-    wo get no gradient.
-    """
+
+def scatter_pairs(table, g, wi, wo, slot=None, mask=None, value=None):
+    """What K1's backward adds into the flat table gradient, as (float
+    index (M,), addend (M,)): 24 per lane that evaluates and has a
+    cotangent K1's clamp passes (_clamp_passes; `value` as there), g * w_th
+    * w_td * w_pd at its 8 corner bins x 3 channels, multiplied in the
+    order torch's autograd multiplies them. The same corners and fractions
+    as the forward; wi and wo get no gradient."""
     valid, bins, strides, fracs = _corners(table, wi, wo, slot, mask)
     flat = _stacked(table).reshape(-1, 3)
-    keep = valid[..., None] & (_trilinear(flat, bins, strides, fracs) >= 0.0)
-    g = torch.where(keep, g, 0.0)
-    # the fractions of lanes that do not evaluate may be NaN: 0 * NaN
-    (fth, ftd, fpd) = (torch.where(valid, f, 0.0) for f in fracs)
-    (b0, b1), (sj, si) = bins, strides
-    grad = torch.zeros_like(flat)
+    g = torch.where(_clamp_passes(flat, valid, bins, strides, fracs, value), g, 0.0)
+    lanes = (g != 0.0).any(-1).nonzero().squeeze(-1)
+    g = g[lanes]
+    (fth, ftd, fpd), (b0, b1), (sj, si) = (f[lanes] for f in fracs), bins, strides
+    chan = torch.arange(3, device=g.device)
+    idx, add = [], []
     for a, wth in ((0, 1.0 - fth), (1, fth)):
         ga = g * wth[..., None]
         for b, wtd in ((0, 1.0 - ftd), (1, ftd)):
             gb = ga * wtd[..., None]
             for k, wpd in ((b0, 1.0 - fpd), (b1, fpd)):
-                grad.index_add_(0, k + a * si + b * sj, gb * wpd[..., None])
-    return grad.reshape(table.shape)
+                idx.append(3 * (k[lanes] + a * si + b * sj)[..., None] + chan)
+                add.append(gb * wpd[..., None])
+    return torch.stack(idx, 1).reshape(-1), torch.stack(add, 1).reshape(-1)
+
+
+def eval_trilinear_bwd_plain(table, g, wi, wo, slot=None, mask=None, *, value=None,
+                             out=None):
+    """Plain PyTorch K1 backward: the table's gradient (its shape) from the
+    cotangent g (N, 3) of eval_trilinear_plain(table, wi, wo, slot, mask):
+    scatter_pairs' addends summed by index_add_ into a new zeroed tensor,
+    or into `out` (contiguous, the table's shape), which it returns. value:
+    K1's output on these lanes (see _clamp_passes), or None."""
+    idx, add = scatter_pairs(table, g, wi, wo, slot, mask, value)
+    grad = new_grad(table) if out is None else out
+    grad.view(-1).index_add_(0, idx, add)
+    return grad
+
+
+def new_grad(table):
+    """A zeroed, contiguous float32 gradient of the table's shape (counted
+    in GRAD_BUFFERS)."""
+    global GRAD_BUFFERS
+    GRAD_BUFFERS += 1
+    return torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+
+
+class _Buffer:
+    """The table gradient of one backward pass: allocated by the first K1
+    backward that adds into it, handed over once by _Sink."""
+
+    __slots__ = ("grad",)
+
+    def __init__(self):
+        self.grad = None
+
+
+class GradSink(NamedTuple):
+    """A table's entry into autograd for K1 (grad_sink): `token`, a 0-d
+    tensor computed from the table by _Sink, which every K1 call takes as
+    its differentiable input in place of the table; `buf`, where their
+    backwards add."""
+
+    token: torch.Tensor
+    buf: _Buffer
+
+
+class _Sink(torch.autograd.Function):
+    """table -> a 0-d zero token. Its backward runs after the backward of
+    every K1 call that took the token (autograd's order) and returns the
+    one buffer they added into as the table's gradient."""
+
+    @staticmethod
+    def forward(ctx, table, buf):
+        ctx.buf = buf
+        return table.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        grad, ctx.buf.grad = ctx.buf.grad, None
+        return grad, None
+
+
+def grad_sink(table):
+    """One gradient buffer for every K1 call on `table` in a backward pass:
+    a GradSink where grad mode is on and the table requires grad, else
+    None. The K1 calls (eval_trilinear(..., sink=)) then add into one
+    buffer, which autograd hands to the table once, in place of a dense
+    gradient per call and autograd's sum of them."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return None
+    buf = _Buffer()
+    return GradSink(_Sink.apply(table, buf), buf)
 
 
 class _EvalTrilinear(torch.autograd.Function):
     """K1 with the table's gradient: the backward is K1's backward kernel
-    (eval_trilinear_bwd). wi, wo, the slot and the masks get none, as in
-    the JAX package's `_eval_bwd`."""
+    (eval_trilinear_bwd), handed K1's output for its clamp test. `source`
+    is the differentiable input: the table itself (buf None; the backward
+    returns the table's gradient) or a GradSink's token (the backward adds
+    into its buffer and returns 0 for the token). wi, wo, the slot and the
+    masks get no gradient, as in the JAX package's `_eval_bwd`."""
 
     @staticmethod
-    def forward(ctx, table, wi, wo, slot, mask, wo_b, mask_b):
-        ctx.save_for_backward(table, wi, wo, slot, mask, wo_b, mask_b)
-        return _eval(table, wi, wo, slot, mask, wo_b, mask_b)
+    def forward(ctx, source, buf, table, wi, wo, slot, mask, wo_b, mask_b):
+        out = _eval(table, wi, wo, slot, mask, wo_b, mask_b)
+        ctx.buf = buf
+        ctx.save_for_backward(table, out, wi, wo, slot, mask, wo_b, mask_b)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        table, *lanes = ctx.saved_tensors
-        return (eval_trilinear_bwd(table, g, *lanes),) + (None,) * 6
+        table, out, *lanes = ctx.saved_tensors
+        none = (None,) * 8
+        if ctx.buf is None:
+            return (eval_trilinear_bwd(table, g, *lanes, value=out),) + none
+        if ctx.buf.grad is None:
+            ctx.buf.grad = new_grad(table)
+        eval_trilinear_bwd(table, g, *lanes, value=out, out=ctx.buf.grad)
+        return (g.new_zeros(()),) + none
 
 
-def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
+def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None,
+                   sink=None):
     """K1 wrapper: f(wi, wo) (no cosine), (N, 3) float32. With wo_b the
     call evaluates two halves that share wi and slot, concat_halves(...)'s
     2N lanes, and returns (2N, 3); the kernel reads both halves in place.
@@ -189,12 +294,18 @@ def eval_trilinear(table, wi, wo, slot=None, mask=None, wo_b=None, mask_b=None):
     table: (n_th, n_td, n_pd, 3) or stacked (n_mat, ...) float32; slot:
     (N,) material index (None = 0; int64 is read in place); mask, mask_b:
     (N,) bool (None = all lanes). CPU tensors run eval_trilinear_plain;
-    CUDA tensors launch the kernel. Where grad mode is on and the table
-    requires grad, the call goes through _EvalTrilinear, whose backward
-    gives the table's gradient.
+    CUDA tensors launch the kernel. Where grad mode is on, the call goes
+    through _EvalTrilinear, whose backward gives the table's gradient: into
+    the sink's buffer with a GradSink of this table (grad_sink), else
+    where the table requires grad, as a gradient of its own.
     """
-    if torch.is_grad_enabled() and table.requires_grad:
-        return _EvalTrilinear.apply(table, wi, wo, slot, mask, wo_b, mask_b)
+    if torch.is_grad_enabled():
+        if sink is not None:
+            return _EvalTrilinear.apply(sink.token, sink.buf, table.detach(), wi, wo,
+                                        slot, mask, wo_b, mask_b)
+        if table.requires_grad:
+            return _EvalTrilinear.apply(table, None, table.detach(), wi, wo, slot,
+                                        mask, wo_b, mask_b)
     return _eval(table, wi, wo, slot, mask, wo_b, mask_b)
 
 
@@ -255,17 +366,27 @@ def _eval(table, wi, wo, slot, mask, wo_b, mask_b):
 
 
 def eval_trilinear_bwd(table, g, wi, wo, slot=None, mask=None, wo_b=None,
-                       mask_b=None):
+                       mask_b=None, *, value=None, out=None):
     """K1-backward wrapper: the gradient of the table (its shape, float32)
     from the cotangent g of eval_trilinear(table, wi, wo, slot, mask,
-    wo_b, mask_b), (N, 3), or (2N, 3) with wo_b. CPU tensors run
+    wo_b, mask_b), (N, 3), or (2N, 3) with wo_b.
+
+    value: K1's output on these lanes (g's shape), or None. With it, the
+    clamp test reads the table's bins only on lanes with a channel at 0;
+    without, on every lane that evaluates. out: a contiguous float32
+    tensor of the table's shape on the same device to add into, which is
+    returned; None: a new zeroed one (new_grad). CPU tensors run
     eval_trilinear_bwd_plain on the joined lanes; CUDA tensors launch the
-    kernel (float atomics into a zeroed tensor, so the sums' order and
-    last bits vary from run to run)."""
+    kernel (float atomics, so the sums' order and last bits vary from run
+    to run)."""
     global LAUNCHES_BWD
+    if out is not None and (out.shape != table.shape or out.dtype != torch.float32
+                            or not out.is_contiguous() or out.device != table.device):
+        raise ValueError("eval_trilinear_bwd: out must be a contiguous float32 "
+                         "tensor of the table's shape on its device")
     if not wi.is_cuda:
         return eval_trilinear_bwd_plain(table, g, *concat_halves(
-            wi, wo, slot, mask, wo_b, mask_b))
+            wi, wo, slot, mask, wo_b, mask_b), value=value, out=out)
     tbl, lanes, slot, masks = _kernel_args("eval_trilinear_bwd", table, wi, wo,
                                            slot, mask, wo_b, mask_b)
     n_mat, n_th, n_td, n_pd, _ = tbl.shape
@@ -273,13 +394,17 @@ def eval_trilinear_bwd(table, g, wi, wo, slot=None, mask=None, wo_b=None,
     g = g.contiguous()
     if g.shape != (halves * n, 3) or g.dtype != torch.float32 or g.device != tbl.device:
         raise ValueError("eval_trilinear_bwd: g must be float32 (halves * N, 3) on the GPU")
-    grad = torch.zeros(tbl.shape, dtype=torch.float32, device=tbl.device)
+    if value is not None:
+        value = value.contiguous()
+        if value.shape != g.shape or value.dtype != torch.float32 or value.device != g.device:
+            raise ValueError("eval_trilinear_bwd: value must be K1's output, g's shape")
+    grad = new_grad(table) if out is None else out
     err = build.library().mct_merl_eval_bwd(
         build.ptr(tbl), n_mat, n_th, n_td, n_pd, build.ptr(g),
         build.ptr(lanes[0]), build.ptr(lanes[1]), _opt(lanes[2]), _opt(slot),
-        _opt(masks[0]), _opt(masks[1]), build.ptr(grad), n, halves,
+        _opt(masks[0]), _opt(masks[1]), _opt(value), build.ptr(grad), n, halves,
         build.stream_of(wi),
     )
     build.check(err, "merl_eval_bwd")
     LAUNCHES_BWD += 1
-    return grad.reshape(table.shape)
+    return grad

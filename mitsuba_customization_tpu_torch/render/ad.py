@@ -53,9 +53,14 @@ def grad_render(scene, params, target, spp=16, seed=0):
 class Optimizer:
     """mi.ad.Adam over a scene-parameter dict: torch.optim.Adam on copies
     of the given tensors; the keys in clip_nonneg are clamped to >= 0
-    after each step (BRDF tables, albedos, roughness)."""
+    after each step (BRDF tables, albedos, roughness). `optimizer` takes
+    the JAX package's place for another optimiser; only None (Adam) is
+    ported (ROADMAP item 16)."""
 
-    def __init__(self, params, lr=0.01, clip_nonneg=None):
+    def __init__(self, params, lr=0.01, optimizer=None, clip_nonneg=None):
+        if optimizer is not None:
+            raise NotImplementedError(
+                "Optimizer(optimizer=...) is not ported (ROADMAP item 16): Adam only")
         self.params = {k: v.detach().clone().requires_grad_(True)
                        for k, v in params.items()}
         self.opt = torch.optim.Adam(list(self.params.values()), lr=lr)

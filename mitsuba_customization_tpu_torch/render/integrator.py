@@ -386,11 +386,24 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     return L, rays_pb
 
 
-def render_lanes(scene, spp, seed, max_depth=None, pixel=None, sample_idx=None,
-                 ad_mode=False):
+def _check_integrator(integrator):
+    """The integrator argument of render / render_lanes: None (the scene's
+    own) or `path`, as a name or a dict of that type. The others of the JAX
+    package's dispatch are ROADMAP item 14a."""
+    kind = integrator.get("type") if isinstance(integrator, dict) else integrator
+    if kind not in (None, "path"):
+        raise NotImplementedError(
+            f"integrator {kind!r} is not ported (ROADMAP item 14a): only 'path'")
+
+
+def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=False,
+                 *, pixel=None, sample_idx=None):
     """Trace the lanes (pixel, sample_idx) (int64 tensors; all pixel * spp
     lanes when None). Returns (L (N, 3), film_xy (N, 2), stats). `spp` is
-    the frame's total spp."""
+    the frame's total spp. The positional arguments are the JAX package's;
+    pixel and sample_idx follow its lane_offset and n_lanes there (not
+    ported, ROADMAP item 17), so here they are keyword-only."""
+    _check_integrator(integrator)
     cfg = scene.config
     max_depth = max_depth or cfg.max_depth
     h, w = cfg.height, cfg.width
@@ -428,15 +441,18 @@ def _chunk_rows(h, w):
     return rows
 
 
-def render(scene, spp=None, seed=0, max_depth=None, return_stats=False,
-           ad_mode=False):
-    """Full pipeline to an (H, W, 3) image (box filter).
+def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
+           ad_mode=False, return_stats=False):
+    """Full pipeline to an (H, W, 3) image (box filter), with the JAX
+    package's arguments in its order.
 
     Renders in (row slab, spp slice) passes of at most MAX_WAVEFRONT lanes.
-    return_stats=True also returns {"rays_traced": total rays including
-    shadow rays}. ad_mode: see trace_paths (render/ad.render_ad is the
-    differentiable entry).
+    integrator: None or "path" (see _check_integrator). return_stats=True
+    also returns {"rays_traced": total rays including shadow rays}.
+    ad_mode: see trace_paths (render/ad.render_ad is the differentiable
+    entry).
     """
+    _check_integrator(integrator)
     cfg = scene.config
     spp = spp or cfg.spp
     dev = scene.device
@@ -463,9 +479,9 @@ def render(scene, spp=None, seed=0, max_depth=None, return_stats=False,
     for p in range(n_spp_pass * n_row_pass):
         row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
         L, _, stats = render_lanes(
-            scene, spp, seed, max_depth,
+            scene, spp, seed, integrator, max_depth, ad_mode,
             pixel=pixel0 + row_pass * rows * w,
-            sample_idx=sidx_local + spp_pass * chunk, ad_mode=ad_mode,
+            sample_idx=sidx_local + spp_pass * chunk,
         )
         rays = rays + stats["rays_per_bounce"].sum()
         if blocked:

@@ -84,7 +84,9 @@ def update(scene, params):
     """A new Scene with `params` (keys of traverse) written in. The tensors
     go in as they are, not copied, so gradients reach the caller's
     tensors; a new table gets its sampling CDFs rebuilt
-    (TabulatedBRDF.build_stack, from the detached table)."""
+    (TabulatedBRDF.build_stack, from the detached table) and, where it
+    requires grad, the GradSink through which it enters autograd once:
+    the K1 calls of the render add their backward into one buffer."""
     for key in params:
         if key.startswith(_NOT_PORTED):
             raise NotImplementedError(f"parameter '{key}' is not ported")

@@ -21,7 +21,11 @@ of JAX.
 against a zero image) of the matpreview scene at --res 256, --spp 4,
 --depth 6 with the probed compaction schedule, on the 10-table stack and
 the floor's alpha (chip_smoke.ad_setup, phase 13); the launches of K1's
-backward are printed too.
+backward are printed too, and the operators on tensors of the table's
+shape (recorded with their input shapes): each one's calls and the device
+time of the kernels it launched (a nested operator, such as zero_ under
+zeros, repeats its children's time), so the zeroing and summing of
+table-sized gradients shows.
 
 --against TREE [TREE ...] builds the kernels of other source trees too,
 each with that tree's own ops/build.py, for example a parent commit's
@@ -331,7 +335,7 @@ def main():
     k1.LAUNCHES = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=args.ad) as prof:
         t0 = time.perf_counter()
         frame()
         wall = time.perf_counter() - t0
@@ -355,6 +359,12 @@ def main():
         print(f"  group {g:28s} {us / 1e3:10.2f} ms  {us / dev_us:6.1%}")
     for name, us in by_name.most_common(args.top):
         print(f"  {us / 1e3:10.2f} ms {count[name]:6d}x  {name}")
+    if args.ad:
+        shape = list(params["bsdf.tabulated.table"].shape)
+        print(f"operators on {shape} tensors (calls, device ms of their kernels):")
+        for e in prof.key_averages(group_by_input_shape=True):
+            if any(list(s) == shape for s in e.input_shapes):
+                print(f"  {e.key:28s} {e.count:4d}x  {e.device_time_total / 1e3:8.3f} ms")
 
 
 if __name__ == "__main__":

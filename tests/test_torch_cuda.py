@@ -300,17 +300,18 @@ def _assert_grad_close(got, want, absum):
         f"{float((got - want).abs().max()):.3e}, max |grad| {float(want.abs().max()):.3e}")
 
 
-def _k1_bwd_check(table, g, *lanes, over_phi_d=False):
+def _k1_bwd_check(table, g, *lanes, over_phi_d=False, value=None):
     """The kernel against K1 (the linearity identity) and against the plain
     version on the joined lanes (in norm; summed over the phi_d axis if
-    over_phi_d); returns the kernel's gradient."""
+    over_phi_d), both handed K1's output `value` (or None); returns the
+    kernel's gradient."""
     import chip_smoke as cs
 
     before = k1.LAUNCHES_BWD
-    got = k1.eval_trilinear_bwd(table, g, *lanes)
+    got = k1.eval_trilinear_bwd(table, g, *lanes, value=value)
     assert k1.LAUNCHES_BWD == before + 1 and got.shape == table.shape
     joined = k1.concat_halves(*lanes)
-    want = k1.eval_trilinear_bwd_plain(table, g, *joined)
+    want = k1.eval_trilinear_bwd_plain(table, g, *joined, value=value)
     assert bool((want != 0).any())
     if over_phi_d:
         alike = ((k1.eval_trilinear(table, *lanes) > 0)
@@ -320,7 +321,7 @@ def _k1_bwd_check(table, g, *lanes, over_phi_d=False):
                        k1.eval_trilinear_bwd_plain(table, g_alike, *joined).sum(-2))
     else:
         l2 = cs.rel_l2(got, want)
-    id_err = cs.k1_bwd_identity_err(table, g, *lanes)
+    id_err = cs.k1_bwd_identity_err(table, g, *lanes, value=value)
     print(f"K1-bwd {tuple(table.shape)}: identity error {id_err:.3e}, relative L2 "
           f"error against plain {l2:.3e}{' over phi_d' if over_phi_d else ''}")
     assert id_err <= cs.K1_BWD_ID_RTOL and l2 <= cs.K1_BWD_L2_RTOL, (id_err, l2)
@@ -431,8 +432,8 @@ def test_k1_bwd_table_view_at_an_odd_float(dev):
 
 def test_k1_bwd_hot_cell(dev):
     """Every lane in one cell (wi = wo: theta_d = 0 at one theta_h), so
-    every lane's 24 atomics land on the same 24 floats; the cotangents
-    are positive, so the sums hold no cancellation."""
+    every lane's atomics land on the same 24 floats; the cotangents are
+    positive, so the sums hold no cancellation."""
     gen = torch.Generator(device=dev).manual_seed(26)
     n = 1 << 18
     w = torch.tensor([0.3, 0.2, 0.9], device=dev)
@@ -441,6 +442,103 @@ def test_k1_bwd_hot_cell(dev):
     table = _rgb_table(dev, (16, 16, 32, 3))
     got = _k1_bwd_check(table, g, wi, wi.clone(), over_phi_d=True)
     assert int((got != 0).any(-1).sum()) <= 8
+
+
+@pytest.mark.parametrize("n_pd", [8, 7, 6, 5])
+def test_k1_bwd_vector_atomics_at_every_alignment(dev, n_pd):
+    """A (theta_h, theta_d) corner's 6 floats (phi_d bins k0, k0 + 1) go
+    by float4 / float2 / scalar atomics by their address: tables whose
+    cell rows (3 n_pd floats) start at every float phase mod 4, every k0
+    (so every bin phase), the phi_d wrap (k1 = 0: two 3-float runs), and
+    gradient buffers at float offsets 0-3 of a larger tensor (the
+    accumulating form), each against the standalone kernel and the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    n = 200_000
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    stack = torch.stack([_rgb_table(dev, (6, 5, n_pd, 3), p) for p in (0.0, 1.0, 2.0)])
+    slot = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.9
+    g = _cotangent(gen, n, dev)
+    lanes = (wi, wo, slot, mask)
+    absum = k1.eval_trilinear_bwd_plain(stack, g.abs(), *lanes)
+    alone = _k1_bwd_check(stack, g, *lanes)
+    for offset in range(4):
+        big = torch.zeros(stack.numel() + 4, device=dev)
+        out = big[offset:offset + stack.numel()].view(stack.shape)
+        got = k1.eval_trilinear_bwd(stack, g, *lanes, out=out)
+        assert got is out
+        _assert_grad_close(got, alone, absum)
+        assert not bool(big[:offset].any()) and not bool(
+            big[offset + stack.numel():].any())
+
+
+def test_k1_bwd_warp_mixing_shared_and_distinct_cells(dev):
+    """Warps that mix groups of lanes in one cell (identical directions
+    and slot, 2 to 8 a group, spread over the warp), lanes with the same
+    directions in another slot (another cell key), lanes of their own and
+    masked lanes: against K1 and the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    n = 1 << 16
+    base_wi, base_wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    lane = torch.arange(n, device=dev)
+    # lane l copies the directions of lane (l // 32) * 32 + (l % 32) % k,
+    # k = 4 + (l // 32) % 5: groups of lanes l, l + k, ... in each warp
+    k = 4 + (lane // 32) % 5
+    src = (lane // 32) * 32 + (lane % 32) % k
+    own = lane % 7 == 3  # lanes of their own
+    src = torch.where(own, lane, src)
+    wi, wo = base_wi[src], base_wo[src]
+    slot = torch.where(lane % 11 == 5, 1, 0)  # same directions, another cell
+    mask = lane % 13 != 6
+    stack = torch.stack([_rgb_table(dev, (16, 16, 32, 3), p) for p in (0.0, 1.0)])
+    g = torch.rand((n, 3), generator=gen, device=dev) - 0.3
+    _k1_bwd_check(stack, g, wi, wo, slot, mask)
+
+
+def test_k1_bwd_saved_output_clamp(dev):
+    """Handed K1's output (as _EvalTrilinear hands it), the kernel reads
+    the bins only on lanes with a channel at 0; on a table with negative
+    entries (many outputs at 0) it gives the standalone form's gradient,
+    and the plain version's in norm and by the identity."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    n = 200_000
+    wi, wo, wo_b = (_unit(gen, n, dev) for _ in range(3))
+    stack = torch.stack([_rgb_table(dev, (16, 16, 32, 3), p) - 0.3 for p in (0.0, 1.0)])
+    slot = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
+    lanes = (wi, wo, slot, mask, wo_b, mask_b)
+    g = _cotangent(gen, 2 * n, dev)
+    value = k1.eval_trilinear(stack, *lanes)
+    assert bool((value == 0).any()) and bool((value > 0).any())
+    absum = k1.eval_trilinear_bwd_plain(stack, g.abs(), *k1.concat_halves(*lanes))
+    got = _k1_bwd_check(stack, g, *lanes, value=value)
+    _assert_grad_close(got, k1.eval_trilinear_bwd(stack, g, *lanes), absum)
+
+
+def test_k1_bwd_accumulates_into_out(dev):
+    """Two calls into one `out` (the backward pass's buffer) equal the sum
+    of the two standalone gradients, each bin within the atomics' order
+    noise; no buffer is allocated."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    n = 200_000
+    wi, wo, wo_b = (_unit(gen, n, dev) for _ in range(3))
+    stack = torch.stack([_rgb_table(dev, (90, 90, 180, 3), 0.3 * m) for m in range(3)])
+    slot = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    mask, mask_b = (torch.rand(n, generator=gen, device=dev) < 0.8 for _ in range(2))
+    lanes = (wi, wo, slot, mask, wo_b, mask_b)
+    g1, g2 = _cotangent(gen, 2 * n, dev), _cotangent(gen, 2 * n, dev)
+    value = k1.eval_trilinear(stack, *lanes)
+    out = torch.zeros_like(stack)
+    before = k1.GRAD_BUFFERS
+    for g in (g1, g2):
+        assert k1.eval_trilinear_bwd(stack, g, *lanes, value=value, out=out) is out
+    assert k1.GRAD_BUFFERS == before
+    want = k1.eval_trilinear_bwd(stack, g1, *lanes) + k1.eval_trilinear_bwd(stack, g2, *lanes)
+    joined = k1.concat_halves(*lanes)
+    absum = (k1.eval_trilinear_bwd_plain(stack, g1.abs(), *joined)
+             + k1.eval_trilinear_bwd_plain(stack, g2.abs(), *joined))
+    _assert_grad_close(out, want, absum)
 
 
 def test_grad_render_launches_k1_bwd(dev):
@@ -454,10 +552,11 @@ def test_grad_render_launches_k1_bwd(dev):
     scene = mt.load_dict(flagship_dict(32, 4, 3), dev)
     full = traverse(scene)
     keys = ("bsdf.tabulated.table", "bsdf.roughconductor.alpha_u")
-    before = k1.LAUNCHES_BWD
+    before = k1.LAUNCHES_BWD, k1.GRAD_BUFFERS
     loss, grads = ad.grad_render(scene, {k: full[k] for k in keys},
                                  torch.zeros((32, 32, 3), device=dev), spp=4)
-    assert k1.LAUNCHES_BWD > before and bool(torch.isfinite(loss))
+    assert k1.LAUNCHES_BWD > before[0] and bool(torch.isfinite(loss))
+    assert k1.GRAD_BUFFERS == before[1] + 1  # one table-gradient buffer
     for k in keys:
         assert bool(torch.isfinite(grads[k]).all()) and bool((grads[k] != 0).any())
 

@@ -355,10 +355,13 @@ def test_k1_bound_counts_a_call_as_made():
 
 
 def test_k1_bwd_bound_counts_a_call_as_made():
-    """chip_smoke's K1-backward bound: K1's inputs as the K1 bound counts
-    them (the bins for K1's clamp test), the cotangent of the live lanes
-    only, and the dense gradient written once; no per-lane output and no
-    read of the gradient."""
+    """chip_smoke's K1-backward bound: K1's lane inputs as the K1 bound
+    counts them, the cotangent of the live lanes, and the clamp test's
+    bins of the lanes that evaluate with a nonzero cotangent; with K1's
+    output, that output of those lanes and the bins only where it is 0 in
+    a channel whose cotangent is not; the dense gradient written once, or,
+    into a given buffer, the bins the call adds to read and written once.
+    No per-lane output."""
     import chip_smoke as cs
 
     n = 1000
@@ -373,15 +376,35 @@ def test_k1_bwd_bound_counts_a_call_as_made():
     mask, mask_b = none.clone(), none.clone()
     mask[:100] = True
     mask_b[50:150] = True
-    g = torch.zeros((2 * n, 3))
+    g = torch.ones((2 * n, 3))
     per_ms = cs.HBM_BYTES_PER_S / 1e3
     assert cs.k1_bwd_bound(table, g, wi, wo, slot, none, wo_b, none)[0] * per_ms \
         == pytest.approx(2 * n + dense)
     # 150 lanes live in either half, 200 live, 190 evaluate
-    bins = min(dense, 190 * cs.K1_CELL_BYTES)
-    want = bins + 150 * (12 + 8) + 200 * (12 + 12) + 2 * n + dense
+    lane_io = 150 * (12 + 8) + 200 * (12 + 12) + 2 * n
+    want = min(dense, 190 * cs.K1_CELL_BYTES) + lane_io + dense
     ms, by = cs.k1_bwd_bound(table, g, wi, wo, slot, mask, wo_b, mask_b)
     assert by == "bytes" and ms * per_ms == pytest.approx(want)
+    # on a table past 190 lanes' bins: a lane with no cotangent reads none
+    big = torch.zeros((2, 40, 40, 80, 3))
+    dense = big.numel() * 4
+    g0 = g.clone()
+    g0[:30] = 0.0
+    assert cs.k1_bwd_bound(big, g0, wi, wo, slot, mask, wo_b, mask_b)[0] * per_ms \
+        == pytest.approx(160 * cs.K1_CELL_BYTES + lane_io + dense)
+    # K1's output: 0 in a channel on 60 evaluating lanes, whose cotangent
+    # there is 0 on 20 of them: 40 read their bins
+    value = torch.ones((2 * n, 3))
+    value[:60, 1] = 0.0
+    g[40:60, 1] = 0.0
+    with_value = lane_io + 190 * 12 + 40 * cs.K1_CELL_BYTES
+    assert cs.k1_bwd_bound(big, g, wi, wo, slot, mask, wo_b, mask_b, value=value)[0] \
+        * per_ms == pytest.approx(with_value + dense)
+    # into a buffer: every lane is in one cell (theta_h = theta_d = 0), whose
+    # 8 bins are read and written once in place of the dense gradient
+    ms = cs.k1_bwd_bound(big, g, wi, wo, slot, mask, wo_b, mask_b, value=value,
+                         out=torch.zeros_like(big))[0]
+    assert ms * per_ms == pytest.approx(with_value + 8 * 2 * cs.K1_BIN_BYTES)
 
 
 @pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])

@@ -1,0 +1,75 @@
+"""The port's entry points take their positional arguments in the JAX
+package's order, so a call written for the reference means the same to
+the port: each port signature's positional parameters are a prefix, by
+name and order, of the reference's; a reference-style positional call
+renders what its keywords say; what the port does not have yet raises
+and names its ROADMAP item.
+"""
+
+import inspect
+
+import pytest
+import torch
+
+import mitsuba_customization_tpu_torch as mt
+from mitsuba_customization_tpu.render import ad as jad
+from mitsuba_customization_tpu.render import integrator as jint
+from mitsuba_customization_tpu_torch.render import ad as tad
+from mitsuba_customization_tpu_torch.render import integrator as tint
+from mitsuba_customization_tpu_torch.scenes import flagship_dict
+from test_torch_kernels import one_torch_thread  # noqa: F401
+
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _positional(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind in _POSITIONAL]
+
+
+@pytest.mark.parametrize("port, ref", [
+    (tint.render, jint.render),
+    (tint.render_lanes, jint.render_lanes),
+    (tad.render_ad, jad.render_ad),
+    (tad.grad_render, jad.grad_render),
+    (tad.optimize, jad.optimize),
+    (tad.Optimizer.__init__, jad.Optimizer.__init__),
+], ids=["render", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer"])
+def test_positional_parameters_are_a_prefix_of_the_references(port, ref):
+    ours, theirs = _positional(port), _positional(ref)
+    assert ours == theirs[:len(ours)], (ours, theirs)
+    # and each keyword the port shares with the reference has its default
+    ref_params = inspect.signature(ref).parameters
+    for name, p in inspect.signature(port).parameters.items():
+        if name in ref_params and p.default is not inspect.Parameter.empty \
+                and ref_params[name].default is not inspect.Parameter.empty:
+            assert p.default == ref_params[name].default, name
+
+
+def test_reference_style_positional_call():
+    """render(scene, 4, 0, None, 3) is spp 4, seed 0, the scene's own
+    integrator and depth 3, as in the reference: the image (no stats
+    tuple) of render(scene, spp=4, seed=0, max_depth=3), bit for bit, and
+    not the scene's depth-5 image; return_stats in seventh place."""
+    scene = mt.load_dict(flagship_dict(16, 4, 5), "cpu")
+    got = tint.render(scene, 4, 0, None, 3)
+    assert torch.is_tensor(got) and got.shape == (16, 16, 3)
+    assert torch.equal(got, tint.render(scene, spp=4, seed=0, max_depth=3))
+    assert not torch.equal(got, tint.render(scene, spp=4, seed=0))
+    img, stats = tint.render(scene, 4, 0, "path", 3, False, True)
+    assert torch.equal(img, got) and stats["rays_traced"] > 0
+    L, film_xy, st = tint.render_lanes(scene, 4, 0, {"type": "path"}, 3)
+    assert L.shape == (16 * 16 * 4, 3) and film_xy.shape == (16 * 16 * 4, 2)
+
+
+def test_unported_integrators_and_optimizers_raise():
+    scene = mt.load_dict(flagship_dict(8, 1, 2), "cpu")
+    for integrator in ("direct", {"type": "volpath"}):
+        with pytest.raises(NotImplementedError, match="14a"):
+            tint.render(scene, 1, 0, integrator)
+        with pytest.raises(NotImplementedError, match="14a"):
+            tint.render_lanes(scene, 1, 0, integrator)
+    with pytest.raises(NotImplementedError, match="16"):
+        tad.Optimizer({"x": torch.zeros(1)}, 0.01, "sgd")
+    opt = tad.Optimizer({"x": torch.ones(1)}, 0.5, None, ["x"])
+    assert opt.clip_nonneg == {"x"}
