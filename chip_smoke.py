@@ -68,7 +68,26 @@ Phases, one printed line each; any failure raises (non-zero exit):
  16. five Adam steps of render/ad.optimize on the phase 13 scene (target
      the scene at 16 spp, alpha starting at 0.4), on the table and floor
      alpha, then on the alpha alone: each step's seconds, loss and alpha;
-     finite throughout, the table >= 0.
+     finite throughout, the table >= 0;
+ 17. BASELINE configs[0]: a sphere with the flagship MERL table under a
+     constant emitter, the `direct` integrator, 512x512, 64 spp (eight
+     passes of 2,097,152 lanes): seconds, rays/s, K1 and K2 launched;
+     card against CPU means at 64x64;
+ 18. the materials frame: matpreview_dict(512, 8, 8, n_materials=12) with
+     material_bands (merl, conductor, dielectric, thindielectric,
+     roughdielectric, plastic, roughplastic, principled, twosided merl; a
+     Beckmann floor) and the probed schedule: seconds, rays/s, K1-K4
+     launched; every K1-K4 call of one more render recorded, checked
+     against its plain version and timed (as phase 10); card against CPU
+     means at 64x64;
+ 19. the blend frame: the materials scene at 256x256, 4 spp, depth 6 with
+     null, mask and blendbsdf bands: K1 launched with one half, as often
+     as the JAX package's sample / eval / pdf composition calls it (5 a
+     shading bounce), K2 not at all, K4 on the shadow cluster set (null
+     prims degenerate); every recorded call checked and timed; one
+     ad.grad_render of its table stack (one table-gradient buffer, K1-bwd
+     launched) and, at 64x64, card against CPU losses within 2 % and
+     table gradients at cosine >= 0.98.
 Each phase's counts are set to 0 just before its render (or AD step) and
 read just after. It then prints a JSON line describing each kernel
 (launches per matpreview frame, for K1's backward per AD step; `ms`,
@@ -95,6 +114,9 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
+Every entry also carries `launches_by_phase` (phases 17-19 and the blend
+AD step) and, for K1-K4, the recorded calls' sums of phases 18 and 19
+(`materials_frame_ms`, `blend_frame_ms` and their bounds).
 Imports nothing of JAX.
 """
 
@@ -167,6 +189,40 @@ SLOT_TEST_BYTES = 40
 WINNER_REST_BYTES = 88
 MAXT_BYTES, RAY_BYTES = 4, 24
 K3_OUT_BYTES, K4_OUT_BYTES = 140, 1
+
+
+def material_bands(d, blend=False):
+    """The materials frame's bands on a matpreview_dict(..., n_materials=12)
+    dict d, in place: 0-3 merl (the synthetic tables), 4 conductor, 5
+    dielectric, 6 thindielectric, 7 roughdielectric (alpha 0.2), 8 plastic,
+    9 roughplastic, 10 principled (metallic 0.5, clearcoat 0.5), 11
+    twosided over merl; the floor roughconductor with the Beckmann
+    distribution, alpha 0.25. blend=True gives the blend frame's bands
+    instead at 9 null, 10 mask over merl (opacity 0.6), 11 blendbsdf of
+    merl and roughplastic (weight 0.3). Returns d."""
+    merl = [d[f"blob_{i}"]["bsdf"] for i in range(12)]
+    bands = {
+        4: {"type": "conductor"},
+        5: {"type": "dielectric"},
+        6: {"type": "thindielectric"},
+        7: {"type": "roughdielectric", "alpha": 0.2},
+        8: {"type": "plastic"},
+        9: {"type": "roughplastic"},
+        10: {"type": "principled", "metallic": 0.5, "clearcoat": 0.5},
+        11: {"type": "twosided", "bsdf": merl[11]},
+    }
+    if blend:
+        bands.update({
+            9: {"type": "null"},
+            10: {"type": "mask", "opacity": 0.6, "bsdf": merl[10]},
+            11: {"type": "blendbsdf", "weight": 0.3, "a": merl[11],
+                 "b": {"type": "roughplastic"}},
+        })
+    for i, b in bands.items():
+        d[f"blob_{i}"]["bsdf"] = b
+    d["floor"]["bsdf"] = {"type": "roughconductor", "distribution": "beckmann",
+                          "alpha": 0.25}
+    return d
 
 
 def _time_ms(fn, reps=5):
@@ -622,16 +678,22 @@ def record_wavefronts(scene, spp, seed):
     })
 
 
-def phase_bounces(scene, rec):
-    """Check and time every recorded K1-K4 call of one matpreview render,
-    one line per bounce; returns {kernel: (frame ms, frame bound ms)}."""
+def phase_bounces(scene, rec, k1_per_bounce=1):
+    """Check and time every recorded K1-K4 call of one render, one line per
+    bounce (k1_per_bounce K1 calls a bounce: 1 in the fused bounce, more
+    where blends take the public eval / pdf / sample); K4 runs on the
+    scene's shadow cluster set where it has one. Returns {kernel: (frame
+    ms, frame bound ms)}."""
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
     cs = scene.clusters
+    cs_shadow = cs if scene.shadow_clusters is None else scene.shadow_clusters
     total = {k: [0.0, 0.0] for k in ("K1", "K2", "K3", "K4")}
-    for b in range(max(len(v) for v in rec.values())):
+    n_bounces = max(len(rec["K3"]), len(rec["K4"]), len(rec["K2"]),
+                    -(-len(rec["K1"]) // k1_per_bounce))
+    for b in range(n_bounces):
         parts = []
         if b < len(rec["K3"]):
             r = rec["K3"][b]
@@ -644,15 +706,14 @@ def phase_bounces(scene, rec):
             total["K3"][1] += bound
         if b < len(rec["K4"]):
             r = rec["K4"][b]
-            occ = check_k4(cs, r)
-            ms = _time_ms(lambda: cl.occluded(cs, r))
-            bound, by = k4_bound(cs, r, occ)
+            occ = check_k4(cs_shadow, r)
+            ms = _time_ms(lambda: cl.occluded(cs_shadow, r))
+            bound, by = k4_bound(cs_shadow, r, occ)
             parts.append(f"K4 {r.o.shape[0]} lanes, {int((r.maxt > 0).sum())} live, "
                          f"{int(occ.sum())} occluded, {ms:.4f} ms (bound {bound:.5f}, {by})")
             total["K4"][0] += ms
             total["K4"][1] += bound
-        if b < len(rec["K1"]):
-            args = rec["K1"][b]
+        for args in rec["K1"][b * k1_per_bounce:(b + 1) * k1_per_bounce]:
             wi, _, _, mask = lanes = k1.concat_halves(*args[1:])
             got = k1.eval_trilinear(*args)
             want = k1.eval_trilinear_plain(args[0], *lanes)
@@ -661,7 +722,8 @@ def phase_bounces(scene, rec):
             ms = _time_ms(lambda: k1.eval_trilinear(*args))
             bound = k1_bound(*args)[0]
             live = wi.shape[0] if mask is None else int(mask.sum())
-            parts.append(f"K1 {wi.shape[0]} lanes, {live} live, {ms:.4f} ms "
+            halves = "one half" if len(args) < 6 or args[5] is None else "two halves"
+            parts.append(f"K1 {wi.shape[0]} lanes ({halves}), {live} live, {ms:.4f} ms "
                          f"(bound {bound:.4f})")
             del lanes, wi, mask
             total["K1"][0] += ms
@@ -1122,6 +1184,172 @@ def phase_matpreview_cpu(dev, fracs):
         raise AssertionError("GPU and CPU matpreview means disagree")
 
 
+def _gpu_cpu_means(what, d, dev, spp=4):
+    """Card against CPU (plain kernels): the per-channel means of d
+    rendered at seed 0 within FRAME_MEAN_RTOL."""
+    import mitsuba_customization_tpu_torch as mt
+
+    gpu = mt.render(mt.load_dict(d, dev), spp=spp, seed=0).mean((0, 1)).cpu()
+    cpu = mt.render(mt.load_dict(d, "cpu"), spp=spp, seed=0).mean((0, 1))
+    rel = ((gpu - cpu).abs() / cpu.abs()).max().item()
+    print(f"{what}: gpu means {gpu.tolist()}, cpu means {cpu.tolist()}, max rel diff "
+          f"{rel:.2e} (limit {FRAME_MEAN_RTOL})")
+    if not rel <= FRAME_MEAN_RTOL:
+        raise AssertionError(f"GPU and CPU {what} means disagree")
+
+
+def _timed_frame(what, scene, spp, need):
+    """One warm-up render, then one timed render with the counts set to 0
+    just before it: prints seconds, rays/s and launches; `need` names the
+    kernels that must have run. Returns the launches."""
+    import mitsuba_customization_tpu_torch as mt
+
+    cfg = scene.config
+    mt.render(scene, spp=spp, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    img, stats = mt.render(scene, spp=spp, seed=1, return_stats=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launch_counts()
+    rays = stats["rays_traced"]
+    print(f"{what} {cfg.width}x{cfg.height} {spp}spp depth {cfg.max_depth} "
+          f"({cfg.integrator}, {scene.geometry.p0.shape[0]} prims): {secs:.3f} s, "
+          f"{rays:.0f} rays, {rays / secs / 1e6:.2f} Mrays/s; launches {launches}")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel was not launched on the {what} path: {launches}")
+    if img.shape != (cfg.height, cfg.width, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{what} frame is not a finite image")
+    return launches
+
+
+def phase_config0(dev, res=512, spp=64):
+    """Phase 17: BASELINE configs[0], a sphere with the flagship MERL table
+    under a constant emitter, direct illumination (tests/test_golden.py's
+    scene) at res x res, spp (eight passes of 2,097,152 lanes at 512, 64):
+    seconds, rays/s, K1 and K2 launched; card against CPU means at 64x64."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import config0_dict, flagship_table
+
+    bsdf = {"type": "merl", "table": flagship_table()}
+    scene = mt.load_dict(config0_dict(bsdf, res, spp), dev)
+    launches = _timed_frame("configs[0]", scene, spp, ("K1", "K2"))
+    _gpu_cpu_means("configs[0] 64x64 4spp", config0_dict(bsdf, 64, 4), dev)
+    return launches
+
+
+def phase_materials(dev, res=512, spp=8, depth=8):
+    """Phase 18: the materials frame, matpreview_dict(res, spp, depth,
+    n_materials=12) with material_bands (merl, conductor, dielectric,
+    thindielectric, roughdielectric, plastic, roughplastic, principled,
+    twosided merl; a Beckmann floor), the probed schedule: one timed
+    render with K1-K4 launched, then a recorded render whose every K1-K4
+    call is checked against its plain version and timed (as phase 10);
+    card against CPU means at 64x64, 4 spp, depth 4. Returns (launches,
+    frame sums)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict, probe_compact_schedule
+
+    scene = mt.load_dict(material_bands(matpreview_dict(res, spp, depth, n_materials=12)),
+                         dev)
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    launches = _timed_frame("materials", scene, spp, ("K1", "K2", "K3", "K4"))
+    rec = record_wavefronts(scene, spp, seed=1)
+    if {k: len(v) for k, v in rec.items()} != launches:
+        raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
+    frame = phase_bounces(scene, rec)
+    del rec
+    _gpu_cpu_means("materials 64x64 4spp depth 4", material_bands(
+        matpreview_dict(64, 4, 4, n_materials=12, compact=fracs)), dev)
+    return launches, frame
+
+
+# a blended bounce's K1 calls in the JAX package's composition: the child's
+# tabulated sample (1 eval), the balance weight's mixture eval (2), and
+# eval_pdf toward the NEE direction (2); under AD the attached eval at the
+# sampled direction adds 2
+K1_PER_BLENDED_BOUNCE = 5
+K1_PER_BLENDED_BOUNCE_AD = 7
+
+
+def phase_blend(dev, res=256, spp=4, depth=6):
+    """Phase 19: the blend frame, the materials scene at res x res, spp,
+    depth with null, mask (over merl) and blendbsdf (merl, roughplastic)
+    bands and the probed schedule: K1 launched with one half, the count
+    of the JAX composition (K1_PER_BLENDED_BOUNCE a shading bounce), K2
+    not at all (blends take the plain Marginal2D path), K4 on the shadow
+    cluster set; every recorded call checked against its plain version and
+    timed. Then one ad.grad_render of the table stack: one table-gradient
+    buffer, K1-bwd launched; and at 64x64, 4 spp, depth 3 on the card and
+    on the CPU: losses within AD_LOSS_RTOL, table gradients at cosine >=
+    AD_TABLE_COS. Returns (launches of the frame, of the AD step, frame
+    sums)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict, probe_compact_schedule
+
+    def blend_dict(r, s, dep, **kw):
+        return material_bands(matpreview_dict(r, s, dep, n_materials=12, **kw), blend=True)
+
+    scene = mt.load_dict(blend_dict(res, spp, depth), dev)
+    if scene.shadow_clusters is None or scene.bsdfs.blend_a is None:
+        raise AssertionError("the blend scene has no shadow cluster set or no blends")
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    launches = _timed_frame("blend", scene, spp, ("K1", "K3", "K4"))
+    want_k1 = K1_PER_BLENDED_BOUNCE * (depth - 1)
+    print(f"blend frame: K1 launches {launches['K1']}, the JAX composition "
+          f"{K1_PER_BLENDED_BOUNCE} a shading bounce x {depth - 1} = {want_k1}; "
+          f"K2 launches {launches['K2']}")
+    if launches["K1"] != want_k1 or launches["K2"] != 0:
+        raise AssertionError(f"blend frame launches {launches}")
+    rec = record_wavefronts(scene, spp, seed=1)
+    if any(len(args) > 5 and args[5] is not None for args in rec["K1"]):
+        raise AssertionError("a blend-frame K1 call has two halves")
+    frame = phase_bounces(scene, rec, k1_per_bounce=K1_PER_BLENDED_BOUNCE)
+    del rec
+
+    key = AD_KEYS[0]
+    target = torch.zeros((res, res, 3), device=dev)
+    table = {key: traverse(scene)[key]}
+    ad.grad_render(scene, table, target, spp=spp, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = ad.grad_render(scene, table, target, spp=spp, seed=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ad_launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    buffers = k1.GRAD_BUFFERS
+    g = grads[key]
+    print(f"blend AD step {res}x{res} {spp}spp depth {depth} (table {tuple(g.shape)}): "
+          f"{secs:.3f} s, loss {float(loss):.6e}, nonzero table-gradient bins "
+          f"{float((g != 0).any(-1).float().mean()):.6f}; launches {ad_launches} (K1 "
+          f"{K1_PER_BLENDED_BOUNCE_AD} a shading bounce in the forward and again in the "
+          f"replay); table-gradient buffers {buffers}")
+    if (buffers != 1 or ad_launches["K1-bwd"] <= 0 or not bool(torch.isfinite(loss))
+            or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())):
+        raise AssertionError(f"blend AD step: launches {ad_launches}, buffers {buffers}")
+
+    d = blend_dict(64, 4, 3, compact=fracs)
+    out = {}
+    for where in (dev, "cpu"):
+        s = mt.load_dict(d, where)
+        lo, gr = ad.grad_render(s, {key: traverse(s)[key]},
+                                torch.zeros((64, 64, 3), device=where), spp=4)
+        out[str(where)] = (float(lo), gr[key].cpu().flatten().double())
+    (lg, a), (lc, b) = out[str(dev)], out["cpu"]
+    cos = float(a @ b / (a.norm() * b.norm()))
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"blend AD 64x64 4spp depth 3: loss gpu {lg:.6e} cpu {lc:.6e} (rel {loss_rel:.2e}, "
+          f"limit {AD_LOSS_RTOL}); table-gradient cosine {cos:.6f} (limit {AD_TABLE_COS})")
+    if not (loss_rel <= AD_LOSS_RTOL and cos >= AD_TABLE_COS):
+        raise AssertionError("GPU and CPU blend gradients disagree")
+    return launches, ad_launches, frame
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1196,6 +1424,11 @@ def main():
     phase_alpha_fd(dev, setup[1])
     phase_ad_compaction(setup)
     phase_optimize(setup)
+    del setup
+
+    cfg0_launches = phase_config0(dev)
+    mat_launches, mat_frame = phase_materials(dev)
+    blend_launches, blend_ad_launches, blend_frame = phase_blend(dev)
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -1215,6 +1448,13 @@ def main():
         k.update(share=k["bound_ms"] / k["ms"], frame_ms=frame[key][0],
                  frame_bound_ms=frame[key][1],
                  frame_share=frame[key][1] / frame[key][0], library_ms=None)
+        # phases 17-19: launches of each render (or AD step),
+        # and the recorded calls' kernel ms and bound ms per frame
+        k.update(launches_by_phase={
+            "configs0": cfg0_launches[key], "materials": mat_launches[key],
+            "blend": blend_launches[key], "blend_ad_step": blend_ad_launches[key]},
+            materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
+            blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1])
     # K1's backward: launches and in-frame times per AD step (phase 13)
     kernels.append(dict(
         name="merl_eval_bwd", route="cuda", source=k1.SOURCE_BWD,

@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of mitsuba_customization_tpu for NVIDIA Hopper.
 
-A forward path tracer for measured (MERL) BRDFs: `load_dict(d, device)`
-compiles a scene dict onto a device and `render(scene, spp, seed)` returns
-an (H, W, 3) image. The tabulated BRDF's two hot kernels are hand-written
-CUDA (csrc/), built at first use; on CPU tensors their plain PyTorch
-versions run instead. This package imports neither JAX nor the JAX
+A differentiable path tracer for measured (MERL) BRDFs beside analytic,
+transmissive and blended materials: `load_dict(d, device)` compiles a
+scene dict onto a device and `render(scene, spp, seed, integrator)`
+returns an (H, W, 3) image ((H, W, 6) for `moment`). The hot kernels
+(MERL eval and its backward, CDF sampling, cluster traversal) are
+hand-written CUDA (csrc/), built at first use; on CPU tensors their plain
+PyTorch versions run instead. This package imports neither JAX nor the JAX
 package, which stays in the repository as the reference.
 """
 

@@ -1,7 +1,8 @@
 """Tabulated sampling distributions (1-D and 2-D CDF inversion).
 
 PyTorch port of mitsuba_customization_tpu/core/distr.py:
-`DiscreteDistribution`, `Marginal2D.build`, `_invert_cdf` and `_select_at`.
+`DiscreteDistribution`, `ContinuousDistribution`, `Marginal2D` (build,
+gather_slice, sample, eval_pdf), `_invert_cdf` and `_select_at`.
 The JAX package's one-hot MXU row fetches (`_fetch_stacked`) become plain
 indexing here.
 """
@@ -64,6 +65,35 @@ class DiscreteDistribution(NamedTuple):
         return self.pmf[idx] if row is None else self.pmf[row, idx]
 
 
+class ContinuousDistribution(NamedTuple):
+    """Piecewise-constant density on [0, 1) over K cells: pdf (..., K)
+    density values, cdf (..., K) inclusive cumulative cell masses."""
+
+    pdf: torch.Tensor
+    cdf: torch.Tensor
+
+    @staticmethod
+    def build(weights):
+        k = weights.shape[-1]
+        w = torch.clamp(weights, min=0.0) + _TINY
+        mass = w / w.sum(-1, keepdim=True)
+        return ContinuousDistribution(pdf=mass * k, cdf=torch.cumsum(mass, -1))
+
+    def sample(self, u):
+        """u in [0,1) -> x in [0,1), uniform within its cell."""
+        k = self.pdf.shape[-1]
+        idx, lo, mass = _invert_cdf(self.cdf, u)
+        frac = torch.clamp((u - lo) / torch.clamp(mass, min=_TINY), 0.0, 1.0 - 1e-7)
+        return (idx.to(torch.float32) + frac) / k
+
+    def eval_pdf(self, x):
+        k = self.pdf.shape[-1]
+        idx = torch.clamp((x * k).long(), 0, k - 1)
+        if self.pdf.dim() == 1:
+            return self.pdf[idx]
+        return _select_at(self.pdf.expand(idx.shape + self.pdf.shape[-1:]), idx)
+
+
 class Marginal2D(NamedTuple):
     """Piecewise-constant 2-D density on the unit square, row-marginalized.
 
@@ -87,3 +117,51 @@ class Marginal2D(NamedTuple):
             w / torch.clamp(row_mass, min=_TINY)[..., None], -1
         )
         return Marginal2D(pdf=pdf, cdf_row=cdf_row, cdf_cond=cdf_cond)
+
+    def gather_slice(self, idx):
+        """Per-lane tables from a stack (materializes (lanes, H, W); the
+        lazy `slice_` of sample / eval_pdf does not)."""
+        return Marginal2D(*(f[idx] for f in self))
+
+    def _cond_rows(self, slice_, row):
+        """The conditional CDF row `row` of each lane's table (..., W)."""
+        h = self.cdf_cond.shape[-2]
+        if slice_ is not None:
+            return self.cdf_cond[slice_ + (row,)]
+        if self.cdf_cond.dim() == 2:
+            return self.cdf_cond[row.clamp(0, h - 1)]
+        cond = self.cdf_cond.expand(row.shape + self.cdf_cond.shape[-2:])
+        return torch.gather(cond, -2, row[..., None, None].expand(
+            row.shape + (1, cond.shape[-1]))).squeeze(-2)
+
+    def sample(self, sample2, slice_=None):
+        """sample2 (..., 2) in [0,1)^2 -> ((..., 2) position (y, x), pdf).
+        slice_: a tuple of per-lane indices into the leading stack axes."""
+        h, w = self.pdf.shape[-2], self.pdf.shape[-1]
+        u_row, u_col = sample2[..., 0], sample2[..., 1]
+        cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
+        row, row_lo, row_mass = _invert_cdf(cdf_row, u_row)
+        dy = torch.clamp((u_row - row_lo) / torch.clamp(row_mass, min=_TINY),
+                         0.0, 1.0 - 1e-7)
+        cond = self._cond_rows(slice_, row)
+        col, col_lo, col_mass = _invert_cdf(cond, u_col)
+        dx = torch.clamp((u_col - col_lo) / torch.clamp(col_mass, min=_TINY),
+                         0.0, 1.0 - 1e-7)
+        y = (row.to(torch.float32) + dy) / h
+        x = (col.to(torch.float32) + dx) / w
+        return torch.stack([y, x], -1), row_mass * col_mass * (h * w)
+
+    def eval_pdf(self, pos, slice_=None):
+        """Density at pos (..., 2) = (y, x), from the CDF differences at
+        its cell."""
+        h, w = self.pdf.shape[-2], self.pdf.shape[-1]
+        row = torch.clamp((pos[..., 0] * h).long(), 0, h - 1)
+        col = torch.clamp((pos[..., 1] * w).long(), 0, w - 1)
+        cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
+        cdf_row = cdf_row.expand(row.shape + cdf_row.shape[-1:])
+        row_mass = _select_at(cdf_row, row) - torch.where(
+            row > 0, _select_at(cdf_row, (row - 1).clamp(min=0)), 0.0)
+        cond = self._cond_rows(slice_, row)
+        col_mass = _select_at(cond, col) - torch.where(
+            col > 0, _select_at(cond, (col - 1).clamp(min=0)), 0.0)
+        return row_mass * col_mass * (h * w)

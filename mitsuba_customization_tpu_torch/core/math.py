@@ -91,5 +91,24 @@ def coordinate_system(n):
     return x, y
 
 
+def mulsign(value, s):
+    """value * sign(s), with sign(0) = +1."""
+    return torch.where(s >= 0.0, value, -value)
+
+
+def reflect(w):
+    """Reflect w about the shading frame's +z axis."""
+    return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], -1)
+
+
+def refract(wi, cos_theta_t, eta_ti):
+    """wi refracted about +z, given the transmitted cosine and 1/eta."""
+    return torch.stack([-eta_ti * wi[..., 0], -eta_ti * wi[..., 1], cos_theta_t], -1)
+
+
 def cos_theta(w):
     return w[..., 2]
+
+
+def sin_theta2(w):
+    return torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0)

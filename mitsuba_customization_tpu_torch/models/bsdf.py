@@ -1,10 +1,18 @@
 """Static BSDF dispatch table: per-lane material ids, masked run-all
-dispatch over the kernels present in the scene.
+dispatch over the kernels present in the scene, and two-child blends.
 
 PyTorch port of mitsuba_customization_tpu/models/bsdf.py (`BSDFTable`,
-`_dispatch`, `bounce_shade`) for the DIFFUSE, ROUGHCONDUCTOR and TABULATED
-kernels. Kernel ids are the JAX package's, so tables carry over as they
-are. Blend materials and normal maps are not ported.
+`_dispatch`, the mixture `eval` / `pdf` / `sample` / `eval_pdf` and
+`bounce_shade`). Kernel ids are the JAX package's, so tables carry over as
+they are. TEXTURED_DIFFUSE and normal maps are not ported (ROADMAP item
+12b): `normal_tex` / `nm_slot` stay None.
+
+A scene with a blend (blendbsdf or mask) resolves every lane through the
+public eval / pdf / sample, as the JAX package does; the tabulated kernel
+then runs K1 with one half per call. The port passes each call the lanes
+that need it (live lanes; NEE lanes that are unoccluded; for a blend's
+second child and the balance weight, blend lanes only), which leaves the
+values of those lanes as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -14,36 +22,147 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from mitsuba_customization_tpu_torch.core import math as m
-from mitsuba_customization_tpu_torch.models import diffuse, roughconductor, tabulated
+from mitsuba_customization_tpu_torch.models import (
+    conductor,
+    dielectric,
+    diffuse,
+    microfacet,
+    passthrough,
+    plastic,
+    principled,
+    roughconductor,
+    roughdielectric,
+    roughplastic,
+    tabulated,
+    thindielectric,
+)
 
 DIFFUSE = 0
+CONDUCTOR = 1
 ROUGHCONDUCTOR = 2
-TABULATED = 4
+DIELECTRIC = 3
+TABULATED = 4  # MERL and measured_custom (one kernel)
+NULL = 5  # no parameters; the path tracer ends a path on it
+ROUGHCONDUCTOR_BECKMANN = 6
+PLASTIC = 7
+ROUGHPLASTIC = 8
+TEXTURED_DIFFUSE = 9  # not ported (ROADMAP item 12b)
+ROUGHDIELECTRIC = 10
+THINDIELECTRIC = 11
+PASSTHROUGH = 12  # the transparent child of `mask`
+BLEND = 13  # two-child mixture, resolved before dispatch
+PRINCIPLED = 14
+
+KERNEL_NAMES = {
+    DIFFUSE: "diffuse",
+    CONDUCTOR: "conductor",
+    ROUGHCONDUCTOR: "roughconductor",
+    DIELECTRIC: "dielectric",
+    TABULATED: "tabulated",
+    NULL: "null",
+    ROUGHCONDUCTOR_BECKMANN: "roughconductor_beckmann",
+    PLASTIC: "plastic",
+    ROUGHPLASTIC: "roughplastic",
+    TEXTURED_DIFFUSE: "textured_diffuse",
+    ROUGHDIELECTRIC: "roughdielectric",
+    THINDIELECTRIC: "thindielectric",
+    PASSTHROUGH: "passthrough",
+    BLEND: "blend",
+    PRINCIPLED: "principled",
+}
+
+
+class _BeckmannKernel:
+    """roughconductor with the Beckmann NDF (a static kernel variant)."""
+
+    @staticmethod
+    def eval(params, wi, wo):
+        return roughconductor.eval(params, wi, wo, dist_type=microfacet.BECKMANN)
+
+    @staticmethod
+    def pdf(params, wi, wo):
+        return roughconductor.pdf(params, wi, wo, dist_type=microfacet.BECKMANN)
+
+    @staticmethod
+    def sample(params, wi, sample2, sample1=None):
+        return roughconductor.sample(params, wi, sample2, sample1,
+                                     dist_type=microfacet.BECKMANN)
+
 
 _MODULES = {
     DIFFUSE: diffuse,
+    CONDUCTOR: conductor,
     ROUGHCONDUCTOR: roughconductor,
+    DIELECTRIC: dielectric,
     TABULATED: tabulated,
+    ROUGHCONDUCTOR_BECKMANN: _BeckmannKernel,
+    PLASTIC: plastic,
+    ROUGHPLASTIC: roughplastic,
+    ROUGHDIELECTRIC: roughdielectric,
+    THINDIELECTRIC: thindielectric,
+    PASSTHROUGH: passthrough,
+    PRINCIPLED: principled,
 }
-# Kernels with big stacked parameters (the MERL tables): the slot goes into
-# the kernel instead of a per-lane parameter gather.
+# Kernels with big stacked parameters (the MERL tables): the slot and the
+# lane mask go into the kernel instead of a per-lane parameter gather.
 _NEEDS_SLOT = frozenset([TABULATED])
+
+# Kernels whose sample() is a Dirac delta (NEE skips them; no MIS weight).
+DELTA_KERNELS = frozenset([CONDUCTOR, DIELECTRIC, NULL, THINDIELECTRIC, PASSTHROUGH])
+# Kernels that can transmit. With none present the path tracer skips NEE
+# samples below the shading horizon (f = 0 for every reflective kernel).
+TRANSMISSIVE_KERNELS = frozenset(
+    [DIELECTRIC, NULL, ROUGHDIELECTRIC, THINDIELECTRIC, PASSTHROUGH])
 
 
 class BSDFTable(NamedTuple):
     """All materials of a scene, compiled for masked static dispatch.
 
     mat_type (M,) kernel ids; mat_slot (M,) index into that kernel's
-    stack; stacks: kernel id -> stacked parameter NamedTuple.
+    stack; stacks: kernel id -> stacked parameter NamedTuple. A blend
+    material (kernel BLEND) has two child material ids and the weight of
+    the second (blend_a, blend_b, blend_w, (M,) each; identity and 0 for
+    other materials); they are None in a scene without blends. Children
+    are not blends themselves.
     """
 
     mat_type: torch.Tensor
     mat_slot: torch.Tensor
     stacks: Dict[int, Any]
+    blend_a: Any = None
+    blend_b: Any = None
+    blend_w: Any = None
+    normal_tex: Any = None
+    nm_slot: Any = None
 
     @property
     def present_kernels(self):
         return sorted(self.stacks.keys())
+
+    def is_delta(self, mat_id):
+        """Per lane: does the material sample a delta lobe? A blend does
+        where both children do."""
+        def kernel_delta(types):
+            out = torch.zeros(types.shape, dtype=torch.bool, device=types.device)
+            for k in DELTA_KERNELS:
+                out = out | (types == k)
+            return out
+
+        t = self.mat_type[mat_id]
+        out = kernel_delta(t)
+        if self.blend_a is not None:
+            da = kernel_delta(self.mat_type[self.blend_a[mat_id]])
+            db = kernel_delta(self.mat_type[self.blend_b[mat_id]])
+            out = torch.where(t == BLEND, da & db, out)
+        return out
+
+    def resolve_children(self, mat_id):
+        """(child_a, child_b, w, is_blend): the identity for non-blends."""
+        is_b = self.mat_type[mat_id] == BLEND
+        a = torch.where(is_b, self.blend_a[mat_id], mat_id)
+        b = torch.where(is_b, self.blend_b[mat_id], mat_id)
+        w = torch.where(is_b, self.blend_w[mat_id], 0.0)
+        return a, b, w, is_b
 
 
 def _gather_params(stack, slot):
@@ -59,42 +178,113 @@ def _where(mask, new, old):
                        new, old)
 
 
-def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args):
-    """Masked run-all dispatch of eval / pdf / sample."""
+def _zeros(fn_name, wi):
+    """The result of a dispatch with no kernel to run (a scene of only
+    null materials)."""
+    shape, dev = wi.shape[:-1], wi.device
+    if fn_name == "eval":
+        return torch.zeros(shape + (3,), device=dev)
+    if fn_name == "pdf":
+        return torch.zeros(shape, device=dev)
+    return (torch.zeros_like(wi), torch.zeros(shape, device=dev),
+            torch.zeros(shape + (3,), device=dev),
+            torch.zeros(shape, dtype=torch.bool, device=dev))
+
+
+def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, active=None):
+    """Masked run-all dispatch of eval / pdf / sample over the present
+    kernels; `active` (None = all lanes) restricts every kernel's lanes.
+    Lanes of no kernel (null, or outside `active`) come back 0."""
     t = table.mat_type[mat_id]
     slot = table.mat_slot[mat_id]
     out = None
     for kid in table.present_kernels:
-        if kid in _NEEDS_SLOT:
-            raise NotImplementedError(
-                "tabulated eval/pdf/sample outside bounce_shade is not ported"
-            )
         mod = _MODULES[kid]
         mask = t == kid
+        if active is not None:
+            mask = mask & active
         slot_safe = torch.where(mask, slot, 0)
-        res = getattr(mod, fn_name)(
-            _gather_params(table.stacks[kid], slot_safe), wi, *args
-        )
+        if kid in _NEEDS_SLOT:
+            res = getattr(mod, fn_name)(table.stacks[kid], wi, *args,
+                                        slot=slot_safe, mask=mask)
+        else:
+            res = getattr(mod, fn_name)(
+                _gather_params(table.stacks[kid], slot_safe), wi, *args)
         single = isinstance(res, torch.Tensor)
         res = (res,) if single else res
         if out is None:
             out = tuple(torch.zeros_like(r) for r in res)
         out = tuple(_where(mask, r, o) for o, r in zip(out, res))
+    if out is None:
+        return _zeros(fn_name, wi)
     return out[0] if single else out
 
 
-def eval(table: BSDFTable, mat_id, wi, wo):
-    """f(wi, wo) * cos(theta_o) for each lane's material."""
-    return _dispatch(table, mat_id, "eval", wi, wo)
+def eval(table: BSDFTable, mat_id, wi, wo, active=None):
+    """f(wi, wo) * cos(theta_o) for each lane's material; a blend's is
+    (1 - w) f_a + w f_b."""
+    if table.blend_a is None:
+        return _dispatch(table, mat_id, "eval", wi, wo, active=active)
+    a, b, w, is_b = table.resolve_children(mat_id)
+    f_a = _dispatch(table, a, "eval", wi, wo, active=active)
+    f_b = _dispatch(table, b, "eval", wi, wo, active=_and(active, is_b))
+    return (1.0 - w)[..., None] * f_a + w[..., None] * f_b
 
 
-def pdf(table: BSDFTable, mat_id, wi, wo):
-    return _dispatch(table, mat_id, "pdf", wi, wo)
+def pdf(table: BSDFTable, mat_id, wi, wo, active=None):
+    if table.blend_a is None:
+        return _dispatch(table, mat_id, "pdf", wi, wo, active=active)
+    a, b, w, is_b = table.resolve_children(mat_id)
+    p_a = _dispatch(table, a, "pdf", wi, wo, active=active)
+    p_b = _dispatch(table, b, "pdf", wi, wo, active=_and(active, is_b))
+    return (1.0 - w) * p_a + w * p_b
 
 
-def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None):
-    """Per-lane BSDF sampling -> (wo, pdf, weight, sampled_delta)."""
-    return _dispatch(table, mat_id, "sample", wi, sample2, sample1)
+def _and(active, mask):
+    return mask if active is None else active & mask
+
+
+def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None, active=None):
+    """Per-lane BSDF sampling -> (wo, pdf, weight, sampled_delta);
+    sampled_delta is per sample (plastic picks its lobe lane by lane).
+
+    A blend picks a child with the probability of its weight and hands it
+    sample1 rescaled; a smooth sample then takes the balance heuristic's
+    weight f_mix / p_mix and pdf p_mix, a delta sample keeps the child's
+    weight, its pdf times the selection probability.
+    """
+    if table.blend_a is None:
+        return _dispatch(table, mat_id, "sample", wi, sample2, sample1, active=active)
+    a, b, w, is_blend = table.resolve_children(mat_id)
+    if sample1 is None:
+        sample1 = sample2[..., 0]
+    pick_b = is_blend & (sample1 < w)
+    child = torch.where(pick_b, b, a)
+    u1 = torch.where(
+        pick_b, sample1 / torch.clamp(w, min=1e-8),
+        torch.where(is_blend, (sample1 - w) / torch.clamp(1.0 - w, min=1e-8), sample1),
+    )
+    u1 = torch.clamp(u1, 0.0, 1.0 - 1e-7)
+    wo, p_c, w_c, delta_c = _dispatch(table, child, "sample", wi, sample2, u1,
+                                      active=active)
+    # the balance weight, read on blend lanes only
+    on_blend = _and(active, is_blend)
+    f_mix = eval(table, mat_id, wi, wo, active=on_blend)
+    p_mix = pdf(table, mat_id, wi, wo, active=on_blend)
+    w_bal = m.safe_div(f_mix, p_mix[..., None])
+    sel = torch.where(pick_b, w, torch.where(is_blend, 1.0 - w, 1.0))
+    use_bal = is_blend & ~delta_c
+    weight = torch.where(use_bal[..., None], w_bal, w_c)
+    p_out = torch.where(use_bal, p_mix, torch.where(is_blend, p_c * sel, p_c))
+    ok = p_out > 0.0
+    return (wo, torch.where(ok, p_out, 0.0), torch.where(ok[..., None], weight, 0.0),
+            delta_c)
+
+
+def eval_pdf(table: BSDFTable, mat_id, wi, wo, active=None):
+    """eval and pdf toward wo (the NEE pair)."""
+    return (eval(table, mat_id, wi, wo, active=active),
+            pdf(table, mat_id, wi, wo, active=active))
 
 
 def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
@@ -109,8 +299,14 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
     over the detached pdf (the same value; its gradient in the parameters
     is the right one). nee_mask: lanes whose NEE sample is live and
     unoccluded; the tabulated NEE eval skips the others (their f_nee /
-    pdf_nee come back 0).
+    pdf_nee come back 0). Null lanes come back 0 (pdf 0: the path ends).
+
+    A scene with blends takes the public sample / eval_pdf / eval instead
+    (the JAX package's fallback): every lane, blended or not.
     """
+    if table.blend_a is not None:
+        return _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1,
+                                   need_attached, has_nee, active, nee_mask)
     t = table.mat_type[mat_id]
     slot = table.mat_slot[mat_id]
     shape = wi.shape[:-1]
@@ -150,4 +346,28 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
         if out is None:
             out = tuple(torch.zeros_like(r) for r in res)
         out = tuple(_where(mask, r, o) for o, r in zip(out, res))
+    if out is None:  # a scene of only null materials
+        f0, p0 = _zeros("eval", wi), _zeros("pdf", wi)
+        return (f0, p0) + _zeros("sample", wi)
     return out
+
+
+def _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1,
+                        need_attached, has_nee, active, nee_mask):
+    """bounce_shade of a scene with blends: sample, eval_pdf toward wo_nee
+    (unoccluded NEE lanes only when nee_mask is given) and, with
+    need_attached, the attached eval at the detached wo, whose ratio to the
+    detached pdf is the non-delta weight."""
+    wo, p_s, weight, is_delta = sample(table, mat_id, wi, sample2, sample1,
+                                       active=active)
+    if has_nee:
+        f_nee, p_nee = eval_pdf(table, mat_id, wi, wo_nee,
+                                active=_and(active, nee_mask) if nee_mask is not None
+                                else active)
+    else:
+        f_nee, p_nee = torch.zeros_like(weight), torch.zeros_like(p_s)
+    if need_attached:
+        f_att = eval(table, mat_id, wi, wo.detach(), active=active)
+        weight = torch.where(is_delta[..., None], weight,
+                             m.safe_div(f_att, p_s.detach()[..., None]))
+    return f_nee, p_nee, wo, p_s, weight, is_delta

@@ -3,16 +3,19 @@ importance sampling.
 
 PyTorch port of mitsuba_customization_tpu/models/tabulated.py:
 `TabulatedBRDF.build` / `build_stack`, `_build_sampling`, `_grid_coords`,
-`eval_raw`, `eval_f` and the fused per-bounce `bounce_shade`. Storage is
+`eval_raw`, `eval_f`, the standalone `eval` / `pdf` / `sample` and the
+fused per-bounce `bounce_shade`. Storage is
 over (theta_h, theta_d, phi_d) with the sqrt warp on theta_h; phi_d wraps
 with period pi. Sampling draws a half vector from a per-incident-angle
 Marginal2D built from the table's luminance, mixed with a cosine lobe.
 
 eval_f runs kernel K1 (ops/merl_sorted) and bounce_shade runs kernel K2
 (ops/marginal_sorted) once, then K1 once over the two halves wo_nee and
-wo_sampled. A table that requires grad enters autograd once, through its
-GradSink: the K1 calls of a render all add their backward into one
-gradient buffer.
+wo_sampled. The standalone eval and sample call K1 with one half; pdf
+and sample invert the Marginal2D CDFs in plain torch, as the JAX package
+does outside its fused bounce. A table that requires grad enters autograd
+once, through its GradSink: the K1 calls of a render, standalone ones
+too, all add their backward into one gradient buffer.
 """
 
 from __future__ import annotations
@@ -143,6 +146,12 @@ def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None, wo_b=None,
     )
 
 
+def eval(params: TabulatedBRDF, wi, wo, slot=None, mask=None):
+    """f(wi, wo) cos(theta_o): K1 with one half, then the cosine."""
+    return eval_f(params, wi, wo, slot=slot, mask=mask) * torch.clamp(
+        m.cos_theta(wo), min=0.0)[..., None]
+
+
 # --------------------------------------------------------------------------
 # Luminance-weighted importance sampling (half-vector square, per wi bin):
 #   y in [0,1): theta_h = (pi/2) y^2;  x in [0,1): phi_h = 2 pi x - pi
@@ -201,6 +210,80 @@ def _rotate_phi(v, phi):
         [c * v[..., 0] - s * v[..., 1], s * v[..., 0] + c * v[..., 1], v[..., 2]],
         -1,
     )
+
+
+def _table_pdf_canonical(sampling, theta_i, wo_c, wi_c, slot=None, mask=None):
+    """The tabulated half-vector density of wo (canonical frame), in solid
+    angle at wo."""
+    h = m.normalize(wi_c + wo_c)
+    y, x = _square_from_halfvec(h)
+    tbin = _slice_index(theta_i)
+    if mask is not None:
+        tbin = torch.where(mask, tbin, 0)
+    slc = (tbin,) if slot is None else (slot, tbin)
+    p_sq = sampling.eval_pdf(torch.stack([y, x], -1), slice_=slc)
+    theta_h = HALF_PI * y * y
+    jac_h = 2.0 * math.pi * math.pi * y * torch.sin(theta_h)
+    return m.safe_div(p_sq, jac_h * 4.0 * m.dot(wo_c, h).abs())
+
+
+def pdf(params: TabulatedBRDF, wi, wo, slot=None, mask=None):
+    """The density of `sample` in solid angle at wo; the slot of a masked
+    lane is clamped to 0."""
+    slot = _normalize_slot(params, slot)
+    if mask is not None and slot is not None:
+        slot = torch.where(mask, slot.long(), 0)
+    theta_i, phi_i = m.dir_to_sph(wi)
+    wo_c = _rotate_phi(wo, -phi_i)
+    wi_c = m.sph_to_dir(theta_i, torch.zeros_like(theta_i))
+    p_tab = _table_pdf_canonical(params.sampling, theta_i, wo_c, wi_c, slot, mask)
+    p = (1.0 - COSINE_MIX) * p_tab + COSINE_MIX * square_to_cosine_hemisphere_pdf(wo)
+    valid = (m.cos_theta(wi) > 0.0) & (m.cos_theta(wo) > 0.0)
+    return torch.where(valid, p, 0.0)
+
+
+def sample(params: TabulatedBRDF, wi, sample2, sample1=None, slot=None, mask=None):
+    """Luminance-weighted half-vector sampling mixed with a cosine lobe.
+    sample1 picks the component (sample2[..., 0] split at COSINE_MIX when
+    absent). K1 evaluates one half, on the lanes of `mask` whose sample is
+    valid. Returns (wo, pdf, weight = f cos / pdf, sampled_delta)."""
+    slot = _normalize_slot(params, slot)
+    theta_i, phi_i = m.dir_to_sph(wi)
+    wi_c = m.sph_to_dir(theta_i, torch.zeros_like(theta_i))
+    if sample1 is None:
+        u0 = sample2[..., 0]
+        use_cos = u0 < COSINE_MIX
+        u0r = torch.where(
+            use_cos, u0 / COSINE_MIX, (u0 - COSINE_MIX) / (1.0 - COSINE_MIX)
+        )
+        sample2 = torch.stack(
+            [torch.clamp(u0r, 0.0, 1.0 - 1e-7), sample2[..., 1]], -1
+        )
+    else:
+        use_cos = sample1 < COSINE_MIX
+
+    if mask is not None and slot is not None:
+        slot = torch.where(mask, slot.long(), 0)
+    tbin = _slice_index(theta_i)
+    if mask is not None:
+        tbin = torch.where(mask, tbin, 0)
+    slc = (tbin,) if slot is None else (slot, tbin)
+    pos, p_sq = params.sampling.sample(sample2, slice_=slc)
+    h, jac_h = _halfvec_from_square(pos[..., 0], pos[..., 1])
+    wo_tab = 2.0 * m.dot_keep(wi_c, h) * h - wi_c
+    wo_cos = square_to_cosine_hemisphere(sample2)
+    wo_c = torch.where(use_cos[..., None], wo_cos, wo_tab)
+    wo = _rotate_phi(wo_c, phi_i)
+
+    p_tab_own = m.safe_div(p_sq, jac_h * 4.0 * m.dot(wo_tab, h).abs())
+    p_tab_cos = _table_pdf_canonical(params.sampling, theta_i, wo_cos, wi_c, slot, mask)
+    p_tab = torch.where(use_cos, p_tab_cos, p_tab_own)
+    p = (1.0 - COSINE_MIX) * p_tab + COSINE_MIX * square_to_cosine_hemisphere_pdf(wo_c)
+    valid = (p > 1e-12) & (m.cos_theta(wo_c) > 0.0) & (m.cos_theta(wi) > 0.0)
+    mask_eval = valid if mask is None else mask & valid
+    weight = m.safe_div(eval(params, wi, wo, slot=slot, mask=mask_eval), p[..., None])
+    weight = torch.where(valid[..., None], weight, 0.0)
+    return wo, torch.where(valid, p, 0.0), weight, torch.zeros_like(valid)
 
 
 def _row_mass_at(rows, r):

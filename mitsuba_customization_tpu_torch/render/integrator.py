@@ -3,8 +3,10 @@ render loop.
 
 PyTorch port of mitsuba_customization_tpu/render/integrator.py:
 `trace_paths` with its per-bounce body, `_compact_caps`,
-`_systematic_survive`, `_run_bounces_compact`, `render_lanes` and
-`render` (spp and row chunking, 16x16 blocked lane order, box filter). The
+`_systematic_survive`, `_run_bounces_compact`, `render_lanes` with its
+integrator dispatch (path, direct, depth, aov*, moment, prb / prb_basic as
+path) and `render` (spp and row chunking, 16x16 blocked lane order, box
+filter; 6 channels for moment). The
 JAX package's lax.scan over bounces and passes becomes Python loops; the
 bounce index is then a Python int, so the final bounce's dead shading tail
 is skipped statically, as in the JAX package's unrolled loop.
@@ -38,6 +40,7 @@ from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import film as film_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render.records import Ray
+from mitsuba_customization_tpu_torch.render.scene import INTEGRATOR_TYPES, check_ported
 from mitsuba_customization_tpu_torch.render.sensors import sample_ray
 
 CAMERA_DIMS = 4  # 0-1 pixel jitter, 2-3 aperture
@@ -70,6 +73,9 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     ray, thr, L, active, prev_pdf, prev_delta = state
     has_emitters = scene.emitters.n_emitters > 0
     do_nee = has_emitters and scene.config.nee
+    # with no transmissive kernel present an NEE sample below the shading
+    # horizon has f = 0, so its shadow ray is skipped
+    refl_only = not (set(scene.bsdfs.present_kernels) & bsdf_mod.TRANSMISSIVE_KERNELS)
     smp = sampler.with_dim(CAMERA_DIMS + b * BOUNCE_DIMS)
     # dead lanes trace with maxt = 0: the cluster kernels return at once
     si = scene.ray_intersect(
@@ -109,10 +115,9 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         )
         ds = em_mod.sample_direction(scene.emitters, scene.geometry, si.p, u3)
         wo_local = si.to_local(ds.d)
-        # every ported BSDF only reflects: an NEE sample below the
-        # shading horizon has f = 0, so its shadow ray is skipped
-        nee_ok = (active & (ds.pdf > 0.0) & (b + 2 <= max_depth)
-                  & (m.cos_theta(wo_local) > 0.0))
+        nee_ok = active & (ds.pdf > 0.0) & (b + 2 <= max_depth)
+        if refl_only:
+            nee_ok = nee_ok & (m.cos_theta(wo_local) > 0.0)
         # shadow ray before shading: occluded lanes skip the tabulated
         # NEE eval (visibility does not depend on f)
         shadow = geo.spawn_ray(si, ds.d)
@@ -386,26 +391,38 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     return L, rays_pb
 
 
-def _check_integrator(integrator):
-    """The integrator argument of render / render_lanes: None (the scene's
-    own) or `path`, as a name or a dict of that type. The others of the JAX
-    package's dispatch are ROADMAP item 14a."""
+def _integrator_kind(scene, integrator):
+    """The integrator of render / render_lanes: a name or a dict of that
+    type, None for the scene's own. The JAX package's types that are not
+    ported raise NotImplementedError naming their ROADMAP item."""
     kind = integrator.get("type") if isinstance(integrator, dict) else integrator
-    if kind not in (None, "path"):
-        raise NotImplementedError(
-            f"integrator {kind!r} is not ported (ROADMAP item 14a): only 'path'")
+    kind = kind or scene.config.integrator
+    check_ported("integrator", kind)
+    if kind not in INTEGRATOR_TYPES:
+        raise ValueError(f"integrator type '{kind}' is not implemented")
+    return kind
 
 
 def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=False,
                  *, pixel=None, sample_idx=None):
     """Trace the lanes (pixel, sample_idx) (int64 tensors; all pixel * spp
-    lanes when None). Returns (L (N, 3), film_xy (N, 2), stats). `spp` is
-    the frame's total spp. The positional arguments are the JAX package's;
-    pixel and sample_idx follow its lane_offset and n_lanes there (not
-    ported, ROADMAP item 17), so here they are keyword-only."""
-    _check_integrator(integrator)
+    lanes when None). Returns (L (N, C), film_xy (N, 2), stats): C = 3,
+    or 6 for `moment` ([L, L^2]). `spp` is the frame's total spp. The
+    positional arguments are the JAX package's; pixel and sample_idx
+    follow its lane_offset and n_lanes there (not ported, ROADMAP item
+    17), so here they are keyword-only.
+
+    The integrator dispatch is the JAX package's: path (prb and prb_basic
+    render as path); direct is path at max_depth <= 2; depth, aov /
+    aov_normals, aov_position and aov_uv read the camera ray's hit (t,
+    the shading normal * 0.5 + 0.5, the position, (u, v, 0); 0 on a
+    miss); moment traces path without compaction and returns L and L^2.
+    """
+    kind = _integrator_kind(scene, integrator)
     cfg = scene.config
     max_depth = max_depth or cfg.max_depth
+    if kind == "direct":
+        max_depth = min(max_depth, 2)
     h, w = cfg.height, cfg.width
     if pixel is None:
         lanes = torch.arange(h * w * spp, dtype=torch.int64, device=scene.device)
@@ -418,10 +435,27 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
     film_xy = torch.stack([px, py], -1) + jitter
     film_uv = film_xy / torch.tensor([w, h], dtype=torch.float32, device=px.device)
     ray0 = sample_ray(scene.sensor, film_uv, w / h)
+
+    if kind in ("depth", "aov", "aov_normals", "aov_position", "aov_uv"):
+        si = scene.ray_intersect(ray0)
+        if kind == "depth":
+            L = torch.where(si.valid, si.t, 0.0)[..., None].expand(-1, 3)
+        elif kind == "aov_position":
+            L = si.p
+        elif kind == "aov_uv":
+            L = torch.cat([si.uv, torch.zeros_like(si.uv[..., :1])], -1)
+        else:  # the shading normal
+            L = apply_normal_maps(scene.bsdfs, si).frame.n * 0.5 + 0.5
+        L = torch.where(si.valid[..., None], L, 0.0)
+        rays = torch.full((1,), float(pixel.shape[0]), dtype=torch.float64,
+                          device=scene.device)
+        return L, film_xy, {"rays_per_bounce": rays}
     L, stats = trace_paths(
         scene, ray0, smp, max_depth, cfg.rr_depth, cfg.hide_emitters,
-        ad_mode=ad_mode, compact_caps=cfg.compact,
+        ad_mode=ad_mode, compact_caps=None if kind == "moment" else cfg.compact,
     )
+    if kind == "moment":
+        L = torch.cat([L, L * L], -1)
     return L, film_xy, stats
 
 
@@ -443,16 +477,16 @@ def _chunk_rows(h, w):
 
 def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
            ad_mode=False, return_stats=False):
-    """Full pipeline to an (H, W, 3) image (box filter), with the JAX
-    package's arguments in its order.
+    """Full pipeline to an (H, W, C) image (box filter; C = 6 for moment,
+    else 3), with the JAX package's arguments in its order.
 
     Renders in (row slab, spp slice) passes of at most MAX_WAVEFRONT lanes.
-    integrator: None or "path" (see _check_integrator). return_stats=True
+    integrator: as render_lanes (None: the scene's own). return_stats=True
     also returns {"rays_traced": total rays including shadow rays}.
     ad_mode: see trace_paths (render/ad.render_ad is the differentiable
     entry).
     """
-    _check_integrator(integrator)
+    _integrator_kind(scene, integrator)
     cfg = scene.config
     spp = spp or cfg.spp
     dev = scene.device

@@ -20,9 +20,10 @@ values.
 example ".geometry.p0" or ".bsdfs.stacks[4].sampling.cdf_cond"), and its
 SceneConfig (any object with the same attribute names). The parity tests
 use it to run both packages on identical arrays. Only the subset the port
-renders is accepted (brute or cluster intersector, area and constant
-emitters, an optional compaction schedule); anything else raises
-NotImplementedError. The JAX package's BVH and its TPU-only copies
+renders is accepted (the ported BSDF kernels and blends, the shadow
+geometry and cluster set of a scene with null materials, brute or cluster
+intersector, area and constant emitters, the ported integrators, an
+optional compaction schedule); anything else raises NotImplementedError. The JAX package's BVH and its TPU-only copies
 (`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are
 not read.
 """
@@ -40,16 +41,29 @@ from mitsuba_customization_tpu_torch.core.distr import (
     Marginal2D,
 )
 from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
+from mitsuba_customization_tpu_torch.models.conductor import ConductorParams
+from mitsuba_customization_tpu_torch.models.dielectric import DielectricParams
 from mitsuba_customization_tpu_torch.models.diffuse import DiffuseParams
+from mitsuba_customization_tpu_torch.models.passthrough import PassthroughParams
+from mitsuba_customization_tpu_torch.models.plastic import PlasticParams
+from mitsuba_customization_tpu_torch.models.principled import PrincipledParams
 from mitsuba_customization_tpu_torch.models.roughconductor import (
     RoughConductorParams,
 )
+from mitsuba_customization_tpu_torch.models.roughdielectric import (
+    RoughDielectricParams,
+)
+from mitsuba_customization_tpu_torch.models.roughplastic import RoughPlasticParams
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
+from mitsuba_customization_tpu_torch.models.thindielectric import (
+    ThinDielectricParams,
+)
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 from mitsuba_customization_tpu_torch.render.scene import (
+    INTEGRATOR_TYPES,
     Scene,
     SceneConfig,
     geometry_from_numpy,
@@ -57,10 +71,20 @@ from mitsuba_customization_tpu_torch.render.scene import (
 
 _STACK = re.compile(r"^bsdfs\.stacks\[(\d+)\]\.(.+)$")
 
-KERNEL_NAMES = {
-    bsdf_mod.DIFFUSE: "diffuse",
-    bsdf_mod.ROUGHCONDUCTOR: "roughconductor",
-    bsdf_mod.TABULATED: "tabulated",
+KERNEL_NAMES = bsdf_mod.KERNEL_NAMES
+# the parameter NamedTuple of each analytic kernel
+PARAMS = {
+    bsdf_mod.DIFFUSE: DiffuseParams,
+    bsdf_mod.CONDUCTOR: ConductorParams,
+    bsdf_mod.ROUGHCONDUCTOR: RoughConductorParams,
+    bsdf_mod.ROUGHCONDUCTOR_BECKMANN: RoughConductorParams,
+    bsdf_mod.DIELECTRIC: DielectricParams,
+    bsdf_mod.THINDIELECTRIC: ThinDielectricParams,
+    bsdf_mod.ROUGHDIELECTRIC: RoughDielectricParams,
+    bsdf_mod.PLASTIC: PlasticParams,
+    bsdf_mod.ROUGHPLASTIC: RoughPlasticParams,
+    bsdf_mod.PASSTHROUGH: PassthroughParams,
+    bsdf_mod.PRINCIPLED: PrincipledParams,
 }
 _NOT_PORTED = ("emitter.env_image", "medium.")
 
@@ -125,7 +149,8 @@ def _config(config):
     cfg = SceneConfig(**{
         f: getattr(config, f) for f in SceneConfig.__dataclass_fields__
     })
-    if ((cfg.integrator, cfg.rfilter, cfg.sampler) != ("path", "box", "independent")
+    if (cfg.integrator not in INTEGRATOR_TYPES
+            or (cfg.rfilter, cfg.sampler) != ("box", "independent")
             or cfg.intersector not in ("brute", "cluster")):
         raise NotImplementedError(f"scene configuration not ported: {config}")
     if cfg.compact is not None:
@@ -151,12 +176,8 @@ def scene_from_numpy(arrays, config, device):
     kids = sorted({int(mt.group(1)) for mt in map(_STACK.match, a) if mt})
     for kid in kids:
         pre = f"bsdfs.stacks[{kid}]."
-        if kid == bsdf_mod.DIFFUSE:
-            stacks[kid] = DiffuseParams(get(pre + "reflectance"))
-        elif kid == bsdf_mod.ROUGHCONDUCTOR:
-            stacks[kid] = RoughConductorParams(*(
-                get(pre + f) for f in RoughConductorParams._fields
-            ))
+        if kid in PARAMS:
+            stacks[kid] = PARAMS[kid](*(get(pre + f) for f in PARAMS[kid]._fields))
         elif kid == bsdf_mod.TABULATED:
             # the JAX package's TPU layouts (corners, perm, condT) are not used
             used.update(pre + f for f in ("corners", "perm", "condT"))
@@ -168,10 +189,15 @@ def scene_from_numpy(arrays, config, device):
             )
         else:
             raise NotImplementedError(f"BSDF kernel {kid} is not ported")
+    blend = {}
+    if "bsdfs.blend_a" in a:
+        blend = dict(blend_a=get("bsdfs.blend_a", torch.int64),
+                     blend_b=get("bsdfs.blend_b", torch.int64),
+                     blend_w=get("bsdfs.blend_w"))
     bsdfs = bsdf_mod.BSDFTable(
         mat_type=get("bsdfs.mat_type", torch.int64),
         mat_slot=get("bsdfs.mat_slot", torch.int64),
-        stacks=stacks,
+        stacks=stacks, **blend,
     )
 
     em_type = get("emitters.em_type", torch.int64)
@@ -196,16 +222,24 @@ def scene_from_numpy(arrays, config, device):
     )
     used.add("emitters.background_index")
 
-    clusters = None
-    if "clusters.slabs" in a:
-        used.update(f"clusters.{f}" for f in ("sc_box", "cl_box", "cl_meta", "slabs"))
-        # the JAX slabs are (C, NFIELDS, 128) field-major with padding
-        # lanes; the port's are (C, L, NFIELDS) slot-major
-        slabs = a["clusters.slabs"].transpose(0, 2, 1)[:, :cl_mod.L, :cl_mod.NFIELDS]
-        clusters = cl_mod.cluster_set(
-            a["clusters.sc_box"], a["clusters.cl_box"], a["clusters.cl_meta"],
-            np.ascontiguousarray(slabs), device,
-        )
+    def cluster_set(pre):
+        """The JAX ClusterSet at `pre` ("clusters." or "shadow_clusters."),
+        or None. The JAX slabs are (C, NFIELDS, 128) field-major with
+        padding lanes; the port's are (C, L, NFIELDS) slot-major."""
+        if pre + "slabs" not in a:
+            return None
+        used.update(pre + f for f in ("sc_box", "cl_box", "cl_meta", "slabs"))
+        slabs = a[pre + "slabs"].transpose(0, 2, 1)[:, :cl_mod.L, :cl_mod.NFIELDS]
+        return cl_mod.cluster_set(a[pre + "sc_box"], a[pre + "cl_box"],
+                                  a[pre + "cl_meta"], np.ascontiguousarray(slabs), device)
+
+    clusters = cluster_set("clusters.")
+    shadow_clusters = cluster_set("shadow_clusters.")
+    shadow_geometry = None
+    if "shadow_geometry.p0" in a:
+        shadow_geometry = geometry_from_numpy(
+            {f: a[f"shadow_geometry.{f}"] for f in geo.Geometry._fields}, device)
+        used.update(f"shadow_geometry.{f}" for f in geo.Geometry._fields)
 
     if int(a["sensor.sensor_type"]) != sensor_mod.PERSPECTIVE:
         raise NotImplementedError("only the perspective sensor is ported")
@@ -229,4 +263,5 @@ def scene_from_numpy(arrays, config, device):
         geometry=geometry, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
         config=cfg, clusters=clusters,
         has_cylinders=bool((a["geometry.prim_type"] == geo.CYLINDER).any()),
+        shadow_geometry=shadow_geometry, shadow_clusters=shadow_clusters,
     )

@@ -1,23 +1,32 @@
 """Scene container + dict-based scene loader.
 
 PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
-`SceneConfig`, `Scene`) for the subset of the flagship and matpreview
-scenes:
+`SceneConfig`, `Scene`) for this subset:
 
 * shapes: sphere, rectangle and mesh (vertices, faces, optional normals
-  and uvs), with a rotate / scale / translate to_world;
-* an "area" emitter on a shape;
+  and uvs), with a look_at / scale / rotate / translate to_world;
+* an "area" emitter on a shape, and the constant emitter;
 * sensor, sampler, film filter: perspective, independent, box;
-* integrator: path, with an optional wavefront-compaction schedule
+* integrators (a dict under "integrator" or under any key with an
+  integrator type): path, direct, depth, aov, aov_normals, aov_position,
+  aov_uv, moment, and prb / prb_basic (rendered as path), with max_depth,
+  rr_depth, hide_emitters and an optional compaction schedule
   ("compact");
-* emitter: constant;
-* BSDFs: merl from a "table" array, roughconductor (GGX), diffuse.
+* BSDFs: diffuse (RGB), conductor, roughconductor (GGX or Beckmann),
+  plastic, roughplastic, principled, dielectric, thindielectric,
+  roughdielectric, null, passthrough, twosided, blendbsdf, mask, and merl
+  / measured_custom from a "table" array or a "filename";
+* spectra: RGB, uniform, blackbody, d65, regular and irregular.
 
-Any other type raises NotImplementedError. Scenes past
-BRUTE_FORCE_MAX_PRIMS primitives get the cluster structure
-(ops/clusters.py) and intersector = "cluster"; past clusters.MAX_PRIMS
-the loader raises. The device is explicit: `load_dict(d, device)`. The
-host-side numpy helpers are copied from the JAX package, not imported.
+Anything else of the JAX package raises NotImplementedError naming its
+ROADMAP item; a type the JAX package does not know raises ValueError. A
+null material makes a shadow copy of the geometry in which its prims are
+degenerate (and, with clusters, its own cluster set), so shadow rays pass
+through them. Scenes past BRUTE_FORCE_MAX_PRIMS primitives get the
+cluster structure (ops/clusters.py) and intersector = "cluster"; past
+clusters.MAX_PRIMS the loader raises. The device is explicit:
+`load_dict(d, device)`. The host-side numpy helpers are copied from the
+JAX package, not imported.
 """
 
 from __future__ import annotations
@@ -29,9 +38,24 @@ import numpy as np
 import torch
 
 from mitsuba_customization_tpu_torch.core.distr import DiscreteDistribution
+from mitsuba_customization_tpu_torch.core.spectrum import (
+    blackbody_rgb,
+    d65_rgb,
+    spectrum_to_rgb,
+)
 from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
+from mitsuba_customization_tpu_torch.models import conductor as conductor_mod
+from mitsuba_customization_tpu_torch.models import dielectric as dielectric_mod
 from mitsuba_customization_tpu_torch.models import diffuse as diffuse_mod
+from mitsuba_customization_tpu_torch.models import measured_custom as custom_mod
+from mitsuba_customization_tpu_torch.models import merl as merl_mod
+from mitsuba_customization_tpu_torch.models import passthrough as passthrough_mod
+from mitsuba_customization_tpu_torch.models import plastic as plastic_mod
+from mitsuba_customization_tpu_torch.models import principled as principled_mod
 from mitsuba_customization_tpu_torch.models import roughconductor as rough_mod
+from mitsuba_customization_tpu_torch.models import roughdielectric as roughdiel_mod
+from mitsuba_customization_tpu_torch.models import roughplastic as roughplastic_mod
+from mitsuba_customization_tpu_torch.models import thindielectric as thindiel_mod
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
@@ -82,6 +106,10 @@ class Scene:
     # whether the prim soup holds cylinders (a host fact: without them the
     # cylinder tests, normals and uvs are not computed)
     has_cylinders: bool = False
+    # with a null material: the geometry with its prims degenerate, and
+    # (cluster intersector) its cluster set, for shadow rays
+    shadow_geometry: Optional[geo.Geometry] = None
+    shadow_clusters: Optional[cl_mod.ClusterSet] = None
 
     @property
     def device(self):
@@ -98,12 +126,14 @@ class Scene:
         return geo.compute_interaction(self.geometry, ray, t, prim, u, v, cyl)
 
     def ray_test(self, ray):
-        """Shadow-ray occlusion (K4 in cluster mode, else brute force). No
-        null-material prims are ported, so the shadow geometry is the
-        geometry."""
+        """Shadow-ray occlusion (K4 in cluster mode, else brute force).
+        Null-material prims never occlude: the shadow geometry and its
+        cluster set, where the scene has them, hold them degenerate."""
         if self.config.intersector == "cluster":
-            return cl_mod.occluded(self.clusters, ray)
-        return geo.occluded_brute(self.geometry, ray, self.has_cylinders)
+            cs = self.clusters if self.shadow_clusters is None else self.shadow_clusters
+            return cl_mod.occluded(cs, ray)
+        g = self.geometry if self.shadow_geometry is None else self.shadow_geometry
+        return geo.occluded_brute(g, ray, self.has_cylinders)
 
 
 # --------------------------------------------------------------------------
@@ -112,27 +142,46 @@ class Scene:
 
 
 def resolve_spectrum(val, default=(1.0, 1.0, 1.0)):
-    """Scalar, [r, g, b] or {"type": "rgb"/"uniform", "value": ...} -> RGB."""
+    """A spectrum declaration -> linear RGB (3,) float32: a scalar,
+    [r, g, b], {"type": "rgb"/"uniform", "value": ...}, {"type":
+    "blackbody", "temperature": K, "scale": s}, {"type": "d65", "scale":
+    s}, or {"type": "regular"/"irregular", "wavelengths": [...] (or
+    lambda_min / lambda_max), "values": [...], "scale": s}."""
     if isinstance(val, dict):
         t = val.get("type", "rgb")
+        if t == "blackbody":
+            return blackbody_rgb(float(val.get("temperature", 6504.0))) * np.float32(
+                val.get("scale", 1.0))
+        if t == "d65":
+            return d65_rgb(float(val.get("scale", 1.0)))
+        if t in ("regular", "irregular"):
+            wl = val.get("wavelengths")
+            if wl is None:
+                wl = np.linspace(val.get("lambda_min", 360.0),
+                                 val.get("lambda_max", 830.0), len(val["values"]))
+            return spectrum_to_rgb(wl, val["values"]) * np.float32(val.get("scale", 1.0))
         if t not in ("rgb", "uniform"):
-            raise NotImplementedError(f"spectrum type '{t}' is not ported")
+            raise ValueError(f"unsupported spectrum type '{t}'")
         val = val.get("value", default)
     arr = np.asarray(val, dtype=np.float32)
     return np.full(3, arr, np.float32) if arr.ndim == 0 else arr
 
 
 def _as_transform(t):
-    """A 4x4 array, or a dict {scale, rotate(axis, angle), translate}
-    composed in that order."""
+    """A 4x4 array, or a dict {look_at(origin, target, up), scale,
+    rotate(axis, angle), translate} composed in that order."""
     if t is None:
         return np.eye(4, dtype=np.float32)
     if not isinstance(t, dict):
         return np.asarray(t, dtype=np.float32)
-    unknown = set(t) - {"scale", "rotate", "translate"}
+    unknown = set(t) - {"look_at", "scale", "rotate", "translate"}
     if unknown:
         raise NotImplementedError(f"to_world keys {sorted(unknown)} are not ported")
     mat = np.eye(4)
+    if "look_at" in t:
+        la = t["look_at"]
+        mat = sensor_mod.look_at(la["origin"], la["target"],
+                                 la.get("up", [0, 1, 0])).astype(np.float64)
     if "scale" in t:
         s = np.asarray(t["scale"], dtype=np.float64)
         s = np.full(3, s) if s.ndim == 0 else s
@@ -255,7 +304,48 @@ def geometry_from_numpy(arrays, device):
 
 _SENSOR_TYPES = {"perspective"}
 _SHAPE_TYPES = {"sphere", "rectangle", "mesh"}
-_BSDF_TYPES = {"diffuse", "roughconductor", "merl"}
+_BSDF_TYPES = {
+    "diffuse", "conductor", "roughconductor", "dielectric", "thindielectric",
+    "roughdielectric", "merl", "measured_custom", "twosided", "null",
+    "plastic", "roughplastic", "blendbsdf", "mask", "passthrough",
+    "normalmap", "bumpmap", "principled",
+}
+# the JAX package's integrator names; prb and prb_basic render as path
+INTEGRATOR_TYPES = frozenset([
+    "path", "direct", "depth", "aov", "aov_normals", "aov_position", "aov_uv",
+    "moment", "prb", "prb_basic",
+])
+# what the JAX package has and the port has not yet, by ROADMAP item
+NOT_PORTED = {
+    "integrator": ({"volpath", "volpathmis", "prbvolpath", "ptracer", "bdpt"}, "14b"),
+    "shape": ({"obj", "ply", "serialized", "cube", "disk", "cylinder", "instance",
+               "sdfgrid", "shapegroup"}, "15"),
+    "emitter": ({"envmap", "point", "spot", "directional", "directionalarea",
+                 "projector"}, "13"),
+    "sensor": ({"thinlens", "orthographic", "radiancemeter", "irradiancemeter",
+                "distant", "batch"}, "13"),
+    "sampler": ({"stratified", "multijitter", "orthogonal", "ldsampler", "sobol"}, "13"),
+    "rfilter": ({"gaussian", "tent", "mitchell", "catmullrom", "lanczos"}, "13"),
+    "medium": ({"homogeneous", "heterogeneous"}, "14b"),
+    "texture": ({"bitmap", "checkerboard", "mesh_attribute", "volume"}, "12b"),
+    "bsdf": ({"normalmap", "bumpmap"}, "12b"),
+}
+
+
+def check_ported(kind, t):
+    """Raise NotImplementedError naming the ROADMAP item of a `kind` of
+    type `t` that the JAX package has and the port has not."""
+    names, item = NOT_PORTED[kind]
+    if t in names:
+        raise NotImplementedError(
+            f"{kind} type '{t}' is not ported (ROADMAP item {item})")
+
+
+def _bsdf_child(bd, key="bsdf"):
+    """The child BSDF of a wrapper: bd[key], else its first dict entry with
+    a BSDF type."""
+    return bd.get(key) or next(
+        v for v in bd.values() if isinstance(v, dict) and v.get("type") in _BSDF_TYPES)
 
 
 def load_dict(d: dict, device) -> Scene:
@@ -268,13 +358,17 @@ def load_dict(d: dict, device) -> Scene:
     mat_slots: list[int] = []
     stacks: dict[int, list] = {}
     tab_tables: list[np.ndarray] = []
+    blend_entries: dict[int, tuple] = {}  # mat id -> (child_a, child_b, w)
     named_bsdfs: dict[str, int] = {}
     em_rows: list[dict] = []
     emissive_prim_ranges: list[tuple] = []  # (emitter_id, prim_start, prim_end)
     const_row = -1
 
-    def rgb(bd, key, default):
-        return resolve_spectrum(bd.get(key, default), default)
+    def add_material(kid, params):
+        stacks.setdefault(kid, []).append(params)
+        mat_types.append(kid)
+        mat_slots.append(len(stacks[kid]) - 1)
+        return len(mat_types) - 1
 
     def compile_bsdf(bd) -> int:
         if isinstance(bd, str):
@@ -282,12 +376,52 @@ def load_dict(d: dict, device) -> Scene:
                 raise ValueError(f"unknown bsdf reference '{bd}'")
             return named_bsdfs[bd]
         btype = bd.get("type", "diffuse")
-        if btype not in _BSDF_TYPES:
-            raise NotImplementedError(f"bsdf type '{btype}' is not ported")
-        if btype == "merl":
-            if "table" not in bd:
-                raise NotImplementedError("merl from a file is not ported")
-            table = np.asarray(bd["table"], dtype=np.float32)
+        check_ported("bsdf", btype)
+
+        def rgb(key, default):
+            val = bd.get(key, default)
+            if isinstance(val, dict):
+                check_ported("texture", val.get("type"))
+            return resolve_spectrum(val, default)
+
+        def ior():
+            return np.float32(float(bd.get("int_ior", 1.5046))
+                              / float(bd.get("ext_ior", 1.000277)))
+
+        if btype == "twosided":
+            return compile_bsdf(_bsdf_child(bd))
+        if btype in ("blendbsdf", "mask"):
+            if btype == "blendbsdf":
+                kids = [v for v in bd.values()
+                        if isinstance(v, dict) and v.get("type") in _BSDF_TYPES]
+                if len(kids) != 2:
+                    raise ValueError("blendbsdf needs exactly two child bsdfs")
+                child_a, child_b = compile_bsdf(kids[0]), compile_bsdf(kids[1])
+                wmix = float(bd.get("weight", 0.5))
+            else:  # mask: transparent with probability 1 - opacity
+                child_b = compile_bsdf(_bsdf_child(bd))
+                op = bd.get("opacity", 0.5)
+                if isinstance(op, dict):
+                    op = op.get("value", 0.5)
+                wmix = float(np.asarray(op, np.float32).mean())
+                child_a = compile_bsdf({"type": "passthrough"})
+            if child_a in blend_entries or child_b in blend_entries:
+                raise ValueError("nested blends are not supported")
+            mat_types.append(bsdf_mod.BLEND)
+            mat_slots.append(0)
+            blend_entries[len(mat_types) - 1] = (child_a, child_b, wmix)
+            return len(mat_types) - 1
+        if btype == "null":
+            mat_types.append(bsdf_mod.NULL)
+            mat_slots.append(0)
+            return len(mat_types) - 1
+        if btype in ("merl", "measured_custom"):
+            if "table" in bd:
+                table = np.asarray(bd["table"], dtype=np.float32)
+            elif btype == "merl":
+                table = merl_mod.read_merl(bd["filename"])
+            else:
+                table = custom_mod.read_custom(bd["filename"])
             if tab_tables and tab_tables[0].shape != table.shape:
                 raise ValueError(
                     "all tabulated BRDFs in one scene must share a "
@@ -297,30 +431,59 @@ def load_dict(d: dict, device) -> Scene:
             mat_types.append(bsdf_mod.TABULATED)
             mat_slots.append(len(tab_tables) - 1)
             return len(mat_types) - 1
+        if btype == "passthrough":
+            return add_material(bsdf_mod.PASSTHROUGH, passthrough_mod.PassthroughParams(
+                transmittance=rgb("transmittance", [1.0, 1.0, 1.0])))
         if btype == "diffuse":
-            refl = bd.get("reflectance", [0.5, 0.5, 0.5])
-            if isinstance(refl, dict) and refl.get("type") not in ("rgb", "uniform"):
-                raise NotImplementedError("textured diffuse is not ported")
-            kid = bsdf_mod.DIFFUSE
-            params = diffuse_mod.DiffuseParams(
-                reflectance=rgb(bd, "reflectance", [0.5, 0.5, 0.5])
-            )
-        else:  # roughconductor
-            if bd.get("distribution", "ggx") != "ggx":
-                raise NotImplementedError("only the GGX distribution is ported")
-            kid = bsdf_mod.ROUGHCONDUCTOR
+            return add_material(bsdf_mod.DIFFUSE, diffuse_mod.DiffuseParams(
+                reflectance=rgb("reflectance", [0.5, 0.5, 0.5])))
+        if btype == "conductor":
+            return add_material(bsdf_mod.CONDUCTOR, conductor_mod.ConductorParams(
+                eta=rgb("eta", _DEFAULT_ETA), k=rgb("k", _DEFAULT_K),
+                specular_reflectance=rgb("specular_reflectance", [1, 1, 1])))
+        if btype == "roughconductor":
+            dist = bd.get("distribution", "ggx")
+            if dist not in ("ggx", "beckmann"):
+                raise ValueError(f"unsupported microfacet distribution '{dist}'")
             alpha = float(bd.get("alpha", 0.1))
-            params = rough_mod.RoughConductorParams(
-                alpha_u=np.float32(bd.get("alpha_u", alpha)),
-                alpha_v=np.float32(bd.get("alpha_v", alpha)),
-                eta=rgb(bd, "eta", _DEFAULT_ETA),
-                k=rgb(bd, "k", _DEFAULT_K),
-                specular_reflectance=rgb(bd, "specular_reflectance", [1, 1, 1]),
-            )
-        stacks.setdefault(kid, []).append(params)
-        mat_types.append(kid)
-        mat_slots.append(len(stacks[kid]) - 1)
-        return len(mat_types) - 1
+            return add_material(
+                bsdf_mod.ROUGHCONDUCTOR if dist == "ggx"
+                else bsdf_mod.ROUGHCONDUCTOR_BECKMANN,
+                rough_mod.RoughConductorParams(
+                    alpha_u=np.float32(bd.get("alpha_u", alpha)),
+                    alpha_v=np.float32(bd.get("alpha_v", alpha)),
+                    eta=rgb("eta", _DEFAULT_ETA), k=rgb("k", _DEFAULT_K),
+                    specular_reflectance=rgb("specular_reflectance", [1, 1, 1])))
+        if btype in ("plastic", "roughplastic"):
+            eta = np.float32(float(bd.get("int_ior", 1.49))
+                             / float(bd.get("ext_ior", 1.000277)))
+            common = dict(
+                diffuse_reflectance=rgb("diffuse_reflectance", [0.5, 0.5, 0.5]),
+                specular_reflectance=rgb("specular_reflectance", [1, 1, 1]), eta=eta)
+            if btype == "plastic":
+                return add_material(bsdf_mod.PLASTIC, plastic_mod.PlasticParams(**common))
+            return add_material(bsdf_mod.ROUGHPLASTIC, roughplastic_mod.RoughPlasticParams(
+                alpha=np.float32(bd.get("alpha", 0.1)), **common))
+        if btype == "principled":
+            defaults = dict(roughness=0.5, anisotropic=0.0, metallic=0.0, spec_tint=0.0,
+                            specular=0.5, sheen=0.0, sheen_tint=0.0, clearcoat=0.0,
+                            clearcoat_gloss=0.0, flatness=0.0)
+            return add_material(bsdf_mod.PRINCIPLED, principled_mod.PrincipledParams(
+                base_color=rgb("base_color", [0.5, 0.5, 0.5]),
+                **{k: np.float32(bd.get(k, v)) for k, v in defaults.items()}))
+        if btype in ("dielectric", "thindielectric"):
+            mod = dielectric_mod.DielectricParams if btype == "dielectric" \
+                else thindiel_mod.ThinDielectricParams
+            return add_material(
+                bsdf_mod.DIELECTRIC if btype == "dielectric" else bsdf_mod.THINDIELECTRIC,
+                mod(eta=ior(), specular_reflectance=rgb("specular_reflectance", [1, 1, 1]),
+                    specular_transmittance=rgb("specular_transmittance", [1, 1, 1])))
+        if btype == "roughdielectric":
+            return add_material(bsdf_mod.ROUGHDIELECTRIC, roughdiel_mod.RoughDielectricParams(
+                eta=ior(), alpha=np.float32(bd.get("alpha", 0.1)),
+                specular_reflectance=rgb("specular_reflectance", [1, 1, 1]),
+                specular_transmittance=rgb("specular_transmittance", [1, 1, 1])))
+        raise ValueError(f"unsupported bsdf type '{btype}'")
 
     gb = _GeomBuilder()
     sensor = None
@@ -329,18 +492,20 @@ def load_dict(d: dict, device) -> Scene:
     def add_shape(val):
         nonlocal shape_count
         t = val.get("type")
-        if "interior" in val or "exterior" in val:
-            raise NotImplementedError("participating media are not ported")
+        for key in ("interior", "exterior"):
+            if key in val:
+                raise NotImplementedError(
+                    f"participating media ('{key}') are not ported (ROADMAP item 14b)")
         if val.get("face_normals", False) or "vertex_colors" in val:
-            raise NotImplementedError("face_normals / vertex_colors are not ported")
+            raise NotImplementedError(
+                "face_normals / vertex_colors are not ported (ROADMAP items 15, 12b)")
         mat_id = compile_bsdf(val.get("bsdf", {"type": "diffuse"}))
         emitter_id = -1
         if "emitter" in val:
             espec = val["emitter"]
+            check_ported("emitter", espec.get("type"))
             if espec.get("type") != "area":
-                raise NotImplementedError(
-                    f"shape emitter '{espec.get('type')}' is not ported"
-                )
+                raise ValueError("shape emitters must be 'area' or 'directionalarea'")
             em_rows.append(dict(
                 type=em_mod.AREA,
                 radiance=resolve_spectrum(espec.get("radiance", [1, 1, 1])),
@@ -385,28 +550,34 @@ def load_dict(d: dict, device) -> Scene:
         t = val.get("type")
         if t in _BSDF_TYPES:
             continue
-        if key == "integrator":
-            if val.get("type", "path") != "path":
-                raise NotImplementedError(f"integrator '{val.get('type')}' is not ported")
-            cfg.integrator = "path"
+        if key == "integrator" or t in INTEGRATOR_TYPES or t in NOT_PORTED["integrator"][0]:
+            itype = val.get("type", "path")
+            check_ported("integrator", itype)
+            if itype not in INTEGRATOR_TYPES:
+                raise ValueError(f"integrator type '{itype}' is not implemented "
+                                 f"(available: {sorted(INTEGRATOR_TYPES)})")
+            cfg.integrator = itype
             cfg.max_depth = int(val.get("max_depth", cfg.max_depth))
             cfg.rr_depth = int(val.get("rr_depth", cfg.rr_depth))
             cfg.hide_emitters = bool(val.get("hide_emitters", False))
             if val.get("compact") is not None:
                 cfg.compact = tuple(float(f) for f in val["compact"])
             continue
+        check_ported("sensor", t)
         if t in _SENSOR_TYPES:
             film = val.get("film", {})
             cfg.width = int(film.get("width", cfg.width))
             cfg.height = int(film.get("height", cfg.height))
             rf = film.get("rfilter", "box")
             cfg.rfilter = rf.get("type", "box") if isinstance(rf, dict) else rf
+            check_ported("rfilter", cfg.rfilter)
             if cfg.rfilter != "box":
-                raise NotImplementedError(f"film filter '{cfg.rfilter}' is not ported")
+                raise ValueError(f"unsupported film filter '{cfg.rfilter}'")
             samp = val.get("sampler", {})
             cfg.sampler = samp.get("type", cfg.sampler)
+            check_ported("sampler", cfg.sampler)
             if cfg.sampler != "independent":
-                raise NotImplementedError(f"sampler '{cfg.sampler}' is not ported")
+                raise ValueError(f"unsupported sampler '{cfg.sampler}'")
             cfg.spp = int(samp.get("sample_count", cfg.spp))
             sensor = sensor_mod.make_sensor(
                 device,
@@ -415,6 +586,7 @@ def load_dict(d: dict, device) -> Scene:
                 near_clip=float(val.get("near_clip", 1e-3)),
             )
             continue
+        check_ported("emitter", t)
         if t == "constant":
             em_rows.append(dict(
                 type=em_mod.CONSTANT,
@@ -422,10 +594,12 @@ def load_dict(d: dict, device) -> Scene:
             ))
             const_row = len(em_rows) - 1
             continue
+        check_ported("shape", t)
+        check_ported("medium", t)
         if t in _SHAPE_TYPES:
             add_shape(val)
             continue
-        raise NotImplementedError(f"scene entry '{key}' (type={t}) is not ported")
+        raise ValueError(f"scene entry '{key}' has an unsupported type '{t}'")
 
     if gb.count > cl_mod.MAX_PRIMS:
         raise NotImplementedError(
@@ -439,6 +613,17 @@ def load_dict(d: dict, device) -> Scene:
     if gb.count > BRUTE_FORCE_MAX_PRIMS:
         cfg.intersector = "cluster"
         clusters = cl_mod.build(geo.Geometry(**arrays), device)
+    # the shadow copy: null-material prims degenerate, so that shadow rays
+    # pass through them
+    shadow_geometry = shadow_clusters = None
+    mat_np = np.asarray(mat_types, np.int64)
+    if (mat_np == bsdf_mod.NULL).any():
+        keep = (mat_np[arrays["mat_id"]] != bsdf_mod.NULL)[:, None]
+        shadow = dict(arrays, e1=np.where(keep, arrays["e1"], 0.0).astype(np.float32),
+                      e2=np.where(keep, arrays["e2"], 0.0).astype(np.float32))
+        shadow_geometry = geometry_from_numpy(shadow, device)
+        if clusters is not None:
+            shadow_clusters = cl_mod.build(geo.Geometry(**shadow), device)
 
     def stack_params(plist):
         return type(plist[0])(*(
@@ -452,10 +637,20 @@ def load_dict(d: dict, device) -> Scene:
         )
     if not mat_types:
         mat_types, mat_slots = [bsdf_mod.DIFFUSE], [0]
+    blend = {}
+    if blend_entries:
+        n_mat = len(mat_types)
+        b_a, b_b = np.arange(n_mat), np.arange(n_mat)
+        b_w = np.zeros(n_mat, np.float32)
+        for mid, (ca, cb, wmix) in blend_entries.items():
+            b_a[mid], b_b[mid], b_w[mid] = ca, cb, wmix
+        blend = dict(blend_a=torch.as_tensor(b_a, device=device),
+                     blend_b=torch.as_tensor(b_b, device=device),
+                     blend_w=torch.as_tensor(b_w, device=device))
     bsdfs = bsdf_mod.BSDFTable(
         mat_type=torch.as_tensor(mat_types, dtype=torch.int64, device=device),
         mat_slot=torch.as_tensor(mat_slots, dtype=torch.int64, device=device),
-        stacks=kernel_stacks,
+        stacks=kernel_stacks, **blend,
     )
     cfg.nee = len(em_rows) > 0
     if sensor is None:
@@ -469,6 +664,8 @@ def load_dict(d: dict, device) -> Scene:
         config=cfg,
         clusters=clusters,
         has_cylinders=bool((arrays["prim_type"] == geo.CYLINDER).any()),
+        shadow_geometry=shadow_geometry,
+        shadow_clusters=shadow_clusters,
     )
 
 

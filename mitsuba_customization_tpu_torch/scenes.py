@@ -1,5 +1,9 @@
 """Scene dicts the port is exercised on, and the compaction probe.
 
+`config0_dict` is BASELINE configs[0], the scene of the JAX package's
+tests/test_golden.py: a unit sphere of one BSDF under a constant emitter,
+direct illumination.
+
 `flagship_dict` is the same dict literal as the JAX package's flagship
 scene (`__graft_entry__._flagship_scene`): a sphere with a synthetic
 MERL-format (90, 90, 180, 3) table, a GGX roughconductor sphere, a diffuse
@@ -32,6 +36,24 @@ def flagship_table():
     """Synthetic MERL-format table: a diffuse floor plus a specular ridge
     at theta_h ~ 0 (no MERL data ships in the repository)."""
     return synthetic_merl_table(0.2, [1.0, 0.8, 0.5])
+
+
+def config0_dict(bsdf, res=64, spp=64):
+    """BASELINE configs[0]: a unit sphere with `bsdf` under a constant
+    emitter of radiance 1, direct illumination, camera at distance 4."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "direct", "max_depth": 2},
+        "sensor": {
+            "type": "perspective",
+            "fov": 40,
+            "to_world": look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]),
+            "film": {"width": res, "height": res},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "sphere": {"type": "sphere", "bsdf": bsdf},
+        "light": {"type": "constant", "radiance": [1.0, 1.0, 1.0]},
+    }
 
 
 def flagship_dict(res=64, spp=4, depth=4):

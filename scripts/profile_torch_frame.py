@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of one frame goes, for the PyTorch port on a GPU.
 
-    python3 scripts/profile_torch_frame.py [--scene flagship|matpreview]
-        [--res 512] [--spp N] [--depth N] [--reps 3] [--top 20]
-        [--against TREE ...]
+    python3 scripts/profile_torch_frame.py
+        [--scene flagship|matpreview|materials|blend] [--res N] [--spp N]
+        [--depth N] [--reps 3] [--top 20] [--against TREE ...]
     python3 scripts/profile_torch_frame.py --ad [--res 256] [--spp 4]
         [--depth 6] [--reps 3] [--top 20]
 
---scene flagship (default: 64 spp, depth 4) or matpreview (default: 8 spp,
-depth 8, with the compaction schedule of scenes.probe_compact_schedule at
-4 spp). Prints the card's name and power limit; the frame's wall time and
+--scene flagship (default: 512x512, 64 spp, depth 4) or matpreview
+(default: 512x512, 8 spp, depth 8, with the compaction schedule of
+scenes.probe_compact_schedule at 4 spp), or chip_smoke.py's materials
+frame (matpreview_dict with n_materials=12 and chip_smoke.material_bands;
+512x512, 8 spp, depth 8) or blend frame (its null, mask and blendbsdf
+bands; 256x256, 4 spp, depth 6), both with the probed schedule. Prints the card's name and power limit; the frame's wall time and
 rays/s with the profiler off (median of --reps renders after one warm-up);
 then one render under torch.profiler: device time by kernel group and by
 kernel name, the launches of K1-K4, the number of kernels launched, the
@@ -260,7 +263,7 @@ def compare(scene, spp, reps, other_trees):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("flagship", "matpreview"),
+    ap.add_argument("--scene", choices=("flagship", "matpreview", "materials", "blend"),
                     default="flagship")
     ap.add_argument("--ad", action="store_true")
     ap.add_argument("--res", type=int, default=None)
@@ -301,11 +304,18 @@ def main():
         scene = mt.load_dict(
             scenes.flagship_dict(args.res, args.spp, args.depth), "cuda")
     else:
-        args.res = args.res or 512
-        args.spp = args.spp or 8
-        args.depth = args.depth or 8
-        scene = mt.load_dict(
-            scenes.matpreview_dict(args.res, args.spp, args.depth), "cuda")
+        blend = args.scene == "blend"
+        args.res = args.res or (256 if blend else 512)
+        args.spp = args.spp or (4 if blend else 8)
+        args.depth = args.depth or (6 if blend else 8)
+        if args.scene == "matpreview":
+            d = scenes.matpreview_dict(args.res, args.spp, args.depth)
+        else:
+            from chip_smoke import material_bands
+
+            d = material_bands(scenes.matpreview_dict(
+                args.res, args.spp, args.depth, n_materials=12), blend=blend)
+        scene = mt.load_dict(d, "cuda")
         scene, fracs = scenes.probe_compact_schedule(scene, spp=4)
         print(f"compaction schedule {fracs}")
 

@@ -160,3 +160,69 @@ def test_distributions_build_and_sample(rng):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     _close(tu, ju)
     _close(td.eval_pmf(ti), jd.eval_pmf(ji))
+
+
+def test_continuous_distribution(rng):
+    w = rng.random(40).astype(np.float32) ** 3
+    u = rng.random(3000).astype(np.float32)
+    jd = jdistr.ContinuousDistribution.build(jnp.asarray(w))
+    td = tdistr.ContinuousDistribution.build(torch.as_tensor(w))
+    for a, b in zip(td, jd):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+    x = td.sample(torch.as_tensor(u))
+    np.testing.assert_allclose(x.numpy(), np.asarray(jd.sample(jnp.asarray(u))), atol=ATOL)
+    np.testing.assert_allclose(td.eval_pdf(x).numpy(), np.asarray(jd.eval_pdf(jnp.asarray(x))),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_marginal2d_sample_and_pdf(rng, stacked):
+    """Marginal2D.sample / eval_pdf, on one table and through a lane's
+    slice of a (3, 4) stack (the tabulated sampler's form), and
+    gather_slice, on the same CDFs (torch's and XLA's cumsum round
+    apart; the build is compared in test_distributions_build_and_sample)."""
+    lead = (3, 4) if stacked else ()
+    w = (rng.random(lead + (8, 16)).astype(np.float32) ** 4)
+    n = 2000
+    u = rng.random((n, 2)).astype(np.float32)
+    jm = jdistr.Marginal2D.build(jnp.asarray(w))
+    tm = tdistr.Marginal2D(*(torch.as_tensor(np.asarray(f)) for f in jm))
+    js = ts = None
+    if stacked:
+        idx = (rng.integers(0, 3, n), rng.integers(0, 4, n))
+        js = tuple(jnp.asarray(i) for i in idx)
+        ts = tuple(torch.as_tensor(i) for i in idx)
+    pos, pdf = tm.sample(torch.as_tensor(u), slice_=ts)
+    jpos, jpdf = jm.sample(jnp.asarray(u), slice_=js)
+    np.testing.assert_allclose(pos.numpy(), np.asarray(jpos), atol=ATOL)
+    np.testing.assert_allclose(pdf.numpy(), np.asarray(jpdf), rtol=1e-5)
+    np.testing.assert_allclose(tm.eval_pdf(pos, slice_=ts).numpy(),
+                               np.asarray(jm.eval_pdf(jnp.asarray(pos.numpy()), slice_=js)),
+                               rtol=1e-5)
+    if stacked:
+        sub = tm.gather_slice(ts)
+        for a, b in zip(sub, jm.gather_slice(js)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-7)
+
+
+def test_srgb_and_fresnel(rng):
+    from mitsuba_customization_tpu.core import spectrum as jspec
+    from mitsuba_customization_tpu.models import fresnel as jfres
+    from mitsuba_customization_tpu_torch.core import spectrum as tspec
+    from mitsuba_customization_tpu_torch.models import fresnel as tfres
+
+    c = rng.uniform(-0.1, 1.2, 4000).astype(np.float32)
+    for fn in ("srgb_to_linear", "linear_to_srgb"):
+        np.testing.assert_allclose(getattr(tspec, fn)(torch.as_tensor(c)).numpy(),
+                                   np.asarray(getattr(jspec, fn)(jnp.asarray(c))),
+                                   rtol=1e-6, atol=1e-7)
+    cos = rng.uniform(-1, 1, 4000).astype(np.float32)
+    eta = rng.uniform(0.6, 2.2, 4000).astype(np.float32)
+    for a, b in zip(tfres.fresnel_dielectric(torch.as_tensor(cos), torch.as_tensor(eta)),
+                    jfres.fresnel_dielectric(jnp.asarray(cos), jnp.asarray(eta))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+    f0 = rng.random((4000, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tfres.fresnel_schlick(torch.as_tensor(cos), torch.as_tensor(f0)).numpy(),
+        np.asarray(jfres.fresnel_schlick(jnp.asarray(cos), jnp.asarray(f0))),
+        rtol=1e-6, atol=1e-7)

@@ -962,3 +962,118 @@ def test_k3_k4_supercluster_boxes_past_48_kb(dev, copies):
     assert 0.3 < float(hit.float().mean()) < 0.95
     occ = _assert_k4_equal(cs, Ray(o, d, torch.where(hit, t * 2.0, 1e30)), copies(n))
     assert bool(occ[hit].all()) and not bool(occ[~hit].any())
+
+
+def test_k1_one_half_with_slot_and_mask(dev):
+    """K1 as the standalone tabulated eval calls it: one half (no wo_b), a
+    slot and a mask (the slot of masked lanes clamped to 0 by the caller,
+    and out of range on some live lanes), on a 3-table stack whose phi_d
+    terms vanish at the poles: equal to its plain version within 1e-4 /
+    1e-5, 0 on masked lanes, one launch."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 200_003
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    wo[:500, 2] *= -1
+    shape = (16, 16, 32, 3)
+    stack = torch.stack([_rgb_table(dev, shape, 0.0), 0.5 * _rgb_table(dev, shape, 1.0),
+                         2.0 * _rgb_table(dev, shape, 2.0)])
+    mask = torch.rand(n, generator=gen, device=dev) < 0.7
+    slot = torch.where(mask, torch.randint(0, 4, (n,), generator=gen, device=dev), 0)
+    before = k1.LAUNCHES
+    got = k1.eval_trilinear(stack, wi, wo, slot, mask)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + 1 and got.shape == (n, 3)
+    want = k1.eval_trilinear_plain(stack, wi, wo, slot, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert not got[~mask].any()
+
+
+def test_tabulated_standalone_eval_sample_pdf(dev):
+    """tabulated.eval / pdf / sample on the card against the CPU (plain
+    versions) with the same sampling CDFs: K1 with one half in eval and
+    in sample (two launches), eval within 1e-4 / 1e-5 on every lane; pdf
+    and sample on >= 99.9 % of the lanes (a half vector on a CDF cell's
+    edge may land in the next cell: the card's acos and atan2 differ from
+    the CPU's by ulps)."""
+    from mitsuba_customization_tpu_torch.core.distr import Marginal2D
+    from mitsuba_customization_tpu_torch.models import tabulated as tab
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = 65_536
+    shape = (16, 16, 32, 3)
+    stack = torch.stack([_rgb_table(dev, shape, 0.0), 0.5 * _rgb_table(dev, shape, 1.0)])
+    params = tab.TabulatedBRDF.build_stack(stack)
+    cpu = tab.TabulatedBRDF(stack.cpu(), Marginal2D(*(f.cpu() for f in params.sampling)))
+    wi, wo = _unit(gen, n, dev), _unit(gen, n, dev)
+    u2 = torch.rand((n, 2), generator=gen, device=dev)
+    slot = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.8
+    before = k1.LAUNCHES
+    got = [tab.eval(params, wi, wo, slot, mask), tab.pdf(params, wi, wo, slot, mask),
+           *tab.sample(params, wi, u2, None, slot, mask)]
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + 2
+    lanes = [x.cpu() for x in (wi, wo, slot, mask)]
+    want = [tab.eval(cpu, *lanes), tab.pdf(cpu, *lanes),
+            *tab.sample(cpu, lanes[0], u2.cpu(), None, *lanes[2:])]
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[-1].cpu(), want[-1])
+    off = torch.zeros(n, dtype=torch.bool)
+    for g, w in zip(got[1:-1], want[1:-1]):
+        bad = ~torch.isclose(g.cpu(), w, rtol=1e-4, atol=1e-5)
+        off |= bad.reshape(n, -1).any(-1)
+    assert int(off.sum()) <= n // 1000, int(off.sum())
+
+
+def test_k4_on_a_shadow_cluster_set_with_null_prims(dev):
+    """K4 on the shadow cluster set of a scene with a null band (its prims
+    degenerate) against its plain version on every lane; the rays that
+    hit only null prims pass there, and are occluded on the full set."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(16, 1, 2, n_sub=3, n_materials=4)
+    d["blob_1"]["bsdf"] = {"type": "null"}
+    scene = mt.load_dict(d, dev)
+    assert scene.shadow_clusters is not None
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n = 1 << 16
+    o = torch.tensor([0.0, 0.3, -4.0], device=dev) + 0.3 * torch.randn(
+        (n, 3), generator=gen, device=dev)
+    d_ = -o + 0.6 * torch.randn((n, 3), generator=gen, device=dev)
+    d_ = d_ / d_.norm(dim=-1, keepdim=True)
+    ray = Ray(o, d_, torch.full((n,), 8.0, device=dev))
+    before = cl.LAUNCHES["shadow"]
+    occ = scene.ray_test(ray)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES["shadow"] == before + 1
+    assert torch.equal(occ, cl.occluded_plain(scene.shadow_clusters, ray))
+    full = cl.occluded(scene.clusters, ray)
+    assert bool((full & ~occ).any()) and not bool((occ & ~full).any())
+
+
+def test_blended_ad_step_has_one_gradient_buffer(dev):
+    """grad_render of a matpreview scene with null, mask and blendbsdf bands
+    over MERL tables: K1 runs with one half (the blend fallback), K1's
+    backward adds every call into one table-gradient buffer; finite,
+    nonzero gradients."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(32, 2, 4, n_sub=3, n_materials=12)
+    d["blob_9"]["bsdf"] = {"type": "null"}
+    d["blob_10"]["bsdf"] = {"type": "mask", "opacity": 0.6, "bsdf": d["blob_10"]["bsdf"]}
+    d["blob_11"]["bsdf"] = {"type": "blendbsdf", "weight": 0.3, "a": d["blob_11"]["bsdf"],
+                            "b": {"type": "roughplastic"}}
+    scene = mt.load_dict(d, dev)
+    key = "bsdf.tabulated.table"
+    before = k1.LAUNCHES, k1.LAUNCHES_BWD, k1.GRAD_BUFFERS
+    loss, grads = ad.grad_render(scene, {key: traverse(scene)[key]},
+                                 torch.zeros((32, 32, 3), device=dev), spp=2)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES > before[0] and k1.LAUNCHES_BWD > before[1]
+    assert k1.GRAD_BUFFERS == before[2] + 1
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(grads[key]).all())
+    assert bool((grads[key] != 0).any())

@@ -64,10 +64,10 @@ def test_reference_style_positional_call():
 
 def test_unported_integrators_and_optimizers_raise():
     scene = mt.load_dict(flagship_dict(8, 1, 2), "cpu")
-    for integrator in ("direct", {"type": "volpath"}):
-        with pytest.raises(NotImplementedError, match="14a"):
+    for integrator in ("ptracer", {"type": "volpath"}):
+        with pytest.raises(NotImplementedError, match="14b"):
             tint.render(scene, 1, 0, integrator)
-        with pytest.raises(NotImplementedError, match="14a"):
+        with pytest.raises(NotImplementedError, match="14b"):
             tint.render_lanes(scene, 1, 0, integrator)
     with pytest.raises(NotImplementedError, match="16"):
         tad.Optimizer({"x": torch.zeros(1)}, 0.01, "sgd")
