@@ -87,9 +87,35 @@ Phases, one printed line each; any failure raises (non-zero exit):
      prims degenerate); every recorded call checked and timed; one
      ad.grad_render of its table stack (one table-gradient buffer, K1-bwd
      launched) and, at 64x64, card against CPU losses within 2 % and
-     table gradients at cosine >= 0.98.
-Each phase's counts are set to 0 just before its render (or AD step) and
-read just after. It then prints a JSON line describing each kernel
+     table gradients at cosine >= 0.98;
+ 20. the image frame: matpreview_dict(512, 8, 8, n_materials=12) with
+     image_bands (spherical uvs; bands 0-5 MERL, 6 a diffuse textured by a
+     2048x2048 EXR bitmap, 7 a checkerboard, 8 a mesh_attribute on vertex
+     colors, 9 a normalmap (1024x1024 EXR) over MERL, 10 a bumpmap (1024x1024
+     PFM, scale 0.02) over roughplastic, 11 a 64^3 RGB volume texture), a
+     2048x1024 EXR envmap (a sky with a sun ~1e3 brighter, rotated) beside
+     the area light and a spot, every image made from a seed with numpy
+     and read back through utils/io.read_image (no PNG: no Pillow needed),
+     the probed schedule: seconds, rays/s, K1-K4 launched; every K1-K4
+     call of one more render recorded, checked against its plain version
+     and timed (the envmap's shadow rays run with maxt = _SHADOW_INF);
+     card against CPU means at 64x64;
+ 21. the emitters frame (emitters_dict: point, spot, directional, a
+     directionalarea rectangle and a projector of an 8x8 two-colour image
+     over a diffuse floor and a MERL sphere) at 512x512, 16 spp, depth 4:
+     seconds, K1 and K2 launched; card against CPU means at 64x64; the
+     JAX tests' expectations as numbers on the card (the point light's
+     inverse square, the directionalarea footprint, the projector's
+     left-red / right-blue pattern);
+ 22. one ad.grad_render of the image frame at 256x256, 4 spp, depth 6
+     with its probed schedule, on the table stack, the texture images and
+     the envmap's image: one warm-up, one timed step (seconds, peak memory,
+     one table-gradient buffer, K1-bwd launched, the nonzero share of each
+     gradient); at 64x64 card against CPU losses within 2 % and each
+     gradient at cosine >= 0.98.
+Each phase prints its wall seconds (`phase ...` lines and a `phase
+seconds` summary). Each phase's counts are set to 0 just before its
+render (or AD step) and read just after. It then prints a JSON line describing each kernel
 (launches per matpreview frame, for K1's backward per AD step; `ms`,
 `plain_ms`, `bound_ms` and `share` (bound over time) of the phase 3, 4, 7,
 8 and 12 call; `frame_ms`, `frame_bound_ms` and `frame_share` summed over
@@ -114,13 +140,15 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
-Every entry also carries `launches_by_phase` (phases 17-19 and the blend
-AD step) and, for K1-K4, the recorded calls' sums of phases 18 and 19
-(`materials_frame_ms`, `blend_frame_ms` and their bounds).
+Every entry also carries `launches_by_phase` (phases 17-22 and the blend
+and image AD steps; for K1's backward its three AD steps) and, for K1-K4,
+the recorded calls' sums of phases 18, 19 and 20 (`materials_frame_ms`,
+`blend_frame_ms`, `image_frame_ms` and their bounds).
 Imports nothing of JAX.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -1184,13 +1212,16 @@ def phase_matpreview_cpu(dev, fracs):
         raise AssertionError("GPU and CPU matpreview means disagree")
 
 
-def _gpu_cpu_means(what, d, dev, spp=4):
-    """Card against CPU (plain kernels): the per-channel means of d
-    rendered at seed 0 within FRAME_MEAN_RTOL."""
+def _gpu_cpu_means(what, d, dev, spp=4, scenes=None):
+    """Card against CPU (plain kernels): the per-channel means of d (or of
+    `scenes`, the same scene loaded on the card and on the CPU) rendered at
+    seed 0 within FRAME_MEAN_RTOL."""
     import mitsuba_customization_tpu_torch as mt
 
-    gpu = mt.render(mt.load_dict(d, dev), spp=spp, seed=0).mean((0, 1)).cpu()
-    cpu = mt.render(mt.load_dict(d, "cpu"), spp=spp, seed=0).mean((0, 1))
+    if scenes is None:
+        scenes = (mt.load_dict(d, dev), mt.load_dict(d, "cpu"))
+    gpu = mt.render(scenes[0], spp=spp, seed=0).mean((0, 1)).cpu()
+    cpu = mt.render(scenes[1], spp=spp, seed=0).mean((0, 1))
     rel = ((gpu - cpu).abs() / cpu.abs()).max().item()
     print(f"{what}: gpu means {gpu.tolist()}, cpu means {cpu.tolist()}, max rel diff "
           f"{rel:.2e} (limit {FRAME_MEAN_RTOL})")
@@ -1350,6 +1381,350 @@ def phase_blend(dev, res=256, spp=4, depth=6):
     return launches, ad_launches, frame
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-22: the scene inputs read from images, and the other emitters
+# ---------------------------------------------------------------------------
+
+IMAGE_SEED = 8
+# under the checkout's ignored build/ directory
+IMAGE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_images")
+# the image frame's image sizes: the textured band's bitmap, the normal and
+# height maps, the volume grid's edge, the envmap (H, W)
+BITMAP_RES, NORMAL_RES, VOLUME_RES, ENV_SHAPE = 2048, 1024, 64, (1024, 2048)
+IMAGE_AD_KEYS = ("bsdf.tabulated.table", "bsdf.textured_diffuse.images",
+                 "emitter.env_image")
+
+
+def _smooth_field(rng, h, w, waves=6):
+    """A smooth seeded field on an (h, w) grid, scaled to [0, 1]: a sum of
+    products of sines."""
+    import numpy as np
+
+    y = (np.arange(h, dtype=np.float32) + 0.5)[:, None] / h
+    x = (np.arange(w, dtype=np.float32) + 0.5)[None, :] / w
+    f = np.zeros((h, w), np.float32)
+    for _ in range(waves):
+        (kx, ky), (px, py) = rng.integers(1, 9, 2), rng.uniform(0, 2 * np.pi, 2)
+        f += np.sin(2 * np.pi * kx * x + px) * np.cos(2 * np.pi * ky * y + py)
+    return (f - f.min()) / (f.max() - f.min())
+
+
+def sky_image(rng, h, w):
+    """A procedural HDR lat-long sky (h, w, 3): a gradient from a bright
+    horizon to a deeper zenith, a little seeded noise, and a sun disc about
+    1e3 times brighter than the sky."""
+    import numpy as np
+
+    y = (np.arange(h, dtype=np.float32) + 0.5) / h
+    zen = np.clip(1.0 - y, 0.0, 1.0)[:, None, None]
+    img = 0.05 + 0.25 * zen * np.float32([0.45, 0.6, 1.0]) + 0.08 * (1 - zen) * np.float32(
+        [1.0, 0.9, 0.7])
+    img = np.broadcast_to(img, (h, w, 3)) + 0.01 * rng.random((h, w, 3), np.float32)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    img = np.where(((yy - 0.28 * h) ** 2 + (xx - 0.35 * w) ** 2 < (0.012 * h) ** 2 + 2)[..., None],
+                   np.float32([220.0, 210.0, 190.0]), img)
+    return img.astype(np.float32)
+
+
+def image_files(root):
+    """Write the image frame's images, made from IMAGE_SEED with numpy, into
+    root: the textured band's BITMAP_RES^2 bitmap and the envmap as EXR, the
+    normal map as EXR, the height map as PFM. Returns {name: path}."""
+    import os
+
+    import numpy as np
+
+    from mitsuba_customization_tpu_torch.utils import exr
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(IMAGE_SEED)
+    paths = {k: os.path.join(root, f) for k, f in (
+        ("bitmap", "albedo.exr"), ("normal", "normal.exr"), ("height", "height.pfm"),
+        ("env", "sky.exr"))}
+    fields = [_smooth_field(rng, BITMAP_RES, BITMAP_RES) for _ in range(3)]
+    albedo = 0.1 + 0.8 * np.stack(fields, -1) ** 1.5
+    exr.write_exr(paths["bitmap"], albedo + 0.02 * rng.random(albedo.shape, np.float32))
+    tilt = [_smooth_field(rng, NORMAL_RES, NORMAL_RES) * 2 - 1 for _ in range(2)]
+    n = np.stack([0.35 * tilt[0], 0.35 * tilt[1], np.ones_like(tilt[0])], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    exr.write_exr(paths["normal"], n * 0.5 + 0.5)
+    exr.write_pfm(paths["height"], _smooth_field(rng, NORMAL_RES, NORMAL_RES, waves=12))
+    exr.write_exr(paths["env"], sky_image(rng, *ENV_SHAPE))
+    return paths
+
+
+def image_bands(d, paths):
+    """The image frame's bands on a matpreview_dict(..., n_materials=12)
+    dict d, in place, with the images of image_files(): spherical uvs
+    (from the vertex directions) on every band; 0-5 MERL (the synthetic
+    tables); 6 a diffuse textured by the EXR bitmap, by filename; 7 a
+    checkerboard diffuse (uv_scale 8); 8 a mesh_attribute diffuse on seeded
+    vertex_colors; 9 a normalmap (the EXR normal map) over MERL; 10 a
+    bumpmap (the PFM height map, scale 0.02) over roughplastic; 11 a
+    volume-textured diffuse on a seeded VOLUME_RES^3 RGB grid over the
+    blob's box. The constant sky becomes the EXR envmap under a to_world
+    rotation; the area light stays and a spot joins it. Returns d."""
+    import numpy as np
+
+    from mitsuba_customization_tpu_torch.render.sensors import look_at
+
+    v = np.asarray(d["blob_0"]["vertices"], np.float32)
+    r = np.linalg.norm(v, axis=-1)
+    uv = np.stack([np.arctan2(v[:, 2], v[:, 0]) / (2 * np.pi) + 0.5,
+                   np.arccos(np.clip(v[:, 1] / r, -1.0, 1.0)) / np.pi], -1).astype(np.float32)
+    rng = np.random.default_rng(IMAGE_SEED + 1)
+    for i in range(12):
+        d[f"blob_{i}"]["uvs"] = uv
+    d["blob_8"]["vertex_colors"] = (0.1 + 0.8 * rng.random((len(v), 3))).astype(np.float32)
+    grid = (0.1 + 0.8 * rng.random((VOLUME_RES,) * 3 + (3,))).astype(np.float32)
+    bands = {
+        6: {"type": "diffuse", "reflectance": {"type": "bitmap", "filename": paths["bitmap"]}},
+        7: {"type": "diffuse", "reflectance": {"type": "checkerboard", "uv_scale": [8, 8],
+                                               "color0": [0.8, 0.75, 0.7],
+                                               "color1": [0.15, 0.2, 0.3]}},
+        8: {"type": "diffuse", "reflectance": {"type": "mesh_attribute",
+                                               "name": "vertex_color"}},
+        9: {"type": "normalmap", "normalmap": {"filename": paths["normal"]},
+            "bsdf": d["blob_9"]["bsdf"]},
+        10: {"type": "bumpmap", "bumpmap": {"filename": paths["height"]}, "scale": 0.02,
+             "bsdf": {"type": "roughplastic", "alpha": 0.2}},
+        11: {"type": "diffuse", "reflectance": {
+            "type": "volume", "grid": grid,
+            "to_world": {"scale": 2.6, "translate": [-1.3, -1.3, -1.3]}}},
+    }
+    for i, b in bands.items():
+        d[f"blob_{i}"]["bsdf"] = b
+    d["sky"] = {"type": "envmap", "filename": paths["env"], "scale": 1.0,
+                "to_world": {"rotate": {"axis": [0, 1, 0], "angle": 60}}}
+    d["spot"] = {"type": "spot", "intensity": [40.0, 38.0, 34.0], "cutoff_angle": 25,
+                 "beam_width": 18, "to_world": look_at([-2.5, 3.0, -2.0], [0, 0, 0], [0, 1, 0])}
+    return d
+
+
+def projector_bitmap():
+    """The emitters frame's projector image: 8x8, left half red, right half
+    blue (the JAX package's tests/test_plugins4.py pattern)."""
+    import numpy as np
+
+    tex = np.zeros((8, 8, 3), np.float32)
+    tex[:, :4, 0] = 1.0
+    tex[:, 4:, 2] = 1.0
+    return tex
+
+
+def emitters_dict(res=512, spp=16, depth=4):
+    """The emitters frame: a diffuse floor and one MERL sphere lit by one
+    emitter of each delta type: point, spot, directional, a
+    directionalarea rectangle and a projector of projector_bitmap()."""
+    from mitsuba_customization_tpu_torch.render.sensors import look_at
+    from mitsuba_customization_tpu_torch.scenes import synthetic_merl_table
+
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": depth},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": look_at([0, 2.5, -5], [0, 0.5, 0], [0, 1, 0]),
+                   "film": {"width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "floor": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": [0.7] * 3},
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90}, "scale": 6.0}},
+        "ball": {"type": "sphere", "center": [0, 0.8, 0], "radius": 0.8,
+                 "bsdf": {"type": "merl", "table": synthetic_merl_table(0.1, [0.9, 0.6, 0.3])}},
+        "point": {"type": "point", "position": [1.5, 3.0, -1.0], "intensity": [15.0] * 3},
+        "spot": {"type": "spot", "intensity": [30.0, 28.0, 25.0], "cutoff_angle": 30,
+                 "beam_width": 20, "to_world": look_at([-2.0, 3.0, -1.0], [0, 0, 0], [0, 1, 0])},
+        "sun": {"type": "directional", "direction": [0.3, -1.0, 0.4], "irradiance": [0.5] * 3},
+        "panel": {"type": "rectangle", "to_world": {
+            "rotate": {"axis": [1, 0, 0], "angle": 90}, "scale": 0.6,
+            "translate": [2.0, 3.5, 2.0]},
+            "emitter": {"type": "directionalarea", "radiance": [2.0] * 3}},
+        "beam": {"type": "projector", "fov": 30, "bitmap": projector_bitmap(), "scale": 30.0,
+                 "to_world": look_at([0, 4.0, -2.0], [0, 0, 0.5], [0, 0, 1])},
+    }
+
+
+def _image_scene(dev, paths, res, spp, depth, **kw):
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    return mt.load_dict(image_bands(matpreview_dict(res, spp, depth, n_materials=12, **kw),
+                                    paths), dev)
+
+
+def phase_image(dev, paths, res=512, spp=8, depth=8):
+    """Phase 20: the image frame, matpreview_dict(res, spp, depth,
+    n_materials=12) with image_bands (textures, normal and bump maps, the
+    envmap, a spot) and the probed schedule: load seconds (the EXR and PFM
+    reads included), one timed render with K1-K4 launched, then a recorded
+    render whose every K1-K4 call is checked against its plain version and
+    timed (as phase 10; the envmap's shadow rays run with maxt =
+    _SHADOW_INF); card against CPU means at 64x64, 4 spp, depth 4.
+    Returns (launches, frame sums)."""
+    from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
+    from mitsuba_customization_tpu_torch.scenes import probe_compact_schedule
+
+    t0 = time.perf_counter()
+    scene = _image_scene(dev, paths, res, spp, depth)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    st = scene.bsdfs.stacks[bsdf_mod.TEXTURED_DIFFUSE]
+    em = scene.emitters
+    print(f"image frame load: {load_s:.1f} s; texture stack {tuple(st.images.shape)}, "
+          f"volume {tuple(st.vol_grid.shape)}, mesh attributes {tuple(st.attr.shape)}, normal "
+          f"maps {tuple(scene.bsdfs.normal_tex.images.shape)}, envmap "
+          f"{tuple(em.env_image.shape)}, emitter types {sorted(em.present)}")
+    if em.env_index < 0 or st.attr is None or st.vol_grid is None:
+        raise AssertionError("the image frame lacks its envmap or a texture type")
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    launches = _timed_frame("image", scene, spp, ("K1", "K2", "K3", "K4"))
+    rec = record_wavefronts(scene, spp, seed=1)
+    if {k: len(v) for k, v in rec.items()} != launches:
+        raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
+    inf_rays = sum(int((r.maxt >= 1e29).sum()) for r in rec["K4"])
+    print(f"image frame: {inf_rays} recorded shadow rays with maxt = _SHADOW_INF (envmap)")
+    if inf_rays <= 0:
+        raise AssertionError("no shadow ray toward the envmap was recorded")
+    frame = phase_bounces(scene, rec)
+    del rec, scene
+    _gpu_cpu_means("image 64x64 4spp depth 4", None, dev, scenes=[
+        _image_scene(where, paths, 64, 4, 4, compact=fracs) for where in (dev, "cpu")])
+    return launches, frame
+
+
+def _check_expectations(dev):
+    """The JAX package's emitter tests' expectations, as numbers on the
+    card: the point light's inverse square under it
+    (tests/test_render.py::test_point_light_inverse_square), the
+    directionalarea footprint and the projector's left-red / right-blue
+    pattern (tests/test_plugins4.py)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render.sensors import look_at
+
+    def floor_scene(emitters, res, cam, fov, scale, refl):
+        return mt.load_dict({
+            "type": "scene", "integrator": {"type": "path", "max_depth": 2},
+            "sensor": {"type": "perspective", "fov": fov, "to_world": cam,
+                       "film": {"width": res, "height": res},
+                       "sampler": {"type": "independent", "sample_count": 16}},
+            "floor": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": refl},
+                      "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90},
+                                   "scale": scale}},
+            **emitters}, dev)
+
+    side = look_at([0, 3.9, -2.6], [0, 0, 0], [0, 1, 0])
+    img = mt.render(floor_scene(
+        {"light": {"type": "point", "position": [0, 3, 0], "intensity": [10, 10, 10]}}, 32,
+        look_at([0, 2, -4], [0, 0, 0], [0, 1, 0]), 40, 10.0, [1.0] * 3), 16, 0).cpu()
+    point, point_want = float(img[16:20, 14:18].mean()), 10 / (torch.pi * 9)
+    img = mt.render(floor_scene({"panel": {
+        "type": "rectangle", "emitter": {"type": "directionalarea", "radiance": [4.0] * 3},
+        "to_world": {"rotate": {"axis": [1, 0, 0], "angle": 90}, "translate": [0, 2.0, 0]}}},
+        24, side, 60, 6.0, [0.8] * 3), 32, 0).cpu()
+    da, da_corner, da_want = float(img[12, 12, 0]), float(img[1, 1, 0]), 0.8 / torch.pi * 4.0
+    img = mt.render(floor_scene({"beam": {
+        "type": "projector", "fov": 30, "bitmap": projector_bitmap(), "scale": 40.0,
+        "to_world": look_at([0, 3.0, 0], [0, 0, 0], [0, 0, 1])}}, 24, side, 60, 6.0,
+        [0.8] * 3), 32, 0).cpu()
+    left, right, corner = img[12, 10], img[12, 14], float(img[1, 1].max())
+    print(f"emitter expectations on the card: point light under it {point:.5f} (JAX test "
+          f"{point_want:.5f}, 10 %); directionalarea footprint {da:.5f} (JAX test "
+          f"{da_want:.5f}, 15 %), outside {da_corner:.2e}; projector left {left.tolist()}, "
+          f"right {right.tolist()}, corner {corner:.2e}")
+    if not (abs(point - point_want) < 0.1 * point_want and abs(da - da_want) < 0.15 * da_want
+            and da_corner < 0.02 * da_want and left[0] > 5 * max(float(left[2]), 1e-6)
+            and right[2] > 5 * max(float(right[0]), 1e-6)
+            and corner < 0.05 * max(float(left[0]), float(right[2]))):
+        raise AssertionError("an emitter expectation of the JAX tests fails on the card")
+
+
+def phase_emitters(dev, res=512, spp=16, depth=4):
+    """Phase 21: the emitters frame (emitters_dict: point, spot,
+    directional, directionalarea and projector over a MERL sphere) at res
+    x res, spp, depth: seconds, K1 and K2 launched (brute-force
+    intersection, no K3 / K4); card against CPU means at 64x64; and the
+    JAX tests' expectations on the card. Returns the launches."""
+    import mitsuba_customization_tpu_torch as mt
+
+    scene = mt.load_dict(emitters_dict(res, spp, depth), dev)
+    if scene.emitters.present != {3, 4, 5, 6, 7}:
+        raise AssertionError(f"emitter types {scene.emitters.present}")
+    launches = _timed_frame("emitters", scene, spp, ("K1", "K2"))
+    _gpu_cpu_means("emitters 64x64 4spp depth 4", emitters_dict(64, 4, depth), dev)
+    _check_expectations(dev)
+    return launches
+
+
+def phase_image_ad(dev, paths, res=256, spp=4, depth=6):
+    """Phase 22: one ad.grad_render (MSE against a zero image) of the image
+    frame at res x res, spp, depth with its probed schedule, on the table
+    stack, the texture stack's images and the envmap's image: one warm-up,
+    one timed step (seconds, peak memory, table-gradient buffers, K1-bwd
+    launched, the nonzero share of each gradient); then at 64x64, 4 spp,
+    depth 3 card against CPU: losses within AD_LOSS_RTOL, each gradient at
+    cosine >= AD_TABLE_COS. Returns the step's launches."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import probe_compact_schedule
+
+    scene, fracs = probe_compact_schedule(_image_scene(dev, paths, res, spp, depth), spp=4)
+    full = traverse(scene)
+    params = {k: full[k] for k in IMAGE_AD_KEYS}
+    target = torch.zeros((res, res, 3), device=dev)
+    ad.grad_render(scene, params, target, spp=spp, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = ad.grad_render(scene, params, target, spp=spp, seed=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    buffers = k1.GRAD_BUFFERS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    nonzero = {k: float((g != 0).any(-1).float().mean()) for k, g in grads.items()}
+    print(f"image AD step {res}x{res} {spp}spp depth {depth}: {secs:.3f} s, loss "
+          f"{float(loss):.6e}, peak memory {peak_gb:.2f} GB, table-gradient buffers "
+          f"{buffers}, launches {launches}; nonzero share of each gradient {nonzero}")
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in grads.values())
+    if (not finite or buffers != 1 or launches["K1-bwd"] <= 0
+            or min(nonzero.values()) <= 0):
+        raise AssertionError(f"image AD step: finite {finite}, buffers {buffers}, "
+                             f"launches {launches}, nonzero {nonzero}")
+    out = {}
+    for where in (dev, "cpu"):
+        s = _image_scene(where, paths, 64, 4, 3, compact=fracs)
+        full = traverse(s)
+        lo, gr = ad.grad_render(s, {k: full[k] for k in IMAGE_AD_KEYS},
+                                torch.zeros((64, 64, 3), device=where), spp=4)
+        out[str(where)] = (float(lo), {k: g.cpu().flatten().double() for k, g in gr.items()})
+    (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
+    cos = {k: float(gg[k] @ gc[k] / (gg[k].norm() * gc[k].norm())) for k in IMAGE_AD_KEYS}
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"image AD 64x64 4spp depth 3: loss gpu {lg:.6e} cpu {lc:.6e} (rel {loss_rel:.2e}, "
+          f"limit {AD_LOSS_RTOL}); gradient cosines {cos} (limit {AD_TABLE_COS})")
+    if not (loss_rel <= AD_LOSS_RTOL and min(cos.values()) >= AD_TABLE_COS):
+        raise AssertionError("GPU and CPU image-frame gradients disagree")
+    return launches
+
+
+T_START = time.perf_counter()
+PHASE_SECONDS = {}
+_LAP = [T_START]
+
+
+def lap(label):
+    """Print and keep the wall seconds since the previous lap (the first:
+    since the script started) under `label`."""
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    PHASE_SECONDS[label] = round(now - _LAP[0], 1)
+    _LAP[0] = now
+    print(f"phase {label}: {PHASE_SECONDS[label]} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1372,11 +1747,13 @@ def main():
     build.library()
     how = "cached" if build.build_seconds is None else "compiled with nvcc"
     print(f"build: {time.perf_counter() - t0:.1f} s ({how})")
+    lap("1-2 card, build")
 
     scene = mt.load_dict(flagship_dict(512, 64, 4), dev)
     tab = scene.bsdfs.stacks[bsdf_mod.TABULATED]
     k1_stats = phase_k1(tab.table[0].contiguous(), dev)
     k2_stats = phase_k2(tab.sampling.cdf_cond.reshape(-1, 32, 64).contiguous(), dev)
+    lap("3-4 K1, K2")
 
     mt.render(scene, spp=64, seed=0)  # warm-up
     torch.cuda.synchronize()
@@ -1402,6 +1779,7 @@ def main():
           f"{cpu.tolist()}, max rel diff {rel:.2e} (limit {FRAME_MEAN_RTOL})")
     if not rel <= FRAME_MEAN_RTOL:
         raise AssertionError("GPU and CPU frame means disagree")
+    lap("5-6 flagship")
 
     mp_scene, fracs, mp_launches = phase_matpreview(dev)
     k3_stats, hits = phase_k3(mp_scene, camera_wavefront(mp_scene, 8))
@@ -1414,10 +1792,12 @@ def main():
     frame = phase_bounces(mp_scene, rec)
     del rec
     phase_matpreview_cpu(dev, fracs)
+    lap("7-11 matpreview")
 
     bwd_stats = phase_k1_bwd(tab.table[0].contiguous(),
                              mp_scene.bsdfs.stacks[bsdf_mod.TABULATED].table, dev)
     del mp_scene
+    lap("12 K1-bwd")
     setup = ad_setup(dev)
     ad_launches, ad_frame = phase_ad_step(setup)
     phase_ad_cpu(dev, setup[1])
@@ -1425,10 +1805,22 @@ def main():
     phase_ad_compaction(setup)
     phase_optimize(setup)
     del setup
+    lap("13-16 AD")
 
     cfg0_launches = phase_config0(dev)
+    lap("17 configs[0]")
     mat_launches, mat_frame = phase_materials(dev)
+    lap("18 materials")
     blend_launches, blend_ad_launches, blend_frame = phase_blend(dev)
+    lap("19 blend")
+    paths = image_files(IMAGE_DIR)
+    lap("20 image files")
+    image_launches, image_frame = phase_image(dev, paths)
+    lap("20 image frame")
+    emitter_launches = phase_emitters(dev)
+    lap("21 emitters")
+    image_ad_launches = phase_image_ad(dev, paths)
+    lap("22 image AD step")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -1448,13 +1840,16 @@ def main():
         k.update(share=k["bound_ms"] / k["ms"], frame_ms=frame[key][0],
                  frame_bound_ms=frame[key][1],
                  frame_share=frame[key][1] / frame[key][0], library_ms=None)
-        # phases 17-19: launches of each render (or AD step),
+        # phases 17-22: launches of each render (or AD step),
         # and the recorded calls' kernel ms and bound ms per frame
         k.update(launches_by_phase={
             "configs0": cfg0_launches[key], "materials": mat_launches[key],
-            "blend": blend_launches[key], "blend_ad_step": blend_ad_launches[key]},
+            "blend": blend_launches[key], "blend_ad_step": blend_ad_launches[key],
+            "image": image_launches[key], "emitters": emitter_launches[key],
+            "image_ad_step": image_ad_launches[key]},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
-            blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1])
+            blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
+            image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1])
     # K1's backward: launches and in-frame times per AD step (phase 13)
     kernels.append(dict(
         name="merl_eval_bwd", route="cuda", source=k1.SOURCE_BWD,
@@ -1464,7 +1859,12 @@ def main():
         library_note="index_add_ of precomputed (index, addend) pairs: the scatter part "
                      "only, no cell, clamp test or zeroing; compare with ms_into",
         share=bwd_stats["bound_ms"] / bwd_stats["ms"], frame_ms=ad_frame[0],
-        frame_bound_ms=ad_frame[1], frame_share=ad_frame[1] / ad_frame[0]))
+        frame_bound_ms=ad_frame[1], frame_share=ad_frame[1] / ad_frame[0],
+        launches_by_phase={"ad_step": ad_launches["K1-bwd"],
+                           "blend_ad_step": blend_ad_launches["K1-bwd"],
+                           "image_ad_step": image_ad_launches["K1-bwd"]}))
+    print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

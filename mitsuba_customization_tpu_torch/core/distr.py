@@ -4,14 +4,20 @@ PyTorch port of mitsuba_customization_tpu/core/distr.py:
 `DiscreteDistribution`, `ContinuousDistribution`, `Marginal2D` (build,
 gather_slice, sample, eval_pdf), `_invert_cdf` and `_select_at`.
 The JAX package's one-hot MXU row fetches (`_fetch_stacked`) become plain
-indexing here.
+indexing here. A single 2-D Marginal2D (an envmap's, up to millions of
+cells) inverts its CDFs by binary search over flat views and reads single
+entries (`_search_cdf`), never a (lanes, W) row per lane; the result is
+_invert_cdf's on nondecreasing rows.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+
+from mitsuba_customization_tpu_torch.core.math import gather_rows
 
 _TINY = 1e-20
 _BIG = 3e38
@@ -32,6 +38,26 @@ def _invert_cdf(cdf, u):
     hi = torch.where(hi >= _BIG, cdf[..., -1].expand_as(hi), hi)
     lo = torch.minimum(lo, hi)
     return idx, lo, hi - lo
+
+
+def _search_cdf(flat, base, n, u):
+    """_invert_cdf of the nondecreasing rows flat[base : base + n] (per-lane
+    int64 base) at u by binary search: (idx, lo, mass), reading
+    ceil(log2(n + 1)) + 2 entries a lane through index_select (gradients
+    reach the two entries that bound u, as through the masked reduction)."""
+    lo = torch.zeros_like(base)
+    hi = torch.full_like(base, n)
+    for _ in range(math.ceil(math.log2(n + 1))):
+        live = lo < hi
+        mid = (lo + hi) // 2
+        less = gather_rows(flat, base + torch.clamp(mid, max=n - 1)) < u
+        lo = torch.where(live & less, mid + 1, lo)
+        hi = torch.where(live & ~less, mid, hi)
+    idx = torch.clamp(lo, max=n - 1)
+    v_hi = gather_rows(flat, base + idx)
+    v_lo = torch.where(lo > 0, gather_rows(flat, base + torch.clamp(lo - 1, min=0)), 0.0)
+    v_lo = torch.minimum(v_lo, v_hi)
+    return idx, v_lo, v_hi - v_lo
 
 
 def _select_at(rows, idx):
@@ -139,12 +165,16 @@ class Marginal2D(NamedTuple):
         slice_: a tuple of per-lane indices into the leading stack axes."""
         h, w = self.pdf.shape[-2], self.pdf.shape[-1]
         u_row, u_col = sample2[..., 0], sample2[..., 1]
-        cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
-        row, row_lo, row_mass = _invert_cdf(cdf_row, u_row)
+        if slice_ is None and self.cdf_cond.dim() == 2:  # one table: search
+            zero = torch.zeros(u_row.shape, dtype=torch.int64, device=u_row.device)
+            row, row_lo, row_mass = _search_cdf(self.cdf_row, zero, h, u_row)
+            col, col_lo, col_mass = _search_cdf(self.cdf_cond.reshape(-1), row * w, w, u_col)
+        else:
+            cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
+            row, row_lo, row_mass = _invert_cdf(cdf_row, u_row)
+            col, col_lo, col_mass = _invert_cdf(self._cond_rows(slice_, row), u_col)
         dy = torch.clamp((u_row - row_lo) / torch.clamp(row_mass, min=_TINY),
                          0.0, 1.0 - 1e-7)
-        cond = self._cond_rows(slice_, row)
-        col, col_lo, col_mass = _invert_cdf(cond, u_col)
         dx = torch.clamp((u_col - col_lo) / torch.clamp(col_mass, min=_TINY),
                          0.0, 1.0 - 1e-7)
         y = (row.to(torch.float32) + dy) / h
@@ -157,6 +187,13 @@ class Marginal2D(NamedTuple):
         h, w = self.pdf.shape[-2], self.pdf.shape[-1]
         row = torch.clamp((pos[..., 0] * h).long(), 0, h - 1)
         col = torch.clamp((pos[..., 1] * w).long(), 0, w - 1)
+        if slice_ is None and self.cdf_cond.dim() == 2:
+            def mass(flat, base, i):
+                return gather_rows(flat, base + i) - torch.where(
+                    i > 0, gather_rows(flat, base + torch.clamp(i - 1, min=0)), 0.0)
+
+            cond = self.cdf_cond.reshape(-1)
+            return mass(self.cdf_row, 0, row) * mass(cond, row * w, col) * (h * w)
         cdf_row = self.cdf_row if slice_ is None else self.cdf_row[slice_]
         cdf_row = cdf_row.expand(row.shape + cdf_row.shape[-1:])
         row_mass = _select_at(cdf_row, row) - torch.where(

@@ -112,3 +112,10 @@ def cos_theta(w):
 
 def sin_theta2(w):
     return torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0)
+
+
+def gather_rows(t, idx):
+    """t[idx] for a per-lane int64 index tensor of any shape, through
+    index_select: its backward is one index_add_, where advanced indexing's
+    sorts the indices first."""
+    return t.index_select(0, idx.reshape(-1)).reshape(idx.shape + t.shape[1:])

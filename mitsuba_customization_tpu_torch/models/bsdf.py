@@ -4,8 +4,15 @@ dispatch over the kernels present in the scene, and two-child blends.
 PyTorch port of mitsuba_customization_tpu/models/bsdf.py (`BSDFTable`,
 `_dispatch`, the mixture `eval` / `pdf` / `sample` / `eval_pdf` and
 `bounce_shade`). Kernel ids are the JAX package's, so tables carry over as
-they are. TEXTURED_DIFFUSE and normal maps are not ported (ROADMAP item
-12b): `normal_tex` / `nm_slot` stay None.
+they are. The entry points take the JAX package's positional arguments
+(`uv` in its place); `active` and `nee_mask` are keyword-only.
+
+Kernels with big stacked parameters (the MERL tables, the texture stack)
+take the whole stack, each lane's slot and the lane mask; a kernel whose
+module sets NEEDS_UV (textured diffuse) also gets the texture coordinates
+`uv`, through every route: the run-all dispatch, the fused bounce, and
+the blend fallback. A normal map perturbs the shading frame before any of
+them (models/normalmap.apply_normal_maps); `normal_tex` / `nm_slot` bind it.
 
 A scene with a blend (blendbsdf or mask) resolves every lane through the
 public eval / pdf / sample, as the JAX package does; the tabulated kernel
@@ -34,6 +41,7 @@ from mitsuba_customization_tpu_torch.models import (
     roughdielectric,
     roughplastic,
     tabulated,
+    textured_diffuse,
     thindielectric,
 )
 
@@ -46,7 +54,7 @@ NULL = 5  # no parameters; the path tracer ends a path on it
 ROUGHCONDUCTOR_BECKMANN = 6
 PLASTIC = 7
 ROUGHPLASTIC = 8
-TEXTURED_DIFFUSE = 9  # not ported (ROADMAP item 12b)
+TEXTURED_DIFFUSE = 9
 ROUGHDIELECTRIC = 10
 THINDIELECTRIC = 11
 PASSTHROUGH = 12  # the transparent child of `mask`
@@ -102,10 +110,12 @@ _MODULES = {
     THINDIELECTRIC: thindielectric,
     PASSTHROUGH: passthrough,
     PRINCIPLED: principled,
+    TEXTURED_DIFFUSE: textured_diffuse,
 }
-# Kernels with big stacked parameters (the MERL tables): the slot and the
-# lane mask go into the kernel instead of a per-lane parameter gather.
-_NEEDS_SLOT = frozenset([TABULATED])
+# Kernels with big stacked parameters (the MERL tables, the texture stack):
+# the slot and the lane mask go into the kernel instead of a per-lane
+# parameter gather.
+_NEEDS_SLOT = frozenset([TABULATED, TEXTURED_DIFFUSE])
 
 # Kernels whose sample() is a Dirac delta (NEE skips them; no MIS weight).
 DELTA_KERNELS = frozenset([CONDUCTOR, DIELECTRIC, NULL, THINDIELECTRIC, PASSTHROUGH])
@@ -132,8 +142,8 @@ class BSDFTable(NamedTuple):
     blend_a: Any = None
     blend_b: Any = None
     blend_w: Any = None
-    normal_tex: Any = None
-    nm_slot: Any = None
+    normal_tex: Any = None  # TextureStack of normal maps (models/normalmap)
+    nm_slot: Any = None  # (M,) int64 binding into normal_tex (-1 = none)
 
     @property
     def present_kernels(self):
@@ -191,7 +201,21 @@ def _zeros(fn_name, wi):
             torch.zeros(shape, dtype=torch.bool, device=dev))
 
 
-def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, active=None):
+def _kernel_fn(table: BSDFTable, kid, slot_safe, mask, uv):
+    """fn_name -> a call of kernel `kid`'s function on the lanes' (slot,
+    mask, uv) binding: the whole stack for NEEDS_SLOT kernels (with uv
+    where the module sets NEEDS_UV), else per-lane gathered parameters."""
+    mod = _MODULES[kid]
+    if kid in _NEEDS_SLOT:
+        kw = dict(slot=slot_safe, mask=mask)
+        if getattr(mod, "NEEDS_UV", False):
+            kw["uv"] = uv
+        return lambda fn_name, *a: getattr(mod, fn_name)(table.stacks[kid], *a, **kw)
+    params = _gather_params(table.stacks[kid], slot_safe)
+    return lambda fn_name, *a: getattr(mod, fn_name)(params, *a)
+
+
+def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, uv=None, active=None):
     """Masked run-all dispatch of eval / pdf / sample over the present
     kernels; `active` (None = all lanes) restricts every kernel's lanes.
     Lanes of no kernel (null, or outside `active`) come back 0."""
@@ -199,17 +223,11 @@ def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, active=None):
     slot = table.mat_slot[mat_id]
     out = None
     for kid in table.present_kernels:
-        mod = _MODULES[kid]
         mask = t == kid
         if active is not None:
             mask = mask & active
         slot_safe = torch.where(mask, slot, 0)
-        if kid in _NEEDS_SLOT:
-            res = getattr(mod, fn_name)(table.stacks[kid], wi, *args,
-                                        slot=slot_safe, mask=mask)
-        else:
-            res = getattr(mod, fn_name)(
-                _gather_params(table.stacks[kid], slot_safe), wi, *args)
+        res = _kernel_fn(table, kid, slot_safe, mask, uv)(fn_name, wi, *args)
         single = isinstance(res, torch.Tensor)
         res = (res,) if single else res
         if out is None:
@@ -220,23 +238,23 @@ def _dispatch(table: BSDFTable, mat_id, fn_name, wi, *args, active=None):
     return out[0] if single else out
 
 
-def eval(table: BSDFTable, mat_id, wi, wo, active=None):
+def eval(table: BSDFTable, mat_id, wi, wo, uv=None, *, active=None):
     """f(wi, wo) * cos(theta_o) for each lane's material; a blend's is
     (1 - w) f_a + w f_b."""
     if table.blend_a is None:
-        return _dispatch(table, mat_id, "eval", wi, wo, active=active)
+        return _dispatch(table, mat_id, "eval", wi, wo, uv=uv, active=active)
     a, b, w, is_b = table.resolve_children(mat_id)
-    f_a = _dispatch(table, a, "eval", wi, wo, active=active)
-    f_b = _dispatch(table, b, "eval", wi, wo, active=_and(active, is_b))
+    f_a = _dispatch(table, a, "eval", wi, wo, uv=uv, active=active)
+    f_b = _dispatch(table, b, "eval", wi, wo, uv=uv, active=_and(active, is_b))
     return (1.0 - w)[..., None] * f_a + w[..., None] * f_b
 
 
-def pdf(table: BSDFTable, mat_id, wi, wo, active=None):
+def pdf(table: BSDFTable, mat_id, wi, wo, uv=None, *, active=None):
     if table.blend_a is None:
-        return _dispatch(table, mat_id, "pdf", wi, wo, active=active)
+        return _dispatch(table, mat_id, "pdf", wi, wo, uv=uv, active=active)
     a, b, w, is_b = table.resolve_children(mat_id)
-    p_a = _dispatch(table, a, "pdf", wi, wo, active=active)
-    p_b = _dispatch(table, b, "pdf", wi, wo, active=_and(active, is_b))
+    p_a = _dispatch(table, a, "pdf", wi, wo, uv=uv, active=active)
+    p_b = _dispatch(table, b, "pdf", wi, wo, uv=uv, active=_and(active, is_b))
     return (1.0 - w) * p_a + w * p_b
 
 
@@ -244,7 +262,8 @@ def _and(active, mask):
     return mask if active is None else active & mask
 
 
-def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None, active=None):
+def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None, uv=None, *,
+           active=None):
     """Per-lane BSDF sampling -> (wo, pdf, weight, sampled_delta);
     sampled_delta is per sample (plastic picks its lobe lane by lane).
 
@@ -254,7 +273,8 @@ def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None, active=None):
     weight, its pdf times the selection probability.
     """
     if table.blend_a is None:
-        return _dispatch(table, mat_id, "sample", wi, sample2, sample1, active=active)
+        return _dispatch(table, mat_id, "sample", wi, sample2, sample1, uv=uv,
+                         active=active)
     a, b, w, is_blend = table.resolve_children(mat_id)
     if sample1 is None:
         sample1 = sample2[..., 0]
@@ -265,12 +285,12 @@ def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None, active=None):
         torch.where(is_blend, (sample1 - w) / torch.clamp(1.0 - w, min=1e-8), sample1),
     )
     u1 = torch.clamp(u1, 0.0, 1.0 - 1e-7)
-    wo, p_c, w_c, delta_c = _dispatch(table, child, "sample", wi, sample2, u1,
+    wo, p_c, w_c, delta_c = _dispatch(table, child, "sample", wi, sample2, u1, uv=uv,
                                       active=active)
     # the balance weight, read on blend lanes only
     on_blend = _and(active, is_blend)
-    f_mix = eval(table, mat_id, wi, wo, active=on_blend)
-    p_mix = pdf(table, mat_id, wi, wo, active=on_blend)
+    f_mix = eval(table, mat_id, wi, wo, uv, active=on_blend)
+    p_mix = pdf(table, mat_id, wi, wo, uv, active=on_blend)
     w_bal = m.safe_div(f_mix, p_mix[..., None])
     sel = torch.where(pick_b, w, torch.where(is_blend, 1.0 - w, 1.0))
     use_bal = is_blend & ~delta_c
@@ -281,14 +301,14 @@ def sample(table: BSDFTable, mat_id, wi, sample2, sample1=None, active=None):
             delta_c)
 
 
-def eval_pdf(table: BSDFTable, mat_id, wi, wo, active=None):
+def eval_pdf(table: BSDFTable, mat_id, wi, wo, uv=None, *, active=None):
     """eval and pdf toward wo (the NEE pair)."""
-    return (eval(table, mat_id, wi, wo, active=active),
-            pdf(table, mat_id, wi, wo, active=active))
+    return (eval(table, mat_id, wi, wo, uv, active=active),
+            pdf(table, mat_id, wi, wo, uv, active=active))
 
 
-def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
-                 need_attached=False, has_nee=True, active=None, nee_mask=None):
+def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None, uv=None,
+                 need_attached=False, has_nee=True, *, active=None, nee_mask=None):
     """All BSDF work of one path-tracer bounce in one dispatch pass.
 
     Fuses {eval and pdf toward wo_nee, sample at (sample2, sample1)}; the
@@ -302,10 +322,12 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
     pdf_nee come back 0). Null lanes come back 0 (pdf 0: the path ends).
 
     A scene with blends takes the public sample / eval_pdf / eval instead
-    (the JAX package's fallback): every lane, blended or not.
+    (the JAX package's fallback): every lane, blended or not. uv: the
+    lanes' texture coordinates (integrator.texcoords), read by NEEDS_UV
+    kernels.
     """
     if table.blend_a is not None:
-        return _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1,
+        return _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1, uv,
                                    need_attached, has_nee, active, nee_mask)
     t = table.mat_type[mat_id]
     slot = table.mat_slot[mat_id]
@@ -317,7 +339,7 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
         if active is not None:
             mask = mask & active
         slot_safe = torch.where(mask, slot, 0)
-        if kid in _NEEDS_SLOT:
+        if kid == TABULATED:
             m_nee = mask if has_nee else torch.zeros_like(mask)
             if has_nee and nee_mask is not None:
                 m_nee = m_nee & nee_mask
@@ -328,18 +350,18 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
             # the tabulated weight is the detached estimator's already:
             # K1's eval at wo over a pdf from the detached CDFs
         else:
-            params = _gather_params(table.stacks[kid], slot_safe)
-            wo, p_s, weight, is_delta = mod.sample(params, wi, sample2, sample1)
+            call = _kernel_fn(table, kid, slot_safe, mask, uv)
+            wo, p_s, weight, is_delta = call("sample", wi, sample2, sample1)
             if has_nee:
-                f_nee = mod.eval(params, wi, wo_nee)
-                p_nee = mod.pdf(params, wi, wo_nee)
+                f_nee = call("eval", wi, wo_nee)
+                p_nee = call("pdf", wi, wo_nee)
             else:
                 f_nee = torch.zeros(shape + (3,), device=wi.device)
                 p_nee = torch.zeros(shape, device=wi.device)
             if need_attached:
                 # the sampled wo depends on the parameters (GGX alpha): the
                 # detached estimator evaluates at wo held fixed
-                w_att = m.safe_div(mod.eval(params, wi, wo.detach()),
+                w_att = m.safe_div(call("eval", wi, wo.detach()),
                                    p_s.detach()[..., None])
                 weight = torch.where(is_delta[..., None], weight, w_att)
             res = (f_nee, p_nee, wo, p_s, weight, is_delta)
@@ -352,22 +374,22 @@ def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
     return out
 
 
-def _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1,
+def _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1, uv,
                         need_attached, has_nee, active, nee_mask):
     """bounce_shade of a scene with blends: sample, eval_pdf toward wo_nee
     (unoccluded NEE lanes only when nee_mask is given) and, with
     need_attached, the attached eval at the detached wo, whose ratio to the
     detached pdf is the non-delta weight."""
-    wo, p_s, weight, is_delta = sample(table, mat_id, wi, sample2, sample1,
+    wo, p_s, weight, is_delta = sample(table, mat_id, wi, sample2, sample1, uv,
                                        active=active)
     if has_nee:
-        f_nee, p_nee = eval_pdf(table, mat_id, wi, wo_nee,
+        f_nee, p_nee = eval_pdf(table, mat_id, wi, wo_nee, uv,
                                 active=_and(active, nee_mask) if nee_mask is not None
                                 else active)
     else:
         f_nee, p_nee = torch.zeros_like(weight), torch.zeros_like(p_s)
     if need_attached:
-        f_att = eval(table, mat_id, wi, wo.detach(), active=active)
+        f_att = eval(table, mat_id, wi, wo.detach(), uv, active=active)
         weight = torch.where(is_delta[..., None], weight,
                              m.safe_div(f_att, p_s.detach()[..., None]))
     return f_nee, p_nee, wo, p_s, weight, is_delta

@@ -1,10 +1,16 @@
-"""Emitters: area lights, the constant sky, and scene-level NEE sampling.
+"""Emitters: area, constant, envmap, point, spot, directional,
+directionalarea and projector, and scene-level NEE sampling.
 
-PyTorch port of the area and constant branches of
-mitsuba_customization_tpu/render/emitters.py: `EmitterTable`,
-`_sample_position_on_prim`, `sample_direction`, `eval_hit`,
-`pdf_hit_direction`, `pdf_miss_direction` and `eval_background`. The other
-emitter types are not ported; the scene loader rejects them.
+PyTorch port of mitsuba_customization_tpu/render/emitters.py (mitsuba3
+src/emitters/ and Scene::sample_emitter_direction / pdf_emitter_direction):
+`EmitterTable`, `build_env_distribution`, `env_radiance`,
+`sample_direction`, `pdf_hit_direction`, `pdf_miss_direction`,
+`eval_background` and `eval_hit`. Lanes pick an emitter from one discrete
+distribution and each present emitter type evaluates under a mask. The
+JAX package's structural gates (an envmap image of more than one texel, a
+projector index, the directionalarea prim owners) are host facts here:
+`env_index`, `proj_index` and `em_prim_emitter is None`, and `present`
+names the emitter types in the table, so absent types cost nothing.
 
 Area emitters reference emissive primitives of the scene Geometry. All of
 them live in one array `em_prims` (Q,); each area emitter owns a pmf row
@@ -12,18 +18,23 @@ over it (zero outside its own prims), so prim selection is one CDF
 inversion whichever emitter a lane picked. The JAX package's rank trick
 (`_q_of_prim`) and its compact `em_geom` copy are TPU gather workarounds;
 here a plain `prim_to_q` gather and plain indexing compute the same.
+
+Per-lane reads of the envmap and projector images gather from flat views
+with index_select (its backward is one index_add_). The 3x3 rotations are
+written out as sums of products, not matmuls (no TF32 on the card).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from mitsuba_customization_tpu_torch.core import math as m
-from mitsuba_customization_tpu_torch.core.distr import DiscreteDistribution
+from mitsuba_customization_tpu_torch.core.distr import DiscreteDistribution, Marginal2D
 from mitsuba_customization_tpu_torch.core.frame import Frame
+from mitsuba_customization_tpu_torch.core.spectrum import luminance
 from mitsuba_customization_tpu_torch.core.warp import (
     square_to_uniform_sphere,
     square_to_uniform_triangle,
@@ -33,12 +44,33 @@ from mitsuba_customization_tpu_torch.render.records import DirectionSample
 
 AREA = 0
 CONSTANT = 1
+ENVMAP = 2
+POINT = 3
+SPOT = 4
+DIRECTIONAL = 5
+DIRECTIONALAREA = 6  # collimated area source (mitsuba3 directionalarea.cpp)
+PROJECTOR = 7  # textured perspective point source (projector.cpp)
+
+DELTA_EMITTERS = (POINT, SPOT, DIRECTIONAL, DIRECTIONALAREA, PROJECTOR)
 
 INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
 
 class EmitterTable(NamedTuple):
-    """All emitters of a scene (K emitters, Q emissive prims)."""
+    """All emitters of a scene (K emitters, Q emissive prims).
+
+    radiance (K, 3) is area / constant radiance, the envmap's scale,
+    point / spot / projector intensity, directional irradiance. position
+    (K, 3) point / spot / projector; direction (K, 3) unit, spot /
+    directional / directionalarea (pointing away from the emitter);
+    cutoff_cos / beam_cos (K,) the spot's cones. The envmap: env_image
+    (H, W, 3) (1x1 zeros without one), its luminance * sin(theta)
+    Marginal2D env_dist, env_to_world (3, 3), env_index its emitter id or
+    -1. The projector: proj_image (H, W, 3), proj_to_world (3, 3) (columns
+    right, up, forward), proj_tan tan(fov_x / 2), proj_index its id or -1.
+    em_prim_emitter (Q,) owner of each emissive prim, None without a
+    directionalarea emitter. present: the emitter types of the table.
+    """
 
     em_type: torch.Tensor  # (K,) int64
     select: DiscreteDistribution  # NEE selection over the K emitters
@@ -48,9 +80,23 @@ class EmitterTable(NamedTuple):
     em_prims: torch.Tensor  # (Q,) int64 prim ids (padded with 0)
     prim_area: torch.Tensor  # (Q,) surface areas
     prim_to_q: torch.Tensor  # (P,) int64 prim id -> q index or -1
-    # whether any area emitter exists (a host fact: without one the area
+    # whether any emissive prim exists (a host fact: without one the area
     # branches are not computed)
     has_area: bool = True
+    position: Any = None
+    direction: Any = None
+    cutoff_cos: Any = None
+    beam_cos: Any = None
+    env_image: Any = None
+    env_dist: Any = None
+    env_to_world: Any = None
+    env_index: int = -1
+    em_prim_emitter: Any = None
+    proj_image: Any = None
+    proj_to_world: Any = None
+    proj_tan: Any = None
+    proj_index: int = -1
+    present: frozenset = frozenset([AREA, CONSTANT])
 
     @property
     def n_emitters(self):
@@ -79,49 +125,192 @@ def _sample_position_on_prim(geom: geo.Geometry, prim, sample2):
     return p, n
 
 
+# --------------------------------------------------------------------------
+# Images: envmap and projector lookups
+# --------------------------------------------------------------------------
+
+
+def _texel(img, y, x):
+    """img[y, x] for per-lane int64 y, x, from the flat (H * W, 3) view."""
+    return m.gather_rows(img.reshape(-1, 3), y * img.shape[1] + x)
+
+
+def _vec_mat(v, mat):
+    """v @ mat for (..., 3) v and a (3, 3) mat, as sums of products."""
+    return (v[..., 0:1] * mat[0] + v[..., 1:2] * mat[1] + v[..., 2:3] * mat[2])
+
+
+def build_env_distribution(image):
+    """Luminance * sin(theta) Marginal2D over a lat-long envmap (H, W, 3)."""
+    h = image.shape[0]
+    theta = (torch.arange(h, dtype=torch.float32, device=image.device) + 0.5) / h * math.pi
+    return Marginal2D.build(luminance(image) * torch.sin(theta)[:, None])
+
+
+def _env_dir_from_uv(uv, to_world):
+    """uv (..., 2) = (y = theta, x = phi) on the unit square -> world
+    direction."""
+    theta = uv[..., 0] * math.pi
+    phi = uv[..., 1] * 2.0 * math.pi - math.pi
+    return _vec_mat(m.sph_to_dir(theta, phi), to_world.T)
+
+
+def _env_uv_from_dir(d_world, to_world):
+    theta, phi = m.dir_to_sph(_vec_mat(d_world, to_world))
+    return torch.stack([theta / math.pi, (phi + math.pi) / (2.0 * math.pi)], -1)
+
+
+def env_radiance(table: EmitterTable, d_world):
+    """Bilinear lookup of the envmap in world direction d: rows clamped,
+    columns wrapped."""
+    img = table.env_image
+    h, w = img.shape[0], img.shape[1]
+    uv = _env_uv_from_dir(d_world, table.env_to_world)
+    y = torch.clamp(uv[..., 0] * h - 0.5, 0.0, h - 1.0)
+    x = uv[..., 1] * w - 0.5
+    y0 = torch.floor(y).to(torch.int64)
+    x0 = torch.floor(x).to(torch.int64)
+    fy = (y - y0)[..., None]
+    fx = (x - x0)[..., None]
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    y0 = torch.clamp(y0, 0, h - 1)
+    x0w = torch.remainder(x0, w)
+    x1w = torch.remainder(x0 + 1, w)
+    c00, c01 = _texel(img, y0, x0w), _texel(img, y0, x1w)
+    c10, c11 = _texel(img, y1, x0w), _texel(img, y1, x1w)
+    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
+
+
+def _env_pdf(table: EmitterTable, d_world):
+    """Solid-angle pdf of envmap importance sampling in direction d."""
+    uv = _env_uv_from_dir(d_world, table.env_to_world)
+    p_sq = table.env_dist.eval_pdf(uv)
+    sin_theta = torch.sin(uv[..., 0] * math.pi)
+    # d(omega) = 2 pi^2 sin(theta) du dv  (u = theta / pi, v = phi / 2 pi)
+    return m.safe_div(p_sq, 2.0 * math.pi * math.pi * sin_theta)
+
+
+def _bilinear_lookup(img, uv):
+    """uv (..., 2) = (row in [0, 1], col in [0, 1]), clamped bilinear."""
+    h, w = img.shape[0], img.shape[1]
+    y = torch.clamp(uv[..., 0] * h - 0.5, 0.0, h - 1.0)
+    x = torch.clamp(uv[..., 1] * w - 0.5, 0.0, w - 1.0)
+    y0 = torch.floor(y).to(torch.int64)
+    x0 = torch.floor(x).to(torch.int64)
+    fy = (y - y0)[..., None]
+    fx = (x - x0)[..., None]
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    c00, c01 = _texel(img, y0, x0), _texel(img, y0, x1)
+    c10, c11 = _texel(img, y1, x0), _texel(img, y1, x1)
+    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
+
+
+# --------------------------------------------------------------------------
+# Scene-level emitter sampling (NEE)
+# --------------------------------------------------------------------------
+
+
 def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
                      sample3) -> DirectionSample:
     """Pick an emitter, sample a direction toward it; radiance and pdf in
-    solid angle at p_ref. sample3 (..., 3): emitter selection (reused for
-    the prim choice and the sky direction) and a 2-D position sample."""
+    solid angle at p_ref (1 for the delta emitters, times the selection
+    pmf). sample3 (..., 3): the emitter selection (reused for the prim
+    choice and the sky and envmap directions) and a 2-D position sample."""
     k, u0 = table.select.sample_reuse(sample3[..., 0])
     u2 = torch.stack([u0, sample3[..., 1]], -1)
     et = table.em_type[k]
     sel_pmf = table.select.eval_pmf(k)
-
-    # ---- constant ----
-    is_const = et == CONSTANT
-    d = torch.where(is_const[..., None], square_to_uniform_sphere(u2), 0.0)
-    dist = torch.full(p_ref.shape[:-1], float("inf"), device=p_ref.device)
-    pdf = torch.where(is_const, INV_FOUR_PI, 0.0)
+    shape, dev = p_ref.shape[:-1], p_ref.device
     # index_select: a cheap backward for emitter.radiance (see
     # models/bsdf._gather_params)
     rad_k = table.radiance.index_select(0, k)
-    radiance = torch.where(is_const[..., None], rad_k, 0.0)
+    out = dict(d=torch.zeros_like(p_ref), dist=torch.full(shape, float("inf"), device=dev),
+               pdf=torch.zeros(shape, device=dev), radiance=torch.zeros_like(p_ref),
+               delta=torch.zeros(shape, dtype=torch.bool, device=dev))
+    inf = torch.full(shape, float("inf"), device=dev)
+    one = torch.ones(shape, device=dev)
+    smooth = torch.zeros(shape, dtype=torch.bool, device=dev)
+    dirac = ~smooth
 
-    # ---- area ----
-    if table.has_area:
-        is_area = et == AREA
+    def put(etype, d, dist, pdf, rad, delta):
+        mask = et == etype
+        out["d"] = torch.where(mask[..., None], d, out["d"])
+        out["dist"] = torch.where(mask, dist, out["dist"])
+        out["pdf"] = torch.where(mask, pdf, out["pdf"])
+        out["radiance"] = torch.where(mask[..., None], rad, out["radiance"])
+        out["delta"] = torch.where(mask, delta, out["delta"])
+
+    if table.has_area and AREA in table.present:
         q, _ = table.prim_dist.sample_reuse(u2[..., 0], row=k)
-        x, n_e = _sample_position_on_prim(geom, table.em_prims[q],
-                                          sample3[..., 1:3])
+        x, n_e = _sample_position_on_prim(geom, table.em_prims[q], sample3[..., 1:3])
         to_x = x - p_ref
         dist2 = (to_x * to_x).sum(-1)
-        dist_a = torch.sqrt(torch.clamp(dist2, min=1e-12))
-        d_a = to_x / dist_a[..., None]
-        cos_e = m.dot(n_e, -d_a)
-        front = cos_e > 0.0
+        dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
+        d = to_x / dist[..., None]
+        cos_e = m.dot(n_e, -d)
         p_area = m.safe_div(table.prim_dist.eval_pmf(q, row=k), table.prim_area[q])
-        pdf_a = torch.where(front, m.safe_div(p_area * dist2, cos_e), 0.0)
-        d = torch.where(is_area[..., None], d_a, d)
-        dist = torch.where(is_area, dist_a, dist)
-        pdf = torch.where(is_area, pdf_a, pdf)
-        radiance = torch.where((is_area & front)[..., None], rad_k,
-                               torch.where(is_area[..., None], 0.0, radiance))
-    return DirectionSample(
-        d=d, dist=dist, pdf=pdf * sel_pmf, radiance=radiance,
-        delta=torch.zeros(p_ref.shape[:-1], dtype=torch.bool, device=p_ref.device),
-    )
+        front = cos_e > 0.0
+        put(AREA, d, dist, torch.where(front, m.safe_div(p_area * dist2, cos_e), 0.0),
+            torch.where(front[..., None], rad_k, 0.0), smooth)
+
+    if CONSTANT in table.present:
+        put(CONSTANT, square_to_uniform_sphere(u2), inf, one * INV_FOUR_PI, rad_k,
+            smooth)
+
+    if table.env_index >= 0:
+        uv_e, p_sq = table.env_dist.sample(u2)
+        d_e = _env_dir_from_uv(uv_e, table.env_to_world)
+        sin_t = torch.sin(uv_e[..., 0] * math.pi)
+        put(ENVMAP, d_e, inf, m.safe_div(p_sq, 2.0 * math.pi * math.pi * sin_t),
+            env_radiance(table, d_e) * rad_k, smooth)
+
+    if table.present & {POINT, SPOT, PROJECTOR}:
+        to_p = table.position.index_select(0, k) - p_ref
+        pdist2 = (to_p * to_p).sum(-1)
+        pdist = torch.sqrt(torch.clamp(pdist2, min=1e-12))
+        d_p = to_p / pdist[..., None]
+        rad_p = rad_k / pdist2[..., None]
+        put(POINT, d_p, pdist, one, rad_p, dirac)
+        if SPOT in table.present:
+            cut = table.cutoff_cos[k]
+            cos_spot = m.dot(table.direction[k], -d_p)
+            falloff = torch.clamp(m.safe_div(cos_spot - cut, table.beam_cos[k] - cut),
+                                  0.0, 1.0)
+            put(SPOT, d_p, pdist, one, rad_p * falloff[..., None], dirac)
+        if table.proj_index >= 0:
+            dl = _vec_mat(-d_p, table.proj_to_world)  # x right, y up, z forward
+            z = torch.clamp(dl[..., 2], min=1e-12)
+            px = dl[..., 0] / z
+            py = dl[..., 1] / z
+            img = table.proj_image
+            tx = table.proj_tan
+            ty = tx / (img.shape[1] / img.shape[0])
+            inside = (dl[..., 2] > 0) & (px.abs() <= tx) & (py.abs() <= ty)
+            uv = torch.stack([0.5 - py / ty * 0.5, px / tx * 0.5 + 0.5], -1)
+            tex = _bilinear_lookup(img, uv)
+            put(PROJECTOR, d_p, pdist, one,
+                tex * rad_k / pdist2[..., None] * inside[..., None], dirac)
+
+    if DIRECTIONAL in table.present:
+        d_d = -table.direction[k]
+        put(DIRECTIONAL, d_d, inf, one, rad_k, dirac)
+
+    if table.em_prim_emitter is not None:
+        # Collimated: from p_ref the light arrives from -n_em iff p_ref
+        # projects onto the emitter's own prims along its authored normal
+        d_da = -table.direction[k]
+        geom_q = geo.Geometry(*(f[table.em_prims] for f in geom))
+        t_q, _, _ = geo._intersect_prims(geom_q, p_ref[..., None, :], d_da[..., None, :],
+                                         False)
+        owned = table.em_prim_emitter[None, :] == k[..., None]
+        t_hit = torch.where(owned, t_q, float("inf")).amin(-1)
+        on_beam = torch.isfinite(t_hit)
+        put(DIRECTIONALAREA, d_da, torch.where(on_beam, t_hit, inf),
+            torch.where(on_beam, 1.0, 0.0), rad_k, dirac)
+
+    return DirectionSample(d=out["d"], dist=out["dist"], pdf=out["pdf"] * sel_pmf,
+                           radiance=out["radiance"], delta=out["delta"])
 
 
 def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
@@ -145,18 +334,23 @@ def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
 
 
 def pdf_miss_direction(table: EmitterTable, d_world):
-    """NEE density of a BSDF ray that escaped (the constant sky)."""
+    """NEE density of a BSDF ray that escaped (the constant sky and the
+    envmap)."""
     p = torch.zeros(d_world.shape[:-1], device=d_world.device)
     if table.background_index >= 0:
         p = p + table.select.pmf[table.background_index] * INV_FOUR_PI
+    if table.env_index >= 0:
+        p = p + table.select.pmf[table.env_index] * _env_pdf(table, d_world)
     return p
 
 
 def eval_background(table: EmitterTable, d_world):
-    """Radiance carried by escaped rays."""
+    """Radiance carried by escaped rays (constant and envmap emitters)."""
     rad = torch.zeros_like(d_world)
     if table.background_index >= 0:
         rad = rad + table.radiance[table.background_index]
+    if table.env_index >= 0:
+        rad = rad + env_radiance(table, d_world) * table.radiance[table.env_index]
     return rad
 
 

@@ -56,6 +56,20 @@ _BLOCK = 16
 MAX_WAVEFRONT = 1 << 21
 
 
+def texcoords(scene, si):
+    """Texture coordinates for the BSDF dispatch: si.uv, or the widened
+    [u, v, bary_u, bary_v, prim (, px, py, pz)] (models/texture TC_FULL /
+    TC_VOL) when the scene's textured diffuse stack has mesh_attribute or
+    volume rows (host facts: `attr` / `vol_grid` are None without them)."""
+    st = scene.bsdfs.stacks.get(bsdf_mod.TEXTURED_DIFFUSE)
+    if st is None or (st.attr is None and st.vol_grid is None):
+        return si.uv
+    parts = [si.uv, si.bary, si.prim.to(torch.float32)[..., None]]
+    if st.vol_grid is not None:
+        parts.append(si.p)
+    return torch.cat(parts, -1)
+
+
 def mis_weight(pdf_a, pdf_b):
     """Power heuristic (beta = 2)."""
     a2 = pdf_a * pdf_a
@@ -132,7 +146,7 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         wo_local = si.wi
 
     f_nee, bsdf_pdf_nee, wo, bsdf_pdf, weight, is_delta = bsdf_mod.bounce_shade(
-        scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe,
+        scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe, texcoords(scene, si),
         need_attached=ad_mode, has_nee=do_nee, active=active, nee_mask=nee_vis,
     )
 

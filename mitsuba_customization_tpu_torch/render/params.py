@@ -3,29 +3,33 @@ Scene from the leaves of a JAX-package Scene.
 
 `traverse(scene)` is the flat dict of a Scene's differentiable leaves and
 `update(scene, params)` writes them back into a new Scene, rebuilding the
-MERL luminance-sampling CDFs from a new table: the port of
+MERL luminance-sampling CDFs from a new table and the envmap's sampling
+distribution from a new image: the port of
 mitsuba_customization_tpu/render/params.py (mitsuba3's mi.traverse and
 SceneParameters), with the same dotted keys:
     bsdf.<kernel>.<field>   e.g. bsdf.roughconductor.alpha_u, (M,) for
-                            the M materials of that kernel
+                            the M materials of that kernel; the float
+                            fields of the texture stack, e.g.
+                            bsdf.textured_diffuse.images (T, H, W, 3)
     bsdf.tabulated.table    the stacked (n_mat, n_th, n_td, n_pd, 3) tables
     emitter.radiance        (K, 3) emitter radiances
-The port has no envmap and no media: their keys (`emitter.env_image`,
-`medium.*`) raise NotImplementedError. `params_from_numpy` takes a JAX
-`traverse` dict as numpy arrays, so both packages differentiate the same
-values.
+    emitter.env_image       (H, W, 3) the envmap's image
+The port has no media: `medium.*` keys raise NotImplementedError.
+`params_from_numpy` takes a JAX `traverse` dict as numpy arrays, so both
+packages differentiate the same values.
 
 `scene_from_numpy(arrays, config, device)` takes the JAX Scene's leaves as
 {path: np.ndarray}, with paths as `jax.tree_util.keystr` writes them (for
 example ".geometry.p0" or ".bsdfs.stacks[4].sampling.cdf_cond"), and its
 SceneConfig (any object with the same attribute names). The parity tests
 use it to run both packages on identical arrays. Only the subset the port
-renders is accepted (the ported BSDF kernels and blends, the shadow
-geometry and cluster set of a scene with null materials, brute or cluster
-intersector, area and constant emitters, the ported integrators, an
-optional compaction schedule); anything else raises NotImplementedError. The JAX package's BVH and its TPU-only copies
-(`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are
-not read.
+renders is accepted (the ported BSDF kernels, the texture stack, normal
+maps and blends, the shadow geometry and cluster set of a scene with null
+materials, brute or cluster intersector, every emitter type, the ported
+integrators, an optional compaction schedule); anything else raises
+NotImplementedError. The JAX package's BVH and its TPU-only copies
+(`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are not
+read.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from mitsuba_customization_tpu_torch.models.roughdielectric import (
 )
 from mitsuba_customization_tpu_torch.models.roughplastic import RoughPlasticParams
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
+from mitsuba_customization_tpu_torch.models.texture import TextureStack
 from mitsuba_customization_tpu_torch.models.thindielectric import (
     ThinDielectricParams,
 )
@@ -86,7 +91,7 @@ PARAMS = {
     bsdf_mod.PASSTHROUGH: PassthroughParams,
     bsdf_mod.PRINCIPLED: PrincipledParams,
 }
-_NOT_PORTED = ("emitter.env_image", "medium.")
+_NOT_PORTED = ("medium.",)
 
 
 def traverse(scene):
@@ -98,9 +103,13 @@ def traverse(scene):
             params[f"bsdf.{kname}.table"] = stack.table
         else:
             for field, value in zip(stack._fields, stack):
-                if value.is_floating_point():
+                # texture bindings (int) and absent volume / attribute
+                # tables (None) are not parameters
+                if value is not None and value.is_floating_point():
                     params[f"bsdf.{kname}.{field}"] = value
     params["emitter.radiance"] = scene.emitters.radiance
+    if scene.emitters.env_index >= 0:
+        params["emitter.env_image"] = scene.emitters.env_image
     return params
 
 
@@ -110,7 +119,10 @@ def update(scene, params):
     tensors; a new table gets its sampling CDFs rebuilt
     (TabulatedBRDF.build_stack, from the detached table) and, where it
     requires grad, the GradSink through which it enters autograd once:
-    the K1 calls of the render add their backward into one buffer."""
+    the K1 calls of the render add their backward into one buffer. A new
+    envmap image gets its sampling distribution rebuilt from the image
+    itself, as the JAX package's update does: its gradient then also
+    reaches the image through the NEE directions it samples."""
     for key in params:
         if key.startswith(_NOT_PORTED):
             raise NotImplementedError(f"parameter '{key}' is not ported")
@@ -130,6 +142,10 @@ def update(scene, params):
     emitters = scene.emitters
     if "emitter.radiance" in params:
         emitters = emitters._replace(radiance=params["emitter.radiance"])
+    if "emitter.env_image" in params:
+        img = params["emitter.env_image"]
+        emitters = emitters._replace(env_image=img,
+                                     env_dist=em_mod.build_env_distribution(img))
     return dataclasses.replace(
         scene, bsdfs=scene.bsdfs._replace(stacks=stacks), emitters=emitters
     )
@@ -158,6 +174,15 @@ def _config(config):
     return cfg
 
 
+def _texture_stack(pre, a, get):
+    """A TextureStack from the JAX leaves under `pre` (absent = None)."""
+    ints = ("tex_type", "slot", "dims", "vol_dims", "vol_slot")
+    return TextureStack(**{
+        f: get(pre + f, torch.int64 if f in ints else torch.float32)
+        for f in TextureStack._fields if pre + f in a
+    })
+
+
 def scene_from_numpy(arrays, config, device):
     """Port Scene on `device` from {keystr path: ndarray} and a SceneConfig."""
     a = {k.lstrip("."): np.asarray(v) for k, v in arrays.items()}
@@ -178,6 +203,8 @@ def scene_from_numpy(arrays, config, device):
         pre = f"bsdfs.stacks[{kid}]."
         if kid in PARAMS:
             stacks[kid] = PARAMS[kid](*(get(pre + f) for f in PARAMS[kid]._fields))
+        elif kid == bsdf_mod.TEXTURED_DIFFUSE:
+            stacks[kid] = _texture_stack(pre, a, get)
         elif kid == bsdf_mod.TABULATED:
             # the JAX package's TPU layouts (corners, perm, condT) are not used
             used.update(pre + f for f in ("corners", "perm", "condT"))
@@ -189,6 +216,10 @@ def scene_from_numpy(arrays, config, device):
             )
         else:
             raise NotImplementedError(f"BSDF kernel {kid} is not ported")
+    normal = {}
+    if "bsdfs.nm_slot" in a:
+        normal = dict(normal_tex=_texture_stack("bsdfs.normal_tex.", a, get),
+                      nm_slot=get("bsdfs.nm_slot", torch.int64))
     blend = {}
     if "bsdfs.blend_a" in a:
         blend = dict(blend_a=get("bsdfs.blend_a", torch.int64),
@@ -197,14 +228,13 @@ def scene_from_numpy(arrays, config, device):
     bsdfs = bsdf_mod.BSDFTable(
         mat_type=get("bsdfs.mat_type", torch.int64),
         mat_slot=get("bsdfs.mat_slot", torch.int64),
-        stacks=stacks, **blend,
+        stacks=stacks, **blend, **normal,
     )
 
     em_type = get("emitters.em_type", torch.int64)
-    if not ((em_type == em_mod.CONSTANT) | (em_type == em_mod.AREA)).all() or (
-        int(a["emitters.env_index"]) >= 0 or "emitters.proj_index" in a
-    ):
-        raise NotImplementedError("only area and constant emitters are ported")
+    em = {f: get("emitters." + f) for f in ("position", "direction", "cutoff_cos",
+                                            "beam_cos", "env_image", "env_to_world",
+                                            "proj_image", "proj_to_world")}
     emitters = em_mod.EmitterTable(
         em_type=em_type,
         select=DiscreteDistribution(
@@ -219,8 +249,17 @@ def scene_from_numpy(arrays, config, device):
         prim_area=get("emitters.prim_area"),
         prim_to_q=get("emitters.prim_to_q", torch.int64),
         has_area=bool((a["emitters.em_type"] == em_mod.AREA).any()),
+        env_dist=Marginal2D(*(get("emitters.env_dist." + f) for f in Marginal2D._fields)),
+        env_index=int(a["emitters.env_index"]),
+        em_prim_emitter=(get("emitters.em_prim_emitter", torch.int64)
+                         if "emitters.em_prim_emitter" in a else None),
+        proj_tan=float(a["emitters.proj_tan"]),
+        proj_index=int(a.get("emitters.proj_index", -1)),
+        present=frozenset(int(t) for t in a["emitters.em_type"]),
+        **em,
     )
-    used.add("emitters.background_index")
+    used.update(f"emitters.{f}" for f in ("background_index", "env_index", "proj_tan",
+                                          "proj_index"))
 
     def cluster_set(pre):
         """The JAX ClusterSet at `pre` ("clusters." or "shadow_clusters."),
@@ -252,7 +291,8 @@ def scene_from_numpy(arrays, config, device):
     if a.get("media.m_type", np.zeros(0)).size:
         raise NotImplementedError("participating media are not ported")
     checked = ("shadow_geometry.", "shadow_clusters.", "clusters.", "sdf.",
-               "bsdfs.")
+               "bsdfs.", "emitters.")
+    used.update(k for k in a if k.startswith("emitters.em_geom."))
     for k in a:
         if k.startswith(checked) and k not in used:
             raise NotImplementedError(f"scene leaf '{k}' is not ported")

@@ -3,9 +3,12 @@
 PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
 `SceneConfig`, `Scene`) for this subset:
 
-* shapes: sphere, rectangle and mesh (vertices, faces, optional normals
-  and uvs), with a look_at / scale / rotate / translate to_world;
-* an "area" emitter on a shape, and the constant emitter;
+* shapes: sphere, rectangle and mesh (vertices, faces, optional normals,
+  uvs and vertex_colors), with a look_at / scale / rotate / translate
+  to_world;
+* emitters: "area" and "directionalarea" on a shape; constant, envmap
+  (a bitmap or a filename, scale, to_world), point, spot, directional and
+  projector;
 * sensor, sampler, film filter: perspective, independent, box;
 * integrators (a dict under "integrator" or under any key with an
   integrator type): path, direct, depth, aov, aov_normals, aov_position,
@@ -16,6 +19,10 @@ PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
   plastic, roughplastic, principled, dielectric, thindielectric,
   roughdielectric, null, passthrough, twosided, blendbsdf, mask, and merl
   / measured_custom from a "table" array or a "filename";
+* a diffuse reflectance textured by a bitmap (an array or a filename:
+  EXR, PFM, NPY, or PNG / JPG through Pillow), checkerboard,
+  mesh_attribute (the mesh's vertex_colors) or volume grid; normalmap and
+  bumpmap wrappers (a bump map becomes a normal map at load);
 * spectra: RGB, uniform, blackbody, d65, regular and irregular.
 
 Anything else of the JAX package raises NotImplementedError naming its
@@ -55,12 +62,15 @@ from mitsuba_customization_tpu_torch.models import principled as principled_mod
 from mitsuba_customization_tpu_torch.models import roughconductor as rough_mod
 from mitsuba_customization_tpu_torch.models import roughdielectric as roughdiel_mod
 from mitsuba_customization_tpu_torch.models import roughplastic as roughplastic_mod
+from mitsuba_customization_tpu_torch.models import texture as tex_mod
 from mitsuba_customization_tpu_torch.models import thindielectric as thindiel_mod
+from mitsuba_customization_tpu_torch.models.normalmap import bump_to_normal
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
+from mitsuba_customization_tpu_torch.utils.io import read_image
 
 BRUTE_FORCE_MAX_PRIMS = 64
 
@@ -320,16 +330,13 @@ NOT_PORTED = {
     "integrator": ({"volpath", "volpathmis", "prbvolpath", "ptracer", "bdpt"}, "14b"),
     "shape": ({"obj", "ply", "serialized", "cube", "disk", "cylinder", "instance",
                "sdfgrid", "shapegroup"}, "15"),
-    "emitter": ({"envmap", "point", "spot", "directional", "directionalarea",
-                 "projector"}, "13"),
     "sensor": ({"thinlens", "orthographic", "radiancemeter", "irradiancemeter",
                 "distant", "batch"}, "13"),
     "sampler": ({"stratified", "multijitter", "orthogonal", "ldsampler", "sobol"}, "13"),
     "rfilter": ({"gaussian", "tent", "mitchell", "catmullrom", "lanczos"}, "13"),
     "medium": ({"homogeneous", "heterogeneous"}, "14b"),
-    "texture": ({"bitmap", "checkerboard", "mesh_attribute", "volume"}, "12b"),
-    "bsdf": ({"normalmap", "bumpmap"}, "12b"),
 }
+_TEXTURE_TYPES = ("bitmap", "checkerboard", "mesh_attribute", "volume")
 
 
 def check_ported(kind, t):
@@ -341,11 +348,106 @@ def check_ported(kind, t):
             f"{kind} type '{t}' is not ported (ROADMAP item {item})")
 
 
+def _bitmap(spec):
+    """The image of a dict with a "bitmap" array or a "filename" (read by
+    utils/io.read_image), else None."""
+    img = spec.get("bitmap")
+    if img is None and "filename" in spec:
+        img = read_image(spec["filename"])
+    return img
+
+
+def _image(spec, key):
+    """spec[key]: an array, or a dict that _bitmap reads."""
+    img = spec.get(key)
+    return _bitmap(img) if isinstance(img, dict) else img
+
+
+def compile_texture_row(spec) -> dict:
+    """A texture dict -> a models/texture.build_stack row (the JAX
+    loader's compile_texture_row)."""
+    ttype = spec.get("type")
+    if ttype == "checkerboard":
+        def c3(key, default):
+            val = spec.get(key, default)
+            if isinstance(val, dict):
+                val = val.get("value", default)
+            val = np.asarray(val, np.float32)
+            return np.full(3, val, np.float32) if val.ndim == 0 else val
+
+        return dict(type=tex_mod.CHECKERBOARD, value0=c3("color0", [0.4] * 3),
+                    value1=c3("color1", [0.2] * 3),
+                    uv_scale=spec.get("uv_scale", (1.0, 1.0)), image=None)
+    if ttype == "bitmap":
+        return dict(type=tex_mod.BITMAP, uv_scale=spec.get("uv_scale", (1.0, 1.0)),
+                    image=np.asarray(_bitmap(spec), np.float32))
+    if ttype == "volume":
+        # a (D, H, W) or (D, H, W, 3) grid over the unit cube that
+        # `to_world` places in the scene
+        grid = spec.get("grid", spec.get("volume"))
+        if grid is None:
+            raise ValueError("volume texture needs a 'grid'")
+        return dict(type=tex_mod.VOLUME,
+                    value0=np.full(3, np.asarray(spec.get("scale", 1.0), np.float32)),
+                    value1=np.asarray(spec.get("fill", [0.0, 0.0, 0.0]), np.float32),
+                    image=None, volume=np.asarray(grid, np.float32),
+                    vol_to_world=_as_transform(spec.get("to_world")))
+    if ttype == "mesh_attribute":
+        # the mesh's "vertex_colors", interpolated; `scale` multiplies
+        sc = np.asarray(spec.get("scale", 1.0), np.float32)
+        return dict(type=tex_mod.MESH_ATTRIBUTE,
+                    value0=np.full(3, sc) if sc.ndim == 0 else sc, image=None)
+    raise ValueError(f"unsupported texture type '{ttype}'")
+
+
 def _bsdf_child(bd, key="bsdf"):
     """The child BSDF of a wrapper: bd[key], else its first dict entry with
     a BSDF type."""
     return bd.get(key) or next(
         v for v in bd.values() if isinstance(v, dict) and v.get("type") in _BSDF_TYPES)
+
+
+_EMITTER_TYPES = ("constant", "envmap", "point", "spot", "directional", "projector")
+
+
+def _add_emitter(t, val, em_rows, env, proj, const_row):
+    """Append the emitter row of a top-level emitter dict of type t (the
+    JAX loader's fields, in its units); the envmap and projector images
+    go into `env` / `proj`. Returns the constant emitter's row."""
+    row = dict(type={"constant": em_mod.CONSTANT, "envmap": em_mod.ENVMAP,
+                     "point": em_mod.POINT, "spot": em_mod.SPOT,
+                     "directional": em_mod.DIRECTIONAL,
+                     "projector": em_mod.PROJECTOR}[t])
+    if t == "constant":
+        row["radiance"] = resolve_spectrum(val.get("radiance", [1, 1, 1]))
+        const_row = len(em_rows)
+    elif t == "envmap":
+        env.update(image=np.asarray(_bitmap(val), np.float32), row=len(em_rows),
+                   to_world=_as_transform(val.get("to_world"))[:3, :3])
+        row["radiance"] = [float(val.get("scale", 1.0))] * 3
+    elif t == "point":
+        row.update(radiance=resolve_spectrum(val.get("intensity", [1, 1, 1])),
+                   position=val.get("position", [0, 0, 0]))
+    elif t == "directional":
+        row.update(radiance=val.get("irradiance", [1, 1, 1]),
+                   direction=val.get("direction", [0, 0, -1]))
+    elif t == "spot":
+        to_w = _as_transform(val.get("to_world"))
+        row.update(radiance=val.get("intensity", [1, 1, 1]), position=to_w[:3, 3],
+                   direction=to_w[:3, 2], cutoff=float(val.get("cutoff_angle", 20.0)),
+                   beam=float(val.get("beam_width", 15.0)))
+    else:  # projector
+        img = _bitmap(val)
+        if img is None:
+            img = np.ones((1, 1, 3), np.float32)
+        to_w = _as_transform(val.get("to_world"))
+        proj.update(image=np.asarray(img, np.float32), row=len(em_rows),
+                    frame=to_w[:3, :3].astype(np.float32),  # right / up / forward
+                    tan=float(np.tan(np.deg2rad(float(val.get("fov", 45.0)) / 2.0))))
+        row.update(radiance=resolve_spectrum(val.get("scale", val.get("irradiance", 1.0))),
+                   position=to_w[:3, 3], direction=to_w[:3, 2])
+    em_rows.append(row)
+    return const_row
 
 
 def load_dict(d: dict, device) -> Scene:
@@ -359,9 +461,15 @@ def load_dict(d: dict, device) -> Scene:
     stacks: dict[int, list] = {}
     tab_tables: list[np.ndarray] = []
     blend_entries: dict[int, tuple] = {}  # mat id -> (child_a, child_b, w)
+    texture_rows: list[dict] = []  # textured-diffuse bindings
+    normal_rows: list[dict] = []  # normal-map textures
+    normal_bindings: dict[int, int] = {}  # mat id -> normal_rows index
     named_bsdfs: dict[str, int] = {}
     em_rows: list[dict] = []
     emissive_prim_ranges: list[tuple] = []  # (emitter_id, prim_start, prim_end)
+    attr_spans: list[tuple] = []  # (prim_start, (F, 9) corner colors) a mesh
+    env = dict(image=None, to_world=np.eye(3, dtype=np.float32), row=-1)
+    proj = dict(image=None, frame=np.eye(3, dtype=np.float32), tan=1.0, row=-1)
     const_row = -1
 
     def add_material(kid, params):
@@ -376,12 +484,15 @@ def load_dict(d: dict, device) -> Scene:
                 raise ValueError(f"unknown bsdf reference '{bd}'")
             return named_bsdfs[bd]
         btype = bd.get("type", "diffuse")
-        check_ported("bsdf", btype)
 
         def rgb(key, default):
             val = bd.get(key, default)
-            if isinstance(val, dict):
-                check_ported("texture", val.get("type"))
+            if isinstance(val, dict) and val.get("type") in _TEXTURE_TYPES:
+                # the JAX loader takes the field's default here (it reads
+                # only a dict's "value"): textures reach diffuse only
+                raise NotImplementedError(
+                    f"a '{val['type']}' texture in '{btype}.{key}': only a diffuse "
+                    "reflectance can be textured")
             return resolve_spectrum(val, default)
 
         def ior():
@@ -390,6 +501,20 @@ def load_dict(d: dict, device) -> Scene:
 
         if btype == "twosided":
             return compile_bsdf(_bsdf_child(bd))
+        if btype in ("normalmap", "bumpmap"):
+            # frame-perturbing wrappers: the child's material gets a normal
+            # texture (models/normalmap.py)
+            mid = compile_bsdf(_bsdf_child(bd))
+            if btype == "normalmap":
+                img = _image(bd, "normalmap")
+            else:
+                hm = bd.get("bumpmap")
+                img = bump_to_normal(_image(bd, "texture" if hm is None else "bumpmap"),
+                                     scale=float(bd.get("scale", 1.0)))
+            normal_rows.append(dict(type=tex_mod.BITMAP, image=np.asarray(img, np.float32),
+                                    uv_scale=bd.get("uv_scale", (1.0, 1.0))))
+            normal_bindings[mid] = len(normal_rows) - 1
+            return mid
         if btype in ("blendbsdf", "mask"):
             if btype == "blendbsdf":
                 kids = [v for v in bd.values()
@@ -435,6 +560,12 @@ def load_dict(d: dict, device) -> Scene:
             return add_material(bsdf_mod.PASSTHROUGH, passthrough_mod.PassthroughParams(
                 transmittance=rgb("transmittance", [1.0, 1.0, 1.0])))
         if btype == "diffuse":
+            refl = bd.get("reflectance")
+            if isinstance(refl, dict) and refl.get("type") in _TEXTURE_TYPES:
+                texture_rows.append(compile_texture_row(refl))
+                mat_types.append(bsdf_mod.TEXTURED_DIFFUSE)
+                mat_slots.append(len(texture_rows) - 1)
+                return len(mat_types) - 1
             return add_material(bsdf_mod.DIFFUSE, diffuse_mod.DiffuseParams(
                 reflectance=rgb("reflectance", [0.5, 0.5, 0.5])))
         if btype == "conductor":
@@ -496,18 +627,16 @@ def load_dict(d: dict, device) -> Scene:
             if key in val:
                 raise NotImplementedError(
                     f"participating media ('{key}') are not ported (ROADMAP item 14b)")
-        if val.get("face_normals", False) or "vertex_colors" in val:
-            raise NotImplementedError(
-                "face_normals / vertex_colors are not ported (ROADMAP items 15, 12b)")
+        if val.get("face_normals", False):
+            raise NotImplementedError("face_normals are not ported (ROADMAP item 15)")
         mat_id = compile_bsdf(val.get("bsdf", {"type": "diffuse"}))
         emitter_id = -1
         if "emitter" in val:
             espec = val["emitter"]
-            check_ported("emitter", espec.get("type"))
-            if espec.get("type") != "area":
+            if espec.get("type") not in ("area", "directionalarea"):
                 raise ValueError("shape emitters must be 'area' or 'directionalarea'")
             em_rows.append(dict(
-                type=em_mod.AREA,
+                type=em_mod.AREA if espec["type"] == "area" else em_mod.DIRECTIONALAREA,
                 radiance=resolve_spectrum(espec.get("radiance", [1, 1, 1])),
             ))
             emitter_id = len(em_rows) - 1
@@ -527,6 +656,11 @@ def load_dict(d: dict, device) -> Scene:
                 n, uv = val.get("normals"), val.get("uvs")
                 n = None if n is None else np.asarray(n, np.float32)
                 uv = None if uv is None else np.asarray(uv, np.float32)
+                vc = val.get("vertex_colors")
+                if vc is not None:
+                    # per-prim corner rows for mesh_attribute textures
+                    attr_spans.append(
+                        (gb.count, np.asarray(vc, np.float32)[f].reshape(len(f), 9)))
             else:  # rectangle
                 v, f, uv = _unit_rectangle()
                 n = None
@@ -536,6 +670,14 @@ def load_dict(d: dict, device) -> Scene:
             gb.add_mesh(v, f, n, uv, mat_id, emitter_id, shape_count)
         if emitter_id >= 0:
             emissive_prim_ranges.append((emitter_id, prim_start, gb.count))
+            if em_rows[emitter_id]["type"] == em_mod.DIRECTIONALAREA:
+                # the collimation direction: the mean authored prim normal
+                rows = {k: np.concatenate(gb.rows[k])[prim_start:gb.count]
+                        for k in ("e1", "e2", "prim_type")}
+                if (rows["prim_type"] != geo.TRI).any():
+                    raise ValueError("directionalarea requires a triangle-mesh shape")
+                nrm = np.cross(rows["e1"], rows["e2"]).mean(0)
+                em_rows[emitter_id]["direction"] = nrm / max(np.linalg.norm(nrm), 1e-12)
         shape_count += 1
 
     # Pass 1: named top-level BSDFs (so shapes can reference them).
@@ -586,13 +728,8 @@ def load_dict(d: dict, device) -> Scene:
                 near_clip=float(val.get("near_clip", 1e-3)),
             )
             continue
-        check_ported("emitter", t)
-        if t == "constant":
-            em_rows.append(dict(
-                type=em_mod.CONSTANT,
-                radiance=resolve_spectrum(val.get("radiance", [1, 1, 1])),
-            ))
-            const_row = len(em_rows) - 1
+        if t in _EMITTER_TYPES:
+            const_row = _add_emitter(t, val, em_rows, env, proj, const_row)
             continue
         check_ported("shape", t)
         check_ported("medium", t)
@@ -635,6 +772,17 @@ def load_dict(d: dict, device) -> Scene:
         kernel_stacks[bsdf_mod.TABULATED] = TabulatedBRDF.build_stack(
             torch.as_tensor(np.stack(tab_tables), device=device)
         )
+    if texture_rows:
+        attr_np = None
+        if attr_spans:
+            attr_np = np.zeros((max(gb.count, 1), 9), np.float32)
+            for a_start, rows9 in attr_spans:
+                attr_np[a_start:a_start + len(rows9)] = rows9
+        elif any(r["type"] == tex_mod.MESH_ATTRIBUTE for r in texture_rows):
+            raise ValueError("mesh_attribute texture needs a mesh shape declaring "
+                             "'vertex_colors'")
+        kernel_stacks[bsdf_mod.TEXTURED_DIFFUSE] = tex_mod.build_stack(
+            texture_rows, device, attr=attr_np)
     if not mat_types:
         mat_types, mat_slots = [bsdf_mod.DIFFUSE], [0]
     blend = {}
@@ -647,10 +795,17 @@ def load_dict(d: dict, device) -> Scene:
         blend = dict(blend_a=torch.as_tensor(b_a, device=device),
                      blend_b=torch.as_tensor(b_b, device=device),
                      blend_w=torch.as_tensor(b_w, device=device))
+    normal = {}
+    if normal_rows:
+        nm_slot = np.full(len(mat_types), -1, np.int64)
+        for mid, row in normal_bindings.items():
+            nm_slot[mid] = row
+        normal = dict(normal_tex=tex_mod.build_stack(normal_rows, device),
+                      nm_slot=torch.as_tensor(nm_slot, device=device))
     bsdfs = bsdf_mod.BSDFTable(
         mat_type=torch.as_tensor(mat_types, dtype=torch.int64, device=device),
         mat_slot=torch.as_tensor(mat_slots, dtype=torch.int64, device=device),
-        stacks=kernel_stacks, **blend,
+        stacks=kernel_stacks, **blend, **normal,
     )
     cfg.nee = len(em_rows) > 0
     if sensor is None:
@@ -659,7 +814,7 @@ def load_dict(d: dict, device) -> Scene:
         geometry=geometry,
         bsdfs=bsdfs,
         emitters=_build_emitter_table(em_rows, emissive_prim_ranges, arrays,
-                                      const_row, device),
+                                      const_row, env, proj, device),
         sensor=sensor,
         config=cfg,
         clusters=clusters,
@@ -669,10 +824,12 @@ def load_dict(d: dict, device) -> Scene:
     )
 
 
-def _build_emitter_table(em_rows, emissive_prim_ranges, arrays, const_row,
-                         device):
-    """EmitterTable: the emissive prims with their per-emitter area pmfs,
-    and uniform NEE selection over the emitters.
+def _build_emitter_table(em_rows, emissive_prim_ranges, arrays, const_row, env,
+                         proj, device):
+    """EmitterTable: the emitter rows (the JAX loader's fields), the
+    emissive prims with their per-emitter area pmfs, the envmap with its
+    sampling distribution and the projector's image, and uniform NEE
+    selection over the emitters.
 
     Beside other emitters a constant sky gets selection weight exactly 0:
     for a constant radiance field BSDF sampling is already proportional to
@@ -684,9 +841,19 @@ def _build_emitter_table(em_rows, emissive_prim_ranges, arrays, const_row,
     k = max(len(em_rows), 1)
     em_type = np.zeros(k, np.int64)
     radiance = np.zeros((k, 3), np.float32)
+    position = np.zeros((k, 3), np.float32)
+    direction = np.tile(np.asarray([0, 0, 1], np.float32), (k, 1))
+    cutoff_cos = np.zeros(k, np.float32)
+    beam_cos = np.zeros(k, np.float32)
     for i, row in enumerate(em_rows):
         em_type[i] = row["type"]
-        radiance[i] = row["radiance"]
+        radiance[i] = np.asarray(row.get("radiance", [0, 0, 0]), np.float32)
+        position[i] = np.asarray(row.get("position", [0, 0, 0]), np.float32)
+        dir_ = np.asarray(row.get("direction", [0, 0, 1]), np.float64)
+        direction[i] = (dir_ / max(np.linalg.norm(dir_), 1e-12)).astype(np.float32)
+        if row["type"] == em_mod.SPOT:
+            cutoff_cos[i] = np.cos(np.deg2rad(row.get("cutoff", 20.0)))
+            beam_cos[i] = np.cos(np.deg2rad(row.get("beam", 15.0)))
 
     q_ids = [p for _, start, end in emissive_prim_ranges for p in range(start, end)]
     q_owner = [e for e, start, end in emissive_prim_ranges for _ in range(start, end)]
@@ -725,14 +892,33 @@ def _build_emitter_table(em_rows, emissive_prim_ranges, arrays, const_row,
                                 device=device),
         )
 
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    env_image = dev(env["image"] if env["image"] is not None
+                    else np.zeros((1, 1, 3), np.float32))
+    has_da = bool(q_owner) and bool((em_type[:len(em_rows)] == em_mod.DIRECTIONALAREA).any())
     return em_mod.EmitterTable(
-        em_type=torch.as_tensor(em_type, device=device),
+        em_type=dev(em_type),
         select=dist(sel_pmf),
-        radiance=torch.as_tensor(radiance, device=device),
+        radiance=dev(radiance),
         background_index=int(const_row),
         prim_dist=dist(pmf.astype(np.float32)),
-        em_prims=torch.as_tensor(em_prims, device=device),
-        prim_area=torch.as_tensor(prim_area, device=device),
-        prim_to_q=torch.as_tensor(prim_to_q, device=device),
+        em_prims=dev(em_prims),
+        prim_area=dev(prim_area),
+        prim_to_q=dev(prim_to_q),
         has_area=bool(q_ids),
+        position=dev(position), direction=dev(direction),
+        cutoff_cos=dev(cutoff_cos), beam_cos=dev(beam_cos),
+        env_image=env_image,
+        env_dist=em_mod.build_env_distribution(env_image),
+        env_to_world=dev(np.asarray(env["to_world"], np.float32)),
+        env_index=int(env["row"]),
+        em_prim_emitter=dev(np.asarray(q_owner, np.int64)) if has_da else None,
+        proj_image=dev(proj["image"] if proj["image"] is not None
+                       else np.ones((1, 1, 3), np.float32)),
+        proj_to_world=dev(np.asarray(proj["frame"], np.float32)),
+        proj_tan=float(np.float32(proj["tan"])),
+        proj_index=int(proj["row"]),
+        present=frozenset(int(t) for t in em_type[:len(em_rows)]),
     )

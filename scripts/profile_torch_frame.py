@@ -2,17 +2,24 @@
 """Where the time of one frame goes, for the PyTorch port on a GPU.
 
     python3 scripts/profile_torch_frame.py
-        [--scene flagship|matpreview|materials|blend] [--res N] [--spp N]
-        [--depth N] [--reps 3] [--top 20] [--against TREE ...]
-    python3 scripts/profile_torch_frame.py --ad [--res 256] [--spp 4]
-        [--depth 6] [--reps 3] [--top 20]
+        [--scene flagship|matpreview|materials|blend|image|emitters]
+        [--res N] [--spp N] [--depth N] [--reps 3] [--top 20]
+        [--against TREE ...]
+    python3 scripts/profile_torch_frame.py --ad [--scene image] [--res 256]
+        [--spp 4] [--depth 6] [--reps 3] [--top 20]
 
 --scene flagship (default: 512x512, 64 spp, depth 4) or matpreview
 (default: 512x512, 8 spp, depth 8, with the compaction schedule of
 scenes.probe_compact_schedule at 4 spp), or chip_smoke.py's materials
 frame (matpreview_dict with n_materials=12 and chip_smoke.material_bands;
 512x512, 8 spp, depth 8) or blend frame (its null, mask and blendbsdf
-bands; 256x256, 4 spp, depth 6), both with the probed schedule. Prints the card's name and power limit; the frame's wall time and
+bands; 256x256, 4 spp, depth 6), both with the probed schedule, or its
+image frame (chip_smoke.image_bands: textures, normal and bump maps read
+from EXR and PFM files it writes under build/, an envmap and a spot;
+512x512, 8 spp, depth 8, the probed schedule) or emitters frame
+(chip_smoke.emitters_dict: point, spot, directional, directionalarea
+and projector; 512x512, 16 spp, depth 4). Prints the card's name and
+power limit; the frame's wall time and
 rays/s with the profiler off (median of --reps renders after one warm-up);
 then one render under torch.profiler: device time by kernel group and by
 kernel name, the launches of K1-K4, the number of kernels launched, the
@@ -28,7 +35,10 @@ backward are printed too, and the operators on tensors of the table's
 shape (recorded with their input shapes): each one's calls and the device
 time of the kernels it launched (a nested operator, such as zero_ under
 zeros, repeats its children's time), so the zeroing and summing of
-table-sized gradients shows.
+table-sized gradients shows. With --scene image the AD step is
+chip_smoke's phase 22 instead: the image frame at those sizes with its
+probed schedule, on the table stack, the texture images and the envmap's
+image.
 
 --against TREE [TREE ...] builds the kernels of other source trees too,
 each with that tree's own ops/build.py, for example a parent commit's
@@ -263,8 +273,8 @@ def compare(scene, spp, reps, other_trees):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("flagship", "matpreview", "materials", "blend"),
-                    default="flagship")
+    ap.add_argument("--scene", choices=("flagship", "matpreview", "materials", "blend",
+                                        "image", "emitters"), default="flagship")
     ap.add_argument("--ad", action="store_true")
     ap.add_argument("--res", type=int, default=None)
     ap.add_argument("--spp", type=int, default=None)
@@ -290,11 +300,20 @@ def main():
     from mitsuba_customization_tpu_torch import scenes
 
     if args.ad:
-        from chip_smoke import ad_setup
+        from chip_smoke import IMAGE_AD_KEYS, IMAGE_DIR, ad_setup, image_bands, image_files
         from mitsuba_customization_tpu_torch.render import ad
+        from mitsuba_customization_tpu_torch.render.params import traverse
 
         args.res, args.spp, args.depth = args.res or 256, args.spp or 4, args.depth or 6
-        scene, fracs, params = ad_setup("cuda", args.res, args.spp, args.depth)
+        if args.scene == "image":
+            scene = mt.load_dict(image_bands(scenes.matpreview_dict(
+                args.res, args.spp, args.depth, n_materials=12), image_files(IMAGE_DIR)),
+                "cuda")
+            scene, fracs = scenes.probe_compact_schedule(scene, spp=4)
+            full = traverse(scene)
+            params = {k: full[k] for k in IMAGE_AD_KEYS}
+        else:
+            scene, fracs, params = ad_setup("cuda", args.res, args.spp, args.depth)
         target = torch.zeros((args.res, args.res, 3), device="cuda")
         print(f"compaction schedule {fracs}")
     elif args.scene == "flagship":
@@ -303,6 +322,11 @@ def main():
         args.depth = args.depth or 4
         scene = mt.load_dict(
             scenes.flagship_dict(args.res, args.spp, args.depth), "cuda")
+    elif args.scene == "emitters":
+        from chip_smoke import emitters_dict
+
+        args.res, args.spp, args.depth = args.res or 512, args.spp or 16, args.depth or 4
+        scene = mt.load_dict(emitters_dict(args.res, args.spp, args.depth), "cuda")
     else:
         blend = args.scene == "blend"
         args.res = args.res or (256 if blend else 512)
@@ -310,6 +334,11 @@ def main():
         args.depth = args.depth or (6 if blend else 8)
         if args.scene == "matpreview":
             d = scenes.matpreview_dict(args.res, args.spp, args.depth)
+        elif args.scene == "image":
+            from chip_smoke import IMAGE_DIR, image_bands, image_files
+
+            d = image_bands(scenes.matpreview_dict(
+                args.res, args.spp, args.depth, n_materials=12), image_files(IMAGE_DIR))
         else:
             from chip_smoke import material_bands
 
@@ -337,7 +366,8 @@ def main():
         rays = frame()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
-    what = "AD step (matpreview)" if args.ad else f"{args.scene} frame"
+    what = (f"AD step ({'image' if args.scene == 'image' else 'matpreview'})"
+            if args.ad else f"{args.scene} frame")
     print(f"{what} {args.res}x{args.res} {args.spp}spp depth {args.depth}: "
           f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)})"
           + ("" if args.ad else f", {rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s"))

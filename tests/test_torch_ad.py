@@ -143,7 +143,8 @@ def test_traverse_and_update_match_jax(jax_flagship, port_flagship):
     """The same keys and values; update with a new table rebuilds the
     sampling CDFs as the JAX package does (rtol 1e-4, atol 1e-5, the
     tolerance of the loader's CDF check), puts the given tensors in
-    uncopied, and refuses keys the port has no counterpart for."""
+    uncopied, and refuses keys the port has no counterpart for (media);
+    the envmap's image is a key of envmap scenes, as in the JAX package."""
     want = {k: np.asarray(v) for k, v in jparams.traverse(jax_flagship).items()}
     got = tparams.traverse(port_flagship)
     assert sorted(got) == sorted(want)
@@ -165,11 +166,34 @@ def test_traverse_and_update_match_jax(jax_flagship, port_flagship):
     leaf = p[TABLE].clone().requires_grad_(True)
     sampling = tparams.update(port_flagship, {TABLE: leaf}).bsdfs.stacks[tbsdf.TABULATED].sampling
     assert not any(f.requires_grad for f in sampling)
-    for key in ("emitter.env_image", "medium.sigma_t"):
-        with pytest.raises(NotImplementedError):
-            tparams.update(port_flagship, {key: torch.zeros(1)})
-        with pytest.raises(NotImplementedError):
-            tparams.params_from_numpy({key: np.zeros(1)}, "cpu")
+    with pytest.raises(NotImplementedError):
+        tparams.update(port_flagship, {"medium.sigma_t": torch.zeros(1)})
+    with pytest.raises(NotImplementedError):
+        tparams.params_from_numpy({"medium.sigma_t": np.zeros(1)}, "cpu")
+    # emitter.env_image: a parameter of envmap scenes only (KeyError here);
+    # on the flagship lit by an envmap, the JAX key and shape, and update
+    # rebuilds the sampling distribution as the JAX package's does (rtol
+    # 1e-5, atol 1e-6), from the image itself (the gradient follows)
+    with pytest.raises(KeyError):
+        tparams.update(port_flagship, {"emitter.env_image": torch.zeros(4, 8, 3)})
+    d = flagship_dict(16, 2, 2)
+    d["light"] = {"type": "envmap", "bitmap": rng.random((8, 16, 3)).astype(np.float32),
+                  "scale": 0.7}
+    jenv = mct.load_dict(d)
+    tenv = scene_from_numpy(_arrays(jenv), jenv.config, "cpu")
+    key = "emitter.env_image"
+    want = {k: np.asarray(v) for k, v in jparams.traverse(jenv).items()}
+    got = tparams.traverse(tenv)
+    assert sorted(got) == sorted(want) and got[key].shape == (8, 16, 3)
+    np.testing.assert_array_equal(got[key].numpy(), want[key])
+    img = rng.random((8, 16, 3)).astype(np.float32) * 3
+    jdist = jparams.update(jenv, {key: jnp.asarray(img)}).emitters.env_dist
+    leaf = tparams.params_from_numpy({key: img}, "cpu")[key].requires_grad_(True)
+    tsc = tparams.update(tenv, {key: leaf})
+    assert tsc.emitters.env_image is leaf
+    for a, b in zip(tsc.emitters.env_dist, jdist):
+        assert a.requires_grad
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

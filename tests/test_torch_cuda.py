@@ -1077,3 +1077,56 @@ def test_blended_ad_step_has_one_gradient_buffer(dev):
     assert k1.GRAD_BUFFERS == before[2] + 1
     assert bool(torch.isfinite(loss)) and bool(torch.isfinite(grads[key]).all())
     assert bool((grads[key] != 0).any())
+
+
+def test_image_frame_gpu_matches_cpu(dev, tmp_path):
+    """chip_smoke's image frame (phase 20: a bitmap, checkerboard, mesh
+    attribute and volume textures, normal and bump maps, the envmap and a
+    spot beside the area light) at 64x64, 4 spp, depth 4 with a fixed
+    compaction schedule, on the card and on the CPU: per-channel means
+    within 2 %."""
+    import chip_smoke
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    paths = chip_smoke.image_files(str(tmp_path))
+    d = chip_smoke.image_bands(
+        matpreview_dict(64, 4, 4, n_materials=12, compact=(1.0, 0.8, 0.5)), paths)
+    gpu = mt.render(mt.load_dict(d, dev), spp=4, seed=0).cpu()
+    cpu = mt.render(mt.load_dict(d, "cpu"), spp=4, seed=0)
+    assert torch.isfinite(gpu).all()
+    torch.testing.assert_close(gpu.mean((0, 1)), cpu.mean((0, 1)), rtol=0.02, atol=0)
+
+
+def test_k4_on_directional_shadow_rays(dev):
+    """K4 against its plain version on the shadow rays a directional light
+    gives: from camera hits on the matpreview blob and floor toward the
+    light, maxt = _SHADOW_INF (the light is at infinity): equal on every
+    lane, some occluded and some not."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import emitters as em
+    from mitsuba_customization_tpu_torch.render import geometry as tgeo
+    from mitsuba_customization_tpu_torch.render.integrator import _SHADOW_INF
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(64, 4, 2, n_sub=4, n_materials=4)
+    d["sun"] = {"type": "directional", "direction": [0.4, -1.0, 0.3]}
+    scene = mt.load_dict(d, dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    n = 1 << 17
+    o = torch.tensor([0.0, 1.6, -3.6], device=dev).expand(n, 3)
+    d_ = torch.tensor([0.0, -0.4, 1.0], device=dev) + 0.5 * torch.randn(
+        (n, 3), generator=gen, device=dev)
+    si = scene.ray_intersect(Ray.make(o, d_ / d_.norm(dim=-1, keepdim=True)))
+    u3 = torch.rand((n, 3), generator=gen, device=dev)
+    ds = em.sample_direction(scene.emitters, scene.geometry, si.p, u3)
+    sun = ds.delta & torch.isinf(ds.dist) & si.valid
+    assert bool(sun.any())
+    shadow = tgeo.spawn_ray(si, ds.d)
+    ray = Ray(shadow.o, shadow.d, torch.where(sun, _SHADOW_INF, 0.0))
+    before = cl.LAUNCHES["shadow"]
+    occ = scene.ray_test(ray)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES["shadow"] == before + 1
+    assert torch.equal(occ, cl.occluded_plain(scene.clusters, ray))
+    assert bool(occ[sun].any()) and not bool(occ[sun].all()) and not bool(occ[~sun].any())

@@ -1,8 +1,8 @@
 """The port's load_dict against the JAX package's: the wrappers (twosided,
 blendbsdf, mask), every analytic BSDF type, look_at, each spectrum form,
 the integrator names and keys, the MERL and measured_custom readers and
-writers, and what is not ported yet (NotImplementedError naming its
-ROADMAP item).
+writers, textures, normal and bump maps and the emitter types, and what is
+not ported yet (NotImplementedError naming its ROADMAP item).
 """
 
 import jax
@@ -33,14 +33,18 @@ def _from_jax(d):
 
 
 def _assert_bsdfs_equal(own, ref):
-    for name in ("mat_type", "mat_slot", "blend_a", "blend_b", "blend_w"):
+    for name in ("mat_type", "mat_slot", "blend_a", "blend_b", "blend_w", "nm_slot"):
         a, b = getattr(own, name), getattr(ref, name)
         assert (a is None) == (b is None), name
         if a is not None:
             torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
     assert own.present_kernels == ref.present_kernels
-    for kid in own.present_kernels:
-        for f, a, b in zip(own.stacks[kid]._fields, own.stacks[kid], ref.stacks[kid]):
+    stacks = [(own.stacks[kid], ref.stacks[kid]) for kid in own.present_kernels]
+    if own.normal_tex is not None:
+        stacks.append((own.normal_tex, ref.normal_tex))
+    for st_own, st_ref in stacks:
+        for f, a, b in zip(st_own._fields, st_own, st_ref):
+            assert (a is None) == (b is None), f
             if f == "sampling":
                 for x, y in zip(a, b):
                     torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
@@ -227,26 +231,65 @@ def test_measured_custom_file_round_trip(tmp_path):
     ({"integrator": {"type": "volpath"}}, "14b"),
     ({"integrator": {"type": "bdpt"}}, "14b"),
     ({"pt": {"type": "ptracer"}}, "14b"),
-    ({"env": {"type": "envmap", "bitmap": np.ones((2, 4, 3))}}, "13"),
-    ({"sun": {"type": "directional"}}, "13"),
+    ({"sensor": {"type": "orthographic"}}, "13"),
+    ({"sensor": {"type": "perspective", "sampler": {"type": "multijitter"}}}, "13"),
     ({"sensor": {"type": "thinlens"}}, "13"),
     ({"sensor": {"type": "perspective", "sampler": {"type": "stratified"}}}, "13"),
     ({"sensor": {"type": "perspective", "film": {"rfilter": {"type": "gaussian"}}}}, "13"),
+    ({"sensor": {"type": "perspective", "film": {"rfilter": "tent"}}}, "13"),
     ({"box": {"type": "cube"}}, "15"),
     ({"can": {"type": "cylinder"}}, "15"),
-    ({"s9": {"type": "sphere", "bsdf": {"type": "diffuse", "reflectance": {
-        "type": "checkerboard"}}}}, "12b"),
-    ({"s9": {"type": "sphere", "bsdf": {"type": "normalmap", "bsdf": {"type": "diffuse"},
-                                        "normalmap": np.ones((2, 2, 3))}}}, "12b"),
-    ({"s9": {"type": "sphere", "bsdf": {"type": "bumpmap", "bsdf": {"type": "diffuse"}}}},
-     "12b"),
+    ({"lid": {"type": "disk"}}, "15"),
     ({"s9": {"type": "sphere", "interior": {"type": "homogeneous"}}}, "14b"),
     ({"fog": {"type": "homogeneous"}}, "14b"),
+    ({"smoke": {"type": "heterogeneous", "density": np.ones((2, 2, 2))}}, "14b"),
 ])
 def test_unported_types_name_their_roadmap_item(entry, item):
     d = _spheres([{"type": "diffuse"}], **entry)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         mt.load_dict(d, "cpu")
+
+
+def _assert_emitters_equal(own, ref):
+    """The port's emitter table against the JAX loader's (through
+    scene_from_numpy): every array equal, the constant sky's NEE weight
+    aside (0 beside other emitters here, 1e-20 there: ROADMAP §3)."""
+    for f in ("em_type", "radiance", "position", "direction", "cutoff_cos", "beam_cos",
+              "em_prims", "prim_area", "prim_to_q", "env_image", "env_to_world",
+              "proj_image", "proj_to_world", "em_prim_emitter"):
+        a, b = getattr(own, f), getattr(ref, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)
+    for f in ("background_index", "env_index", "proj_index", "proj_tan", "present",
+              "has_area"):
+        assert getattr(own, f) == getattr(ref, f), f
+    torch.testing.assert_close(own.select.pmf, ref.select.pmf, rtol=0, atol=1e-19)
+    torch.testing.assert_close(own.prim_dist.pmf, ref.prim_dist.pmf, rtol=0, atol=0)
+    for a, b in zip(own.env_dist, ref.env_dist):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("entry", [
+    {"env": {"type": "envmap", "bitmap": np.arange(24, dtype=np.float32).reshape(2, 4, 3),
+             "scale": 2.0, "to_world": {"rotate": {"axis": [0, 1, 0], "angle": 30}}}},
+    {"sun": {"type": "directional"}, "spot": {"type": "spot", "cutoff_angle": 30,
+                                              "to_world": {"translate": [0, 3, 0]}}},
+    {"s9": {"type": "sphere", "bsdf": {"type": "diffuse", "reflectance": {
+        "type": "checkerboard"}}}},
+    {"s9": {"type": "sphere", "bsdf": {"type": "normalmap", "bsdf": {"type": "diffuse"},
+                                       "normalmap": np.ones((2, 2, 3))}}},
+    {"s9": {"type": "sphere", "bsdf": {"type": "bumpmap", "bsdf": {"type": "plastic"},
+                                       "texture": {"bitmap": np.eye(4)}, "scale": 0.5}}},
+], ids=["envmap", "directional", "checkerboard", "normalmap", "bumpmap"])
+def test_image_and_emitter_types_load_as_in_jax(entry):
+    """The types the earlier port raised on (the envmap, directional,
+    checkerboard, normalmap and bumpmap cases of the test above) load to
+    the JAX loader's tables."""
+    d = _spheres([{"type": "diffuse"}], **entry)
+    own, ref = mt.load_dict(d, "cpu"), _from_jax(d)
+    _assert_bsdfs_equal(own.bsdfs, ref.bsdfs)
+    _assert_emitters_equal(own.emitters, ref.emitters)
 
 
 def test_unknown_types_raise_value_error():

@@ -1,9 +1,10 @@
-"""The port's entry points take their positional arguments in the JAX
-package's order, so a call written for the reference means the same to
-the port: each port signature's positional parameters are a prefix, by
-name and order, of the reference's; a reference-style positional call
-renders what its keywords say; what the port does not have yet raises
-and names its ROADMAP item.
+"""The port's entry points, and the BSDF dispatch's eval / pdf / sample /
+eval_pdf / bounce_shade (with `uv` in its place), take their positional
+arguments in the JAX package's order, so a call written for the reference
+means the same to the port: each port signature's positional parameters
+are a prefix, by name and order, of the reference's; a reference-style
+positional call renders what its keywords say; what the port does not
+have yet raises and names its ROADMAP item.
 """
 
 import inspect
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 import mitsuba_customization_tpu_torch as mt
+from mitsuba_customization_tpu.models import bsdf as jbsdf
 from mitsuba_customization_tpu.render import ad as jad
 from mitsuba_customization_tpu.render import integrator as jint
+from mitsuba_customization_tpu_torch.models import bsdf as tbsdf
 from mitsuba_customization_tpu_torch.render import ad as tad
 from mitsuba_customization_tpu_torch.render import integrator as tint
 from mitsuba_customization_tpu_torch.scenes import flagship_dict
@@ -34,7 +37,13 @@ def _positional(fn):
     (tad.grad_render, jad.grad_render),
     (tad.optimize, jad.optimize),
     (tad.Optimizer.__init__, jad.Optimizer.__init__),
-], ids=["render", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer"])
+    (tbsdf.eval, jbsdf.eval),
+    (tbsdf.pdf, jbsdf.pdf),
+    (tbsdf.sample, jbsdf.sample),
+    (tbsdf.eval_pdf, jbsdf.eval_pdf),
+    (tbsdf.bounce_shade, jbsdf.bounce_shade),
+], ids=["render", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer",
+        "bsdf.eval", "bsdf.pdf", "bsdf.sample", "bsdf.eval_pdf", "bsdf.bounce_shade"])
 def test_positional_parameters_are_a_prefix_of_the_references(port, ref):
     ours, theirs = _positional(port), _positional(ref)
     assert ours == theirs[:len(ours)], (ours, theirs)
