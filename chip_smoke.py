@@ -112,7 +112,35 @@ Phases, one printed line each; any failure raises (non-zero exit):
      the envmap's image: one warm-up, one timed step (seconds, peak memory,
      one table-gradient buffer, K1-bwd launched, the nonzero share of each
      gradient); at 64x64 card against CPU losses within 2 % and each
-     gradient at cosine >= 0.98.
+     gradient at cosine >= 0.98;
+ 23. the camera frame (scenes.camera_dict: the matpreview scene through a
+     thin lens of aperture 0.05 focused on the blob, the multijitter
+     sampler, the gaussian filter; 512x512, 8 spp, depth 8, 2,097,152
+     lanes in one pass, the probed schedule): seconds, rays/s, K1-K4
+     launched; every K1-K4 call of one more render recorded, checked and
+     timed (as phase 10); card against CPU means at 64x64; one
+     ad.grad_render of its table stack at 256x256, 4 spp, depth 6 (one
+     buffer, K1-bwd launched, seconds, peak memory) and at 64x64 card
+     against CPU losses within 2 % and gradients at cosine >= 0.98;
+ 24. the shapes frame (scenes.shapes_dict on the meshes scenes.shape_files
+     writes from a seed under build/chip_smoke_shapes: a 327,680-triangle
+     binary PLY, an 81,920-triangle OBJ, a serialized pair, a shapegroup
+     instanced 4 times, a cube, a disk, three cylinders and a sphere,
+     about 532,500 prims; 512x512, 8 spp, depth 8, the probed schedule):
+     file, load and frame seconds, rays/s, K1-K4 launched; every K3 / K4
+     call of one more render checked against its plain version on its
+     first 262,144 lanes, sphere and cylinder hits among them, and
+     timed; card against CPU means at
+     64x64; the same frame with a 128^3 SDF sphere in place of the PLY
+     blob (seconds, the march's steps, card against CPU at 64x64) and the
+     JAX SDF test's expectation (SDF sphere against analytic sphere) on
+     the card;
+ 25. at 64x64 card against CPU means within 2 %: each of the six samplers
+     (orthogonal at 9 spp), each of the five splat filters, and the
+     orthographic, distant and a two-child batch sensor; the JAX tests'
+     expectations on the card: radiancemeter 0.5 within 5 %,
+     irradiancemeter pi within 2 %, batch strips against two half-width
+     renders within 0.05.
 Each phase prints its wall seconds (`phase ...` lines and a `phase
 seconds` summary). Each phase's counts are set to 0 just before its
 render (or AD step) and read just after. It then prints a JSON line describing each kernel
@@ -140,10 +168,12 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
-Every entry also carries `launches_by_phase` (phases 17-22 and the blend
-and image AD steps; for K1's backward its three AD steps) and, for K1-K4,
-the recorded calls' sums of phases 18, 19 and 20 (`materials_frame_ms`,
-`blend_frame_ms`, `image_frame_ms` and their bounds).
+Every entry also carries `launches_by_phase` (phases 17-25: the blend,
+image and camera AD steps, and the shapes frame with and without the SDF;
+for K1's backward its four AD steps) and, for K1-K4, the recorded calls'
+sums of phases 18, 19, 20, 23 and 24 (`materials_frame_ms`,
+`blend_frame_ms`, `image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`
+and their bounds).
 Imports nothing of JAX.
 """
 
@@ -164,6 +194,10 @@ K2_RTOL, K2_ATOL = 1e-6, 1e-7
 K3_T_RTOL = 1e-6
 K3_PRIM_AGREE = 0.999
 PLAIN_SLICE_S = 30.0
+# the shapes frame's K3 / K4 calls (15 a frame, 24,640 clusters: the plain
+# version takes seconds for each 262,144 lanes) are checked on their first
+# PLAIN_SLICE lanes
+PLAIN_SLICE = 1 << 18
 FRAME_MEAN_RTOL = 0.02
 # K1's backward. Against K1 itself, by linearity: <K1-bwd(g), d> equals
 # <g, K1(d)> for any table d >= 0 (where K1's clamp passes g), since both
@@ -518,7 +552,8 @@ def camera_wavefront(scene, spp, seed=0):
     jitter = torch.rand((pixel.shape[0], 2), generator=gen, device=scene.device)
     film_xy = torch.stack([pixel % w, pixel // w], -1).to(torch.float32) + jitter
     film_uv = film_xy / torch.tensor([w, h], dtype=torch.float32, device=scene.device)
-    return sample_ray(scene.sensor, film_uv, w / h)
+    aperture = torch.rand((pixel.shape[0], 2), generator=gen, device=scene.device)
+    return sample_ray(scene.sensor, film_uv, aperture, w / h)
 
 
 def _plain_span(fn, n):
@@ -706,12 +741,14 @@ def record_wavefronts(scene, spp, seed):
     })
 
 
-def phase_bounces(scene, rec, k1_per_bounce=1):
+def phase_bounces(scene, rec, k1_per_bounce=1, hit_types=None):
     """Check and time every recorded K1-K4 call of one render, one line per
     bounce (k1_per_bounce K1 calls a bounce: 1 in the fused bounce, more
     where blends take the public eval / pdf / sample); K4 runs on the
-    scene's shadow cluster set where it has one. Returns {kernel: (frame
-    ms, frame bound ms)}."""
+    scene's shadow cluster set where it has one. With hit_types (a dict)
+    each K3 / K4 call is checked on its first PLAIN_SLICE lanes and timed
+    on all, and hit_types counts the checked K3 hits by prim type.
+    Returns {kernel: (frame ms, frame bound ms)}."""
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
@@ -725,19 +762,34 @@ def phase_bounces(scene, rec, k1_per_bounce=1):
         parts = []
         if b < len(rec["K3"]):
             r = rec["K3"][b]
-            out = check_k3(cs, r)[3]
+            checked = ""
+            if hit_types is None:
+                out = check_k3(cs, r)[3]
+            else:
+                n = min(r.o.shape[0], PLAIN_SLICE)
+                out = check_k3(cs, _sub(r, n))[3]
+                for ty, c in zip(*torch.unique(out[4].prim_type[out[1] >= 0],
+                                               return_counts=True)):
+                    hit_types[int(ty)] = hit_types.get(int(ty), 0) + int(c)
+                checked = f" ({n} checked)"
+                out = cl.intersect(cs, r)
             ms = _time_ms(lambda: cl.intersect(cs, r))
             bound, by = k3_bound(cs, r, out[0], out[1])
-            parts.append(f"K3 {r.o.shape[0]} lanes, {int((r.maxt > 0).sum())} live, "
+            parts.append(f"K3 {r.o.shape[0]} lanes{checked}, {int((r.maxt > 0).sum())} live, "
                          f"{ms:.4f} ms (bound {bound:.5f}, {by})")
             total["K3"][0] += ms
             total["K3"][1] += bound
         if b < len(rec["K4"]):
             r = rec["K4"][b]
-            occ = check_k4(cs_shadow, r)
+            checked = "" if hit_types is None else f" ({min(r.o.shape[0], PLAIN_SLICE)} checked)"
+            if hit_types is None:
+                occ = check_k4(cs_shadow, r)
+            else:
+                check_k4(cs_shadow, _sub(r, PLAIN_SLICE))
+                occ = cl.occluded(cs_shadow, r)
             ms = _time_ms(lambda: cl.occluded(cs_shadow, r))
             bound, by = k4_bound(cs_shadow, r, occ)
-            parts.append(f"K4 {r.o.shape[0]} lanes, {int((r.maxt > 0).sum())} live, "
+            parts.append(f"K4 {r.o.shape[0]} lanes{checked}, {int((r.maxt > 0).sum())} live, "
                          f"{int(occ.sum())} occluded, {ms:.4f} ms (bound {bound:.5f}, {by})")
             total["K4"][0] += ms
             total["K4"][1] += bound
@@ -1157,12 +1209,15 @@ def _reset_counts():
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
+    from mitsuba_customization_tpu_torch.render import sdf
+
     k1.LAUNCHES = 0
     k1.LAUNCHES_BWD = 0
     k1.GRAD_BUFFERS = 0
     k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = 0
     cl.LAUNCHES["shadow"] = 0
+    sdf.MARCHES = sdf.STEPS = 0  # not a kernel: the SDF march's plain steps
 
 
 def phase_matpreview(dev, res=512, spp=8, depth=8):
@@ -1710,6 +1765,242 @@ def phase_image_ad(dev, paths, res=256, spp=4, depth=6):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-25: sensors, samplers, film filters and the shapes from files
+# ---------------------------------------------------------------------------
+
+SHAPES_SEED = 9
+# under the checkout's ignored build/ directory
+SHAPES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_shapes")
+# the shapes frame's mesh sizes (icosphere subdivisions: 327,680, 81,920
+# and 20,480 triangles) and its SDF grid's edge
+SHAPES_N_SUB, SDF_RES = (7, 6, 5), 128
+# the expectations of the JAX package's sensor and SDF tests
+METER_RTOL = {"radiancemeter": (0.5, 0.05), "irradiancemeter": (torch.pi, 0.02)}
+BATCH_STRIP_ATOL, SDF_MEAN_ATOL, SDF_MAE = 0.05, 0.02, 0.03
+
+
+def _ad_step(what, scene, res, spp, depth, key=AD_KEYS[0]):
+    """One warm-up and one timed ad.grad_render (MSE against a zero image)
+    of `scene` on the parameter `key`, the counts set to 0 just before
+    it: prints seconds, loss, peak memory, table-gradient buffers and
+    launches; one buffer, K1-bwd launched, finite and nonzero. Returns the
+    launches."""
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+
+    params = {key: traverse(scene)[key]}
+    target = torch.zeros((res, res, 3), device=scene.device)
+    ad.grad_render(scene, params, target, spp=spp, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = ad.grad_render(scene, params, target, spp=spp, seed=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    buffers = k1.GRAD_BUFFERS
+    g = grads[key]
+    print(f"{what} AD step {res}x{res} {spp}spp depth {depth}: {secs:.3f} s, loss "
+          f"{float(loss):.6e}, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"nonzero table-gradient bins {float((g != 0).any(-1).float().mean()):.6f}, "
+          f"table-gradient buffers {buffers}, launches {launches}")
+    if (buffers != 1 or launches["K1-bwd"] <= 0 or not bool(torch.isfinite(loss))
+            or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())):
+        raise AssertionError(f"{what} AD step: launches {launches}, buffers {buffers}")
+    return launches
+
+
+def _ad_gpu_cpu(what, d, dev, res=64, key=AD_KEYS[0]):
+    """ad.grad_render of d (res x res, 4 spp) on the card and on the CPU:
+    losses within AD_LOSS_RTOL, gradients at cosine >= AD_TABLE_COS."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+
+    out = {}
+    for where in (dev, "cpu"):
+        sc = mt.load_dict(d, where)
+        lo, gr = ad.grad_render(sc, {key: traverse(sc)[key]},
+                                torch.zeros((res, res, 3), device=where), spp=4)
+        out[str(where)] = (float(lo), gr[key].cpu().flatten().double())
+    (lg, a), (lc, b) = out[str(dev)], out["cpu"]
+    cos = float(a @ b / (a.norm() * b.norm()))
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"{what}: loss gpu {lg:.6e} cpu {lc:.6e} (rel {loss_rel:.2e}, limit "
+          f"{AD_LOSS_RTOL}); gradient cosine {cos:.6f} (limit {AD_TABLE_COS})")
+    if not (loss_rel <= AD_LOSS_RTOL and cos >= AD_TABLE_COS):
+        raise AssertionError(f"GPU and CPU {what} gradients disagree")
+
+
+def phase_camera(dev, res=512, spp=8, depth=8, ad_res=256, cmp_res=64):
+    """Phase 23: the camera frame, scenes.camera_dict(res, spp, depth): the
+    matpreview scene through a thin lens (aperture 0.05, focused on the
+    blob's centre), multijitter (a 2x4 grid at 8 spp) and the gaussian
+    filter, res x res x spp lanes in one pass, the probed schedule:
+    seconds, rays/s, K1-K4 launched; every K1-K4 call of one more render
+    recorded, checked against its plain version and timed (as phase 10);
+    card against CPU means at 64x64, 4 spp, depth 4. Then one
+    ad.grad_render of the table stack at 256x256, 4 spp, depth 6 (one
+    buffer, K1-bwd launched, seconds and peak memory) and at 64x64, 4 spp,
+    depth 3 card against CPU losses and gradients. Returns (launches of
+    the frame, of the AD step, frame sums)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import sensors
+    from mitsuba_customization_tpu_torch.scenes import camera_dict, probe_compact_schedule
+
+    scene = mt.load_dict(camera_dict(res, spp, depth), dev)
+    cfg = scene.config
+    if (int(scene.sensor.sensor_type) != sensors.THINLENS or cfg.sampler != "multijitter"
+            or cfg.rfilter != "gaussian"):
+        raise AssertionError(f"camera frame: sensor {int(scene.sensor.sensor_type)}, "
+                             f"sampler {cfg.sampler}, filter {cfg.rfilter}")
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    launches = _timed_frame("camera", scene, spp, ("K1", "K2", "K3", "K4"))
+    rec = record_wavefronts(scene, spp, seed=1)
+    if {k: len(v) for k, v in rec.items()} != launches:
+        raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
+    frame = phase_bounces(scene, rec)
+    del rec, scene
+    _gpu_cpu_means(f"camera {cmp_res}x{cmp_res} 4spp depth 4",
+                   camera_dict(cmp_res, 4, 4, compact=fracs), dev)
+
+    ad_scene, ad_fracs = probe_compact_schedule(
+        mt.load_dict(camera_dict(ad_res, 4, 6), dev), spp=4)
+    ad_launches = _ad_step("camera", ad_scene, ad_res, 4, 6)
+    del ad_scene
+    _ad_gpu_cpu(f"camera AD {cmp_res}x{cmp_res} 4spp depth 3",
+                camera_dict(cmp_res, 4, 3, compact=ad_fracs), dev, cmp_res)
+    return launches, ad_launches, frame
+
+
+def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
+                 sdf_res=SDF_RES):
+    """Phase 24: the shapes frame, scenes.shapes_dict on the files
+    scenes.shape_files writes from seed SHAPES_SEED (a 327,680-triangle
+    binary PLY, an 81,920-triangle OBJ, a serialized pair of 20,480-
+    triangle meshes, a 20,480-triangle shapegroup instanced 4 times, a
+    cube, a disk, three cylinders and a sphere: about 532,500 prims in one
+    cluster set) at res x res, spp, depth with the probed schedule: file,
+    load (reads and cluster build) and frame seconds, rays/s, K1-K4
+    launched; every K3 / K4 call of one more render recorded and checked
+    against its plain version on its first 262,144 lanes (the plain
+    version takes seconds for that many), with sphere and cylinder hits
+    among the checked lanes, and timed; card against CPU means at 64x64. Then the same frame
+    with a SDF_RES^3 SDF sphere in place of the PLY blob: seconds, the SDF
+    march's steps, card against CPU means at 64x64, and the JAX SDF test's
+    expectation on the card. Returns (launches, frame sums, launches with
+    the SDF)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import geometry as geo
+    from mitsuba_customization_tpu_torch.render import sdf
+    from mitsuba_customization_tpu_torch.scenes import (
+        probe_compact_schedule,
+        sdf_and_analytic_spheres,
+        shape_files,
+        shapes_dict,
+    )
+
+    t0 = time.perf_counter()
+    paths = shape_files(SHAPES_DIR, SHAPES_SEED, n_sub)
+    files_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = mt.load_dict(shapes_dict(paths, res, spp, depth), dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_prims = scene.geometry.p0.shape[0]
+    types = torch.bincount(scene.geometry.prim_type, minlength=3).tolist()
+    print(f"shapes frame: files written in {files_s:.1f} s ({sorted(paths)}), loaded in "
+          f"{load_s:.1f} s (reads and cluster build): {n_prims} prims (triangles, spheres, "
+          f"cylinders {types}), {scene.clusters.cl_box.shape[0]} clusters, intersector "
+          f"{scene.config.intersector}")
+    if scene.config.intersector != "cluster" or types[1] < 1 or types[2] < 3:
+        raise AssertionError("the shapes frame lacks its cluster set, sphere or cylinders")
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    launches = _timed_frame("shapes", scene, spp, ("K1", "K2", "K3", "K4"))
+    rec = record_wavefronts(scene, spp, seed=1)
+    if {k: len(v) for k, v in rec.items()} != launches:
+        raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
+    hit_types = {}
+    frame = phase_bounces(scene, rec, hit_types=hit_types)
+    del rec, scene
+    sph, cyl = hit_types.get(geo.SPHERE, 0), hit_types.get(geo.CYLINDER, 0)
+    print(f"shapes frame: checked K3 hits by type {hit_types} (sphere {sph}, cylinder {cyl})")
+    if sph <= 0 or cyl <= 0:
+        raise AssertionError("no checked K3 lane hit a sphere or a cylinder")
+    _gpu_cpu_means(f"shapes {cmp_res}x{cmp_res} 4spp depth 4",
+                   shapes_dict(paths, cmp_res, 4, 4, compact=fracs), dev)
+
+    sdf_scene, sdf_fracs = probe_compact_schedule(
+        mt.load_dict(shapes_dict(paths, res, spp, depth, sdf_res=sdf_res), dev), spp=4)
+    sdf_launches = _timed_frame("shapes with SDF", sdf_scene, spp, ("K1", "K2", "K3", "K4"))
+    print(f"shapes with SDF: {sdf_scene.geometry.p0.shape[0]} prims and a "
+          f"{tuple(sdf_scene.sdf.values.shape)} grid ({sdf_scene.sdf.values.numel() * 4 / 1e6:.1f}"
+          f" MB); the timed frame marched {sdf.MARCHES} times, {sdf.STEPS} steps in all (at "
+          f"most {sdf.MAX_STEPS} a march, a host check every {sdf.CHECK_EVERY})")
+    del sdf_scene
+    _gpu_cpu_means(f"shapes with SDF {cmp_res}x{cmp_res} 4spp depth 4",
+                   shapes_dict(paths, cmp_res, 4, 4, compact=sdf_fracs, sdf_res=sdf_res), dev)
+    img_sdf, img_ref = (x.cpu() for x in sdf_and_analytic_spheres(dev))
+    mean_d = abs(float(img_sdf.mean()) - float(img_ref.mean()))
+    mae = float((img_sdf - img_ref).abs().mean())
+    print(f"SDF sphere against the analytic sphere on the card (tests/test_sdf.py): means "
+          f"{float(img_sdf.mean()):.5f} / {float(img_ref.mean()):.5f} (diff {mean_d:.5f}, "
+          f"limit {SDF_MEAN_ATOL}), mean abs diff {mae:.5f} (limit {SDF_MAE})")
+    if not (bool(torch.isfinite(img_sdf).all()) and mean_d < SDF_MEAN_ATOL and mae < SDF_MAE):
+        raise AssertionError("the SDF sphere does not render like the analytic sphere")
+    return launches, frame, sdf_launches
+
+
+def phase_variants(dev):
+    """Phase 25: the flagship frame at 64x64, 4 spp, depth 4
+    (scenes.variant_dict) with each of the six samplers (orthogonal at 9
+    spp, a 3x3 array), each of the five splat filters, and the
+    orthographic, distant and a two-child batch sensor: card against CPU
+    means within FRAME_MEAN_RTOL; then the JAX tests' expectations on the
+    card: the radiancemeter's 0.5 and the irradiancemeter's pi
+    (METER_RTOL) and the batch strips against two half-width renders
+    (BATCH_STRIP_ATOL)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
+    from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
+    from mitsuba_customization_tpu_torch.render.sensors import look_at
+    from mitsuba_customization_tpu_torch.scenes import batch_strip_means, meter_dict, variant_dict
+
+    for name in SAMPLERS:
+        spp = 9 if name == "orthogonal" else 4
+        _gpu_cpu_means(f"sampler {name} 64x64 {spp}spp", variant_dict(64, spp, sampler=name),
+                       dev, spp=spp)
+    for name in FILTER_NAMES:
+        if name != "box":
+            _gpu_cpu_means(f"filter {name} 64x64 4spp", variant_dict(rfilter=name), dev)
+    cam = look_at([0, 1.5, -4], [0, 0, 0], [0, 1, 0])
+    for name, sensor in (
+            ("orthographic", {"type": "orthographic", "ortho_scale": 2.5}),
+            ("distant", {"type": "distant", "ortho_scale": 2.5}),
+            ("batch", {"type": "batch",
+                       "a": {"type": "perspective", "fov": 45, "to_world": cam},
+                       "b": {"type": "thinlens", "fov": 40, "aperture_radius": 0.05,
+                             "focus_distance": 4.0,
+                             "to_world": look_at([-1, 1.2, -4], [0, 0, 0], [0, 1, 0])}})):
+        _gpu_cpu_means(f"sensor {name} 64x64 4spp", variant_dict(sensor=sensor), dev)
+    got = {}
+    for kind, (want, rtol) in METER_RTOL.items():
+        scene = mt.load_dict(meter_dict(kind), dev)
+        got[kind] = mt.render(scene, spp=scene.config.spp, seed=0)[0, 0].cpu()
+        if not bool(((got[kind] - want).abs() <= rtol * want).all()):
+            raise AssertionError(f"{kind} reads {got[kind].tolist()}, not {want} within {rtol}")
+    strips, halves = batch_strip_means(dev)
+    print(f"sensor expectations on the card: radiancemeter {got['radiancemeter'].tolist()} "
+          f"(0.5, 5 %), irradiancemeter {got['irradiancemeter'].tolist()} (pi, 2 %); batch "
+          f"strips {strips} against half-width renders {halves} (within {BATCH_STRIP_ATOL})")
+    if max(abs(a - b) for a, b in zip(strips, halves)) >= BATCH_STRIP_ATOL:
+        raise AssertionError("the batch sensor's strips differ from the half-width renders")
+
+
 T_START = time.perf_counter()
 PHASE_SECONDS = {}
 _LAP = [T_START]
@@ -1821,6 +2112,12 @@ def main():
     lap("21 emitters")
     image_ad_launches = phase_image_ad(dev, paths)
     lap("22 image AD step")
+    cam_launches, cam_ad_launches, cam_frame = phase_camera(dev)
+    lap("23 camera")
+    shapes_launches, shapes_frame, sdf_launches = phase_shapes(dev)
+    lap("24 shapes")
+    phase_variants(dev)
+    lap("25 sensors, samplers, filters")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -1846,10 +2143,14 @@ def main():
             "configs0": cfg0_launches[key], "materials": mat_launches[key],
             "blend": blend_launches[key], "blend_ad_step": blend_ad_launches[key],
             "image": image_launches[key], "emitters": emitter_launches[key],
-            "image_ad_step": image_ad_launches[key]},
+            "image_ad_step": image_ad_launches[key], "camera": cam_launches[key],
+            "camera_ad_step": cam_ad_launches[key], "shapes": shapes_launches[key],
+            "shapes_sdf": sdf_launches[key]},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
             blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
-            image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1])
+            image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
+            camera_frame_ms=cam_frame[key][0], camera_frame_bound_ms=cam_frame[key][1],
+            shapes_frame_ms=shapes_frame[key][0], shapes_frame_bound_ms=shapes_frame[key][1])
     # K1's backward: launches and in-frame times per AD step (phase 13)
     kernels.append(dict(
         name="merl_eval_bwd", route="cuda", source=k1.SOURCE_BWD,
@@ -1862,7 +2163,8 @@ def main():
         frame_bound_ms=ad_frame[1], frame_share=ad_frame[1] / ad_frame[0],
         launches_by_phase={"ad_step": ad_launches["K1-bwd"],
                            "blend_ad_step": blend_ad_launches["K1-bwd"],
-                           "image_ad_step": image_ad_launches["K1-bwd"]}))
+                           "image_ad_step": image_ad_launches["K1-bwd"],
+                           "camera_ad_step": cam_ad_launches["K1-bwd"]}))
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
           f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
-"""Stateless integer hashes behind the samplers.
+"""Stateless integer hashes and the Owen-scrambled Sobol' (0,2)-sequence
+behind the samplers.
 
 PyTorch port of mitsuba_customization_tpu/core/qmc.py (`hash_u32`,
-`hash_combine`). PyTorch's uint32 lacks most arithmetic, so the uint32
+`hash_combine`, `reverse_bits32`, `owen_scramble`, `sobol_u32`,
+`sobol_owen_2d`). PyTorch's uint32 lacks most arithmetic, so the uint32
 maths runs in int64 with every intermediate masked to 32 bits; the results
 are bit-identical to the JAX package's uint32 streams.
 """
@@ -48,3 +50,65 @@ def hash_combine(a, b):
     b = b & MASK32
     mixed = (b + 0x9E3779B9 + ((a << 6) & MASK32) + (a >> 2)) & MASK32
     return hash_u32(a ^ mixed)
+
+
+def reverse_bits32(x):
+    """Bit-reverse a uint32 (in int64)."""
+    x = x & MASK32
+    x = ((x >> 16) | (x << 16)) & MASK32
+    x = ((x & 0x00FF00FF) << 8) | ((x & 0xFF00FF00) >> 8)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x & 0xF0F0F0F0) >> 4)
+    x = ((x & 0x33333333) << 2) | ((x & 0xCCCCCCCC) >> 2)
+    x = ((x & 0x55555555) << 1) | ((x & 0xAAAAAAAA) >> 1)
+    return x
+
+
+def _laine_karras_permutation(x, seed):
+    """Owen-scramble the (reversed-bit) value x with the given seed
+    (Burley, "Practical Hash-based Owen Scrambling", JCGT 2020). Each
+    product of two 32-bit values goes through _mul32."""
+    x = (x + seed) & MASK32
+    x = x ^ _mul32(x, 0x6C50B47C)
+    x = x ^ _mul32(x, 0xB82F1E52)
+    x = x ^ _mul32(x, 0xC7AFE638)
+    x = x ^ _mul32(x, 0x8D22F6E6)
+    return x
+
+
+def owen_scramble(x, seed):
+    """Owen-scramble x (a radical-inverse-style uint32) with seed."""
+    return reverse_bits32(_laine_karras_permutation(reverse_bits32(x), seed))
+
+
+def sobol_u32(index, dim):
+    """Unscrambled Sobol' sample `index` of dimension 0 or 1 as uint32:
+    dim 0 is the van der Corput sequence (bit reversal), dim 1 the second
+    Sobol' dimension (v_{k+1} = v_k ^ (v_k >> 1))."""
+    index = index & MASK32
+    if dim == 0:
+        return reverse_bits32(index)
+    out = torch.zeros_like(index)
+    v = 1 << 31
+    for _ in range(32):
+        out = torch.where((index & 1) != 0, out ^ v, out)
+        index = index >> 1
+        v = v ^ (v >> 1)
+    return out
+
+
+def _u32_to_unit_float(x):
+    """uint32 (in int64) -> float32 in [0, 1) from the top 24 bits."""
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def sobol_owen_2d(index, seed):
+    """Owen-scrambled (0,2)-sequence point `index` -> (..., 2) in [0,1)^2;
+    `seed` decorrelates lanes (sample indices of one pixel share it)."""
+    seed = seed & MASK32
+    s0 = hash_u32(seed)
+    s1 = hash_u32(seed ^ 0xDEADBEEF)
+    # the index is scrambled too: a per-lane sample order over the same net
+    idx = owen_scramble(index & MASK32, hash_u32(seed ^ 0x55AA55AA))
+    x = owen_scramble(sobol_u32(idx, 0), s0)
+    y = owen_scramble(sobol_u32(idx, 1), s1)
+    return torch.stack([_u32_to_unit_float(x), _u32_to_unit_float(y)], -1)

@@ -4,8 +4,8 @@ intersection.
 PyTorch port of mitsuba_customization_tpu/render/geometry.py: `Geometry`,
 `ray_triangle`, `ray_sphere`, `ray_cylinder`, `intersect_brute`,
 `occluded_brute`, `compute_interaction`, `interaction_from_g` and
-`spawn_ray`. The scene loader builds no cylinders, but the cluster
-structure and its kernels test them, as the JAX package's do.
+`spawn_ray`. The loader builds cylinders from `cylinder` shapes; the
+cluster structure and its kernels test them, as the JAX package's do.
 """
 
 from __future__ import annotations

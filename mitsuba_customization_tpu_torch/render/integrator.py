@@ -5,8 +5,9 @@ PyTorch port of mitsuba_customization_tpu/render/integrator.py:
 `trace_paths` with its per-bounce body, `_compact_caps`,
 `_systematic_survive`, `_run_bounces_compact`, `render_lanes` with its
 integrator dispatch (path, direct, depth, aov*, moment, prb / prb_basic as
-path) and `render` (spp and row chunking, 16x16 blocked lane order, box
-filter; 6 channels for moment). The
+path) and `render` (spp and row chunking, 16x16 blocked lane order, the
+box filter or a splat filter, the sensor's scale; 6 channels for
+moment). The
 JAX package's lax.scan over bounces and passes becomes Python loops; the
 bounce index is then a Python int, so the final bounce's dead shading tail
 is skipped statically, as in the JAX package's unrolled loop.
@@ -29,11 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.core.qmc import as_u32, hash_combine
-from mitsuba_customization_tpu_torch.core.sampler import (
-    IndependentSampler,
-    _uniform_from_bits,
-    make_sampler,
-)
+from mitsuba_customization_tpu_torch.core.sampler import _uniform_from_bits, make_sampler
 from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
 from mitsuba_customization_tpu_torch.models.normalmap import apply_normal_maps
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
@@ -41,7 +38,7 @@ from mitsuba_customization_tpu_torch.render import film as film_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render.records import Ray
 from mitsuba_customization_tpu_torch.render.scene import INTEGRATOR_TYPES, check_ported
-from mitsuba_customization_tpu_torch.render.sensors import sample_ray
+from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 
 CAMERA_DIMS = 4  # 0-1 pixel jitter, 2-3 aperture
 BOUNCE_DIMS = 8  # 0-1 bsdf 2d, 2 bsdf lobe select, 3 RR, 4-6 NEE
@@ -307,8 +304,11 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     the cluster intersector the sort key is the (direction octant, origin
     Morton cell) of each survivor, so neighbouring threads of K3 and K4
     trace neighbouring rays; otherwise it is the lane order. The sampler's
-    lane ids and lane keys ride the permutation, so every lane draws what
-    it draws uncompacted. A final scatter by lane tag restores film order.
+    own per-lane tensors (its ARRAYS: the lane id, and the independent
+    sampler's lane key or the others' pixel / sample index) ride the
+    permutation, and each bounce's sampler is the same class rebuilt on
+    them (`with_lanes`), so every lane draws what it draws uncompacted. A
+    final scatter by lane tag restores film order.
     Returns (L (N, 3), per-bounce ray counts).
 
     The ray state lives in full-width tensors. The primal render updates
@@ -327,9 +327,10 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
         "thr": thr, "L": L, "active": active, "pdf": prev_pdf,
         "delta": prev_delta,
         "tag": torch.arange(n, dtype=torch.int64, device=dev),
-        "lane": sampler.lane.clone(),
-        "lane_key": sampler._lane_key.expand(n).clone(),
     }
+    smp_names = sampler.ARRAYS
+    for nm in smp_names:
+        full["smp." + nm] = torch.broadcast_to(getattr(sampler, nm), (n,)).clone()
     spatial = scene.config.intersector == "cluster" and scene.clusters is not None
     if spatial:
         root = scene.clusters.root
@@ -372,7 +373,8 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
                 iota = torch.arange(cur, device=dev)
                 key = torch.where(survive, iota, iota + cur)
             perm = torch.sort(key).indices
-            for name in ("o", "d", "L", "pdf", "delta", "tag", "lane", "lane_key"):
+            for name in ("o", "d", "L", "pdf", "delta", "tag") + tuple(
+                    "smp." + nm for nm in smp_names):
                 put(name, full[name][:cur][perm], cur)
             put("thr", thr_p[perm], cur)
             put("active", survive[perm], cur)
@@ -380,8 +382,7 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
             if need_thin:
                 cur = cap
 
-        smp_b = IndependentSampler(sampler.seed, full["lane"][:cur],
-                                   _lane_key=full["lane_key"][:cur])
+        smp_b = sampler.with_lanes(**{nm: full["smp." + nm][:cur] for nm in smp_names})
         state_b = (
             Ray(o=full["o"][:cur], d=full["d"][:cur], maxt=full["maxt"][:cur]),
             full["thr"][:cur], full["L"][:cur], full["active"][:cur],
@@ -443,12 +444,16 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
         pixel, sample_idx = lanes // spp, lanes % spp
     smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
 
-    jitter = smp.next_2d()  # dims 2-3 (aperture) go unused: no thin lens
+    jitter = smp.next_2d()
+    # dims 2-3: the aperture, drawn only for a thin lens (each bounce
+    # repositions the sampler with with_dim, so no other draw moves)
+    aperture = (smp.next_2d() if sensor_mod.THINLENS in sensor_mod.types_present(scene.sensor)
+                else None)
     px = (pixel % w).to(torch.float32)
     py = (pixel // w).to(torch.float32)
     film_xy = torch.stack([px, py], -1) + jitter
     film_uv = film_xy / torch.tensor([w, h], dtype=torch.float32, device=px.device)
-    ray0 = sample_ray(scene.sensor, film_uv, w / h)
+    ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h)
 
     if kind in ("depth", "aov", "aov_normals", "aov_position", "aov_uv"):
         si = scene.ray_intersect(ray0)
@@ -491,14 +496,18 @@ def _chunk_rows(h, w):
 
 def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
            ad_mode=False, return_stats=False):
-    """Full pipeline to an (H, W, C) image (box filter; C = 6 for moment,
-    else 3), with the JAX package's arguments in its order.
+    """Full pipeline to an (H, W, C) image (C = 6 for moment, else 3), with
+    the JAX package's arguments in its order.
 
     Renders in (row slab, spp slice) passes of at most MAX_WAVEFRONT lanes.
-    integrator: as render_lanes (None: the scene's own). return_stats=True
-    also returns {"rays_traced": total rays including shadow rays}.
-    ad_mode: see trace_paths (render/ad.render_ad is the differentiable
-    entry).
+    The box filter averages each pixel's lanes; any other filter
+    (cfg.rfilter) splats every pass's samples at their film positions into
+    the full film, and the summed image is divided by the summed weights.
+    The result is multiplied by cfg.sensor_scale (pi for an
+    irradiancemeter). integrator: as render_lanes (None: the scene's own).
+    return_stats=True also returns {"rays_traced": total rays including
+    shadow rays}. ad_mode: see trace_paths (render/ad.render_ad is the
+    differentiable entry).
     """
     _integrator_kind(scene, integrator)
     cfg = scene.config
@@ -509,6 +518,7 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     chunk = _chunk_spp(rows * w, spp)
     n_spp_pass = spp // chunk
     n_row_pass = h // rows
+    box = cfg.rfilter == "box"
 
     # 16x16 pixel blocks when the slab tiles evenly, row-major otherwise
     blocked = rows % _BLOCK == 0 and w % _BLOCK == 0 and rows * w * chunk >= _BLOCK
@@ -521,24 +531,36 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     pixel0 = torch.as_tensor(order, device=dev).repeat_interleave(chunk)
     sidx_local = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(rows * w)
 
-    # row slabs summed out of place over spp passes (autograd keeps each)
+    # box: row slabs summed out of place over spp passes (autograd keeps
+    # each); splat: the full film's image and weight sums
     slabs = [None] * n_row_pass
+    img = wsum = None
     rays = torch.zeros((), dtype=torch.float64, device=dev)
     for p in range(n_spp_pass * n_row_pass):
         row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
-        L, _, stats = render_lanes(
+        L, film_xy, stats = render_lanes(
             scene, spp, seed, integrator, max_depth, ad_mode,
             pixel=pixel0 + row_pass * rows * w,
             sample_idx=sidx_local + spp_pass * chunk,
         )
         rays = rays + stats["rays_per_bounce"].sum()
+        if not box:
+            part, wpart = film_mod.splat(L, film_xy, h, w, film_mod.FILTER_NAMES[cfg.rfilter])
+            img = part if img is None else img + part
+            wsum = wpart if wsum is None else wsum + wpart
+            continue
         if blocked:
             slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
         else:
             slab = film_mod.develop_box(L, rows, w, chunk)
         prev = slabs[row_pass]
         slabs[row_pass] = slab if prev is None else prev + slab
-    out = torch.cat(slabs) / n_spp_pass
+    if box:
+        out = torch.cat(slabs) / n_spp_pass
+    else:
+        out = img / torch.clamp(wsum, min=1e-12)[..., None]
+    if cfg.sensor_scale != 1.0:
+        out = out * cfg.sensor_scale  # measurement sensors (W/m^2)
     if return_stats:
         return out, {"rays_traced": float(rays)}
     return out

@@ -25,9 +25,10 @@ SceneConfig (any object with the same attribute names). The parity tests
 use it to run both packages on identical arrays. Only the subset the port
 renders is accepted (the ported BSDF kernels, the texture stack, normal
 maps and blends, the shadow geometry and cluster set of a scene with null
-materials, brute or cluster intersector, every emitter type, the ported
-integrators, an optional compaction schedule); anything else raises
-NotImplementedError. The JAX package's BVH and its TPU-only copies
+materials, brute or cluster intersector, every emitter type, every sensor
+(a batch sensor's stacked fields and child_types too), sampler and film
+filter, an SDF grid, the ported integrators, an optional compaction
+schedule); anything else raises NotImplementedError. The JAX package's BVH and its TPU-only copies
 (`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are not
 read.
 """
@@ -65,8 +66,11 @@ from mitsuba_customization_tpu_torch.models.thindielectric import (
 )
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
+from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
 from mitsuba_customization_tpu_torch.render import geometry as geo
+from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
+from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
 from mitsuba_customization_tpu_torch.render.scene import (
     INTEGRATOR_TYPES,
     Scene,
@@ -165,9 +169,8 @@ def _config(config):
     cfg = SceneConfig(**{
         f: getattr(config, f) for f in SceneConfig.__dataclass_fields__
     })
-    if (cfg.integrator not in INTEGRATOR_TYPES
-            or (cfg.rfilter, cfg.sampler) != ("box", "independent")
-            or cfg.intersector not in ("brute", "cluster")):
+    if (cfg.integrator not in INTEGRATOR_TYPES or cfg.rfilter not in FILTER_NAMES
+            or cfg.sampler not in SAMPLERS or cfg.intersector not in ("brute", "cluster")):
         raise NotImplementedError(f"scene configuration not ported: {config}")
     if cfg.compact is not None:
         cfg.compact = tuple(float(f) for f in cfg.compact)
@@ -280,14 +283,15 @@ def scene_from_numpy(arrays, config, device):
             {f: a[f"shadow_geometry.{f}"] for f in geo.Geometry._fields}, device)
         used.update(f"shadow_geometry.{f}" for f in geo.Geometry._fields)
 
-    if int(a["sensor.sensor_type"]) != sensor_mod.PERSPECTIVE:
-        raise NotImplementedError("only the perspective sensor is ported")
-    used.add("sensor.sensor_type")
-    sensor = sensor_mod.Sensor(
-        to_world=get("sensor.to_world"),
-        fov_x=get("sensor.fov_x"),
-        near_clip=get("sensor.near_clip"),
-    )
+    sensor = sensor_mod.Sensor(**{
+        f: get("sensor." + f, torch.int64 if f in ("sensor_type", "child_types")
+               else torch.float32)
+        for f in sensor_mod.Sensor._fields if "sensor." + f in a})
+    sdf = None
+    if "sdf.values" in a:
+        sdf = sdf_mod.SDFGrid(**{
+            f: get("sdf." + f, torch.int64 if f in ("mat_id", "shape_id") else torch.float32)
+            for f in sdf_mod.SDFGrid._fields})
     if a.get("media.m_type", np.zeros(0)).size:
         raise NotImplementedError("participating media are not ported")
     checked = ("shadow_geometry.", "shadow_clusters.", "clusters.", "sdf.",
@@ -303,5 +307,5 @@ def scene_from_numpy(arrays, config, device):
         geometry=geometry, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
         config=cfg, clusters=clusters,
         has_cylinders=bool((a["geometry.prim_type"] == geo.CYLINDER).any()),
-        shadow_geometry=shadow_geometry, shadow_clusters=shadow_clusters,
+        shadow_geometry=shadow_geometry, shadow_clusters=shadow_clusters, sdf=sdf,
     )

@@ -3,13 +3,20 @@
 PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
 `SceneConfig`, `Scene`) for this subset:
 
-* shapes: sphere, rectangle and mesh (vertices, faces, optional normals,
-  uvs and vertex_colors), with a look_at / scale / rotate / translate
-  to_world;
+* shapes: sphere, cylinder, rectangle, cube, disk, mesh (vertices,
+  faces, optional normals, uvs and vertex_colors), obj, ply and serialized
+  files (utils/obj.py, ply.py, serialized.py), face_normals, shapegroup
+  with instances (flattened into the prim soup per instance) and one
+  sdfgrid a scene (render/sdf.py), with a look_at / scale / rotate /
+  translate to_world;
 * emitters: "area" and "directionalarea" on a shape; constant, envmap
   (a bitmap or a filename, scale, to_world), point, spot, directional and
   projector;
-* sensor, sampler, film filter: perspective, independent, box;
+* sensors: perspective, thinlens, orthographic, radiancemeter,
+  irradiancemeter (film 1x1 by default), distant, and batch (children
+  perspective, thinlens or orthographic); samplers: independent,
+  stratified, multijitter, orthogonal, sobol / ldsampler; film filters:
+  box, gaussian, tent, mitchell, catmullrom, lanczos;
 * integrators (a dict under "integrator" or under any key with an
   integrator type): path, direct, depth, aov, aov_normals, aov_position,
   aov_uv, moment, and prb / prb_basic (rendered as path), with max_depth,
@@ -68,9 +75,15 @@ from mitsuba_customization_tpu_torch.models.normalmap import bump_to_normal
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
+from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
 from mitsuba_customization_tpu_torch.render import geometry as geo
+from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
+from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
 from mitsuba_customization_tpu_torch.utils.io import read_image
+from mitsuba_customization_tpu_torch.utils.obj import read_obj
+from mitsuba_customization_tpu_torch.utils.ply import read_ply
+from mitsuba_customization_tpu_torch.utils.serialized import read_serialized
 
 BRUTE_FORCE_MAX_PRIMS = 64
 
@@ -101,6 +114,9 @@ class SceneConfig:
     # entering bounce b keeps ceil(n * compact[min(b, len-1)]) lanes
     # (render/integrator._run_bounces_compact).
     compact: Optional[tuple] = None
+    # radiance -> measurement: render multiplies the film by it (pi for an
+    # irradiancemeter)
+    sensor_scale: float = 1.0
 
 
 @dataclasses.dataclass
@@ -120,6 +136,8 @@ class Scene:
     # (cluster intersector) its cluster set, for shadow rays
     shadow_geometry: Optional[geo.Geometry] = None
     shadow_clusters: Optional[cl_mod.ClusterSet] = None
+    # the scene's one SDF grid shape (render/sdf.py), outside the prim soup
+    sdf: Optional[sdf_mod.SDFGrid] = None
 
     @property
     def device(self):
@@ -131,9 +149,15 @@ class Scene:
         cyl = self.has_cylinders
         if self.config.intersector == "cluster":
             t, prim, u, v, g = cl_mod.intersect(self.clusters, ray)
-            return geo.interaction_from_g(g, ray, t, prim, u, v, cyl)
-        t, prim, u, v = geo.intersect_brute(self.geometry, ray, cyl)
-        return geo.compute_interaction(self.geometry, ray, t, prim, u, v, cyl)
+            si = geo.interaction_from_g(g, ray, t, prim, u, v, cyl)
+        else:
+            t, prim, u, v = geo.intersect_brute(self.geometry, ray, cyl)
+            si = geo.compute_interaction(self.geometry, ray, t, prim, u, v, cyl)
+        if self.sdf is not None:
+            t_s, hit_s, p_l = sdf_mod.intersect(self.sdf, ray)
+            si = sdf_mod.merge_interaction(si, sdf_mod.interaction(self.sdf, ray, t_s, hit_s,
+                                                                   p_l))
+        return si
 
     def ray_test(self, ray):
         """Shadow-ray occlusion (K4 in cluster mode, else brute force).
@@ -141,9 +165,14 @@ class Scene:
         cluster set, where the scene has them, hold them degenerate."""
         if self.config.intersector == "cluster":
             cs = self.clusters if self.shadow_clusters is None else self.shadow_clusters
-            return cl_mod.occluded(cs, ray)
-        g = self.geometry if self.shadow_geometry is None else self.shadow_geometry
-        return geo.occluded_brute(g, ray, self.has_cylinders)
+            occ = cl_mod.occluded(cs, ray)
+        else:
+            g = self.geometry if self.shadow_geometry is None else self.shadow_geometry
+            occ = geo.occluded_brute(g, ray, self.has_cylinders)
+        if self.sdf is not None:
+            t_s, hit_s, _ = sdf_mod.intersect(self.sdf, ray)
+            occ = occ | (hit_s & (t_s < ray.maxt))
+        return occ
 
 
 # --------------------------------------------------------------------------
@@ -258,11 +287,46 @@ class _GeomBuilder:
             shape_id=np.asarray([shape_id], np.int32),
         )
 
-    def add_mesh(self, v, f, n, uv, mat_id, emitter_id, shape_id):
+    def add_cylinder(self, p0, p1, radius, mat_id, emitter_id, shape_id):
+        z3 = np.zeros((1, 3), np.float32)
+        z2 = np.zeros((1, 2), np.float32)
+        p0 = np.asarray(p0, np.float32)
+        self._push(
+            1,
+            prim_type=np.asarray([geo.CYLINDER], np.int32),
+            p0=p0[None], e1=(np.asarray(p1, np.float32) - p0)[None],
+            e2=np.asarray([[radius, 0.0, 0.0]], np.float32),
+            vn0=z3, vn1=z3, vn2=z3, uv0=z2, uv1=z2, uv2=z2,
+            mat_id=np.asarray([mat_id], np.int32),
+            emitter_id=np.asarray([emitter_id], np.int32),
+            shape_id=np.asarray([shape_id], np.int32),
+        )
+
+    def add_mesh(self, v, f, n, uv, mat_id, emitter_id, shape_id, flat=False):
         """Triangles with vertex normals n, or area-weighted ones when n is
-        None (the JAX package's fallback), and uvs (zeros when None)."""
+        None (the JAX package's fallback), and uvs (zeros when None).
+        flat (mitsuba's face_normals): every corner takes its face's
+        geometric normal."""
         v = np.asarray(v, np.float32)
         f = np.asarray(f, np.int64)
+        if flat:
+            fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+            fn = (fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-12)
+                  ).astype(np.float32)
+            if uv is None:
+                uv = np.zeros((len(v), 2), np.float32)
+            p0 = v[f[:, 0]]
+            cnt = len(f)
+            self._push(
+                cnt,
+                prim_type=np.full(cnt, geo.TRI, np.int32),
+                p0=p0, e1=v[f[:, 1]] - p0, e2=v[f[:, 2]] - p0, vn0=fn, vn1=fn, vn2=fn,
+                uv0=uv[f[:, 0]], uv1=uv[f[:, 1]], uv2=uv[f[:, 2]],
+                mat_id=np.full(cnt, mat_id, np.int32),
+                emitter_id=np.full(cnt, emitter_id, np.int32),
+                shape_id=np.full(cnt, shape_id, np.int32),
+            )
+            return
         if n is None:
             n = np.zeros_like(v)
             fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
@@ -298,6 +362,33 @@ def _unit_rectangle():
     return v, f, uv
 
 
+def _unit_cube():
+    """[-1,1]^3 cube, outward normals (mitsuba3 cube.cpp)."""
+    verts, faces = [], []
+    for axis in range(3):
+        for sgn in (-1.0, 1.0):
+            base = len(verts)
+            u_ax, v_ax = (axis + 1) % 3, (axis + 2) % 3
+            for du, dv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = [0.0, 0.0, 0.0]
+                p[axis] = sgn
+                p[u_ax] = du * sgn
+                p[v_ax] = dv
+                verts.append(p)
+            faces += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    return np.asarray(verts, dtype=np.float32), np.asarray(faces, dtype=np.int32)
+
+
+def _unit_disk(segments=32):
+    """Unit disk in the xy-plane facing +z (mitsuba3 disk.cpp)."""
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+    v = np.concatenate([[[0, 0, 0]], rim]).astype(np.float32)
+    f = np.asarray([[0, 1 + i, 1 + (i + 1) % segments] for i in range(segments)],
+                   dtype=np.int32)
+    return v, f
+
+
 def geometry_from_numpy(arrays, device):
     """Geometry from numpy fields (int fields become int64)."""
     def conv(a):
@@ -312,8 +403,10 @@ def geometry_from_numpy(arrays, device):
 # load_dict
 # --------------------------------------------------------------------------
 
-_SENSOR_TYPES = {"perspective"}
-_SHAPE_TYPES = {"sphere", "rectangle", "mesh"}
+_SHAPE_TYPES = {"sphere", "cylinder", "rectangle", "cube", "disk", "mesh", "obj", "ply",
+                "serialized"}
+# the types a batch sensor's children may have (the JAX loader's)
+_BATCH_CHILDREN = ("perspective", "thinlens", "orthographic")
 _BSDF_TYPES = {
     "diffuse", "conductor", "roughconductor", "dielectric", "thindielectric",
     "roughdielectric", "merl", "measured_custom", "twosided", "null",
@@ -328,12 +421,6 @@ INTEGRATOR_TYPES = frozenset([
 # what the JAX package has and the port has not yet, by ROADMAP item
 NOT_PORTED = {
     "integrator": ({"volpath", "volpathmis", "prbvolpath", "ptracer", "bdpt"}, "14b"),
-    "shape": ({"obj", "ply", "serialized", "cube", "disk", "cylinder", "instance",
-               "sdfgrid", "shapegroup"}, "15"),
-    "sensor": ({"thinlens", "orthographic", "radiancemeter", "irradiancemeter",
-                "distant", "batch"}, "13"),
-    "sampler": ({"stratified", "multijitter", "orthogonal", "ldsampler", "sobol"}, "13"),
-    "rfilter": ({"gaussian", "tent", "mitchell", "catmullrom", "lanczos"}, "13"),
     "medium": ({"homogeneous", "heterogeneous"}, "14b"),
 }
 _TEXTURE_TYPES = ("bitmap", "checkerboard", "mesh_attribute", "volume")
@@ -618,17 +705,21 @@ def load_dict(d: dict, device) -> Scene:
 
     gb = _GeomBuilder()
     sensor = None
+    sdf_shape = None
     shape_count = 0
+    shapegroups: dict[str, dict] = {}
 
-    def add_shape(val):
+    def add_shape(val, extra_to_w=None):
+        """One shape dict into prims, pre-transformed by an instance's
+        to_world when given."""
         nonlocal shape_count
         t = val.get("type")
         for key in ("interior", "exterior"):
             if key in val:
                 raise NotImplementedError(
                     f"participating media ('{key}') are not ported (ROADMAP item 14b)")
-        if val.get("face_normals", False):
-            raise NotImplementedError("face_normals are not ported (ROADMAP item 15)")
+        if t not in _SHAPE_TYPES:
+            raise ValueError(f"unsupported shape '{t}'")
         mat_id = compile_bsdf(val.get("bsdf", {"type": "diffuse"}))
         emitter_id = -1
         if "emitter" in val:
@@ -642,6 +733,8 @@ def load_dict(d: dict, device) -> Scene:
             emitter_id = len(em_rows) - 1
         prim_start = gb.count
         to_w = _as_transform(val.get("to_world"))
+        if extra_to_w is not None:
+            to_w = np.asarray(extra_to_w, np.float64) @ to_w
         if t == "sphere":
             center = _apply_transform(
                 to_w, np.asarray(val.get("center", [0, 0, 0]), np.float64)
@@ -649,8 +742,26 @@ def load_dict(d: dict, device) -> Scene:
             scale = np.cbrt(abs(np.linalg.det(to_w[:3, :3])))
             gb.add_sphere(center, float(val.get("radius", 1.0)) * scale,
                           mat_id, emitter_id, shape_count)
+        elif t == "cylinder":
+            p0 = _apply_transform(to_w, np.asarray(val.get("p0", [0, 0, 0]), np.float64))
+            p1 = _apply_transform(to_w, np.asarray(val.get("p1", [0, 0, 1]), np.float64))
+            # the radius scales with the transform's mean stretch
+            scale = np.cbrt(abs(np.linalg.det(to_w[:3, :3])))
+            gb.add_cylinder(p0, p1, float(val.get("radius", 1.0)) * scale,
+                            mat_id, emitter_id, shape_count)
         else:
-            if t == "mesh":
+            n = uv = None
+            if t == "obj":
+                v, f, n, uv = read_obj(val["filename"])
+            elif t == "ply":
+                v, f, n, uv = read_ply(val["filename"])
+            elif t == "serialized":
+                v, f, n, uv = read_serialized(val["filename"], int(val.get("shape_index", 0)))
+            elif t == "cube":
+                v, f = _unit_cube()
+            elif t == "disk":
+                v, f = _unit_disk()
+            elif t == "mesh":
                 v = np.asarray(val["vertices"], np.float32)
                 f = np.asarray(val["faces"], np.int32)
                 n, uv = val.get("normals"), val.get("uvs")
@@ -663,11 +774,11 @@ def load_dict(d: dict, device) -> Scene:
                         (gb.count, np.asarray(vc, np.float32)[f].reshape(len(f), 9)))
             else:  # rectangle
                 v, f, uv = _unit_rectangle()
-                n = None
             v = _apply_transform(to_w, v.astype(np.float64)).astype(np.float32)
             if n is not None:
                 n = _apply_normal_transform(to_w, n)
-            gb.add_mesh(v, f, n, uv, mat_id, emitter_id, shape_count)
+            gb.add_mesh(v, f, n, uv, mat_id, emitter_id, shape_count,
+                        flat=bool(val.get("face_normals", False)))
         if emitter_id >= 0:
             emissive_prim_ranges.append((emitter_id, prim_start, gb.count))
             if em_rows[emitter_id]["type"] == em_mod.DIRECTIONALAREA:
@@ -705,34 +816,38 @@ def load_dict(d: dict, device) -> Scene:
             if val.get("compact") is not None:
                 cfg.compact = tuple(float(f) for f in val["compact"])
             continue
-        check_ported("sensor", t)
-        if t in _SENSOR_TYPES:
-            film = val.get("film", {})
-            cfg.width = int(film.get("width", cfg.width))
-            cfg.height = int(film.get("height", cfg.height))
-            rf = film.get("rfilter", "box")
-            cfg.rfilter = rf.get("type", "box") if isinstance(rf, dict) else rf
-            check_ported("rfilter", cfg.rfilter)
-            if cfg.rfilter != "box":
-                raise ValueError(f"unsupported film filter '{cfg.rfilter}'")
-            samp = val.get("sampler", {})
-            cfg.sampler = samp.get("type", cfg.sampler)
-            check_ported("sampler", cfg.sampler)
-            if cfg.sampler != "independent":
-                raise ValueError(f"unsupported sampler '{cfg.sampler}'")
-            cfg.spp = int(samp.get("sample_count", cfg.spp))
-            sensor = sensor_mod.make_sensor(
-                device,
-                to_world=_as_transform(val.get("to_world")),
-                fov_x=float(val.get("fov", 45.0)),
-                near_clip=float(val.get("near_clip", 1e-3)),
-            )
+        if t == "batch" or t in sensor_mod.SENSOR_TYPES:
+            sensor = _load_sensor(t, val, cfg, device)
             continue
         if t in _EMITTER_TYPES:
             const_row = _add_emitter(t, val, em_rows, env, proj, const_row)
             continue
-        check_ported("shape", t)
         check_ported("medium", t)
+        if t == "shapegroup":
+            # collected here, flattened into the prim soup per instance
+            shapegroups[key] = val
+            continue
+        if t == "instance":
+            gref = val.get("shapegroup", val.get("ref"))
+            if isinstance(gref, dict):
+                gref = gref.get("id")
+            if gref not in shapegroups:
+                raise ValueError(f"instance '{key}' references unknown shapegroup '{gref}'")
+            inst_w = _as_transform(val.get("to_world"))
+            for cval in shapegroups[gref].values():
+                if isinstance(cval, dict):
+                    add_shape(cval, extra_to_w=inst_w)
+            continue
+        if t == "sdfgrid":
+            # one grid a scene: its own acceleration structure, not in the soup
+            if sdf_shape is not None:
+                raise ValueError("only one sdfgrid per scene supported")
+            sdf_shape = sdf_mod.make(
+                np.asarray(val["grid"], np.float32), _as_transform(val.get("to_world")),
+                compile_bsdf(val.get("bsdf", {"type": "diffuse"})), shape_count,
+                device=device)
+            shape_count += 1
+            continue
         if t in _SHAPE_TYPES:
             add_shape(val)
             continue
@@ -809,7 +924,7 @@ def load_dict(d: dict, device) -> Scene:
     )
     cfg.nee = len(em_rows) > 0
     if sensor is None:
-        sensor = sensor_mod.make_sensor(device)
+        sensor = sensor_mod.make_sensor(device=device)
     return Scene(
         geometry=geometry,
         bsdfs=bsdfs,
@@ -821,7 +936,46 @@ def load_dict(d: dict, device) -> Scene:
         has_cylinders=bool((arrays["prim_type"] == geo.CYLINDER).any()),
         shadow_geometry=shadow_geometry,
         shadow_clusters=shadow_clusters,
+        sdf=sdf_shape,
     )
+
+
+def _load_sensor(t, val, cfg, device):
+    """The Sensor of a sensor dict of type t (or "batch"), with its film
+    size, film filter, sampler and spp written into cfg (the JAX
+    loader's defaults: a radiancemeter or irradiancemeter film is 1x1, and
+    the irradiancemeter's film is scaled by pi)."""
+    film = val.get("film", {})
+    meter = t in ("radiancemeter", "irradiancemeter")
+    cfg.width = int(film.get("width", 1 if meter else cfg.width))
+    cfg.height = int(film.get("height", 1 if meter else cfg.height))
+    if t == "irradiancemeter":
+        cfg.sensor_scale = float(np.pi)
+    if t != "batch":  # the JAX loader reads no film filter for a batch sensor
+        rf = film.get("rfilter", "box")
+        cfg.rfilter = rf.get("type", "box") if isinstance(rf, dict) else rf
+        if cfg.rfilter not in FILTER_NAMES:
+            raise ValueError(f"unsupported film filter '{cfg.rfilter}'")
+    samp = val.get("sampler", {})
+    cfg.sampler = samp.get("type", cfg.sampler)
+    if cfg.sampler not in SAMPLERS:
+        raise ValueError(f"unsupported sampler '{cfg.sampler}'")
+    cfg.spp = int(samp.get("sample_count", cfg.spp))
+
+    def make(st, spec):
+        return sensor_mod.make_sensor(
+            st, _as_transform(spec.get("to_world")), float(spec.get("fov", 45.0)),
+            float(spec.get("aperture_radius", 0.0)), float(spec.get("focus_distance", 1.0)),
+            float(spec.get("near_clip", 1e-3)), float(spec.get("ortho_scale", 1.0)),
+            device=device)
+
+    if t != "batch":
+        return make(t, val)
+    kids = [make(sub.get("type", "perspective"), sub) for sub in val.values()
+            if isinstance(sub, dict) and sub.get("type") in _BATCH_CHILDREN]
+    if not kids:
+        raise ValueError("batch sensor needs child sensors")
+    return sensor_mod.stack_sensors(kids)
 
 
 def _build_emitter_table(em_rows, emissive_prim_ranges, arrays, const_row, env,

@@ -1,0 +1,185 @@
+"""Signed-distance-field grid shape (mitsuba3 src/shapes/sdfgrid.cpp).
+
+PyTorch port of mitsuba_customization_tpu/render/sdf.py: a regular (Nx,
+Ny, Nz) grid of signed distances over the local unit cube [0,1]^3, placed
+by `to_world`, intersected by lock-step sphere tracing (every live lane
+advances t += max(sdf(p), HIT_EPS) / |d_local| each step, at most
+MAX_STEPS steps). The grid is its own acceleration structure: it does not
+join the prim soup or the cluster set. Trilinear samples read the grid by
+flat index (`index_select`).
+
+The JAX package's loop stops once no lane is active. Here the march
+checks that every CHECK_EVERY steps (a host sync each): a lane that is
+no longer active does not change, so the result is the same as checking
+every step, with an eighth of the syncs.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mitsuba_customization_tpu_torch.core import math as m
+from mitsuba_customization_tpu_torch.core.frame import Frame
+from mitsuba_customization_tpu_torch.render.records import Ray, SurfaceInteraction
+
+MAX_STEPS = 128
+HIT_EPS = 1e-4
+CHECK_EVERY = 8
+
+# marches (intersect calls) and their steps since the counts were last
+# set to 0 (chip_smoke and the frame profile read them)
+MARCHES = 0
+STEPS = 0
+
+
+class SDFGrid(NamedTuple):
+    """One SDF grid shape: values (Nx, Ny, Nz) f32 signed distances at the
+    grid nodes over the local unit cube (x-major); to_world, to_local (4,
+    4); scale () the smallest axis scale of to_world; mat_id, shape_id ()
+    int64."""
+
+    values: torch.Tensor
+    to_world: torch.Tensor
+    to_local: torch.Tensor
+    scale: torch.Tensor
+    mat_id: torch.Tensor
+    shape_id: torch.Tensor
+
+
+def make(values, to_world=None, mat_id=0, shape_id=0, *, device):
+    """An SDFGrid on `device` from a numpy grid and placement."""
+    tw = (np.eye(4, dtype=np.float32) if to_world is None
+          else np.asarray(to_world, np.float32))
+    tl = np.linalg.inv(tw.astype(np.float64)).astype(np.float32)
+    axis_scale = np.linalg.norm(tw[:3, :3], axis=0)
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return SDFGrid(
+        values=dev(np.asarray(values, np.float32)),
+        to_world=dev(tw),
+        to_local=dev(tl),
+        scale=dev(np.float32(axis_scale.min())),
+        mat_id=dev(int(mat_id), torch.int64),
+        shape_id=dev(int(shape_id), torch.int64),
+    )
+
+
+def sample(sdf: SDFGrid, p_local):
+    """Trilinear SDF value at local positions (..., 3), clamped to the grid
+    support; distances in local units."""
+    nx, ny, nz = sdf.values.shape
+    dims = torch.tensor([nx, ny, nz], dtype=torch.float32, device=p_local.device)
+    u = p_local * (dims - 1.0)
+    hi = torch.tensor([nx - 2, ny - 2, nz - 2], device=p_local.device)
+    i0 = torch.minimum(torch.clamp(torch.floor(u).to(torch.int64), min=0), hi)
+    f = torch.clamp(u - i0, 0.0, 1.0)
+    base = (i0[..., 0] * ny + i0[..., 1]) * nz + i0[..., 2]
+    flat = sdf.values.reshape(-1)
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+
+    def at(dx, dy, dz):
+        idx = base + ((dx * ny + dy) * nz + dz)
+        return flat.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+
+    c00 = at(0, 0, 0) * (1 - fz) + at(0, 0, 1) * fz
+    c01 = at(0, 1, 0) * (1 - fz) + at(0, 1, 1) * fz
+    c10 = at(1, 0, 0) * (1 - fz) + at(1, 0, 1) * fz
+    c11 = at(1, 1, 0) * (1 - fz) + at(1, 1, 1) * fz
+    c0 = c00 * (1 - fy) + c01 * fy
+    c1 = c10 * (1 - fy) + c11 * fy
+    return c0 * (1 - fx) + c1 * fx
+
+
+def normal(sdf: SDFGrid, p_local):
+    """World-space normal from central differences of the local SDF."""
+    h = 1.0 / float(max(sdf.values.shape))
+    e = torch.eye(3, dtype=torch.float32, device=p_local.device) * h
+
+    def d(axis):
+        return sample(sdf, p_local + e[axis]) - sample(sdf, p_local - e[axis])
+
+    g_local = torch.stack([d(0), d(1), d(2)], -1)
+    # normals transform by the inverse transpose of to_world
+    g_world = g_local @ sdf.to_local[:3, :3]
+    return m.normalize(g_world + 1e-20)
+
+
+def intersect(sdf: SDFGrid, ray: Ray):
+    """Sphere-trace the nearest hit. Returns (t_world, hit, p_local)."""
+    global MARCHES, STEPS
+    rot = sdf.to_local[:3, :3]
+    o_l = ray.o @ rot.T + sdf.to_local[:3, 3]
+    d_l = ray.d @ rot.T  # not normalised: t stays in world units
+
+    # clip to the local unit cube
+    inv = 1.0 / torch.where(d_l.abs() < 1e-12, 1e-12, d_l)
+    t0 = (0.0 - o_l) * inv
+    t1 = (1.0 - o_l) * inv
+    near = torch.minimum(t0, t1).amax(-1)
+    far = torch.maximum(t0, t1).amin(-1)
+    enters = (near <= far) & (far > 0.0)
+    t = torch.clamp(near, min=0.0) + 1e-5
+    t_end = torch.minimum(far, ray.maxt)
+    d_norm = torch.clamp(m.norm(d_l), min=1e-12)  # local units per world t
+    active = enters & (t < ray.maxt)
+    hit = torch.zeros_like(active)
+    steps = 0
+    while steps < MAX_STEPS:
+        if steps % CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        dist = sample(sdf, o_l + t[..., None] * d_l)
+        is_hit = active & (dist < HIT_EPS)
+        # conservative march: local distance -> world t through |d_l|
+        step = torch.clamp(dist, min=HIT_EPS) / d_norm
+        t = torch.where(active & ~is_hit, t + step, t)
+        active = active & ~is_hit & (t <= t_end)
+        hit = hit | is_hit
+        steps += 1
+    MARCHES += 1
+    STEPS += steps
+    p_local = o_l + t[..., None] * d_l
+    return torch.where(hit, t, float("inf")), hit, p_local
+
+
+def interaction(sdf: SDFGrid, ray: Ray, t, hit, p_local):
+    """SurfaceInteraction of SDF hits. prim is 0 (as in the JAX package):
+    an SDF is never an emitter, so emitter = -1 masks the prim lookups."""
+    p = ray.o + ray.d * torch.where(hit, t, 0.0)[..., None]
+    n = normal(sdf, p_local)
+    # two-sided shading: flip toward the ray, as the mesh path does
+    facing = m.dot(n, ray.d) < 0.0
+    frame = Frame.from_normal(torch.where(facing[..., None], n, -n))
+    zero = torch.zeros(t.shape, dtype=torch.int64, device=t.device)
+    return SurfaceInteraction(
+        valid=hit, t=t, p=p, n=n, frame=frame,
+        uv=torch.stack([p_local[..., 0], p_local[..., 1]], -1),
+        wi=frame.to_local(-ray.d), prim=zero, mat_id=zero + sdf.mat_id,
+        emitter=zero - 1, bary=torch.zeros(t.shape + (2,), device=t.device),
+    )
+
+
+def merge_interaction(si: SurfaceInteraction, si_sdf: SurfaceInteraction):
+    """The nearer of a soup hit and an SDF hit, per lane."""
+    closer = si_sdf.valid & (~si.valid | (si_sdf.t < si.t))
+
+    def pick(a, b):
+        if isinstance(a, Frame):
+            return Frame(*(pick(x, y) for x, y in zip(a, b)))
+        c = closer.reshape(closer.shape + (1,) * (a.dim() - closer.dim()))
+        return torch.where(c, a, b)
+
+    return SurfaceInteraction(*(pick(a, b) for a, b in zip(si_sdf, si)))
+
+
+def sphere_sdf(n=32, center=(0.5, 0.5, 0.5), radius=0.35):
+    """Analytic-sphere SDF grid (exact distances), numpy f32."""
+    ax = (np.arange(n) + 0.0) / (n - 1)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    d = np.sqrt((x - center[0]) ** 2 + (y - center[1]) ** 2
+                + (z - center[2]) ** 2) - radius
+    return d.astype(np.float32)

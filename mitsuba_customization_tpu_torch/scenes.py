@@ -16,20 +16,32 @@ bands, a GGX roughconductor floor, a rectangle area light and a dim
 constant sky. `probe_compact_schedule` is the JAX package's benchmark
 probe (`bench._probe_compact_schedule`). They let scripts and tests build
 the scenes without the JAX package.
+
+`camera_dict` is the matpreview scene seen through a thin lens focused on
+the blob, sampled by multijitter and developed by the gaussian filter.
+`shape_files` writes the meshes of the shapes scene (binary PLY, OBJ,
+serialized) from a seeded numpy state, and `shapes_dict` loads them beside
+a cube, a disk, cylinders and a sphere (or an SDF sphere in place of the
+largest mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
+from mitsuba_customization_tpu_torch.render.sdf import sphere_sdf
 from mitsuba_customization_tpu_torch.render.sensors import look_at
 from mitsuba_customization_tpu_torch.utils.meshgen import (
     face_bands,
     icosphere_blob,
     vertex_normals,
 )
+from mitsuba_customization_tpu_torch.utils.obj import write_obj
+from mitsuba_customization_tpu_torch.utils.ply import write_ply
+from mitsuba_customization_tpu_torch.utils.serialized import write_serialized
 
 
 def flagship_table():
@@ -182,3 +194,220 @@ def probe_compact_schedule(scene, spp=4):
     ]
     cfg = dataclasses.replace(scene.config, compact=tuple(fracs))
     return dataclasses.replace(scene, config=cfg), fracs
+
+
+# the matpreview camera: its origin and target (matpreview_dict)
+_MP_EYE, _MP_TARGET = np.array([0.0, 1.6, -3.6]), np.array([0.0, 0.1, 0.0])
+
+
+def camera_dict(res=512, spp=8, depth=8, n_sub=5, compact=None, aperture=0.05):
+    """matpreview_dict seen through a thin lens of radius `aperture`
+    focused on the blob's centre (the origin), the multijitter sampler and
+    the gaussian film filter."""
+    d = matpreview_dict(res, spp, depth, n_sub=n_sub, compact=compact)
+    fwd = (_MP_TARGET - _MP_EYE) / np.linalg.norm(_MP_TARGET - _MP_EYE)
+    d["sensor"].update(type="thinlens", aperture_radius=aperture,
+                       focus_distance=float(np.dot(-_MP_EYE, fwd)))
+    d["sensor"]["sampler"]["type"] = "multijitter"
+    d["sensor"]["film"]["rfilter"] = {"type": "gaussian"}
+    return d
+
+
+def shape_files(root, seed=0, n_sub=(7, 6, 5)):
+    """Write the shapes scene's meshes into `root` from a seeded numpy
+    state: the displaced blob of 20 * 4**n_sub[0] triangles as a binary
+    PLY (big.ply), one of 20 * 4**n_sub[1] as an OBJ (mid.obj), two of 20 *
+    4**n_sub[2] as one serialized file (pair.serialized; normals and uvs
+    in the first), and one of those as a PLY for the shapegroup
+    (group.ply). The seed jitters the vertices. Returns {name: path}."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+
+    def blob(n):
+        v, f = icosphere_blob(n_sub=n)
+        v = (v * (1.0 + 0.01 * rng.standard_normal((len(v), 1)))).astype(np.float32)
+        return v, f, vertex_normals(v, f)
+
+    paths = {k: os.path.join(root, k) for k in ("big.ply", "mid.obj", "pair.serialized",
+                                                 "group.ply")}
+    v, f, n = blob(n_sub[0])
+    write_ply(paths["big.ply"], v, f, n)
+    v, f, _ = blob(n_sub[1])
+    write_obj(paths["mid.obj"], v, f)
+    v, f, n = blob(n_sub[2])
+    uv = rng.random((len(v), 2)).astype(np.float32)
+    v2, f2, _ = blob(n_sub[2])
+    write_serialized(paths["pair.serialized"], [(v, f, n, uv), (v2, f2, None, None)])
+    write_ply(paths["group.ply"], v2, f2)
+    return paths
+
+
+def shapes_dict(paths, res=512, spp=8, depth=8, compact=None, sdf_res=None):
+    """The shapes scene: the big PLY blob (MERL) in the middle, or with
+    sdf_res an sdf_res^3 SDF sphere in its place; the OBJ blob
+    (roughconductor) on the left; the serialized pair (MERL, diffuse) on
+    the right; the group blob instanced four times along the back; a
+    cube, a disk, three cylinders and a sphere in front; a
+    roughconductor floor, a rectangle area light and a dim sky."""
+    merl = [{"type": "merl", "table": synthetic_merl_table(w, c)}
+            for w, c in ((0.1, [1.0, 0.8, 0.5]), (0.2, [0.4, 0.6, 1.0]),
+                         (0.15, [0.9, 0.9, 0.9]))]
+    diffuse = {"type": "diffuse", "reflectance": [0.6, 0.5, 0.4]}
+    rough = {"type": "roughconductor", "alpha": 0.2}
+    d = {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": depth, "compact": compact},
+        "sensor": {"type": "perspective", "fov": 50,
+                   "to_world": look_at([0, 2.2, -5.0], [0, 0.2, 0.5], [0, 1, 0]),
+                   "film": {"width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "floor": {"type": "rectangle", "bsdf": rough,
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90}, "scale": 12.0,
+                               "translate": [0, -1.0, 0]}},
+        "light": {"type": "rectangle", "emitter": {"type": "area", "radiance": [18.0, 17.0, 15.0]},
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": 90}, "scale": 1.2,
+                               "translate": [1.5, 3.5, -1.0]}},
+        "sky": {"type": "constant", "radiance": [0.08, 0.09, 0.12]},
+        "mid": {"type": "obj", "filename": paths["mid.obj"], "bsdf": rough,
+                "to_world": {"scale": 0.6, "translate": [-1.9, -0.4, 0.6]}},
+        "pair_a": {"type": "serialized", "filename": paths["pair.serialized"], "shape_index": 0,
+                   "bsdf": merl[1], "to_world": {"scale": 0.45, "translate": [1.8, -0.55, 0.2]}},
+        "pair_b": {"type": "serialized", "filename": paths["pair.serialized"], "shape_index": 1,
+                   "bsdf": diffuse, "to_world": {"scale": 0.45, "translate": [2.6, -0.55, 1.6]}},
+        "group": {"type": "shapegroup",
+                  "blob": {"type": "ply", "filename": paths["group.ply"], "bsdf": merl[2],
+                           "to_world": {"scale": 0.35}}},
+        "box": {"type": "cube", "bsdf": diffuse,
+                "to_world": {"scale": 0.3, "rotate": {"axis": [0, 1, 0], "angle": 30},
+                             "translate": [-0.9, -0.7, -1.2]}},
+        "lid": {"type": "disk", "bsdf": rough,
+                "to_world": {"scale": 0.35, "rotate": {"axis": [1, 0, 0], "angle": -70},
+                             "translate": [0.9, -0.6, -1.4]}},
+        "ball": {"type": "sphere", "center": [0.1, -0.65, -1.8], "radius": 0.35, "bsdf": merl[1]},
+    }
+    for i in range(4):
+        d[f"inst_{i}"] = {"type": "instance", "shapegroup": "group",
+                          "to_world": {"rotate": {"axis": [0, 1, 0], "angle": 40 * i},
+                                       "translate": [-2.4 + 1.6 * i, -0.65, 3.0]}}
+    for i, (x, z) in enumerate(((-1.6, -0.6), (1.4, -0.4), (0.0, 1.9))):
+        d[f"can_{i}"] = {"type": "cylinder", "p0": [x, -1.0, z], "p1": [x, 0.2 + 0.3 * i, z],
+                         "radius": 0.18, "bsdf": rough if i % 2 else diffuse}
+    if sdf_res is None:
+        d["big"] = {"type": "ply", "filename": paths["big.ply"], "bsdf": merl[0],
+                    "to_world": {"scale": 0.9, "translate": [0, 0, 0.6]}}
+    else:
+        # sphere_sdf's sphere (centre 0.5, radius 0.35 of the unit cube)
+        # scaled to the blob's size
+        tw = np.diag([2.6, 2.6, 2.6, 1.0]).astype(np.float32)
+        tw[:3, 3] = [-1.3, -1.3, -0.7]
+        d["big"] = {"type": "sdfgrid", "grid": sphere_sdf(n=sdf_res), "to_world": tw,
+                    "bsdf": merl[0]}
+    return d
+
+
+def variant_dict(res=64, spp=4, depth=4, sampler="independent", rfilter="box", sensor=None):
+    """flagship_dict with another sampler, film filter or sensor (a dict
+    of sensor fields: its type and parameters). A distant sensor's rays
+    start 1e4 away, where the sphere test's quadratic has lost its float32
+    precision, so its scene has cubes in place of the two spheres."""
+    d = flagship_dict(res, spp, depth)
+    d["sensor"]["sampler"]["type"] = sampler
+    d["sensor"]["film"]["rfilter"] = {"type": rfilter}
+    if sensor:
+        d["sensor"].update(sensor)
+    if (sensor or {}).get("type") == "distant":
+        for key in ("merl_sphere", "ggx_sphere"):
+            sph = d[key]
+            d[key] = {"type": "cube", "bsdf": sph["bsdf"],
+                      "to_world": {"scale": 0.75 * sph["radius"], "translate": sph["center"]}}
+    return d
+
+
+def meter_dict(kind):
+    """The JAX package's measurement-sensor tests' scenes
+    (tests/test_render.py): a radiancemeter at the origin facing a diffuse
+    wall of albedo 0.5 at z = 2 under unit light (it reads 0.5; 256 spp),
+    or an irradiancemeter in a unit radiance field (it reads pi; 512
+    spp)."""
+    spp = 256 if kind == "radiancemeter" else 512
+    d = {"type": "scene", "integrator": {"type": "direct", "max_depth": 2},
+         "sensor": {"type": kind, "to_world": np.eye(4).tolist(),
+                    "sampler": {"type": "independent", "sample_count": spp}},
+         "light": {"type": "constant", "radiance": [1.0, 1.0, 1.0]}}
+    if kind == "radiancemeter":
+        d["wall"] = {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": [0.5] * 3},
+                     "to_world": {"rotate": {"axis": [1, 0, 0], "angle": 180}, "scale": 10.0,
+                                  "translate": [0, 0, 2.0]}}
+    else:
+        d["dot"] = {"type": "sphere", "center": [100, 100, -100], "radius": 0.1,
+                    "bsdf": {"type": "diffuse"}}
+    return d
+
+
+BATCH_LOOKS = (look_at([0, 0, -4], [-0.8, 0, 0], [0, 1, 0]),
+               look_at([0, 0, -4], [1.0, 0, 0.5], [0, 1, 0]))
+
+
+def batch_strips_dict(sensor):
+    """The scene of the JAX package's tests/test_plugins4.py::
+    test_batch_sensor_strips (two diffuse spheres under unit light), seen
+    by `sensor`."""
+    return {
+        "type": "scene", "integrator": {"type": "path", "max_depth": 2},
+        "sensor": sensor,
+        "sphere_l": {"type": "sphere", "center": [-0.8, 0, 0], "radius": 0.6,
+                     "bsdf": {"type": "diffuse", "reflectance": [0.9, 0.2, 0.2]}},
+        "sphere_r": {"type": "sphere", "center": [1.0, 0, 0.5], "radius": 0.6,
+                     "bsdf": {"type": "diffuse", "reflectance": [0.2, 0.2, 0.9]}},
+        "light": {"type": "constant", "radiance": [1.0, 1.0, 1.0]},
+    }
+
+
+def batch_strip_means(device, w=32, h=16, spp=16):
+    """test_batch_sensor_strips on `device`: ((left, right) strip means of
+    the batch of two perspective sensors, (left, right) means of the two
+    half-width perspective renders)."""
+    from mitsuba_customization_tpu_torch.render.integrator import render
+    from mitsuba_customization_tpu_torch.render.scene import load_dict
+
+    img = render(load_dict(batch_strips_dict({
+        "type": "batch", "film": {"width": w, "height": h},
+        "a": {"type": "perspective", "fov": 45, "to_world": BATCH_LOOKS[0]},
+        "b": {"type": "perspective", "fov": 45, "to_world": BATCH_LOOKS[1]}}), device),
+        spp=spp, seed=3)
+    halves = [float(render(load_dict(batch_strips_dict({
+        "type": "perspective", "fov": 45, "to_world": look,
+        "film": {"width": w // 2, "height": h}}), device), spp=spp, seed=3).mean())
+        for look in BATCH_LOOKS]
+    return (float(img[:, :w // 2].mean()), float(img[:, w // 2:].mean())), tuple(halves)
+
+
+def sdf_sphere_dict(entry, res=32, spp=32):
+    """The JAX package's tests/test_sdf.py scene around `entry` (an SDF or
+    an analytic sphere of radius 0.7 at the origin)."""
+    return {
+        "type": "scene", "integrator": {"type": "path", "max_depth": 3},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": look_at([0, 0.6, -3.2], [0, 0, 0], [0, 1, 0]),
+                   "film": {"width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "obj": entry,
+        "floor": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": [0.5] * 3},
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90}, "scale": 6.0,
+                               "translate": [0, -0.75, 0]}},
+        "light": {"type": "constant", "radiance": [0.8, 0.9, 1.0]},
+    }
+
+
+def sdf_and_analytic_spheres(device, n=96, res=32, spp=32):
+    """tests/test_sdf.py's two renders on `device`: (the n^3 SDF sphere's
+    image, the analytic sphere's image)."""
+    from mitsuba_customization_tpu_torch.render.integrator import render
+    from mitsuba_customization_tpu_torch.render.scene import load_dict
+
+    bsdf = {"type": "diffuse", "reflectance": [0.7, 0.3, 0.2]}
+    tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    tw[:3, 3] = -1.0
+    return tuple(render(load_dict(sdf_sphere_dict(e, res, spp), device), spp=spp, seed=2)
+                 for e in ({"type": "sdfgrid", "grid": sphere_sdf(n=n), "to_world": tw,
+                            "bsdf": bsdf}, {"type": "sphere", "radius": 0.7, "bsdf": bsdf}))

@@ -2,7 +2,8 @@
 """Where the time of one frame goes, for the PyTorch port on a GPU.
 
     python3 scripts/profile_torch_frame.py
-        [--scene flagship|matpreview|materials|blend|image|emitters]
+        [--scene flagship|matpreview|materials|blend|image|emitters|camera|
+                 shapes|shapes_sdf]
         [--res N] [--spp N] [--depth N] [--reps 3] [--top 20]
         [--against TREE ...]
     python3 scripts/profile_torch_frame.py --ad [--scene image] [--res 256]
@@ -18,8 +19,17 @@ image frame (chip_smoke.image_bands: textures, normal and bump maps read
 from EXR and PFM files it writes under build/, an envmap and a spot;
 512x512, 8 spp, depth 8, the probed schedule) or emitters frame
 (chip_smoke.emitters_dict: point, spot, directional, directionalarea
-and projector; 512x512, 16 spp, depth 4). Prints the card's name and
-power limit; the frame's wall time and
+and projector; 512x512, 16 spp, depth 4), or its camera frame
+(scenes.camera_dict: thin lens, multijitter, gaussian filter; 512x512, 8
+spp, depth 8) or shapes frame (scenes.shapes_dict on the meshes
+scenes.shape_files writes under build/profile_shapes: about 532,500 prims
+from PLY, OBJ and serialized files, a shapegroup, a cube, a disk,
+cylinders and a sphere; 512x512, 8 spp, depth 8), or shapes_sdf (a 128^3
+SDF sphere in place of the largest mesh), all with the probed schedule.
+For a splat filter the device time of the film's splats is printed (CUDA
+events around each film.splat call), and for an SDF scene the marches,
+their steps and their device time (events around each sdf.intersect).
+Prints the card's name and power limit; the frame's wall time and
 rays/s with the profiler off (median of --reps renders after one warm-up);
 then one render under torch.profiler: device time by kernel group and by
 kernel name, the launches of K1-K4, the number of kernels launched, the
@@ -271,10 +281,33 @@ def compare(scene, spp, reps, other_trees):
               f"of {reps} ({', '.join(f'{x:.4f}' for x in secs)})")
 
 
+@contextlib.contextmanager
+def _timed_calls(mod, name, events):
+    """Wrap mod.name for the block: each call is bracketed by CUDA events
+    (start, end), appended to `events`."""
+    orig = getattr(mod, name)
+
+    def wrapper(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    setattr(mod, name, wrapper)
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        setattr(mod, name, orig)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("flagship", "matpreview", "materials", "blend",
-                                        "image", "emitters"), default="flagship")
+                                        "image", "emitters", "camera", "shapes", "shapes_sdf"),
+                    default="flagship")
     ap.add_argument("--ad", action="store_true")
     ap.add_argument("--res", type=int, default=None)
     ap.add_argument("--spp", type=int, default=None)
@@ -327,6 +360,18 @@ def main():
 
         args.res, args.spp, args.depth = args.res or 512, args.spp or 16, args.depth or 4
         scene = mt.load_dict(emitters_dict(args.res, args.spp, args.depth), "cuda")
+    elif args.scene in ("camera", "shapes", "shapes_sdf"):
+        args.res, args.spp, args.depth = args.res or 512, args.spp or 8, args.depth or 8
+        if args.scene == "camera":
+            d = scenes.camera_dict(args.res, args.spp, args.depth)
+        else:
+            root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "build", "profile_shapes")
+            d = scenes.shapes_dict(scenes.shape_files(root), args.res, args.spp, args.depth,
+                                   sdf_res=128 if args.scene == "shapes_sdf" else None)
+        scene = mt.load_dict(d, "cuda")
+        scene, fracs = scenes.probe_compact_schedule(scene, spp=4)
+        print(f"compaction schedule {fracs}; {scene.geometry.p0.shape[0]} prims")
     else:
         blend = args.scene == "blend"
         args.res = args.res or (256 if blend else 512)
@@ -372,10 +417,16 @@ def main():
           f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)})"
           + ("" if args.ad else f", {rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s"))
 
+    from mitsuba_customization_tpu_torch.render import film, sdf
+
     k1.LAUNCHES = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
+    sdf.MARCHES = sdf.STEPS = 0
+    spans = {"film.splat": [], "sdf.intersect": []}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, record_shapes=args.ad) as prof:
+    with _timed_calls(film, "splat", spans["film.splat"]), \
+            _timed_calls(sdf, "intersect", spans["sdf.intersect"]), \
+            torch.profiler.profile(activities=acts, record_shapes=args.ad) as prof:
         t0 = time.perf_counter()
         frame()
         wall = time.perf_counter() - t0
@@ -399,6 +450,13 @@ def main():
         print(f"  group {g:28s} {us / 1e3:10.2f} ms  {us / dev_us:6.1%}")
     for name, us in by_name.most_common(args.top):
         print(f"  {us / 1e3:10.2f} ms {count[name]:6d}x  {name}")
+    for name, evs in spans.items():
+        if evs:
+            ms = sum(a.elapsed_time(b) for a, b in evs)
+            extra = (f", {sdf.STEPS} steps in all (a host check every {sdf.CHECK_EVERY})"
+                     if name == "sdf.intersect" else "")
+            print(f"  {name}: {len(evs)} calls{extra}, {ms:.2f} ms between their first and "
+                  f"last kernels (CUDA events, profiler on)")
     if args.ad:
         shape = list(params["bsdf.tabulated.table"].shape)
         print(f"operators on {shape} tensors (calls, device ms of their kernels):")

@@ -1130,3 +1130,102 @@ def test_k4_on_directional_shadow_rays(dev):
     assert cl.LAUNCHES["shadow"] == before + 1
     assert torch.equal(occ, cl.occluded_plain(scene.clusters, ray))
     assert bool(occ[sun].any()) and not bool(occ[sun].all()) and not bool(occ[~sun].any())
+
+
+# ---------------------------------------------------------------------------
+# Sensors, samplers, filters and shapes on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["independent", "stratified", "sobol", "ldsampler",
+                                  "multijitter", "orthogonal"])
+def test_sampler_draws_gpu_equal_cpu(dev, name):
+    """Each sampler's draws on the card equal the CPU's, bit for bit
+    (spp 9 and 8: the orthogonal sampler's array and its stratified
+    fallback; bases 0 and 28)."""
+    from mitsuba_customization_tpu_torch.core.sampler import make_sampler
+
+    for spp in (9, 8):
+        pixel = torch.arange(5000).repeat_interleave(spp)
+        sidx = torch.arange(spp).repeat(5000)
+        for base in (0, 28):
+            c = make_sampler(name, 7, pixel, sidx, spp).with_dim(base)
+            g = make_sampler(name, 7, pixel.to(dev), sidx.to(dev), spp).with_dim(base)
+            for op in "2112":
+                a = c.next_2d() if op == "2" else c.next_1d()
+                b = g.next_2d() if op == "2" else g.next_1d()
+                assert torch.equal(a, b.cpu()), (name, spp, base)
+
+
+@pytest.mark.parametrize("name", ["gaussian", "tent", "mitchell", "catmullrom", "lanczos"])
+def test_splat_gpu_matches_cpu(dev, name):
+    """The splat's image and weight sums on the card within 1e-5 of the
+    CPU's (the atomic adds of index_add_ sum in another order)."""
+    from mitsuba_customization_tpu_torch.render import film
+
+    gen = torch.Generator().manual_seed(0)
+    values = torch.rand((1 << 20, 3), generator=gen)
+    xy = torch.rand((1 << 20, 2), generator=gen) * torch.tensor([128.0, 96.0])
+    ft = film.FILTER_NAMES[name]
+    img, w = film.splat(values, xy, 96, 128, ft)
+    img_g, w_g = film.splat(values.to(dev), xy.to(dev), 96, 128, ft)
+    torch.testing.assert_close(img_g.cpu(), img, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w_g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+def test_sdf_intersect_gpu_matches_cpu(dev):
+    """sdf.intersect of 65,536 rays at a 128^3 SDF sphere: hit flags equal
+    on >= 99.9 % of lanes, t within atol 1e-5 where both hit on >= 99.9 %
+    of them (a lane may stop one HIT_EPS step apart)."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    tw[:3, 3] = -1.0
+    o = (rng.normal(size=(n, 3)) * 0.2 + [0.0, 0.0, -3.0]).astype(np.float32)
+    d = (rng.normal(size=(n, 3)) * 0.5 - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    out = []
+    for where in ("cpu", dev):
+        g = sdf.make(sdf.sphere_sdf(n=128), tw, device=where)
+        out.append([x.cpu() for x in sdf.intersect(g, Ray.make(torch.tensor(o, device=where),
+                                                               torch.tensor(d, device=where)))])
+    (tc, hc, _), (tg, hg, _) = out
+    assert 0.2 < float(hc.float().mean()) < 0.9
+    assert float((hc == hg).float().mean()) >= 0.999
+    both = hc & hg
+    assert float(((tc - tg).abs()[both] <= 1e-5).float().mean()) >= 0.999
+
+
+def test_k3_k4_on_a_shapes_wavefront(dev, tmp_path):
+    """K3 and K4 against their plain versions on the camera wavefront of
+    a small shapes scene (scenes.shapes_dict: meshes from files, a cube, a
+    disk, three cylinders and a sphere in the cluster set): the cluster
+    kernels' sphere and cylinder slots are live (lanes hit them), and the
+    results agree as in test_k3_kernel_matches_plain."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render.sensors import sample_ray
+    from mitsuba_customization_tpu_torch.scenes import shape_files, shapes_dict
+
+    scene = mt.load_dict(shapes_dict(shape_files(str(tmp_path), 0, n_sub=(5, 4, 3)), 256, 1, 2),
+                         dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    uv = torch.rand((1 << 16, 2), generator=gen, device=dev)
+    ray = sample_ray(scene.sensor, uv, None, 1.0)
+    cs = scene.clusters
+    t, prim, u, v, g = cl.intersect(cs, ray)
+    t_p, u_p, v_p, fld_p = cl.intersect_plain(cs, ray)
+    prim_p = fld_p[:, cl.F_PRIM].long()
+    hit = prim >= 0
+    assert torch.equal(hit, prim_p >= 0)
+    same = hit & (prim == prim_p)
+    assert same.sum() >= 0.999 * hit.sum()
+    torch.testing.assert_close(t[hit], t_p[hit], rtol=1e-6, atol=0)
+    types = g.prim_type[same]
+    assert int((types == geo.SPHERE).sum()) > 0 and int((types == geo.CYLINDER).sum()) > 0
+    shadow = Ray(o=ray.o + ray.d * torch.where(hit, t, 0.0)[:, None] * 0.999,
+                 d=torch.nn.functional.normalize(
+                     torch.tensor([1.5, 3.5, -1.0], device=dev) - ray.o, dim=-1),
+                 maxt=torch.where(hit, 3.0, 0.0))
+    assert torch.equal(cl.occluded(cs, shadow), cl.occluded_plain(cs, shadow))

@@ -1,8 +1,9 @@
 """The port's load_dict against the JAX package's: the wrappers (twosided,
 blendbsdf, mask), every analytic BSDF type, look_at, each spectrum form,
 the integrator names and keys, the MERL and measured_custom readers and
-writers, textures, normal and bump maps and the emitter types, and what is
-not ported yet (NotImplementedError naming its ROADMAP item).
+writers, textures, normal and bump maps, the emitter types, the sensor,
+sampler, film-filter and shape types, and what is not ported yet
+(NotImplementedError naming its ROADMAP item).
 """
 
 import jax
@@ -231,15 +232,6 @@ def test_measured_custom_file_round_trip(tmp_path):
     ({"integrator": {"type": "volpath"}}, "14b"),
     ({"integrator": {"type": "bdpt"}}, "14b"),
     ({"pt": {"type": "ptracer"}}, "14b"),
-    ({"sensor": {"type": "orthographic"}}, "13"),
-    ({"sensor": {"type": "perspective", "sampler": {"type": "multijitter"}}}, "13"),
-    ({"sensor": {"type": "thinlens"}}, "13"),
-    ({"sensor": {"type": "perspective", "sampler": {"type": "stratified"}}}, "13"),
-    ({"sensor": {"type": "perspective", "film": {"rfilter": {"type": "gaussian"}}}}, "13"),
-    ({"sensor": {"type": "perspective", "film": {"rfilter": "tent"}}}, "13"),
-    ({"box": {"type": "cube"}}, "15"),
-    ({"can": {"type": "cylinder"}}, "15"),
-    ({"lid": {"type": "disk"}}, "15"),
     ({"s9": {"type": "sphere", "interior": {"type": "homogeneous"}}}, "14b"),
     ({"fog": {"type": "homogeneous"}}, "14b"),
     ({"smoke": {"type": "heterogeneous", "density": np.ones((2, 2, 2))}}, "14b"),
@@ -248,6 +240,36 @@ def test_unported_types_name_their_roadmap_item(entry, item):
     d = _spheres([{"type": "diffuse"}], **entry)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         mt.load_dict(d, "cpu")
+
+
+@pytest.mark.parametrize("entry", [
+    {"sensor": {"type": "orthographic"}},
+    {"sensor": {"type": "perspective", "sampler": {"type": "multijitter"}}},
+    {"sensor": {"type": "thinlens"}},
+    {"sensor": {"type": "perspective", "sampler": {"type": "stratified"}}},
+    {"sensor": {"type": "perspective", "film": {"rfilter": {"type": "gaussian"}}}},
+    {"sensor": {"type": "perspective", "film": {"rfilter": "tent"}}},
+    {"box": {"type": "cube"}},
+    {"can": {"type": "cylinder"}},
+    {"lid": {"type": "disk"}},
+], ids=["orthographic", "multijitter", "thinlens", "stratified", "gaussian", "tent", "cube",
+        "cylinder", "disk"])
+def test_sensor_sampler_filter_and_shape_types_load_as_in_jax(entry):
+    """The sensor, sampler, film-filter and shape types the earlier port
+    raised on (ROADMAP items 13 and 15, the former cases of the test
+    above) load to the JAX loader's sensor, configuration and geometry
+    table."""
+    d = _spheres([{"type": "diffuse"}], **entry)
+    own, ref = mt.load_dict(d, "cpu"), _from_jax(d)
+    for f, a, b in zip(own.sensor._fields, own.sensor, ref.sensor):
+        assert (a is None) == (b is None), f
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)
+    for f in ("sampler", "rfilter", "spp", "width", "height", "sensor_scale", "intersector"):
+        assert getattr(own.config, f) == getattr(ref.config, f), f
+    for f, a, b in zip(own.geometry._fields, own.geometry, ref.geometry):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)
+    assert own.has_cylinders == ref.has_cylinders
 
 
 def _assert_emitters_equal(own, ref):

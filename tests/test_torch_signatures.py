@@ -1,6 +1,7 @@
-"""The port's entry points, and the BSDF dispatch's eval / pdf / sample /
-eval_pdf / bounce_shade (with `uv` in its place), take their positional
-arguments in the JAX package's order, so a call written for the reference
+"""The port's entry points, the BSDF dispatch's eval / pdf / sample /
+eval_pdf / bounce_shade (with `uv` in its place), and make_sensor,
+sample_ray, make_sampler, the film's splat and develop and the mesh
+readers take their positional arguments in the JAX package's order, so a call written for the reference
 means the same to the port: each port signature's positional parameters
 are a prefix, by name and order, of the reference's; a reference-style
 positional call renders what its keywords say; what the port does not
@@ -19,6 +20,18 @@ from mitsuba_customization_tpu.render import integrator as jint
 from mitsuba_customization_tpu_torch.models import bsdf as tbsdf
 from mitsuba_customization_tpu_torch.render import ad as tad
 from mitsuba_customization_tpu_torch.render import integrator as tint
+from mitsuba_customization_tpu.core import sampler as jsampler
+from mitsuba_customization_tpu.render import film as jfilm
+from mitsuba_customization_tpu.render import sensors as jsensors
+from mitsuba_customization_tpu.utils import obj as jobj
+from mitsuba_customization_tpu.utils import ply as jply
+from mitsuba_customization_tpu.utils import serialized as jser
+from mitsuba_customization_tpu_torch.core import sampler as tsampler
+from mitsuba_customization_tpu_torch.render import film as tfilm
+from mitsuba_customization_tpu_torch.render import sensors as tsensors
+from mitsuba_customization_tpu_torch.utils import obj as tobj
+from mitsuba_customization_tpu_torch.utils import ply as tply
+from mitsuba_customization_tpu_torch.utils import serialized as tser
 from mitsuba_customization_tpu_torch.scenes import flagship_dict
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
@@ -42,8 +55,18 @@ def _positional(fn):
     (tbsdf.sample, jbsdf.sample),
     (tbsdf.eval_pdf, jbsdf.eval_pdf),
     (tbsdf.bounce_shade, jbsdf.bounce_shade),
+    (tsensors.make_sensor, jsensors.make_sensor),
+    (tsensors.sample_ray, jsensors.sample_ray),
+    (tsampler.make_sampler, jsampler.make_sampler),
+    (tfilm.splat, jfilm.splat),
+    (tfilm.develop, jfilm.develop),
+    (tobj.read_obj, jobj.read_obj),
+    (tply.read_ply, jply.read_ply),
+    (tser.read_serialized, jser.read_serialized),
 ], ids=["render", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer",
-        "bsdf.eval", "bsdf.pdf", "bsdf.sample", "bsdf.eval_pdf", "bsdf.bounce_shade"])
+        "bsdf.eval", "bsdf.pdf", "bsdf.sample", "bsdf.eval_pdf", "bsdf.bounce_shade",
+        "make_sensor", "sample_ray", "make_sampler", "film.splat", "film.develop",
+        "read_obj", "read_ply", "read_serialized"])
 def test_positional_parameters_are_a_prefix_of_the_references(port, ref):
     ours, theirs = _positional(port), _positional(ref)
     assert ours == theirs[:len(ours)], (ours, theirs)
