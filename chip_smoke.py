@@ -140,7 +140,31 @@ Phases, one printed line each; any failure raises (non-zero exit):
      orthographic, distant and a two-child batch sensor; the JAX tests'
      expectations on the card: radiancemeter 0.5 within 5 %,
      irradiancemeter pi within 2 %, batch strips against two half-width
-     renders within 0.05.
+     renders within 0.05;
+ 26. the volpath frame (scenes.volpath_dict: the matpreview scene under
+     the volumetric tracer with the production scene's homogeneous fog
+     ball and a null cube of a heterogeneous medium whose density is a
+     seeded 256^3 float32 grid; 512x512, 8 spp, depth 8, one 2,097,152-
+     lane pass, no compaction): load and frame seconds, rays/s, K1-K4
+     launched, each tracking loop's lanes, steps and host checks; every
+     K1-K4 call of one more render recorded, checked against its plain
+     version and timed (K3 twice a bounce: the shadow ray's first
+     boundary); card against CPU means at 64x64; the JAX tests'
+     Beer-Lambert and emissive-medium expectations on the card;
+ 27. one ad.grad_render of the volpath scene at 256x256, 4 spp, depth 6 on
+     the table stack and medium.sigma_t, albedo, phase_g and density:
+     seconds, peak memory, K1-bwd launches, one table-gradient buffer and
+     the grid-sized buffers (one a tracking step of the backward's
+     replay); at 64x64 card against CPU losses within 2 % and each
+     gradient at cosine >= 0.98; the homogeneous extinction's gradient
+     against a central difference on the JAX test's absorbing fog ball
+     (means over 10 seeds within 5 % or 4 standard errors);
+ 28. ptracer on the matpreview scene without its sky and bdpt on the whole
+     of it (512x512, 8 spp, depth 8): seconds, rays/s, launches; every
+     K1-K4 call recorded, checked on its first 262,144 lanes and timed;
+     card against CPU means at 64x64; on the card the JAX tests'
+     comparisons with the path tracer (means within 5 % / 7 %,
+     normalised cross-correlation > 0.95).
 Each phase prints its wall seconds (`phase ...` lines and a `phase
 seconds` summary). Each phase's counts are set to 0 just before its
 render (or AD step) and read just after. It then prints a JSON line describing each kernel
@@ -168,12 +192,14 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
-Every entry also carries `launches_by_phase` (phases 17-25: the blend,
-image and camera AD steps, and the shapes frame with and without the SDF;
-for K1's backward its four AD steps) and, for K1-K4, the recorded calls'
-sums of phases 18, 19, 20, 23 and 24 (`materials_frame_ms`,
-`blend_frame_ms`, `image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`
-and their bounds).
+Every entry also carries `launches_by_phase` (phases 17-28: the blend,
+image, camera and volpath AD steps, the shapes frame with and without
+the SDF, the volpath, ptracer and bdpt frames; for K1's backward its
+five AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
+19, 20, 23, 24, 26 and 28 (`materials_frame_ms`, `blend_frame_ms`,
+`image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`,
+`volpath_frame_ms`, `ptracer_frame_ms`, `bdpt_frame_ms` and their
+bounds).
 Imports nothing of JAX.
 """
 
@@ -741,11 +767,15 @@ def record_wavefronts(scene, spp, seed):
     })
 
 
-def phase_bounces(scene, rec, k1_per_bounce=1, hit_types=None):
+def phase_bounces(scene, rec, k1_per_bounce=1, hit_types=None, k3_per_bounce=1,
+                  label="bounce"):
     """Check and time every recorded K1-K4 call of one render, one line per
     bounce (k1_per_bounce K1 calls a bounce: 1 in the fused bounce, more
-    where blends take the public eval / pdf / sample); K4 runs on the
-    scene's shadow cluster set where it has one. With hit_types (a dict)
+    where blends take the public eval / pdf / sample; k3_per_bounce K3
+    calls: 2 in the volumetric tracer, whose shadow ray finds its first
+    boundary by K3; `label` names a line's group of calls where they are
+    not a bounce's, as in the light tracers); K4 runs on the scene's
+    shadow cluster set where it has one. With hit_types (a dict)
     each K3 / K4 call is checked on its first PLAIN_SLICE lanes and timed
     on all, and hit_types counts the checked K3 hits by prim type.
     Returns {kernel: (frame ms, frame bound ms)}."""
@@ -756,12 +786,11 @@ def phase_bounces(scene, rec, k1_per_bounce=1, hit_types=None):
     cs = scene.clusters
     cs_shadow = cs if scene.shadow_clusters is None else scene.shadow_clusters
     total = {k: [0.0, 0.0] for k in ("K1", "K2", "K3", "K4")}
-    n_bounces = max(len(rec["K3"]), len(rec["K4"]), len(rec["K2"]),
+    n_bounces = max(-(-len(rec["K3"]) // k3_per_bounce), len(rec["K4"]), len(rec["K2"]),
                     -(-len(rec["K1"]) // k1_per_bounce))
     for b in range(n_bounces):
         parts = []
-        if b < len(rec["K3"]):
-            r = rec["K3"][b]
+        for r in rec["K3"][b * k3_per_bounce:(b + 1) * k3_per_bounce]:
             checked = ""
             if hit_types is None:
                 out = check_k3(cs, r)[3]
@@ -820,7 +849,7 @@ def phase_bounces(scene, rec, k1_per_bounce=1, hit_types=None):
                          f"{differ} not bit-equal, {ms:.4f} ms (bound {bound:.4f})")
             total["K2"][0] += ms
             total["K2"][1] += bound
-        print(f"bounce {b}: " + "; ".join(parts))
+        print(f"{label} {b}: " + "; ".join(parts))
     print("frame sums over the recorded calls: " + ", ".join(
         f"{k} {ms:.4f} ms (bound {bound:.4f})" for k, (ms, bound) in total.items()))
     return {k: tuple(v) for k, v in total.items()}
@@ -1209,7 +1238,7 @@ def _reset_counts():
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
-    from mitsuba_customization_tpu_torch.render import sdf
+    from mitsuba_customization_tpu_torch.render import medium, sdf
 
     k1.LAUNCHES = 0
     k1.LAUNCHES_BWD = 0
@@ -1218,6 +1247,8 @@ def _reset_counts():
     cl.LAUNCHES["closest"] = 0
     cl.LAUNCHES["shadow"] = 0
     sdf.MARCHES = sdf.STEPS = 0  # not a kernel: the SDF march's plain steps
+    medium.LOOPS.clear()  # nor are the media's tracking loops
+    medium.GRID_BUFFERS = 0
 
 
 def phase_matpreview(dev, res=512, spp=8, depth=8):
@@ -2001,6 +2032,273 @@ def phase_variants(dev):
         raise AssertionError("the batch sensor's strips differ from the half-width renders")
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-28: participating media, the light and bidirectional tracers
+# ---------------------------------------------------------------------------
+
+VOLPATH_SEED, VOLPATH_GRID = 10, 256
+MEDIUM_KEYS = ("medium.sigma_t", "medium.albedo", "medium.phase_g", "medium.density")
+# the homogeneous extinction's AD gradient against a central difference
+# (step SIGMA_FD_STEP on its scale) of the same render over SIGMA_FD_SEEDS
+# seeds: the JAX test's absorbing fog ball, loss its centre's 2x2 mean
+SIGMA_FD_STEP, SIGMA_FD_SEEDS, SIGMA_FD_RTOL = 0.05, 10, 0.05
+
+
+def _tracking_summary(loops):
+    """The tracking loops of a frame (medium.LOOPS) as per-bounce lines:
+    each bounce runs delta tracking (the free flight) and ratio tracking
+    (the shadow ray), each over the lanes in the heterogeneous medium.
+    Returns (lines, total steps, total host checks)."""
+    lines, steps, checks = [], 0, 0
+    for kind, lanes, n_steps, n_checks in loops:
+        lines.append(f"{kind} {lanes} lanes {n_steps} steps {n_checks} checks")
+        steps += n_steps
+        checks += n_checks
+    return lines, steps, checks
+
+
+def _volpath_expectations(dev):
+    """The JAX package's analytic media tests on the card: Beer-Lambert
+    through an absorbing fog ball (tests/test_media.py::
+    test_volpath_absorbing_sphere_beer_lambert: centre within 3 standard
+    errors + 0.01, corner 2.0 within 0.05) and the emissive ball's
+    L = Le (1 - exp(-2 sigma r)) (test_emissive_medium_analytic: rtol
+    0.15, corner below 0.05)."""
+    import math
+
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import fog_dict
+
+    sigma, radius, spp = 1.2, 0.8, 512
+    img = mt.render(mt.load_dict(fog_dict([sigma] * 3, [0.0] * 3, radius), dev), spp=spp,
+                    seed=3).cpu()
+    centre, corner = float(img[11:13, 11:13].mean()), float(img[1, 1].mean())
+    p = math.exp(-sigma * 2.0 * radius)
+    stderr = 2.0 * math.sqrt(p * (1 - p) / (4 * spp * 3))
+    le = torch.tensor([2.0, 1.5, 1.0])
+    em = mt.render(mt.load_dict(fog_dict([0.8] * 3, [0.0] * 3, 1.0, 0.0, 16, 12, 64,
+                                         radiance=le.tolist()), dev), spp=64, seed=5).cpu()
+    want = le * (1.0 - math.exp(-0.8 * 2.0))
+    print(f"media expectations on the card: absorbing ball centre {centre:.5f} (Beer-Lambert "
+          f"{2.0 * p:.5f}, 3 x stderr {3 * stderr:.5f} + 0.01), corner {corner:.5f} (2.0); "
+          f"emissive ball centre {em[6, 6].tolist()} (analytic {want.tolist()}, rtol 0.15), "
+          f"corner {float(em[0, 0].max()):.2e}")
+    if not (abs(corner - 2.0) < 0.05 and abs(centre - 2.0 * p) < 3.0 * stderr + 0.01
+            and bool(((em[6, 6] - want).abs() <= 0.15 * want).all())
+            and float(em[0, 0].max()) < 0.05):
+        raise AssertionError("a media expectation of the JAX tests fails on the card")
+
+
+def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=64):
+    """Phase 26: the volpath frame, scenes.volpath_dict(res, spp, depth,
+    grid_res, VOLPATH_SEED): the matpreview scene with the production
+    scene's homogeneous fog ball and a heterogeneous smoke cube of a
+    grid_res^3 density grid, res x res x spp lanes in one pass (the
+    volumetric tracer has no compaction): load and frame seconds, rays/s,
+    K1-K4 launched, and the tracking loops' steps and host checks, bounce
+    by bounce; every K1-K4 call of one more render recorded, checked
+    against its plain version and timed (K3 twice a bounce: the shadow
+    ray's first boundary); card against CPU means at 64x64; the JAX
+    tests' analytic media expectations on the card. Returns (launches,
+    frame sums)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import medium
+    from mitsuba_customization_tpu_torch.scenes import volpath_dict
+
+    t0 = time.perf_counter()
+    d = volpath_dict(res, spp, depth, grid_res, VOLPATH_SEED)
+    dict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = mt.load_dict(d, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del d
+    media = scene.media
+    print(f"volpath frame: density grid {tuple(media.grid.shape)} "
+          f"({media.grid.numel() * 4 / 2 ** 20:.0f} MiB) made in {dict_s:.1f} s, scene loaded "
+          f"in {load_s:.1f} s: {scene.geometry.p0.shape[0]} prims, "
+          f"{scene.clusters.cl_box.shape[0]} clusters, {media.n_media} media (types "
+          f"{media.m_type.tolist()}, majorants {media.majorant.tolist()})")
+    if (media.n_media != 2 or not media.has_het or scene.config.integrator != "volpath"
+            or scene.shadow_clusters is None):
+        raise AssertionError("the volpath scene lacks its media or its shadow cluster set")
+    launches = _timed_frame("volpath", scene, spp, ("K1", "K2", "K3", "K4"))
+    lines, steps, checks = _tracking_summary(medium.LOOPS)
+    print(f"volpath tracking loops of the timed frame: {len(lines)} loops, {steps} steps, "
+          f"{checks} host checks (one every {medium.CHECK_EVERY} steps; at most "
+          f"{medium.MAX_TRACKING_STEPS + 1} steps a loop): " + "; ".join(lines))
+    if not any(kind == "delta" for kind, *_ in medium.LOOPS) or not any(
+            kind == "ratio" for kind, *_ in medium.LOOPS):
+        raise AssertionError("the volpath frame ran no delta or no ratio tracking")
+    rec = record_wavefronts(scene, spp, seed=1)
+    if {k: len(v) for k, v in rec.items()} != launches:
+        raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
+    frame = phase_bounces(scene, rec, k3_per_bounce=2)
+    del rec, scene
+    _gpu_cpu_means(f"volpath {cmp_res}x{cmp_res} 4spp depth 4",
+                   volpath_dict(cmp_res, 4, 4, 64, VOLPATH_SEED), dev)
+    _volpath_expectations(dev)
+    return launches, frame, steps, checks
+
+
+def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_res=64):
+    """Phase 27: one ad.grad_render (MSE against a zero image) of the
+    volpath scene at res x res, spp, depth on the table stack and the four
+    medium keys: one warm-up, one timed step (seconds, peak memory, K1-bwd
+    launches, table- and grid-sized gradient buffers, each gradient
+    finite and nonzero); at 64x64, 4 spp, depth 3 card against CPU losses
+    within AD_LOSS_RTOL and each gradient at cosine >= AD_TABLE_COS; the
+    homogeneous extinction's AD gradient against a central difference on
+    the JAX test's absorbing fog ball. Returns the step's launches."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import ad, medium
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import volpath_dict
+
+    keys = (AD_KEYS[0],) + MEDIUM_KEYS
+    scene = mt.load_dict(volpath_dict(res, spp, depth, grid_res, VOLPATH_SEED), dev)
+    params = {k: traverse(scene)[k] for k in keys}
+    target = torch.zeros((res, res, 3), device=dev)
+    ad.grad_render(scene, params, target, spp=spp, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = ad.grad_render(scene, params, target, spp=spp, seed=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    buffers, grid_buffers = k1.GRAD_BUFFERS, medium.GRID_BUFFERS
+    lines, steps, checks = _tracking_summary(medium.LOOPS)
+    grid_mb = scene.media.grid.numel() * 4 / 2 ** 20
+    nonzero = {k: float((g != 0).float().mean()) for k, g in grads.items()}
+    print(f"volpath AD step {res}x{res} {spp}spp depth {depth} (keys {list(keys)}): "
+          f"{secs:.3f} s, loss {float(loss):.6e}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, table-gradient buffers "
+          f"{buffers}, grid-sized gradient buffers {grid_buffers} ({grid_mb:.0f} MiB each, one "
+          f"a tracking step of the backward's replay), tracking loops {len(lines)} ({steps} "
+          f"steps, {checks} checks, forward and replay); nonzero shares {nonzero}; "
+          f"launches {launches}; sigma_t gradient {grads['medium.sigma_t'].tolist()}, phase_g "
+          f"{grads['medium.phase_g'].tolist()}")
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in grads.values())
+    if (not finite or buffers != 1 or grid_buffers <= 0 or launches["K1-bwd"] <= 0
+            or min(nonzero.values()) <= 0):
+        raise AssertionError(f"volpath AD step: finite {finite}, buffers {buffers}, grid "
+                             f"buffers {grid_buffers}, launches {launches}, nonzero {nonzero}")
+    del scene, grads, params
+
+    d = volpath_dict(cmp_res, 4, 3, 64, VOLPATH_SEED)
+    out = {}
+    for where in (dev, "cpu"):
+        sc = mt.load_dict(d, where)
+        full = traverse(sc)
+        lo, gr = ad.grad_render(sc, {k: full[k] for k in keys},
+                                torch.zeros((cmp_res, cmp_res, 3), device=where), spp=4)
+        out[str(where)] = (float(lo), {k: g.cpu().flatten().double() for k, g in gr.items()})
+    (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    cos = {k: float(gg[k] @ gc[k] / (gg[k].norm() * gc[k].norm())) for k in keys}
+    print(f"volpath AD {cmp_res}x{cmp_res} 4spp depth 3: loss gpu {lg:.6e} cpu {lc:.6e} (rel "
+          f"{loss_rel:.2e}, limit {AD_LOSS_RTOL}); gradient cosines {cos} (limit "
+          f"{AD_TABLE_COS})")
+    if not (loss_rel <= AD_LOSS_RTOL and min(cos.values()) >= AD_TABLE_COS):
+        raise AssertionError("GPU and CPU volpath gradients disagree")
+    _sigma_fd(dev)
+    return launches, grid_buffers
+
+
+def _sigma_fd(dev, spp=256):
+    """The homogeneous extinction's gradient by AD against a central
+    difference of the same render (its scale moved by +-SIGMA_FD_STEP) on
+    tests/test_media.py's absorbing fog ball (sigma 1, radius 0.8, a
+    constant emitter of 2, depth 4, 24x24), the loss the centre's 2x2
+    mean, over SIGMA_FD_SEEDS seeds: the means within SIGMA_FD_RTOL or 4
+    standard errors of the mean paired difference; the Beer-Lambert
+    derivative -sigma chord exp(-sigma chord) L printed beside them."""
+    import math
+
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import fog_dict
+
+    scene = mt.load_dict(fog_dict([1.0] * 3, [0.0] * 3, 0.8, 2.0, depth=4), dev)
+    sig = traverse(scene)["medium.sigma_t"]
+
+    def loss(scale, seed):
+        img = ad.render_ad(scene, {"medium.sigma_t": sig * scale}, spp=spp, seed=seed)
+        return img[11:13, 11:13].mean()
+
+    g_ad, g_fd = [], []
+    for seed in range(1, SIGMA_FD_SEEDS + 1):
+        x = torch.ones((), device=dev, requires_grad=True)
+        (g,) = torch.autograd.grad(loss(x, seed), x)
+        with torch.no_grad():
+            fd = (loss(1.0 + SIGMA_FD_STEP, seed) - loss(1.0 - SIGMA_FD_STEP, seed)) / (
+                2 * SIGMA_FD_STEP)
+        g_ad.append(float(g))
+        g_fd.append(float(fd))
+    m_ad, m_fd = statistics.mean(g_ad), statistics.mean(g_fd)
+    se = statistics.stdev(a - f for a, f in zip(g_ad, g_fd)) / SIGMA_FD_SEEDS ** 0.5
+    analytic = -1.6 * math.exp(-1.6) * 2.0
+    print(f"AD fog sigma_t scale (24x24 {spp}spp depth 4, loss the centre's 2x2 mean, "
+          f"{SIGMA_FD_SEEDS} seeds): AD {[f'{x:.5f}' for x in g_ad]}, central difference "
+          f"(step {SIGMA_FD_STEP}) {[f'{x:.5f}' for x in g_fd]}; means {m_ad:.6f} and "
+          f"{m_fd:.6f} (rel diff {abs(m_ad - m_fd) / abs(m_fd):.3e}, limit {SIGMA_FD_RTOL} or "
+          f"4 x the standard error {se:.3e}); Beer-Lambert {analytic:.6f}")
+    if not abs(m_ad - m_fd) <= max(SIGMA_FD_RTOL * abs(m_fd), 4 * se):
+        raise AssertionError("the extinction's AD gradient disagrees with the central difference")
+
+
+def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
+    """Phase 28: ptracer on matpreview_dict(res, spp, depth) without its
+    sky (ptracer takes area, point and spot emitters) and bdpt on the
+    whole scene (its roulette is off: every lane runs depth bounces):
+    seconds, rays/s, launches; every K1-K4 call of one more render of
+    each recorded and checked against its plain version on its first
+    PLAIN_SLICE lanes, and timed; card against CPU means at 64x64; and on
+    the card the JAX tests' comparisons with the path tracer (image means
+    within 5 % / 7 %, normalised cross-correlation > 0.95). Returns
+    (ptracer launches, bdpt launches, their frame sums)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import (
+        aggregate_agreement,
+        light_paths_vs_path,
+        matpreview_dict,
+    )
+
+    def light_dict(kind, r, s, dep):
+        d = matpreview_dict(r, s, dep)
+        d["integrator"] = {"type": kind, "max_depth": dep}
+        if kind == "ptracer":
+            del d["sky"]
+        return d
+
+    out = {}
+    for kind, need in (("ptracer", ("K1", "K3", "K4")), ("bdpt", ("K1", "K2", "K3", "K4"))):
+        scene = mt.load_dict(light_dict(kind, res, spp, depth), dev)
+        launches = _timed_frame(kind, scene, spp, need)
+        rec = record_wavefronts(scene, spp, seed=1)
+        if {k: len(v) for k, v in rec.items()} != launches:
+            raise AssertionError(f"{kind}: recorded calls {[len(v) for v in rec.values()]} "
+                                 f"!= {launches}")
+        frame = phase_bounces(scene, rec, hit_types={}, label=f"{kind} call group")
+        del rec, scene
+        _gpu_cpu_means(f"{kind} {cmp_res}x{cmp_res} 4spp depth 4",
+                       light_dict(kind, cmp_res, 4, 4), dev)
+        out[kind] = (launches, frame)
+    for kind, (path_img, img, tol) in light_paths_vs_path(dev).items():
+        ok, diff, ncc = aggregate_agreement(path_img, img, tol)
+        print(f"{kind} against path on the card (the JAX test's scene, 32x32): means "
+              f"{float(path_img.mean()):.5f} / {float(img.mean()):.5f} (diff {diff:.5f}, limit "
+              f"{tol} x the path mean + 1e-3), correlation {ncc:.4f} (limit 0.95)")
+        if not ok:
+            raise AssertionError(f"{kind} disagrees with the path tracer on the card")
+    return out["ptracer"][0], out["bdpt"][0], out["ptracer"][1], out["bdpt"][1]
+
+
 T_START = time.perf_counter()
 PHASE_SECONDS = {}
 _LAP = [T_START]
@@ -2118,6 +2416,12 @@ def main():
     lap("24 shapes")
     phase_variants(dev)
     lap("25 sensors, samplers, filters")
+    vol_launches, vol_frame, vol_steps, vol_checks = phase_volpath(dev)
+    lap("26 volpath")
+    vol_ad_launches, vol_grid_buffers = phase_volpath_ad(dev)
+    lap("27 volpath AD step")
+    pt_launches, bd_launches, pt_frame, bd_frame = phase_light_tracers(dev)
+    lap("28 ptracer, bdpt")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -2145,12 +2449,17 @@ def main():
             "image": image_launches[key], "emitters": emitter_launches[key],
             "image_ad_step": image_ad_launches[key], "camera": cam_launches[key],
             "camera_ad_step": cam_ad_launches[key], "shapes": shapes_launches[key],
-            "shapes_sdf": sdf_launches[key]},
+            "shapes_sdf": sdf_launches[key], "volpath": vol_launches[key],
+            "volpath_ad_step": vol_ad_launches[key], "ptracer": pt_launches[key],
+            "bdpt": bd_launches[key]},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
             blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
             image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
             camera_frame_ms=cam_frame[key][0], camera_frame_bound_ms=cam_frame[key][1],
-            shapes_frame_ms=shapes_frame[key][0], shapes_frame_bound_ms=shapes_frame[key][1])
+            shapes_frame_ms=shapes_frame[key][0], shapes_frame_bound_ms=shapes_frame[key][1],
+            volpath_frame_ms=vol_frame[key][0], volpath_frame_bound_ms=vol_frame[key][1],
+            ptracer_frame_ms=pt_frame[key][0], ptracer_frame_bound_ms=pt_frame[key][1],
+            bdpt_frame_ms=bd_frame[key][0], bdpt_frame_bound_ms=bd_frame[key][1])
     # K1's backward: launches and in-frame times per AD step (phase 13)
     kernels.append(dict(
         name="merl_eval_bwd", route="cuda", source=k1.SOURCE_BWD,
@@ -2164,7 +2473,10 @@ def main():
         launches_by_phase={"ad_step": ad_launches["K1-bwd"],
                            "blend_ad_step": blend_ad_launches["K1-bwd"],
                            "image_ad_step": image_ad_launches["K1-bwd"],
-                           "camera_ad_step": cam_ad_launches["K1-bwd"]}))
+                           "camera_ad_step": cam_ad_launches["K1-bwd"],
+                           "volpath_ad_step": vol_ad_launches["K1-bwd"]}))
+    print(f"volpath frame tracking loops: {vol_steps} steps, {vol_checks} host checks; "
+          f"volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
           f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

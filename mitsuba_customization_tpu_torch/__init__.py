@@ -1,9 +1,11 @@
 """PyTorch + CUDA port of mitsuba_customization_tpu for NVIDIA Hopper.
 
 A differentiable path tracer for measured (MERL) BRDFs beside analytic,
-transmissive and blended materials: `load_dict(d, device)` compiles a
-scene dict onto a device and `render(scene, spp, seed, integrator)`
-returns an (H, W, 3) image ((H, W, 6) for `moment`). The hot kernels
+transmissive and blended materials, participating media, and light and
+bidirectional tracers: `load_dict(d, device="cuda")` compiles a scene dict
+onto the card (or the device named; without a card it raises) and
+`render(scene, spp, seed, integrator)` returns an (H, W, 3) image ((H, W,
+6) for `moment`). The hot kernels
 (MERL eval and its backward, CDF sampling, cluster traversal) are
 hand-written CUDA (csrc/), built at first use; on CPU tensors their plain
 PyTorch versions run instead. This package imports neither JAX nor the JAX

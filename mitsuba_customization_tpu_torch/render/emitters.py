@@ -4,9 +4,10 @@ directionalarea and projector, and scene-level NEE sampling.
 PyTorch port of mitsuba_customization_tpu/render/emitters.py (mitsuba3
 src/emitters/ and Scene::sample_emitter_direction / pdf_emitter_direction):
 `EmitterTable`, `build_env_distribution`, `env_radiance`,
-`sample_direction`, `pdf_hit_direction`, `pdf_miss_direction`,
-`eval_background` and `eval_hit`. Lanes pick an emitter from one discrete
-distribution and each present emitter type evaluates under a mask. The
+`sample_direction`, `pdf_hit_direction`, `pdf_hit_area`,
+`pdf_miss_direction`, `eval_background` and `eval_hit`. Lanes pick an
+emitter from one discrete distribution and each present emitter type
+evaluates under a mask. The
 JAX package's structural gates (an envmap image of more than one texel, a
 projector index, the directionalarea prim owners) are host facts here:
 `env_index`, `proj_index` and `em_prim_emitter is None`, and `present`
@@ -16,8 +17,10 @@ Area emitters reference emissive primitives of the scene Geometry. All of
 them live in one array `em_prims` (Q,); each area emitter owns a pmf row
 over it (zero outside its own prims), so prim selection is one CDF
 inversion whichever emitter a lane picked. The JAX package's rank trick
-(`_q_of_prim`) and its compact `em_geom` copy are TPU gather workarounds;
-here a plain `prim_to_q` gather and plain indexing compute the same.
+in `_q_of_prim` and its compact `em_geom` copy are TPU gather
+workarounds; here `_q_of_prim` is a plain `prim_to_q` gather and plain
+indexing computes the same. `pdf_hit_area` is bdpt's area density of a
+hit emitter point, and `DirectionSample.p_area` its NEE counterpart.
 
 Per-lane reads of the envmap and projector images gather from flat views
 with index_select (its backward is one index_add_). The 3x3 rotations are
@@ -241,6 +244,7 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
         out["radiance"] = torch.where(mask[..., None], rad, out["radiance"])
         out["delta"] = torch.where(mask, delta, out["delta"])
 
+    out_p_area = torch.zeros(shape, device=dev)
     if table.has_area and AREA in table.present:
         q, _ = table.prim_dist.sample_reuse(u2[..., 0], row=k)
         x, n_e = _sample_position_on_prim(geom, table.em_prims[q], sample3[..., 1:3])
@@ -253,6 +257,7 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
         front = cos_e > 0.0
         put(AREA, d, dist, torch.where(front, m.safe_div(p_area * dist2, cos_e), 0.0),
             torch.where(front[..., None], rad_k, 0.0), smooth)
+        out_p_area = torch.where((et == AREA) & front, p_area * sel_pmf, 0.0)
 
     if CONSTANT in table.present:
         put(CONSTANT, square_to_uniform_sphere(u2), inf, one * INV_FOUR_PI, rad_k,
@@ -310,7 +315,13 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
             torch.where(on_beam, 1.0, 0.0), rad_k, dirac)
 
     return DirectionSample(d=out["d"], dist=out["dist"], pdf=out["pdf"] * sel_pmf,
-                           radiance=out["radiance"], delta=out["delta"])
+                           radiance=out["radiance"], delta=out["delta"], p_area=out_p_area)
+
+
+def _q_of_prim(table: EmitterTable, prim):
+    """The row of a hit emissive prim in em_prims (valid where the hit is
+    on an emitter; callers mask)."""
+    return torch.clamp(table.prim_to_q[prim.clamp(min=0)], min=0)
 
 
 def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
@@ -318,7 +329,7 @@ def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
     MIS denominator for area lights; 0 off emissive prims."""
     if not table.has_area:
         return torch.zeros_like(si.t)
-    qs = torch.clamp(table.prim_to_q[si.prim.clamp(min=0)], min=0)
+    qs = _q_of_prim(table, si.prim)
     valid = (si.prim >= 0) & (si.emitter >= 0)
     em = si.emitter.clamp(min=0)
     pmf_q = table.prim_dist.eval_pmf(qs, row=em)
@@ -331,6 +342,20 @@ def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
         pmf_q / torch.clamp(table.prim_area[qs], min=1e-12) * dist2, cos_e
     )
     return torch.where(valid & (cos_e > 0), sel * pdf_sa, 0.0)
+
+
+def pdf_hit_area(table: EmitterTable, si):
+    """Area density of NEE / light-path emission sampling picking the
+    point si.p on the hit emissive prim: sel_pmf * prim_pmf / prim_area (0
+    off emitters). bdpt's MIS compares strategies in the area measure."""
+    if not table.has_area:
+        return torch.zeros_like(si.t)
+    qs = _q_of_prim(table, si.prim)
+    valid = (si.prim >= 0) & (si.emitter >= 0)
+    em = si.emitter.clamp(min=0)
+    p = (table.select.eval_pmf(em) * table.prim_dist.eval_pmf(qs, row=em)
+         / torch.clamp(table.prim_area[qs], min=1e-12))
+    return torch.where(valid, p, 0.0)
 
 
 def pdf_miss_direction(table: EmitterTable, d_world):

@@ -1,13 +1,15 @@
-"""MIS path tracer (NEE + Russian roulette), wavefront compaction and the
-render loop.
+"""MIS path tracer (NEE + Russian roulette), the volumetric path tracer,
+wavefront compaction and the render loop.
 
 PyTorch port of mitsuba_customization_tpu/render/integrator.py:
-`trace_paths` with its per-bounce body, `_compact_caps`,
-`_systematic_survive`, `_run_bounces_compact`, `render_lanes` with its
-integrator dispatch (path, direct, depth, aov*, moment, prb / prb_basic as
-path) and `render` (spp and row chunking, 16x16 blocked lane order, the
-box filter or a splat filter, the sensor's scale; 6 channels for
-moment). The
+`trace_paths` with its per-bounce body, `trace_volpath` with its own,
+`_compact_caps`, `_systematic_survive`, `_run_bounces_compact`,
+`render_lanes` with its integrator dispatch (path, direct, depth, aov*,
+moment, prb / prb_basic as path; volpath, volpathmis, prbvolpath and any
+scene with media through trace_volpath) and `render` (ptracer and bdpt
+handed to render/ptracer.py and render/bdpt.py; spp and row chunking,
+16x16 blocked lane order, the box filter or a splat filter, the sensor's
+scale; 6 channels for moment). The
 JAX package's lax.scan over bounces and passes becomes Python loops; the
 bounce index is then a Python int, so the final bounce's dead shading tail
 is skipped statically, as in the JAX package's unrolled loop.
@@ -32,17 +34,25 @@ from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.core.qmc import as_u32, hash_combine
 from mitsuba_customization_tpu_torch.core.sampler import _uniform_from_bits, make_sampler
 from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
+from mitsuba_customization_tpu_torch.models import phase as phase_mod
 from mitsuba_customization_tpu_torch.models.normalmap import apply_normal_maps
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import film as film_mod
 from mitsuba_customization_tpu_torch.render import geometry as geo
+from mitsuba_customization_tpu_torch.render import medium as medium_mod
 from mitsuba_customization_tpu_torch.render.records import Ray
-from mitsuba_customization_tpu_torch.render.scene import INTEGRATOR_TYPES, check_ported
+from mitsuba_customization_tpu_torch.render.scene import INTEGRATOR_TYPES
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 
 CAMERA_DIMS = 4  # 0-1 pixel jitter, 2-3 aperture
 BOUNCE_DIMS = 8  # 0-1 bsdf 2d, 2 bsdf lobe select, 3 RR, 4-6 NEE
 _OFF_NEE = 4
+# the volumetric tracer's free-flight draws: their own seed, dimension
+# base bounce * _MED_STRIDE, the shadow ray's ratio tracking + _MED_SHADOW
+_MED_SEED = 0x6D656469
+_MED_STRIDE = 4096
+_MED_SHADOW = 2048
+_VOL_TYPES = ("volpath", "volpathmis", "prbvolpath")
 
 _SHADOW_INF = 1e30
 
@@ -176,18 +186,18 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     return (ray, thr, L, active, bsdf_pdf, is_delta), n_rays
 
 
-def _bounce_step(ad_mode):
-    """The bounce body a runner calls: _bounce itself, or in ad_mode
-    _bounce under a non-reentrant checkpoint. The backward then runs the
-    bounce forward again (path replay: the stateless sampler draws the
-    same numbers, the detached intersections find the same hits), so the
-    graph of only one bounce is held at a time. The bounce's inputs are
-    kept for that replay: a runner must not write them in place later."""
+def _bounce_step(ad_mode, body=_bounce):
+    """The bounce body a runner calls: `body` itself, or in ad_mode body
+    under a non-reentrant checkpoint. The backward then runs the bounce
+    forward again (path replay: the stateless sampler draws the same
+    numbers, the detached intersections find the same hits), so the graph
+    of only one bounce is held at a time. The bounce's inputs are kept for
+    that replay: a runner must not write them in place later."""
     if not ad_mode:
-        return _bounce
+        return body
 
     def step(*args):
-        return checkpoint(_bounce, *args, ad_mode=True, use_reentrant=False,
+        return checkpoint(body, *args, ad_mode=True, use_reentrant=False,
                           preserve_rng_state=False)
 
     return step
@@ -406,13 +416,207 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     return L, rays_pb
 
 
+def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
+                ad_mode=False):
+    """Bounce b of the volumetric path tracer over the lanes of `state` =
+    (ray, thr, L, active, prev_pdf, prev_delta, mid), mid each lane's
+    medium (-1: vacuum). Returns (state, rays traced).
+
+    A lane first samples a free flight through its medium up to the
+    surface (medium.sample_interaction). A medium event scatters by the
+    phase function with NEE and MIS; a surface event shades as the path
+    tracer does; a null surface passes the ray on unchanged and switches
+    the lane's medium: entering a shape (the ray against its geometric
+    normal) picks the shape's interior, leaving returns to vacuum. The
+    shadow ray's transmittance integrates the lane's medium up to the
+    first boundary the ray meets, which takes one more closest-hit query
+    on the main geometry (the shadow geometry's null prims are
+    degenerate). As in the JAX package, compaction is not applied. The
+    free flight and the transmittance are computed for the lanes whose
+    values are read (live lanes, live NEE samples); the JAX package
+    computes them for every lane in a medium, and a dead lane's ray, which
+    meets no surface, then takes all MAX_TRACKING_STEPS + 1 null steps in
+    a heterogeneous medium."""
+    ray, thr, L, active, prev_pdf, prev_delta, mid = state
+    media = scene.media
+    has_emitters = scene.emitters.n_emitters > 0
+    do_nee = has_emitters and scene.config.nee
+    lane = sampler.lane
+    med_seed = (sampler.seed ^ _MED_SEED) & 0xFFFFFFFF
+    med_base = b * _MED_STRIDE
+    smp = sampler.with_dim(CAMERA_DIMS + b * BOUNCE_DIMS)
+
+    si = scene.ray_intersect(
+        Ray(o=ray.o, d=ray.d, maxt=torch.where(active, ray.maxt, 0.0))
+    )
+    si = apply_normal_maps(scene.bsdfs, si)
+    n_rays = active.sum()
+    t_surf = torch.where(si.valid, si.t, float("inf"))
+
+    # ---- free flight through the current medium (live lanes only: a
+    # dead lane's values are never read, and its ray meets no surface) ----
+    ms = medium_mod.sample_interaction(media, torch.where(active, mid, -1), ray.o, ray.d,
+                                       t_surf, med_seed, lane, med_base, ad_mode=ad_mode)
+    # emissive media: the collision estimator's emission at real events
+    emitted = ms.emitted if ad_mode else ms.emitted.detach()
+    L = L + torch.where(active[..., None], thr * emitted, 0.0)
+    thr = thr * torch.where(active[..., None], ms.weight if ad_mode else ms.weight.detach(),
+                            1.0)
+    med_event = active & ms.is_medium
+    surf_event = active & ~ms.is_medium
+    p_med = ray.o + ms.t[..., None] * ray.d
+
+    mid_safe = mid.clamp(min=0)
+    if media.n_media:
+        ph_type = media.phase_type[mid_safe]
+        ph_g = m.gather_rows(media.phase_g, mid_safe)
+        ph_S = None if media.phase_S is None else m.gather_rows(media.phase_S, mid_safe)
+    else:
+        ph_type, ph_g, ph_S = mid_safe, torch.zeros_like(ray.maxt), None
+    wi_world = -ray.d  # back along the ray (the phase convention)
+
+    # ---- emitter hits / escaped rays, for lanes that reach the surface ----
+    if has_emitters:
+        hit_rad = em_mod.eval_hit(scene.emitters, si)
+        hit_pdf = em_mod.pdf_hit_direction(scene.emitters, scene.geometry, si, ray.o)
+        bg_rad = em_mod.eval_background(scene.emitters, ray.d)
+        bg_pdf = em_mod.pdf_miss_direction(scene.emitters, ray.d)
+        rad = torch.where(si.valid[..., None], hit_rad, bg_rad)
+        em_pdf = torch.where(si.valid, hit_pdf, bg_pdf)
+        w_mis = torch.where(prev_delta, 1.0, mis_weight(prev_pdf, em_pdf)).detach()
+        if b > 0 or not hide_emitters:
+            L = L + torch.where(surf_event[..., None], thr * rad * w_mis[..., None], 0.0)
+
+    active = active & (si.valid | med_event)
+    surf_event = surf_event & si.valid
+    is_null = scene.bsdfs.mat_type[si.mat_id] == bsdf_mod.NULL
+    real_surf = surf_event & ~is_null
+    null_surf = surf_event & is_null
+
+    # final bounce: NEE and the continuation are dead
+    if b == max_depth - 1:
+        return (ray, thr, L, torch.zeros_like(active), prev_pdf, prev_delta, mid), n_rays
+
+    # ---- NEE direction; the shadow ray before shading ----
+    smp_nee = smp.with_dim(CAMERA_DIMS + b * BOUNCE_DIMS + _OFF_NEE)
+    u2 = smp.next_2d()
+    u_lobe = smp.next_1d()
+    nee_vis = None
+    if do_nee:
+        u3 = torch.stack(
+            [smp_nee.next_1d(), smp_nee.next_1d(), smp_nee.next_1d()], -1
+        )
+        p_ref = torch.where(med_event[..., None], p_med, si.p)
+        ds = em_mod.sample_direction(scene.emitters, scene.geometry, p_ref, u3)
+        wo_local = si.to_local(ds.d)
+        nee_ok = (med_event | real_surf) & (ds.pdf > 0.0) & (b + 2 <= max_depth)
+        shadow_o = torch.where(med_event[..., None], p_med, geo.spawn_ray(si, ds.d).o)
+        maxt = torch.where(torch.isinf(ds.dist), _SHADOW_INF, ds.dist * (1.0 - 1e-3))
+        maxt = torch.where(nee_ok, maxt, 0.0)
+        shadow = Ray(o=shadow_o, d=ds.d, maxt=maxt)
+        nee_vis = nee_ok & ~scene.ray_test(shadow)
+    else:
+        wo_local = si.wi
+
+    f_surf, pdf_surf, wo_b, bsdf_pdf, weight_b, is_delta_b = bsdf_mod.bounce_shade(
+        scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe, texcoords(scene, si),
+        need_attached=ad_mode, has_nee=do_nee, active=real_surf, nee_mask=nee_vis,
+    )
+
+    if do_nee:
+        ph_val = phase_mod.eval(ph_type, ph_g, wi_world, ds.d, ph_S)
+        f_scat = torch.where(med_event[..., None], ph_val[..., None], f_surf)
+        pdf_scat = torch.where(med_event, ph_val, pdf_surf)
+        if media.n_media:
+            # the medium reaches to the first boundary along the shadow ray
+            # (a null surface: anything else occluding failed the test)
+            si_sh = scene.ray_intersect(shadow)
+            tr_dist = torch.where(si_sh.valid, torch.minimum(si_sh.t, maxt), maxt)
+            tr = medium_mod.transmittance(media, torch.where(nee_ok, mid, -1), shadow_o, ds.d,
+                                          tr_dist, med_seed, lane, med_base + _MED_SHADOW,
+                                          ad_mode=ad_mode)
+        else:
+            tr = torch.ones_like(thr)
+        n_rays = n_rays + nee_ok.sum()
+        w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_scat))
+        # the transmittance stays attached in ad_mode: its ratio-tracking
+        # factors carry the extinction's gradient
+        contrib = (thr * f_scat * (tr if ad_mode else tr.detach()) * ds.radiance
+                   * m.safe_div(w_nee, ds.pdf).detach()[..., None])
+        L = L + torch.where(nee_vis[..., None], contrib, 0.0)
+
+    # ---- continuation: phase sample | BSDF sample | null pass-through ----
+    wo_b = wo_b.detach()
+    bsdf_pdf = bsdf_pdf.detach()
+    wo_ph, ph_pdf = phase_mod.sample(ph_type, ph_g, wi_world, u2, ph_S)
+    wo_ph, ph_pdf = wo_ph.detach(), ph_pdf.detach()
+    d_next = torch.where(med_event[..., None], wo_ph,
+                         torch.where(null_surf[..., None], ray.d, si.to_world(wo_b)))
+    o_next = torch.where(med_event[..., None], p_med, geo.spawn_ray(si, d_next).o)
+    step_w = torch.where((med_event | null_surf)[..., None], 1.0, weight_b)
+    thr = thr * torch.where(active[..., None], step_w, 1.0)
+    ray = Ray(
+        o=torch.where(active[..., None], o_next, ray.o),
+        d=torch.where(active[..., None], d_next, ray.d),
+        maxt=torch.where(ray.maxt < 0.0, ray.maxt, float("inf")),
+    )
+
+    # the medium after a null boundary: the shape's interior entering it,
+    # vacuum leaving it
+    entering = m.dot(ray.d, si.n) < 0.0
+    interior = media.shape_interior[scene.geometry.shape_id[si.prim.clamp(min=0)]]
+    mid = torch.where(null_surf, torch.where(entering, interior, -1), mid)
+
+    prev_pdf = torch.where(med_event, ph_pdf, torch.where(null_surf, prev_pdf, bsdf_pdf))
+    prev_delta = ~med_event & torch.where(null_surf, prev_delta, is_delta_b)
+    ok_surf = (bsdf_pdf > 0.0) & (weight_b > 0.0).any(-1)
+    cont = med_event | null_surf | (real_surf & ok_surf)
+    active = active & cont & (b + 1 < max_depth) & (thr > 0.0).any(-1)
+
+    # ---- Russian roulette (offset 3) ----
+    if b + 1 >= rr_depth:
+        u_rr = smp.next_1d()
+        q = torch.clamp(thr.amax(-1), 0.05, 0.95).detach()
+        survive = u_rr < q
+        thr = torch.where(survive[..., None], thr / q[..., None], thr)
+        active = active & survive
+    return (ray, thr, L, active, prev_pdf, prev_delta, mid), n_rays
+
+
+def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
+                  ad_mode=False):
+    """Volumetric path tracer (mitsuba3 volpath): the path tracer with
+    participating media (_vol_bounce). Returns (L (N, 3), {"rays_per_bounce":
+    (max_depth,) float64}). As in the JAX package: every lane starts in
+    vacuum, leaving any boundary returns to vacuum (no nesting), the shadow
+    ray integrates the lane's own medium only, and max_depth bounds every
+    event, null crossings included. Gradients as trace_paths (ad_mode:
+    each bounce checkpointed, the tracking loops a fixed
+    medium.AD_TRACKING_STEPS steps)."""
+    n = ray0.o.shape[0]
+    dev = ray0.o.device
+    state = (
+        ray0,
+        torch.ones((n, 3), device=dev),
+        torch.zeros((n, 3), device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.zeros(n, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.full((n,), -1, dtype=torch.int64, device=dev),
+    )
+    step = _bounce_step(ad_mode, _vol_bounce)
+    rays_pb = []
+    for b in range(max_depth):
+        state, n_rays = step(scene, state, sampler, b, max_depth, rr_depth, hide_emitters)
+        rays_pb.append(n_rays)
+    return state[2], {"rays_per_bounce": torch.stack(rays_pb).to(torch.float64)}
+
+
 def _integrator_kind(scene, integrator):
     """The integrator of render / render_lanes: a name or a dict of that
-    type, None for the scene's own. The JAX package's types that are not
-    ported raise NotImplementedError naming their ROADMAP item."""
+    type, None for the scene's own; an unknown name raises ValueError."""
     kind = integrator.get("type") if isinstance(integrator, dict) else integrator
     kind = kind or scene.config.integrator
-    check_ported("integrator", kind)
     if kind not in INTEGRATOR_TYPES:
         raise ValueError(f"integrator type '{kind}' is not implemented")
     return kind
@@ -431,7 +635,11 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
     render as path); direct is path at max_depth <= 2; depth, aov /
     aov_normals, aov_position and aov_uv read the camera ray's hit (t,
     the shading normal * 0.5 + 0.5, the position, (u, v, 0); 0 on a
-    miss); moment traces path without compaction and returns L and L^2.
+    miss); moment traces path without compaction and returns L and L^2;
+    volpath, volpathmis and prbvolpath, and any other of these on a scene
+    with media, trace the volumetric tracer (no compaction). ptracer and
+    bdpt trace light paths in `render`; here, as in the JAX package, their
+    lanes trace the path (or volumetric) tracer.
     """
     kind = _integrator_kind(scene, integrator)
     cfg = scene.config
@@ -469,6 +677,10 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
         rays = torch.full((1,), float(pixel.shape[0]), dtype=torch.float64,
                           device=scene.device)
         return L, film_xy, {"rays_per_bounce": rays}
+    if kind != "moment" and (kind in _VOL_TYPES or scene.media.n_media > 0):
+        L, stats = trace_volpath(scene, ray0, smp, max_depth, cfg.rr_depth,
+                                 cfg.hide_emitters, ad_mode=ad_mode)
+        return L, film_xy, stats
     L, stats = trace_paths(
         scene, ray0, smp, max_depth, cfg.rr_depth, cfg.hide_emitters,
         ad_mode=ad_mode, compact_caps=None if kind == "moment" else cfg.compact,
@@ -507,11 +719,20 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     irradiancemeter). integrator: as render_lanes (None: the scene's own).
     return_stats=True also returns {"rays_traced": total rays including
     shadow rays}. ad_mode: see trace_paths (render/ad.render_ad is the
-    differentiable entry).
+    differentiable entry). ptracer and bdpt (which ignore ad_mode) are
+    rendered by render/ptracer.render_ptracer and render/bdpt.render_bdpt.
     """
-    _integrator_kind(scene, integrator)
+    kind = _integrator_kind(scene, integrator)
     cfg = scene.config
     spp = spp or cfg.spp
+    if kind == "ptracer":
+        from mitsuba_customization_tpu_torch.render.ptracer import render_ptracer
+
+        return render_ptracer(scene, spp, seed, max_depth, return_stats)
+    if kind == "bdpt":
+        from mitsuba_customization_tpu_torch.render.bdpt import render_bdpt
+
+        return render_bdpt(scene, spp, seed, max_depth, return_stats)
     dev = scene.device
     h, w = cfg.height, cfg.width
     rows = _chunk_rows(h, w)

@@ -14,7 +14,10 @@ SceneParameters), with the same dotted keys:
     bsdf.tabulated.table    the stacked (n_mat, n_th, n_td, n_pd, 3) tables
     emitter.radiance        (K, 3) emitter radiances
     emitter.env_image       (H, W, 3) the envmap's image
-The port has no media: `medium.*` keys raise NotImplementedError.
+    medium.sigma_t, medium.albedo (K, 3), medium.phase_g (K,),
+    medium.density          the (Kg, D, H, W) density grid stack; keys
+                            of scenes with media; an update recomputes
+                            the majorants
 `params_from_numpy` takes a JAX `traverse` dict as numpy arrays, so both
 packages differentiate the same values.
 
@@ -27,8 +30,8 @@ renders is accepted (the ported BSDF kernels, the texture stack, normal
 maps and blends, the shadow geometry and cluster set of a scene with null
 materials, brute or cluster intersector, every emitter type, every sensor
 (a batch sensor's stacked fields and child_types too), sampler and film
-filter, an SDF grid, the ported integrators, an optional compaction
-schedule); anything else raises NotImplementedError. The JAX package's BVH and its TPU-only copies
+filter, an SDF grid, the media table, the integrators, an optional
+compaction schedule); anything else raises NotImplementedError. The JAX package's BVH and its TPU-only copies
 (`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are not
 read.
 """
@@ -68,6 +71,7 @@ from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
 from mitsuba_customization_tpu_torch.render import geometry as geo
+from mitsuba_customization_tpu_torch.render import medium as medium_mod
 from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
@@ -95,7 +99,9 @@ PARAMS = {
     bsdf_mod.PASSTHROUGH: PassthroughParams,
     bsdf_mod.PRINCIPLED: PrincipledParams,
 }
-_NOT_PORTED = ("medium.",)
+# medium keys -> MediumTable fields
+MEDIUM_KEYS = {"medium.sigma_t": "sigma_t", "medium.albedo": "albedo",
+               "medium.phase_g": "phase_g", "medium.density": "grid"}
 
 
 def traverse(scene):
@@ -114,6 +120,9 @@ def traverse(scene):
     params["emitter.radiance"] = scene.emitters.radiance
     if scene.emitters.env_index >= 0:
         params["emitter.env_image"] = scene.emitters.env_image
+    if scene.media.n_media:
+        for key, field in MEDIUM_KEYS.items():
+            params[key] = getattr(scene.media, field)
     return params
 
 
@@ -126,10 +135,8 @@ def update(scene, params):
     the K1 calls of the render add their backward into one buffer. A new
     envmap image gets its sampling distribution rebuilt from the image
     itself, as the JAX package's update does: its gradient then also
-    reaches the image through the NEE directions it samples."""
-    for key in params:
-        if key.startswith(_NOT_PORTED):
-            raise NotImplementedError(f"parameter '{key}' is not ported")
+    reaches the image through the NEE directions it samples. New medium
+    parameters get the majorants recomputed (medium.recompute_majorant)."""
     unknown = set(params) - set(traverse(scene))
     if unknown:
         raise KeyError(f"not parameters of this scene: {sorted(unknown)}")
@@ -150,17 +157,19 @@ def update(scene, params):
         img = params["emitter.env_image"]
         emitters = emitters._replace(env_image=img,
                                      env_dist=em_mod.build_env_distribution(img))
+    media = scene.media
+    new = {field: params[key] for key, field in MEDIUM_KEYS.items() if key in params}
+    if new:
+        media = media._replace(**new)
+        media = media._replace(majorant=medium_mod.recompute_majorant(media))
     return dataclasses.replace(
-        scene, bsdfs=scene.bsdfs._replace(stacks=stacks), emitters=emitters
+        scene, bsdfs=scene.bsdfs._replace(stacks=stacks), emitters=emitters, media=media
     )
 
 
 def params_from_numpy(arrays, device):
     """The port's parameter dict from a JAX `traverse` dict as numpy
     arrays ({key: ndarray}), float32 on `device`."""
-    for key in arrays:
-        if key.startswith(_NOT_PORTED):
-            raise NotImplementedError(f"parameter '{key}' is not ported")
     return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
             for k, v in arrays.items()}
 
@@ -292,10 +301,13 @@ def scene_from_numpy(arrays, config, device):
         sdf = sdf_mod.SDFGrid(**{
             f: get("sdf." + f, torch.int64 if f in ("mat_id", "shape_id") else torch.float32)
             for f in sdf_mod.SDFGrid._fields})
-    if a.get("media.m_type", np.zeros(0)).size:
-        raise NotImplementedError("participating media are not ported")
+    ints = ("m_type", "phase_type", "grid_slot", "grid_dims", "shape_interior")
+    media = medium_mod.MediumTable(**{
+        f: get("media." + f, torch.int64 if f in ints else torch.float32)
+        for f in medium_mod.MediumTable._fields if "media." + f in a})
+    media = media._replace(has_het=bool((a["media.m_type"] == medium_mod.HETEROGENEOUS).any()))
     checked = ("shadow_geometry.", "shadow_clusters.", "clusters.", "sdf.",
-               "bsdfs.", "emitters.")
+               "bsdfs.", "emitters.", "media.")
     used.update(k for k in a if k.startswith("emitters.em_geom."))
     for k in a:
         if k.startswith(checked) and k not in used:
@@ -308,4 +320,5 @@ def scene_from_numpy(arrays, config, device):
         config=cfg, clusters=clusters,
         has_cylinders=bool((a["geometry.prim_type"] == geo.CYLINDER).any()),
         shadow_geometry=shadow_geometry, shadow_clusters=shadow_clusters, sdf=sdf,
+        media=media,
     )

@@ -57,10 +57,13 @@ class SurfaceInteraction(NamedTuple):
 
 class DirectionSample(NamedTuple):
     """Emitter direction sample: d (..., 3), dist (...), pdf (...) in solid
-    angle (0 = invalid), radiance (..., 3), delta (...) bool."""
+    angle (0 = invalid), radiance (..., 3), delta (...) bool; p_area (...)
+    the area density of the sampled point on an area emitter (times the
+    selection pmf; 0 for other emitters), which bdpt's MIS reads."""
 
     d: torch.Tensor
     dist: torch.Tensor
     pdf: torch.Tensor
     radiance: torch.Tensor
     delta: torch.Tensor
+    p_area: torch.Tensor

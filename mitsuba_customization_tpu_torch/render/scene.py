@@ -19,9 +19,15 @@ PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
   box, gaussian, tent, mitchell, catmullrom, lanczos;
 * integrators (a dict under "integrator" or under any key with an
   integrator type): path, direct, depth, aov, aov_normals, aov_position,
-  aov_uv, moment, and prb / prb_basic (rendered as path), with max_depth,
-  rr_depth, hide_emitters and an optional compaction schedule
-  ("compact");
+  aov_uv, moment, prb / prb_basic (rendered as path), volpath,
+  volpathmis and prbvolpath (the volumetric tracer), ptracer and bdpt,
+  with max_depth, rr_depth, hide_emitters and an optional compaction
+  schedule ("compact");
+* media: homogeneous and heterogeneous (a density array, or the
+  gridvolume form {"grid", "to_world"}), with scale, sigma_t, albedo,
+  radiance and a phase (isotropic, hg, rayleigh, sggx), as a
+  shape's "interior" or named at the top level and referenced by name (a
+  shape's "exterior" is not read, as in the JAX package);
 * BSDFs: diffuse (RGB), conductor, roughconductor (GGX or Beckmann),
   plastic, roughplastic, principled, dielectric, thindielectric,
   roughdielectric, null, passthrough, twosided, blendbsdf, mask, and merl
@@ -32,15 +38,15 @@ PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
   bumpmap wrappers (a bump map becomes a normal map at load);
 * spectra: RGB, uniform, blackbody, d65, regular and irregular.
 
-Anything else of the JAX package raises NotImplementedError naming its
-ROADMAP item; a type the JAX package does not know raises ValueError. A
-null material makes a shadow copy of the geometry in which its prims are
-degenerate (and, with clusters, its own cluster set), so shadow rays pass
-through them. Scenes past BRUTE_FORCE_MAX_PRIMS primitives get the
+A type the JAX package does not know raises ValueError. A null material
+makes a shadow copy of the geometry in which its prims are degenerate
+(and, with clusters, its own cluster set), so shadow rays pass through
+them. Scenes past BRUTE_FORCE_MAX_PRIMS primitives get the
 cluster structure (ops/clusters.py) and intersector = "cluster"; past
-clusters.MAX_PRIMS the loader raises. The device is explicit:
-`load_dict(d, device)`. The host-side numpy helpers are copied from the
-JAX package, not imported.
+clusters.MAX_PRIMS the loader raises. `load_dict(d, device="cuda")` runs
+on the card unless the caller names another device (the tests name
+"cpu"); without a card it raises. The host-side numpy helpers are copied
+from the JAX package, not imported.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from mitsuba_customization_tpu_torch.models import diffuse as diffuse_mod
 from mitsuba_customization_tpu_torch.models import measured_custom as custom_mod
 from mitsuba_customization_tpu_torch.models import merl as merl_mod
 from mitsuba_customization_tpu_torch.models import passthrough as passthrough_mod
+from mitsuba_customization_tpu_torch.models import phase as phase_mod
 from mitsuba_customization_tpu_torch.models import plastic as plastic_mod
 from mitsuba_customization_tpu_torch.models import principled as principled_mod
 from mitsuba_customization_tpu_torch.models import roughconductor as rough_mod
@@ -77,6 +84,7 @@ from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
 from mitsuba_customization_tpu_torch.render import geometry as geo
+from mitsuba_customization_tpu_torch.render import medium as medium_mod
 from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
@@ -138,6 +146,8 @@ class Scene:
     shadow_clusters: Optional[cl_mod.ClusterSet] = None
     # the scene's one SDF grid shape (render/sdf.py), outside the prim soup
     sdf: Optional[sdf_mod.SDFGrid] = None
+    # its participating media (render/medium.py; an empty table without)
+    media: Optional[medium_mod.MediumTable] = None
 
     @property
     def device(self):
@@ -413,26 +423,19 @@ _BSDF_TYPES = {
     "plastic", "roughplastic", "blendbsdf", "mask", "passthrough",
     "normalmap", "bumpmap", "principled",
 }
-# the JAX package's integrator names; prb and prb_basic render as path
+# the JAX package's integrator names; prb and prb_basic render as path,
+# volpathmis and prbvolpath as volpath
 INTEGRATOR_TYPES = frozenset([
     "path", "direct", "depth", "aov", "aov_normals", "aov_position", "aov_uv",
-    "moment", "prb", "prb_basic",
+    "moment", "prb", "prb_basic", "volpath", "volpathmis", "prbvolpath", "ptracer",
+    "bdpt",
 ])
-# what the JAX package has and the port has not yet, by ROADMAP item
-NOT_PORTED = {
-    "integrator": ({"volpath", "volpathmis", "prbvolpath", "ptracer", "bdpt"}, "14b"),
-    "medium": ({"homogeneous", "heterogeneous"}, "14b"),
-}
+_MEDIUM_TYPES = ("homogeneous", "heterogeneous")
+_PHASE_TYPES = {"isotropic": phase_mod.ISOTROPIC, "hg": phase_mod.HG,
+                "rayleigh": phase_mod.RAYLEIGH, "sggx": phase_mod.SGGX}
 _TEXTURE_TYPES = ("bitmap", "checkerboard", "mesh_attribute", "volume")
-
-
-def check_ported(kind, t):
-    """Raise NotImplementedError naming the ROADMAP item of a `kind` of
-    type `t` that the JAX package has and the port has not."""
-    names, item = NOT_PORTED[kind]
-    if t in names:
-        raise NotImplementedError(
-            f"{kind} type '{t}' is not ported (ROADMAP item {item})")
+# the emitter types a ptracer scene may hold (render/ptracer.py)
+_PTRACER_EMITTERS = (em_mod.AREA, em_mod.POINT, em_mod.SPOT)
 
 
 def _bitmap(spec):
@@ -487,6 +490,56 @@ def compile_texture_row(spec) -> dict:
     raise ValueError(f"unsupported texture type '{ttype}'")
 
 
+def compile_medium_row(md) -> dict:
+    """A medium dict -> a medium.build_table row (the JAX loader's
+    compile_medium): sigma_t scaled by `scale`; a spectrum is a number,
+    an RGB triple or a dict with a "value"; an SGGX phase takes "S" (the
+    six entries [xx, yy, zz, xy, xz, yz]) or a diagonal "sigma" (S =
+    diag(sigma^2)); a heterogeneous medium's density is an array placed by
+    the medium's to_world, or {"grid", "to_world"}."""
+    mtype = md.get("type", "homogeneous")
+    if mtype not in _MEDIUM_TYPES:
+        raise ValueError(f"unsupported medium type '{mtype}'")
+    phase = md.get("phase", {"type": "isotropic"})
+    ptype = _PHASE_TYPES[phase.get("type", "isotropic")]
+    scale = float(md.get("scale", 1.0))
+
+    def rgb3(key, default):
+        val = md.get(key, default)
+        if isinstance(val, dict):
+            val = val.get("value", default)
+        val = np.asarray(val, dtype=np.float32)
+        return np.full(3, val, np.float32) if val.ndim == 0 else val
+
+    phase_S = None
+    if ptype == phase_mod.SGGX:
+        if "S" in phase:
+            phase_S = np.asarray(phase["S"], np.float32)
+        else:
+            sig = np.asarray(phase.get("sigma", [1.0, 1.0, 1.0]), np.float32)
+            phase_S = np.asarray([sig[0] ** 2, sig[1] ** 2, sig[2] ** 2, 0, 0, 0], np.float32)
+    # as the JAX loader reads it: an "emission" key alone makes the medium
+    # emissive with the "radiance" value, zero (ROADMAP section 3)
+    emission = None
+    if "radiance" in md or "emission" in md:
+        emission = rgb3("radiance", [0.0, 0.0, 0.0])
+    row = dict(type=mtype, sigma_t=rgb3("sigma_t", [1.0, 1.0, 1.0]) * scale,
+               albedo=rgb3("albedo", [0.75, 0.75, 0.75]), phase_type=ptype,
+               phase_g=float(phase.get("g", 0.0)), phase_S=phase_S, density=None,
+               to_world=None, emission=emission)
+    if mtype == "heterogeneous":
+        dens = md.get("density")
+        if isinstance(dens, dict):  # the gridvolume form
+            row["to_world"] = _as_transform(dens.get("to_world"))
+            dens = dens.get("grid")
+        else:
+            row["to_world"] = _as_transform(md.get("to_world"))
+        if dens is None:
+            raise ValueError("heterogeneous medium needs a density grid")
+        row["density"] = np.asarray(dens, dtype=np.float32)
+    return row
+
+
 def _bsdf_child(bd, key="bsdf"):
     """The child BSDF of a wrapper: bd[key], else its first dict entry with
     a BSDF type."""
@@ -537,8 +590,9 @@ def _add_emitter(t, val, em_rows, env, proj, const_row):
     return const_row
 
 
-def load_dict(d: dict, device) -> Scene:
-    """Compile a mi.load_dict-style nested dict into a Scene on `device`."""
+def load_dict(d: dict, device="cuda") -> Scene:
+    """Compile a mi.load_dict-style nested dict into a Scene on `device`
+    (the card unless the caller names another)."""
     if d.get("type") != "scene":
         raise ValueError("root dict must have type='scene'")
     device = torch.device(device)
@@ -558,6 +612,18 @@ def load_dict(d: dict, device) -> Scene:
     env = dict(image=None, to_world=np.eye(3, dtype=np.float32), row=-1)
     proj = dict(image=None, frame=np.eye(3, dtype=np.float32), tan=1.0, row=-1)
     const_row = -1
+    media_rows: list[dict] = []
+    named_media: dict[str, int] = {}
+    shape_interior: list[int] = []  # per shape id: its medium, or -1
+
+    def compile_medium(md) -> int:
+        """A medium dict, or the name of a top-level one, -> its id."""
+        if isinstance(md, str):
+            if md not in named_media:
+                raise ValueError(f"unknown medium reference '{md}'")
+            return named_media[md]
+        media_rows.append(compile_medium_row(md))
+        return len(media_rows) - 1
 
     def add_material(kid, params):
         stacks.setdefault(kid, []).append(params)
@@ -714,10 +780,6 @@ def load_dict(d: dict, device) -> Scene:
         to_world when given."""
         nonlocal shape_count
         t = val.get("type")
-        for key in ("interior", "exterior"):
-            if key in val:
-                raise NotImplementedError(
-                    f"participating media ('{key}') are not ported (ROADMAP item 14b)")
         if t not in _SHAPE_TYPES:
             raise ValueError(f"unsupported shape '{t}'")
         mat_id = compile_bsdf(val.get("bsdf", {"type": "diffuse"}))
@@ -789,23 +851,27 @@ def load_dict(d: dict, device) -> Scene:
                     raise ValueError("directionalarea requires a triangle-mesh shape")
                 nrm = np.cross(rows["e1"], rows["e2"]).mean(0)
                 em_rows[emitter_id]["direction"] = nrm / max(np.linalg.norm(nrm), 1e-12)
+        # the medium inside the shape (mitsuba3's <medium name="interior">)
+        shape_interior.append(compile_medium(val["interior"]) if "interior" in val else -1)
         shape_count += 1
 
-    # Pass 1: named top-level BSDFs (so shapes can reference them).
+    # Pass 1: named top-level BSDFs and media (so shapes can reference them).
     for key, val in d.items():
-        if key != "type" and isinstance(val, dict) and val.get("type") in _BSDF_TYPES:
-            named_bsdfs[key] = compile_bsdf(val)
+        if key != "type" and isinstance(val, dict):
+            if val.get("type") in _BSDF_TYPES:
+                named_bsdfs[key] = compile_bsdf(val)
+            elif val.get("type") in _MEDIUM_TYPES:
+                named_media[key] = compile_medium(val)
 
     # Pass 2: everything else.
     for key, val in d.items():
         if key == "type" or not isinstance(val, dict):
             continue
         t = val.get("type")
-        if t in _BSDF_TYPES:
+        if t in _BSDF_TYPES or t in _MEDIUM_TYPES:
             continue
-        if key == "integrator" or t in INTEGRATOR_TYPES or t in NOT_PORTED["integrator"][0]:
+        if key == "integrator" or t in INTEGRATOR_TYPES:
             itype = val.get("type", "path")
-            check_ported("integrator", itype)
             if itype not in INTEGRATOR_TYPES:
                 raise ValueError(f"integrator type '{itype}' is not implemented "
                                  f"(available: {sorted(INTEGRATOR_TYPES)})")
@@ -822,7 +888,6 @@ def load_dict(d: dict, device) -> Scene:
         if t in _EMITTER_TYPES:
             const_row = _add_emitter(t, val, em_rows, env, proj, const_row)
             continue
-        check_ported("medium", t)
         if t == "shapegroup":
             # collected here, flattened into the prim soup per instance
             shapegroups[key] = val
@@ -846,6 +911,7 @@ def load_dict(d: dict, device) -> Scene:
                 np.asarray(val["grid"], np.float32), _as_transform(val.get("to_world")),
                 compile_bsdf(val.get("bsdf", {"type": "diffuse"})), shape_count,
                 device=device)
+            shape_interior.append(-1)
             shape_count += 1
             continue
         if t in _SHAPE_TYPES:
@@ -923,6 +989,14 @@ def load_dict(d: dict, device) -> Scene:
         stacks=kernel_stacks, **blend, **normal,
     )
     cfg.nee = len(em_rows) > 0
+    if cfg.integrator == "ptracer":
+        # light paths start on area, point and spot emitters only
+        bad = {r["type"] for r in em_rows} - set(_PTRACER_EMITTERS)
+        if bad:
+            names = {0: "area", 1: "constant", 2: "envmap", 3: "point", 4: "spot",
+                     5: "directional"}
+            raise ValueError("ptracer supports area/point/spot emitters; scene has "
+                             + ", ".join(sorted(names.get(b, str(b)) for b in bad)))
     if sensor is None:
         sensor = sensor_mod.make_sensor(device=device)
     return Scene(
@@ -937,6 +1011,7 @@ def load_dict(d: dict, device) -> Scene:
         shadow_geometry=shadow_geometry,
         shadow_clusters=shadow_clusters,
         sdf=sdf_shape,
+        media=medium_mod.build_table(media_rows, shape_interior, shape_count, device=device),
     )
 
 

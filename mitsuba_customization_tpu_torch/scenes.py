@@ -19,6 +19,10 @@ the scenes without the JAX package.
 
 `camera_dict` is the matpreview scene seen through a thin lens focused on
 the blob, sampled by multijitter and developed by the gaussian filter.
+`volpath_dict` is the matpreview scene with a homogeneous fog ball and a
+heterogeneous smoke cube under the volumetric tracer; `fog_dict`,
+`ptracer_box_dict` and `bdpt_spheres_dict` are the JAX package's media,
+ptracer and bdpt test scenes.
 `shape_files` writes the meshes of the shapes scene (binary PLY, OBJ,
 serialized) from a seeded numpy state, and `shapes_dict` loads them beside
 a cube, a disk, cylinders and a sphere (or an SDF sphere in place of the
@@ -411,3 +415,160 @@ def sdf_and_analytic_spheres(device, n=96, res=32, spp=32):
     return tuple(render(load_dict(sdf_sphere_dict(e, res, spp), device), spp=spp, seed=2)
                  for e in ({"type": "sdfgrid", "grid": sphere_sdf(n=n), "to_world": tw,
                             "bsdf": bsdf}, {"type": "sphere", "radius": 0.7, "bsdf": bsdf}))
+
+
+def smooth_volume(rng, n, waves=6):
+    """A smooth seeded (n, n, n) float32 field scaled to [0, 1]: a sum of
+    products of sines along the three axes (made in place, one wave at a
+    time, so a 256^3 field takes 64 MiB and no more)."""
+    c = (np.arange(n, dtype=np.float32) + 0.5) / n
+    f = np.zeros((n, n, n), np.float32)
+    for _ in range(waves):
+        k, ph = rng.integers(1, 6, 3), rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+        sz, sy, sx = (np.sin(np.float32(2 * np.pi) * ki * c + p) for ki, p in zip(k, ph))
+        f += sz[:, None, None] * (sy[:, None] * sx[None, :])[None]
+    f -= f.min()
+    f /= f.max()
+    return f
+
+
+# the volpath scene's media: the production scene's homogeneous fog ball
+# (__graft_entry__._production_scene) and a heterogeneous cube, left and
+# right in front of the matpreview blob and clear of it and of the floor
+VOL_FOG = {"type": "homogeneous", "sigma_t": [0.8, 0.9, 1.0], "albedo": [0.7, 0.7, 0.7]}
+VOL_FOG_CENTER, VOL_FOG_RADIUS = [-0.75, 0.05, -1.55], 0.4
+VOL_CUBE_CENTER, VOL_CUBE_HALF = [0.8, -0.05, -1.55], 0.35
+
+
+def volpath_dict(res=512, spp=8, depth=8, grid_res=256, seed=10, n_sub=5):
+    """The matpreview scene (matpreview_dict) under the volpath integrator
+    with two media: a null sphere around the production scene's fog (a
+    homogeneous isotropic medium, sigma_t (0.8, 0.9, 1.0), albedo 0.7)
+    and a null cube holding a heterogeneous medium (sigma_t (4, 4.5, 5),
+    albedo 0.8, HG g = 0.6) whose density is a seeded smooth grid_res^3
+    float32 grid (smooth_volume) in the gridvolume form, filling the
+    cube."""
+    d = matpreview_dict(res, spp, depth, n_sub=n_sub)
+    d["integrator"] = {"type": "volpath", "max_depth": depth}
+    d["fog_ball"] = {"type": "sphere", "center": VOL_FOG_CENTER, "radius": VOL_FOG_RADIUS,
+                     "bsdf": {"type": "null"}, "interior": VOL_FOG}
+    h = VOL_CUBE_HALF
+    grid_to_world = np.diag([2 * h, 2 * h, 2 * h, 1.0]).astype(np.float32)
+    grid_to_world[:3, 3] = np.asarray(VOL_CUBE_CENTER, np.float32) - h
+    d["smoke_box"] = {
+        "type": "cube", "bsdf": {"type": "null"},
+        "to_world": {"scale": h, "translate": VOL_CUBE_CENTER},
+        "interior": {"type": "heterogeneous", "sigma_t": [4.0, 4.5, 5.0],
+                     "albedo": [0.8, 0.8, 0.8], "phase": {"type": "hg", "g": 0.6},
+                     "density": {"grid": smooth_volume(np.random.default_rng(seed), grid_res),
+                                 "to_world": grid_to_world}},
+    }
+    return d
+
+
+def fog_dict(sigma, albedo, radius=0.8, emitter_radiance=2.0, depth=8, res=24, spp=192,
+             radiance=None):
+    """The JAX package's tests/test_media.py fog ball: a null sphere of a
+    homogeneous medium (emitting `radiance` when given) at the origin,
+    seen from 4 units away (fov 30) under a constant emitter of
+    `emitter_radiance` (none when 0)."""
+    d = {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": depth},
+        "sensor": {"type": "perspective", "fov": 30,
+                   "to_world": look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]),
+                   "film": {"width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "fog": {"type": "sphere", "radius": radius, "bsdf": {"type": "null"},
+                "interior": {"type": "homogeneous", "sigma_t": sigma, "albedo": albedo}},
+    }
+    if radiance is not None:
+        d["fog"]["interior"]["radiance"] = radiance
+    if emitter_radiance:
+        d["light"] = {"type": "constant", "radiance": [emitter_radiance] * 3}
+    return d
+
+
+def ptracer_box_dict(integrator, spp=64, depth=3, res=32):
+    """The JAX package's tests/test_ptracer.py scene: a diffuse floor and
+    ball under a rectangle lamp, seen from above the floor."""
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": depth},
+        "sensor": {"type": "perspective", "fov": 60,
+                   "to_world": look_at([0, 1.0, -3.2], [0, 0.5, 0], [0, 1, 0]),
+                   "film": {"width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "floor": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": [0.7, 0.5, 0.3]},
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90}, "scale": 3.0}},
+        "ball": {"type": "sphere", "center": [0.0, 0.6, 0.0], "radius": 0.6,
+                 "bsdf": {"type": "diffuse", "reflectance": [0.3, 0.5, 0.7]}},
+        "lamp": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": [0, 0, 0]},
+                 "to_world": {"rotate": {"axis": [1, 0, 0], "angle": 90}, "scale": 0.8,
+                              "translate": [0, 2.4, 0]},
+                 "emitter": {"type": "area", "radiance": [8.0, 8.0, 8.0]}},
+    }
+
+
+def bdpt_spheres_dict(integrator, spp, depth=4, res=32, light_scale=0.5,
+                      light_pos=(0.5, 2.5, -0.5), radiance=40.0, alpha=0.3):
+    """The JAX package's tests/test_bdpt.py scene: a diffuse and a GGX
+    sphere over a diffuse floor under a rectangle light (small and very
+    bright near the floor in its second golden case)."""
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": depth},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": look_at([0, 1.0, -3.5], [0, 0, 0], [0, 1, 0]),
+                   "film": {"width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "ball": {"type": "sphere", "center": [-0.6, 0, 0], "radius": 0.8,
+                 "bsdf": {"type": "diffuse", "reflectance": [0.7, 0.5, 0.3]}},
+        "ball2": {"type": "sphere", "center": [1.0, 0, 0.3], "radius": 0.8,
+                  "bsdf": {"type": "roughconductor", "alpha": alpha}},
+        "floor": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": [0.5, 0.5, 0.5]},
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90}, "scale": 6.0,
+                               "translate": [0, -0.8, 0]}},
+        "light": {"type": "rectangle",
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": 90},
+                               "scale": light_scale, "translate": list(light_pos)},
+                  "emitter": {"type": "area",
+                              "radiance": [radiance, radiance * 0.95, radiance * 0.9]}},
+    }
+
+
+# tests/test_bdpt.py's second golden case: a small, very bright light
+# grazing the glossy floor, where the t = 1 strategy carries real weight
+BDPT_SMALL_LIGHT = dict(light_scale=0.08, light_pos=(0.3, 0.35, -0.6), radiance=900.0,
+                        alpha=0.15)
+
+
+def light_paths_vs_path(device, res=32):
+    """The JAX tests' comparisons of the light tracers with the path
+    tracer (tests/test_ptracer.py::test_ptracer_matches_path,
+    tests/test_bdpt.py::test_bdpt_matches_path_glossy) on `device`:
+    {name: (path image, its image, mean tolerance)}."""
+    from mitsuba_customization_tpu_torch.render.integrator import render
+    from mitsuba_customization_tpu_torch.render.scene import load_dict
+
+    def img(d, seed):
+        return render(load_dict(d, device), seed=seed).cpu().numpy()
+
+    return {
+        "ptracer": (img(ptracer_box_dict("path", 196, res=res), 3),
+                    img(ptracer_box_dict("ptracer", 196, res=res), 7), 0.05),
+        "bdpt": (img(bdpt_spheres_dict("path", 48, res=res), 3),
+                 img(bdpt_spheres_dict("bdpt", 48, res=res), 7), 0.07),
+    }
+
+
+def aggregate_agreement(path_img, img, tol):
+    """The JAX tests' aggregate rules on two numpy images: (the image
+    means within tol of the path image's mean + 1e-3, the normalised
+    cross-correlation of the channel-mean images > 0.95, the means'
+    difference, the correlation)."""
+    diff = abs(float(path_img.mean()) - float(img.mean()))
+    a = path_img.mean(-1).ravel() - path_img.mean()
+    b = img.mean(-1).ravel() - img.mean()
+    ncc = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum() + 1e-12))
+    return diff < tol * float(path_img.mean()) + 1e-3 and ncc > 0.95, diff, ncc

@@ -3,10 +3,10 @@
 
     python3 scripts/profile_torch_frame.py
         [--scene flagship|matpreview|materials|blend|image|emitters|camera|
-                 shapes|shapes_sdf]
+                 shapes|shapes_sdf|volpath|ptracer|bdpt]
         [--res N] [--spp N] [--depth N] [--reps 3] [--top 20]
         [--against TREE ...]
-    python3 scripts/profile_torch_frame.py --ad [--scene image] [--res 256]
+    python3 scripts/profile_torch_frame.py --ad [--scene image|volpath] [--res 256]
         [--spp 4] [--depth 6] [--reps 3] [--top 20]
 
 --scene flagship (default: 512x512, 64 spp, depth 4) or matpreview
@@ -25,8 +25,15 @@ spp, depth 8) or shapes frame (scenes.shapes_dict on the meshes
 scenes.shape_files writes under build/profile_shapes: about 532,500 prims
 from PLY, OBJ and serialized files, a shapegroup, a cube, a disk,
 cylinders and a sphere; 512x512, 8 spp, depth 8), or shapes_sdf (a 128^3
-SDF sphere in place of the largest mesh), all with the probed schedule.
-For a splat filter the device time of the film's splats is printed (CUDA
+SDF sphere in place of the largest mesh), all with the probed schedule;
+or the volpath frame (scenes.volpath_dict: the matpreview scene with a
+homogeneous fog ball and a heterogeneous smoke cube of a 256^3 density
+grid, the volumetric tracer, no compaction; 512x512, 8 spp, depth 8), or
+the matpreview scene under ptracer (without its sky) or bdpt (512x512, 8
+spp, depth 8). For the volpath frame the tracking loops are printed (each
+loop's lanes, steps and host checks) with the device time between the
+first and last kernels of each medium.sample_interaction and
+medium.transmittance call; for ptracer and bdpt the splats'. For a splat filter the device time of the film's splats is printed (CUDA
 events around each film.splat call), and for an SDF scene the marches,
 their steps and their device time (events around each sdf.intersect).
 Prints the card's name and power limit; the frame's wall time and
@@ -48,7 +55,10 @@ zeros, repeats its children's time), so the zeroing and summing of
 table-sized gradients shows. With --scene image the AD step is
 chip_smoke's phase 22 instead: the image frame at those sizes with its
 probed schedule, on the table stack, the texture images and the envmap's
-image.
+image; with --scene volpath chip_smoke's phase 27: the volpath scene on
+the table stack and the medium keys (medium.sigma_t, albedo, phase_g,
+density), the operators on tensors of the density grid's shape listed
+too, with the grid-sized gradient buffers (medium.GRID_BUFFERS).
 
 --against TREE [TREE ...] builds the kernels of other source trees too,
 each with that tree's own ops/build.py, for example a parent commit's
@@ -306,7 +316,8 @@ def _timed_calls(mod, name, events):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("flagship", "matpreview", "materials", "blend",
-                                        "image", "emitters", "camera", "shapes", "shapes_sdf"),
+                                        "image", "emitters", "camera", "shapes", "shapes_sdf",
+                                        "volpath", "ptracer", "bdpt"),
                     default="flagship")
     ap.add_argument("--ad", action="store_true")
     ap.add_argument("--res", type=int, default=None)
@@ -338,7 +349,15 @@ def main():
         from mitsuba_customization_tpu_torch.render.params import traverse
 
         args.res, args.spp, args.depth = args.res or 256, args.spp or 4, args.depth or 6
-        if args.scene == "image":
+        if args.scene == "volpath":
+            from chip_smoke import AD_KEYS, MEDIUM_KEYS, VOLPATH_GRID, VOLPATH_SEED
+
+            scene = mt.load_dict(scenes.volpath_dict(args.res, args.spp, args.depth,
+                                                     VOLPATH_GRID, VOLPATH_SEED), "cuda")
+            full = traverse(scene)
+            params = {k: full[k] for k in (AD_KEYS[0],) + MEDIUM_KEYS}
+            fracs = None
+        elif args.scene == "image":
             scene = mt.load_dict(image_bands(scenes.matpreview_dict(
                 args.res, args.spp, args.depth, n_materials=12), image_files(IMAGE_DIR)),
                 "cuda")
@@ -360,6 +379,19 @@ def main():
 
         args.res, args.spp, args.depth = args.res or 512, args.spp or 16, args.depth or 4
         scene = mt.load_dict(emitters_dict(args.res, args.spp, args.depth), "cuda")
+    elif args.scene in ("volpath", "ptracer", "bdpt"):
+        from chip_smoke import VOLPATH_GRID, VOLPATH_SEED
+
+        args.res, args.spp, args.depth = args.res or 512, args.spp or 8, args.depth or 8
+        if args.scene == "volpath":
+            d = scenes.volpath_dict(args.res, args.spp, args.depth, VOLPATH_GRID, VOLPATH_SEED)
+        else:
+            d = scenes.matpreview_dict(args.res, args.spp, args.depth)
+            d["integrator"] = {"type": args.scene, "max_depth": args.depth}
+            if args.scene == "ptracer":
+                del d["sky"]
+        scene = mt.load_dict(d, "cuda")
+        print(f"{scene.geometry.p0.shape[0]} prims, {scene.media.n_media} media")
     elif args.scene in ("camera", "shapes", "shapes_sdf"):
         args.res, args.spp, args.depth = args.res or 512, args.spp or 8, args.depth or 8
         if args.scene == "camera":
@@ -411,21 +443,26 @@ def main():
         rays = frame()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
-    what = (f"AD step ({'image' if args.scene == 'image' else 'matpreview'})"
+    what = (f"AD step ({args.scene if args.scene in ('image', 'volpath') else 'matpreview'})"
             if args.ad else f"{args.scene} frame")
     print(f"{what} {args.res}x{args.res} {args.spp}spp depth {args.depth}: "
           f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)})"
           + ("" if args.ad else f", {rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s"))
 
-    from mitsuba_customization_tpu_torch.render import film, sdf
+    from mitsuba_customization_tpu_torch.render import film, medium, sdf
 
     k1.LAUNCHES = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
     sdf.MARCHES = sdf.STEPS = 0
-    spans = {"film.splat": [], "sdf.intersect": []}
+    medium.LOOPS.clear()
+    medium.GRID_BUFFERS = 0
+    spans = {"film.splat": [], "sdf.intersect": [], "medium.sample_interaction": [],
+             "medium.transmittance": []}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with _timed_calls(film, "splat", spans["film.splat"]), \
             _timed_calls(sdf, "intersect", spans["sdf.intersect"]), \
+            _timed_calls(medium, "sample_interaction", spans["medium.sample_interaction"]), \
+            _timed_calls(medium, "transmittance", spans["medium.transmittance"]), \
             torch.profiler.profile(activities=acts, record_shapes=args.ad) as prof:
         t0 = time.perf_counter()
         frame()
@@ -457,12 +494,23 @@ def main():
                      if name == "sdf.intersect" else "")
             print(f"  {name}: {len(evs)} calls{extra}, {ms:.2f} ms between their first and "
                   f"last kernels (CUDA events, profiler on)")
+    if medium.LOOPS:
+        steps = sum(x[2] for x in medium.LOOPS)
+        checks = sum(x[3] for x in medium.LOOPS)
+        print(f"  tracking loops: {len(medium.LOOPS)}, {steps} steps, {checks} host checks "
+              f"(one every {medium.CHECK_EVERY} steps): " + "; ".join(
+                  f"{kind} {lanes} lanes {n} steps {c} checks"
+                  for kind, lanes, n, c in medium.LOOPS))
     if args.ad:
-        shape = list(params["bsdf.tabulated.table"].shape)
-        print(f"operators on {shape} tensors (calls, device ms of their kernels):")
-        for e in prof.key_averages(group_by_input_shape=True):
-            if any(list(s) == shape for s in e.input_shapes):
-                print(f"  {e.key:28s} {e.count:4d}x  {e.device_time_total / 1e3:8.3f} ms")
+        shapes = [list(params["bsdf.tabulated.table"].shape)]
+        if "medium.density" in params:
+            shapes.append([params["medium.density"].numel()])
+            print(f"grid-sized gradient buffers: {medium.GRID_BUFFERS}")
+        for shape in shapes:
+            print(f"operators on {shape} tensors (calls, device ms of their kernels):")
+            for e in prof.key_averages(group_by_input_shape=True):
+                if any(list(s) == shape for s in e.input_shapes):
+                    print(f"  {e.key:28s} {e.count:4d}x  {e.device_time_total / 1e3:8.3f} ms")
 
 
 if __name__ == "__main__":

@@ -143,7 +143,8 @@ def test_traverse_and_update_match_jax(jax_flagship, port_flagship):
     """The same keys and values; update with a new table rebuilds the
     sampling CDFs as the JAX package does (rtol 1e-4, atol 1e-5, the
     tolerance of the loader's CDF check), puts the given tensors in
-    uncopied, and refuses keys the port has no counterpart for (media);
+    uncopied, and refuses keys that are not parameters of the scene (the
+    medium keys of a scene without media);
     the envmap's image is a key of envmap scenes, as in the JAX package."""
     want = {k: np.asarray(v) for k, v in jparams.traverse(jax_flagship).items()}
     got = tparams.traverse(port_flagship)
@@ -166,10 +167,12 @@ def test_traverse_and_update_match_jax(jax_flagship, port_flagship):
     leaf = p[TABLE].clone().requires_grad_(True)
     sampling = tparams.update(port_flagship, {TABLE: leaf}).bsdfs.stacks[tbsdf.TABULATED].sampling
     assert not any(f.requires_grad for f in sampling)
-    with pytest.raises(NotImplementedError):
-        tparams.update(port_flagship, {"medium.sigma_t": torch.zeros(1)})
-    with pytest.raises(NotImplementedError):
-        tparams.params_from_numpy({"medium.sigma_t": np.zeros(1)}, "cpu")
+    # medium keys: parameters of scenes with media only (KeyError here);
+    # params_from_numpy takes them as any other key
+    with pytest.raises(KeyError):
+        tparams.update(port_flagship, {"medium.sigma_t": torch.zeros(1, 3)})
+    assert tparams.params_from_numpy({"medium.sigma_t": np.zeros((1, 3))},
+                                     "cpu")["medium.sigma_t"].dtype == torch.float32
     # emitter.env_image: a parameter of envmap scenes only (KeyError here);
     # on the flagship lit by an envmap, the JAX key and shape, and update
     # rebuilds the sampling distribution as the JAX package's does (rtol

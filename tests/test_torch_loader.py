@@ -2,8 +2,8 @@
 blendbsdf, mask), every analytic BSDF type, look_at, each spectrum form,
 the integrator names and keys, the MERL and measured_custom readers and
 writers, textures, normal and bump maps, the emitter types, the sensor,
-sampler, film-filter and shape types, and what is not ported yet
-(NotImplementedError naming its ROADMAP item).
+sampler, film-filter and shape types, and the integrators and media of
+ROADMAP item 14b (refused by the earlier port, naming that item).
 """
 
 import jax
@@ -164,6 +164,9 @@ def test_bsdf_spectra_are_resolved():
     ("my_integrator", {"type": "direct", "max_depth": 7}, "direct"),
     ("aovs", {"type": "aov_uv"}, "aov_uv"),
     ("integrator", {"type": "moment", "rr_depth": 3, "hide_emitters": True}, "moment"),
+    ("integrator", {"type": "volpathmis", "max_depth": 6}, "volpathmis"),
+    ("my_integrator", {"type": "prbvolpath", "rr_depth": 2}, "prbvolpath"),
+    ("integrator", {"type": "bdpt", "max_depth": 5}, "bdpt"),
 ])
 def test_integrator_under_any_key(key, integ, kind):
     d = _spheres([{"type": "diffuse"}])
@@ -237,9 +240,26 @@ def test_measured_custom_file_round_trip(tmp_path):
     ({"smoke": {"type": "heterogeneous", "density": np.ones((2, 2, 2))}}, "14b"),
 ])
 def test_unported_types_name_their_roadmap_item(entry, item):
+    """Item 14b's types, which the earlier port refused naming that item,
+    load as the JAX loader loads them (the integrator, the media table),
+    or are refused with its ValueError (a ptracer scene under a constant
+    emitter)."""
+    assert item == "14b" and not hasattr(tscene_mod, "NOT_PORTED")
     d = _spheres([{"type": "diffuse"}], **entry)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        mt.load_dict(d, "cpu")
+    try:
+        ref = jscene_mod.load_dict(d)
+    except ValueError as err:
+        with pytest.raises(ValueError) as own_err:
+            mt.load_dict(d, "cpu")
+        assert str(own_err.value) == str(err)
+        return
+    own = mt.load_dict(d, "cpu")
+    assert own.config.integrator == ref.config.integrator
+    assert own.media.n_media == ref.media.n_media
+    for f, a in zip(own.media._fields, own.media):
+        if torch.is_tensor(a):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(ref.media, f)),
+                                          err_msg=f)
 
 
 @pytest.mark.parametrize("entry", [

@@ -5,7 +5,8 @@ readers take their positional arguments in the JAX package's order, so a call wr
 means the same to the port: each port signature's positional parameters
 are a prefix, by name and order, of the reference's; a reference-style
 positional call renders what its keywords say; what the port does not
-have yet raises and names its ROADMAP item.
+have yet raises and names its ROADMAP item; load_dict's device defaults to
+the card.
 """
 
 import inspect
@@ -17,6 +18,16 @@ import mitsuba_customization_tpu_torch as mt
 from mitsuba_customization_tpu.models import bsdf as jbsdf
 from mitsuba_customization_tpu.render import ad as jad
 from mitsuba_customization_tpu.render import integrator as jint
+from mitsuba_customization_tpu.models import phase as jphase
+from mitsuba_customization_tpu.render import bdpt as jbdpt
+from mitsuba_customization_tpu.render import emitters as jem
+from mitsuba_customization_tpu.render import medium as jmedium
+from mitsuba_customization_tpu.render import ptracer as jpt
+from mitsuba_customization_tpu_torch.models import phase as tphase
+from mitsuba_customization_tpu_torch.render import bdpt as tbdpt
+from mitsuba_customization_tpu_torch.render import emitters as tem
+from mitsuba_customization_tpu_torch.render import medium as tmedium
+from mitsuba_customization_tpu_torch.render import ptracer as tpt
 from mitsuba_customization_tpu_torch.models import bsdf as tbsdf
 from mitsuba_customization_tpu_torch.render import ad as tad
 from mitsuba_customization_tpu_torch.render import integrator as tint
@@ -45,6 +56,22 @@ def _positional(fn):
 
 @pytest.mark.parametrize("port, ref", [
     (tint.render, jint.render),
+    (tint.trace_volpath, jint.trace_volpath),
+    (tphase.eval, jphase.eval),
+    (tphase.sample, jphase.sample),
+    (tmedium.sample_interaction, jmedium.sample_interaction),
+    (tmedium.transmittance, jmedium.transmittance),
+    (tmedium.sigma_t_at, jmedium.sigma_t_at),
+    (tmedium.build_table, jmedium.build_table),
+    (tmedium.recompute_majorant, jmedium.recompute_majorant),
+    (tpt.connect_sensor, jpt.connect_sensor),
+    (tpt.sample_emitter_ray, jpt.sample_emitter_ray),
+    (tpt.trace_light_paths, jpt.trace_light_paths),
+    (tpt.render_ptracer, jpt.render_ptracer),
+    (tbdpt.trace_eye_bdpt, jbdpt.trace_eye_bdpt),
+    (tbdpt.trace_light_bdpt, jbdpt.trace_light_bdpt),
+    (tbdpt.render_bdpt, jbdpt.render_bdpt),
+    (tem.pdf_hit_area, jem.pdf_hit_area),
     (tint.render_lanes, jint.render_lanes),
     (tad.render_ad, jad.render_ad),
     (tad.grad_render, jad.grad_render),
@@ -63,7 +90,11 @@ def _positional(fn):
     (tobj.read_obj, jobj.read_obj),
     (tply.read_ply, jply.read_ply),
     (tser.read_serialized, jser.read_serialized),
-], ids=["render", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer",
+], ids=["render", "trace_volpath", "phase.eval", "phase.sample",
+        "sample_interaction", "transmittance", "sigma_t_at", "build_table",
+        "recompute_majorant", "connect_sensor", "sample_emitter_ray", "trace_light_paths",
+        "render_ptracer", "trace_eye_bdpt", "trace_light_bdpt", "render_bdpt",
+        "pdf_hit_area", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer",
         "bsdf.eval", "bsdf.pdf", "bsdf.sample", "bsdf.eval_pdf", "bsdf.bounce_shade",
         "make_sensor", "sample_ray", "make_sampler", "film.splat", "film.develop",
         "read_obj", "read_ply", "read_serialized"])
@@ -95,13 +126,35 @@ def test_reference_style_positional_call():
 
 
 def test_unported_integrators_and_optimizers_raise():
+    """The integrators of item 14b (refused by the earlier port) render
+    from a reference-style positional call: render(scene, 1, 0,
+    "ptracer") is render_ptracer's frame, {"type": "volpath"} the
+    volumetric tracer's (on a scene without media, the path tracer's
+    lanes), and render_lanes traces them as the JAX package does; an
+    optimizer other than Adam still raises, naming item 16."""
+    from mitsuba_customization_tpu_torch.render.ptracer import render_ptracer
+
     scene = mt.load_dict(flagship_dict(8, 1, 2), "cpu")
+    assert torch.equal(tint.render(scene, 1, 0, "ptracer"), render_ptracer(scene, 1, 0))
+    vol = tint.render(scene, 1, 0, {"type": "volpath"})
+    assert vol.shape == (8, 8, 3) and bool(torch.isfinite(vol).all())
     for integrator in ("ptracer", {"type": "volpath"}):
-        with pytest.raises(NotImplementedError, match="14b"):
-            tint.render(scene, 1, 0, integrator)
-        with pytest.raises(NotImplementedError, match="14b"):
-            tint.render_lanes(scene, 1, 0, integrator)
+        L, film_xy, _ = tint.render_lanes(scene, 1, 0, integrator)
+        assert L.shape == (64, 3) and film_xy.shape == (64, 2)
     with pytest.raises(NotImplementedError, match="16"):
         tad.Optimizer({"x": torch.zeros(1)}, 0.01, "sgd")
     opt = tad.Optimizer({"x": torch.ones(1)}, 0.5, None, ["x"])
     assert opt.clip_nonneg == {"x"}
+
+
+def test_load_dict_defaults_to_the_card():
+    """load_dict(d), written as for the reference, runs on the card: the
+    device defaults to "cuda", and without a card the call raises rather
+    than building the scene on the CPU."""
+    assert inspect.signature(mt.load_dict).parameters["device"].default == "cuda"
+    d = flagship_dict(8, 1, 2)
+    if torch.cuda.is_available():
+        assert mt.load_dict(d).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            mt.load_dict(d)
