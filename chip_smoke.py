@@ -164,7 +164,26 @@ Phases, one printed line each; any failure raises (non-zero exit):
      K1-K4 call recorded, checked on its first 262,144 lanes and timed;
      card against CPU means at 64x64; on the card the JAX tests'
      comparisons with the path tracer (means within 5 % / 7 %,
-     normalised cross-correlation > 0.95).
+     normalised cross-correlation > 0.95);
+ 29. the matpreview scene written as a Mitsuba XML file under
+     build/chip_smoke_xml (binary PLY bands, MERL .binary tables,
+     <default>s for spp, res and depth) rendered by cli.main in this
+     process at 512x512, 8 spp, depth 8 (-o frame.npy, --seed 1): the
+     CLI's load and render seconds, K1-K4 launched; the written image
+     equal bit for bit to render(load_file(xml), 8, 1) (timed: seconds,
+     rays/s), and its means within 2 % of the dict scene's (the largest
+     pixel difference printed);
+ 30. chi-square tests on the card (utils/chi2, the JAX suite's harness and
+     settings): bounce_shade's sampled directions (K2, K1) on the
+     flagship table against tabulated.pdf, and the GGX roughconductor at
+     alpha 0.1; p-values printed, both pass;
+ 31. parallel/mesh on a process group of one rank over NCCL: render_sharded
+     of the matpreview frame against render (equal bit for bit, means
+     within 2 %, largest pixel difference printed; seconds, launches), and loss_and_grad_sharded
+     of phase 13's setup against ad.grad_render (losses within 1e-5
+     relative, gradient cosines >= 0.9999, K1-bwd launched into one
+     table-gradient buffer). A check of the exchange between ranks needs
+     more than one card (tests/test_torch_parallel.py holds it over gloo).
 Each phase prints its wall seconds (`phase ...` lines and a `phase
 seconds` summary). Each phase's counts are set to 0 just before its
 render (or AD step) and read just after. It then prints a JSON line describing each kernel
@@ -192,10 +211,11 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
-Every entry also carries `launches_by_phase` (phases 17-28: the blend,
+Every entry also carries `launches_by_phase` (phases 17-31: the blend,
 image, camera and volpath AD steps, the shapes frame with and without
-the SDF, the volpath, ptracer and bdpt frames; for K1's backward its
-five AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
+the SDF, the volpath, ptracer and bdpt frames, the XML frame through the
+CLI, the sharded frame and the sharded AD step; for K1's backward its
+AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
 19, 20, 23, 24, 26 and 28 (`materials_frame_ms`, `blend_frame_ms`,
 `image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`,
 `volpath_frame_ms`, `ptracer_frame_ms`, `bdpt_frame_ms` and their
@@ -2299,6 +2319,220 @@ def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
     return out["ptracer"][0], out["bdpt"][0], out["ptracer"][1], out["bdpt"][1]
 
 
+XML_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_xml")
+# the JAX suite's test_merl_chi2 / test_roughconductor_chi2 settings
+CHI2_WI = (0.35, 0.2, 0.916)
+CHI2 = dict(res=25, ires=16, seed=0)
+CHI2_TESTS = 8
+SHARDED_LOSS_RTOL = 1e-5
+SHARDED_GRAD_COS = 0.9999
+
+
+def phase_xml_cli(dev, res=512, spp=8, depth=8, n_sub=5):
+    """Phase 29: the matpreview scene as a Mitsuba XML file
+    (scenes.matpreview_xml: binary PLY bands, MERL .binary tables, the
+    floor, the area light and the sky, <default>s for spp, res and depth)
+    rendered by the command line in this process: cli.main(xml, -D spp -D
+    res -D depth, -o frame.npy, --seed 1), the counts set to 0 just before
+    and read just after (K1-K4 > 0); the CLI's own log lines (load and
+    render seconds, primary rays/s) go to stdout. The written image must
+    equal render(load_file(xml), spp, 1) bit for bit (that render timed:
+    seconds, rays/s), and its per-channel means agree with the dict scene's
+    within FRAME_MEAN_RTOL (the largest pixel difference printed). Returns
+    the launches."""
+    import logging
+    import sys
+
+    import numpy as np
+
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch import cli
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import xml as xml_mod
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict, matpreview_xml
+
+    t0 = time.perf_counter()
+    path = matpreview_xml(XML_DIR, n_sub=n_sub)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(XML_DIR, "frame.npy")
+    if os.path.exists(out):
+        os.remove(out)
+    defines = dict(spp=spp, res=res, depth=depth)
+    argv = [path, *(a for k, v in defines.items() for a in ("-D", f"{k}={v}")),
+            "-o", out, "--seed", "1", "--device", str(dev)]
+    log = logging.getLogger("mitsuba_customization_tpu_torch")
+    to_stdout = logging.StreamHandler(sys.stdout)
+    log.addHandler(to_stdout)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    finally:
+        log.removeHandler(to_stdout)
+    got = torch.as_tensor(np.load(out))
+    scene = xml_mod.load_file(path, device=dev, **defines)
+    t0 = time.perf_counter()
+    img, stats = mt.render(scene, spp, 1, return_stats=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rays = stats["rays_traced"]
+    want = mt.render(mt.load_dict(matpreview_dict(res, spp, depth, n_sub=n_sub), dev), spp, 1)
+    gm, wm = got.mean((0, 1)), want.mean((0, 1)).cpu()
+    rel = ((gm - wm).abs() / wm.abs()).max().item()
+    diff = (got - want.cpu()).abs().max().item()
+    print(f"XML via CLI matpreview {res}x{res} {spp}spp depth {depth} ({scene.geometry.n_prims} "
+          f"prims; files written in {write_s:.1f} s): cli.main {cli_s:.2f} s in all; "
+          f"launches {launches}; render(load_file) again {secs:.3f} s, {rays:.0f} rays, "
+          f"{rays / secs / 1e6:.2f} Mrays/s; CLI image equal to it bit for bit: "
+          f"{torch.equal(got, img.cpu())}; means {gm.tolist()} against the dict scene's "
+          f"{wm.tolist()}, max rel diff {rel:.2e} (limit {FRAME_MEAN_RTOL}), largest pixel "
+          f"difference {diff:.3e}")
+    if min(launches[key] for key in ("K1", "K2", "K3", "K4")) <= 0:
+        raise AssertionError(f"a kernel was not launched on the XML / CLI path: {launches}")
+    if got.shape != (res, res, 3) or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the CLI's image is not a finite frame")
+    if not torch.equal(got, img.cpu()):
+        raise AssertionError("the CLI's image differs from render(load_file(xml))")
+    if not rel <= FRAME_MEAN_RTOL:
+        raise AssertionError("the XML scene's means disagree with the dict scene's")
+    return launches
+
+
+def phase_chi2(dev):
+    """Phase 30: chi-square tests on the card (utils/chi2, the JAX
+    suite's harness): the directions sampled by tabulated.bounce_shade (K2,
+    then K1 over both halves) on the flagship table at a fixed wi against
+    tabulated.pdf, and roughconductor.sample at alpha 0.1 against its pdf,
+    at test_merl_chi2's and test_roughconductor_chi2's settings (200,000 /
+    150,000 samples, res 25, ires 16, Sidak over 8 tests). Both must pass;
+    prints the p-values and the kernels' launches."""
+    from mitsuba_customization_tpu_torch.models import roughconductor, tabulated
+    from mitsuba_customization_tpu_torch.scenes import flagship_table
+    from mitsuba_customization_tpu_torch.utils.chi2 import ChiSquareTest, SphericalDomain
+
+    wi0 = torch.nn.functional.normalize(torch.tensor(CHI2_WI, device=dev), dim=0)
+    brdf = tabulated.TabulatedBRDF.build(torch.as_tensor(flagship_table(), device=dev))
+    rc = roughconductor.RoughConductorParams(
+        alpha_u=torch.tensor(0.1, device=dev), alpha_v=torch.tensor(0.1, device=dev),
+        eta=torch.tensor([0.2, 0.9, 1.4], device=dev), k=torch.tensor([3.9, 2.5, 2.1], device=dev),
+        specular_reflectance=torch.ones(3, device=dev))
+
+    def merl_sample(wi, u):
+        wo_nee = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(wi)
+        _, _, wo, pdf_s, _, _ = tabulated.bounce_shade(brdf, wi, wo_nee, u)
+        return wo, pdf_s
+
+    cases = [("MERL bounce_shade (K2, K1)", merl_sample,
+              lambda wi, wo: tabulated.pdf(brdf, wi, wo), 200_000),
+             ("GGX roughconductor alpha 0.1", lambda wi, u: roughconductor.sample(rc, wi, u)[:2],
+              lambda wi, wo: roughconductor.pdf(rc, wi, wo), 150_000)]
+    for what, sample, pdf, n in cases:
+        def s(u, sample=sample):
+            wi = wi0.expand(len(u), 3)
+            wo, p = sample(wi, torch.as_tensor(u, device=dev))
+            return wo.cpu().numpy(), (p > 0).double().cpu().numpy()
+
+        def pf(d, pdf=pdf):
+            return pdf(wi0.expand(len(d), 3), torch.as_tensor(d, device=dev)).cpu().numpy()
+
+        _reset_counts()
+        test = ChiSquareTest(SphericalDomain(), s, pf, sample_count=n, **CHI2)
+        ok = test.run(test_count=CHI2_TESTS)
+        print(f"chi-square on the card, {what}: {n} samples, p-value "
+              f"{getattr(test, 'p_value', float('nan')):.4g} "
+              f"({test.messages[-1]}); launches {_launch_counts()}")
+        if not ok:
+            raise AssertionError(f"chi-square test failed for {what}: {test.messages}")
+
+
+def phase_sharded(dev, res=512, spp=8, depth=8):
+    """Phase 31: parallel/mesh on a process group of one rank over NCCL
+    (initialize_distributed with a localhost coordinator). render_sharded
+    of the matpreview frame (one warm-up, then timed with the counts set to
+    0 just before) against render: equal bit for bit (a world of one
+    renders render's own passes), means within FRAME_MEAN_RTOL, largest
+    pixel difference printed; loss_and_grad_sharded on phase 13's setup
+    (256x256, 4 spp, depth 6, the 10 tables and the floor's alpha) against
+    ad.grad_render: losses within SHARDED_LOSS_RTOL, each gradient at
+    cosine >= SHARDED_GRAD_COS, K1-bwd launched into one table-gradient
+    buffer. Exchanges between ranks need more than one card; the gloo
+    tests (tests/test_torch_parallel.py) hold them on the CPU. Returns the
+    launches of the sharded frame and of the sharded AD step."""
+    import socket
+
+    import torch.distributed as dist
+
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.parallel import mesh as pm
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pm.initialize_distributed(f"tcp://localhost:{port}", 1, 0, device=str(dev), timeout=300)
+    try:
+        mesh = pm.make_mesh()
+        scene = mt.load_dict(matpreview_dict(res, spp, depth), dev)
+        pm.render_sharded(scene, mesh, spp, 0)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        img = pm.render_sharded(scene, mesh, spp, 1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+        want = mt.render(scene, spp, 1)
+        gm, wm = img.mean((0, 1)), want.mean((0, 1))
+        rel = ((gm - wm).abs() / wm.abs()).max().item()
+        print(f"sharded matpreview {res}x{res} {spp}spp depth {depth} on {dist.get_world_size()} "
+              f"rank ({dist.get_backend()}): {secs:.3f} s; launches {launches}; means "
+              f"{gm.tolist()} against render's {wm.tolist()}, max rel diff {rel:.2e} (limit "
+              f"{FRAME_MEAN_RTOL}), largest pixel difference "
+              f"{(img - want).abs().max().item():.3e}")
+        if min(launches[key] for key in ("K1", "K2", "K3", "K4")) <= 0:
+            raise AssertionError(f"a kernel was not launched on the sharded path: {launches}")
+        if not rel <= FRAME_MEAN_RTOL:
+            raise AssertionError("the sharded frame's means disagree with render's")
+        if not torch.equal(img, want):
+            raise AssertionError("one rank's sharded frame differs from render's")
+        del scene, img, want
+
+        ad_scene, _, params = ad_setup(dev)
+        target = torch.zeros((ad_scene.config.height, ad_scene.config.width, 3), device=dev)
+        pm.loss_and_grad_sharded(ad_scene, params, target, mesh, 4, 1)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = pm.loss_and_grad_sharded(ad_scene, params, target, mesh, 4, 2)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ad_launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+        buffers = k1.GRAD_BUFFERS
+        loss1, grads1 = ad.grad_render(ad_scene, params, target, spp=4, seed=2)
+        lrel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+        cos = {key: float(torch.nn.functional.cosine_similarity(
+            grads[key].flatten().double(), grads1[key].flatten().double(), dim=0))
+            for key in grads}
+        print(f"sharded AD step {ad_scene.config.width}x{ad_scene.config.height} 4spp depth "
+              f"{ad_scene.config.max_depth}: {secs:.3f} s, loss {float(loss):.6e} against "
+              f"grad_render's {float(loss1):.6e} (rel {lrel:.2e}, limit {SHARDED_LOSS_RTOL}); "
+              f"gradient cosines {cos} (limit {SHARDED_GRAD_COS}); launches {ad_launches}; "
+              f"table-gradient buffers {buffers}")
+        if not lrel <= SHARDED_LOSS_RTOL or min(cos.values()) < SHARDED_GRAD_COS:
+            raise AssertionError("the sharded AD step disagrees with grad_render")
+        if ad_launches["K1-bwd"] <= 0 or buffers != 1:
+            raise AssertionError(f"sharded AD step: launches {ad_launches}, buffers {buffers}")
+    finally:
+        dist.destroy_process_group()
+    return launches, ad_launches
+
+
 T_START = time.perf_counter()
 PHASE_SECONDS = {}
 _LAP = [T_START]
@@ -2422,6 +2656,12 @@ def main():
     lap("27 volpath AD step")
     pt_launches, bd_launches, pt_frame, bd_frame = phase_light_tracers(dev)
     lap("28 ptracer, bdpt")
+    xml_launches = phase_xml_cli(dev)
+    lap("29 XML scene through the CLI")
+    phase_chi2(dev)
+    lap("30 chi-square on the card")
+    sh_launches, sh_ad_launches = phase_sharded(dev)
+    lap("31 sharded render and AD step")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -2451,7 +2691,8 @@ def main():
             "camera_ad_step": cam_ad_launches[key], "shapes": shapes_launches[key],
             "shapes_sdf": sdf_launches[key], "volpath": vol_launches[key],
             "volpath_ad_step": vol_ad_launches[key], "ptracer": pt_launches[key],
-            "bdpt": bd_launches[key]},
+            "bdpt": bd_launches[key], "xml_cli": xml_launches[key],
+            "sharded": sh_launches[key], "sharded_ad_step": sh_ad_launches[key]},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
             blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
             image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
@@ -2474,7 +2715,10 @@ def main():
                            "blend_ad_step": blend_ad_launches["K1-bwd"],
                            "image_ad_step": image_ad_launches["K1-bwd"],
                            "camera_ad_step": cam_ad_launches["K1-bwd"],
-                           "volpath_ad_step": vol_ad_launches["K1-bwd"]}))
+                           "volpath_ad_step": vol_ad_launches["K1-bwd"],
+                           "xml_cli": xml_launches["K1-bwd"],
+                           "sharded": sh_launches["K1-bwd"],
+                           "sharded_ad_step": sh_ad_launches["K1-bwd"]}))
     print(f"volpath frame tracking loops: {vol_steps} steps, {vol_checks} host checks; "
           f"volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "

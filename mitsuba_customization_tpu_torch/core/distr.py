@@ -67,7 +67,7 @@ def _select_at(rows, idx):
 
 class DiscreteDistribution(NamedTuple):
     """Normalized discrete distribution over K outcomes: one shared row, or
-    a stack of rows (R, K) of which each lane names one (`row=`)."""
+    a stack of rows (R, K) of which each lane names one (`slice_=`)."""
 
     pmf: torch.Tensor  # (K,) or (R, K)
     cdf: torch.Tensor  # (K,) or (R, K)
@@ -78,17 +78,17 @@ class DiscreteDistribution(NamedTuple):
         pmf = w / w.sum(-1, keepdim=True)
         return DiscreteDistribution(pmf=pmf, cdf=torch.cumsum(pmf, -1))
 
-    def sample_reuse(self, u, row=None):
+    def sample_reuse(self, u, slice_=None):
         """Sample an index and re-uniformize the used random number (per
-        lane from stacked row `row` when given)."""
-        cdf = self.cdf if row is None else self.cdf[row]
+        lane from stacked row `slice_` when given)."""
+        cdf = self.cdf if slice_ is None else self.cdf[slice_]
         idx, lo, p = _invert_cdf(cdf, u)
         u2 = torch.clamp((u - lo) / torch.clamp(p, min=_TINY), 0.0, 1.0 - 1e-7)
         return idx, u2
 
-    def eval_pmf(self, idx, row=None):
+    def eval_pmf(self, idx, slice_=None):
         idx = torch.clamp(idx, 0, self.pmf.shape[-1] - 1)
-        return self.pmf[idx] if row is None else self.pmf[row, idx]
+        return self.pmf[idx] if slice_ is None else self.pmf[slice_, idx]
 
 
 class ContinuousDistribution(NamedTuple):

@@ -1,7 +1,7 @@
 """Sampling warps: [0,1)^2 -> disk / hemisphere / sphere, with pdfs.
 
-PyTorch port of the warps of mitsuba_customization_tpu/core/warp.py that
-the flagship and matpreview paths use.
+PyTorch port of mitsuba_customization_tpu/core/warp.py's disk, hemisphere,
+sphere, cone and triangle warps.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import torch
 from mitsuba_customization_tpu_torch.core.math import safe_sqrt
 
 INV_PI = 1.0 / math.pi
+INV_TWO_PI = 0.5 / math.pi
+INV_FOUR_PI = 0.25 / math.pi
 
 
 def square_to_uniform_disk_concentric(sample):
@@ -36,6 +38,10 @@ def square_to_uniform_disk_concentric(sample):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], -1)
 
 
+def square_to_uniform_disk_concentric_pdf(p):
+    return torch.full(p.shape[:-1], INV_PI, device=p.device)
+
+
 def square_to_cosine_hemisphere(sample):
     """Cosine-weighted hemisphere via concentric disk + projection."""
     p = square_to_uniform_disk_concentric(sample)
@@ -47,11 +53,37 @@ def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp(d[..., 2], min=0.0) * INV_PI
 
 
+def square_to_uniform_hemisphere(sample):
+    """Uniform hemisphere (z >= 0)."""
+    return _around_z(sample[..., 0], sample[..., 1])
+
+
+def square_to_uniform_hemisphere_pdf(d):
+    return torch.where(d[..., 2] >= 0.0, INV_TWO_PI, 0.0)
+
+
 def square_to_uniform_sphere(sample):
     """Uniform sphere."""
-    z = 1.0 - 2.0 * sample[..., 0]
+    return _around_z(1.0 - 2.0 * sample[..., 0], sample[..., 1])
+
+
+def square_to_uniform_sphere_pdf(d):
+    return torch.full(d.shape[:-1], INV_FOUR_PI, device=d.device)
+
+
+def square_to_uniform_cone(sample, cos_cutoff):
+    """Uniform direction in the cone cos(theta) >= cos_cutoff around +z."""
+    return _around_z(1.0 - sample[..., 0] * (1.0 - cos_cutoff), sample[..., 1])
+
+
+def square_to_uniform_cone_pdf(d, cos_cutoff):
+    return torch.where(d[..., 2] >= cos_cutoff, INV_TWO_PI / (1.0 - cos_cutoff), 0.0)
+
+
+def _around_z(z, u_phi):
+    """The unit vector at height z and azimuth 2 pi u_phi."""
     r = safe_sqrt(1.0 - z * z)
-    phi = 2.0 * math.pi * sample[..., 1]
+    phi = 2.0 * math.pi * u_phi
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 

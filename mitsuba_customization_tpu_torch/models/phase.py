@@ -148,11 +148,13 @@ def sggx_sample(S, wi, sample2):
     s_ji = quad(wj, wi)
 
     det = torch.clamp(_sggx_det(S), min=1e-20)
-    tmp = m.safe_sqrt(torch.clamp(s_jj * s_kk - s_kj * s_kj, min=1e-20))
+    # the listing's basis; the JAX package has S_kk / S_kj where S_ii /
+    # S_ji belong, which biases its samples (ROADMAP's reference faults)
+    tmp = m.safe_sqrt(torch.clamp(s_jj * s_ii - s_ji * s_ji, min=1e-20))
     inv_sqrt_sii = 1.0 / torch.sqrt(s_ii)
     zero = torch.zeros_like(tmp)
     mk = torch.stack([torch.sqrt(det) / tmp, zero, zero], -1)
-    mj = torch.stack([-inv_sqrt_sii * (s_ki * s_kj - s_kk * s_ji) / tmp,
+    mj = torch.stack([-inv_sqrt_sii * (s_ki * s_ji - s_kj * s_ii) / tmp,
                       inv_sqrt_sii * tmp, zero], -1)
     mi = torch.stack([inv_sqrt_sii * s_ki, inv_sqrt_sii * s_ji, inv_sqrt_sii * s_ii], -1)
 

@@ -136,10 +136,12 @@ def _normalize_slot(params, slot):
     return slot if params.table.dim() == 5 else None
 
 
-def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None, wo_b=None,
-           mask_b=None):
+def eval_f(params: TabulatedBRDF, wi, wo, slot=None, mask=None, coherent=False, *,
+           wo_b=None, mask_b=None):
     """Interpolated f(wi, wo) (no cosine) through kernel K1; with wo_b,
-    also f(wi, wo_b) on the same slots, as rows N..2N-1."""
+    also f(wi, wo_b) on the same slots, as rows N..2N-1. `coherent` takes
+    the JAX package's place and changes nothing there either (it skips
+    that kernel's sort, which K1 does not have)."""
     return merl_sorted.eval_trilinear(
         params.table, wi, wo, _normalize_slot(params, slot), mask, wo_b, mask_b,
         sink=params.sink,
@@ -399,7 +401,8 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
     pdf_nee = torch.where(nee_ok & cos_wi_ok, pdf_nee, 0.0)
 
     # ---- K1: one trilinear eval over the halves wo_nee and wo_sampled ----
-    f2 = eval_f(params, wi, wo_nee, slot_safe, nee_ok & cos_wi_ok, wo, valid_s_m)
+    f2 = eval_f(params, wi, wo_nee, slot_safe, nee_ok & cos_wi_ok,
+                wo_b=wo, mask_b=valid_s_m)
     f_nee = f2[:n] * torch.clamp(m.cos_theta(wo_nee), min=0.0)[..., None]
     f_s = f2[n:] * torch.clamp(m.cos_theta(wo), min=0.0)[..., None]
 

@@ -69,11 +69,12 @@ def _pad_volumes(volumes):
     return out
 
 
-def build_stack(rows, device, attr=None):
+def build_stack(rows, attr=None, *, device="cuda"):
     """TextureStack on `device` from rows: dicts {type, value0, value1,
     uv_scale, image (H, W[, 3]) or None, volume (D, H, W[, 3]) or None,
     vol_to_world 4x4 or None}; attr: optional (P, 9) per-prim corner
-    attribute table read by mesh_attribute rows."""
+    attribute table read by mesh_attribute rows. The positional order is
+    the JAX package's; `device` is the port's own."""
     m_count = len(rows)
     tex_type = np.zeros(m_count, np.int64)
     value0 = np.zeros((m_count, 3), np.float32)

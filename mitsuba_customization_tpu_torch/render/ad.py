@@ -12,8 +12,9 @@ again instead of keeping its graph. The MERL table's gradient is K1's
 backward kernel (ops/merl_sorted.eval_trilinear_bwd).
 
 `render_ad` is the differentiable entry, `grad_render` one (loss,
-gradients) evaluation of the MSE against a target, `Optimizer` Adam over a
-parameter dict (torch.optim.Adam in place of optax) and `optimize` the
+gradients) evaluation of the MSE against a target, `Optimizer` Adam (or
+any torch.optim optimiser, in place of optax's) over a parameter dict and
+`optimize` the
 loop of BASELINE configs[3]: recover MERL tables or GGX roughness from a
 reference render by pixel-gradient descent, rebuilding the sampling CDFs
 from the new table at every step.
@@ -51,23 +52,31 @@ def grad_render(scene, params, target, spp=16, seed=0):
 
 
 class Optimizer:
-    """mi.ad.Adam over a scene-parameter dict: torch.optim.Adam on copies
-    of the given tensors; the keys in clip_nonneg are clamped to >= 0
-    after each step (BRDF tables, albedos, roughness). `optimizer` takes
-    the JAX package's place for another optimiser; only None (Adam) is
-    ported (ROADMAP item 16)."""
+    """mi.ad.Adam over a scene-parameter dict, on copies of the given
+    tensors: `optimizer` None is torch.optim.Adam(lr), as optax.adam(lr)
+    in the JAX package; otherwise a torch.optim.Optimizer subclass (built
+    as optimizer(params, lr=lr)) or a factory taking the list of parameter
+    tensors and returning an optimiser (the torch counterparts of "any
+    optax optimiser"). The keys in clip_nonneg are clamped to >= 0 after
+    each step (BRDF tables, albedos, roughness)."""
 
     def __init__(self, params, lr=0.01, optimizer=None, clip_nonneg=None):
-        if optimizer is not None:
-            raise NotImplementedError(
-                "Optimizer(optimizer=...) is not ported (ROADMAP item 16): Adam only")
         self.params = {k: v.detach().clone().requires_grad_(True)
                        for k, v in params.items()}
-        self.opt = torch.optim.Adam(list(self.params.values()), lr=lr)
+        tensors = list(self.params.values())
+        if optimizer is None:
+            self.opt = torch.optim.Adam(tensors, lr=lr)
+        elif isinstance(optimizer, type) and issubclass(optimizer, torch.optim.Optimizer):
+            self.opt = optimizer(tensors, lr=lr)
+        elif callable(optimizer):
+            self.opt = optimizer(tensors)
+        else:
+            raise TypeError(f"optimizer must be None, a torch.optim.Optimizer class or a "
+                            f"factory of the parameter list, not {optimizer!r}")
         self.clip_nonneg = set(clip_nonneg or [])
 
     def step(self, grads):
-        """One Adam step with the gradients {key: tensor}; returns the
+        """One optimiser step with the gradients {key: tensor}; returns the
         parameter dict."""
         for k, p in self.params.items():
             p.grad = grads[k]

@@ -246,14 +246,14 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
 
     out_p_area = torch.zeros(shape, device=dev)
     if table.has_area and AREA in table.present:
-        q, _ = table.prim_dist.sample_reuse(u2[..., 0], row=k)
+        q, _ = table.prim_dist.sample_reuse(u2[..., 0], slice_=k)
         x, n_e = _sample_position_on_prim(geom, table.em_prims[q], sample3[..., 1:3])
         to_x = x - p_ref
         dist2 = (to_x * to_x).sum(-1)
         dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
         d = to_x / dist[..., None]
         cos_e = m.dot(n_e, -d)
-        p_area = m.safe_div(table.prim_dist.eval_pmf(q, row=k), table.prim_area[q])
+        p_area = m.safe_div(table.prim_dist.eval_pmf(q, slice_=k), table.prim_area[q])
         front = cos_e > 0.0
         put(AREA, d, dist, torch.where(front, m.safe_div(p_area * dist2, cos_e), 0.0),
             torch.where(front[..., None], rad_k, 0.0), smooth)
@@ -332,7 +332,7 @@ def pdf_hit_direction(table: EmitterTable, geom: geo.Geometry, si, p_ref):
     qs = _q_of_prim(table, si.prim)
     valid = (si.prim >= 0) & (si.emitter >= 0)
     em = si.emitter.clamp(min=0)
-    pmf_q = table.prim_dist.eval_pmf(qs, row=em)
+    pmf_q = table.prim_dist.eval_pmf(qs, slice_=em)
     sel = table.select.eval_pmf(em)
     to_x = si.p - p_ref
     dist2 = (to_x * to_x).sum(-1)
@@ -353,7 +353,7 @@ def pdf_hit_area(table: EmitterTable, si):
     qs = _q_of_prim(table, si.prim)
     valid = (si.prim >= 0) & (si.emitter >= 0)
     em = si.emitter.clamp(min=0)
-    p = (table.select.eval_pmf(em) * table.prim_dist.eval_pmf(qs, row=em)
+    p = (table.select.eval_pmf(em) * table.prim_dist.eval_pmf(qs, slice_=em)
          / torch.clamp(table.prim_area[qs], min=1e-12))
     return torch.where(valid, p, 0.0)
 

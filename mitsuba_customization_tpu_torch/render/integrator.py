@@ -204,11 +204,14 @@ def _bounce_step(ad_mode, body=_bounce):
 
 
 def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
-                ad_mode=False, compact_caps=None):
+                ad_mode=False, coherent0=False, compact_caps=None):
     """Per-lane path-traced radiance for primary rays ray0.
 
-    compact_caps: a wavefront-compaction fraction schedule (None = off,
-    see _run_bounces_compact). Returns (L (N, 3), {"rays_per_bounce":
+    coherent0 takes the JAX package's place and changes nothing there
+    either (it skips the first bounce's sort in that package's MERL
+    kernel, which the port's K1 does not have). compact_caps: a
+    wavefront-compaction fraction schedule (None = off, see
+    _run_bounces_compact). Returns (L (N, 3), {"rays_per_bounce":
     (max_depth,) float64 tensor}).
 
     Differentiable in the scene's parameters (MERL tables, BSDF fields,
@@ -623,13 +626,18 @@ def _integrator_kind(scene, integrator):
 
 
 def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=False,
-                 *, pixel=None, sample_idx=None):
-    """Trace the lanes (pixel, sample_idx) (int64 tensors; all pixel * spp
-    lanes when None). Returns (L (N, C), film_xy (N, 2), stats): C = 3,
+                 lane_offset=0, n_lanes=None, pixel=None, sample_idx=None,
+                 coherent0=False):
+    """Trace the lanes (pixel, sample_idx) (int64 tensors), or when they
+    are None the contiguous lane range [lane_offset, lane_offset +
+    n_lanes) of the frame's pixel-major lanes (lane = pixel * spp +
+    sample; n_lanes None: to the frame's end), the JAX package's
+    sharding hook (the port's parallel/mesh.py renders a rank's rows
+    through render_rows, in render's lane order, instead). Returns (L (N,
+    C), film_xy (N, 2), stats): C = 3,
     or 6 for `moment` ([L, L^2]). `spp` is the frame's total spp. The
-    positional arguments are the JAX package's; pixel and sample_idx
-    follow its lane_offset and n_lanes there (not ported, ROADMAP item
-    17), so here they are keyword-only.
+    arguments are the JAX package's, in its order; coherent0 changes
+    nothing (see trace_paths).
 
     The integrator dispatch is the JAX package's: path (prb and prb_basic
     render as path); direct is path at max_depth <= 2; depth, aov /
@@ -648,7 +656,9 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
         max_depth = min(max_depth, 2)
     h, w = cfg.height, cfg.width
     if pixel is None:
-        lanes = torch.arange(h * w * spp, dtype=torch.int64, device=scene.device)
+        n = h * w * spp - lane_offset if n_lanes is None else n_lanes
+        lanes = torch.arange(lane_offset, lane_offset + n, dtype=torch.int64,
+                             device=scene.device)
         pixel, sample_idx = lanes // spp, lanes % spp
     smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
 
@@ -706,6 +716,62 @@ def _chunk_rows(h, w):
     return rows
 
 
+def render_rows(scene, spp, seed, integrator, max_depth, ad_mode, row0, n_rows, halo=0):
+    """The frame's rows [row0, row0 + n_rows) in (row slab, spp slice)
+    passes of at most MAX_WAVEFRONT lanes, the pixels of a slab in 16x16
+    blocks when it tiles evenly (row-major otherwise). Returns (out,
+    rays traced): under the box filter out is the rows' (n_rows, W, C)
+    image (each pixel's lanes averaged; the slabs summed out of place over
+    the spp passes, which autograd keeps); under any other filter out is
+    (img (n_rows + 2 halo, W, C), wsum (n_rows + 2 halo, W)), every pass's
+    samples splatted into the film rows [row0 - halo, row0 + n_rows +
+    halo). `render` takes all rows (halo 0); a sharded render
+    (parallel/mesh.py) a rank's slab with HALO rows on each side."""
+    cfg = scene.config
+    dev = scene.device
+    h, w = cfg.height, cfg.width
+    rows = _chunk_rows(n_rows, w)
+    chunk = _chunk_spp(rows * w, spp)
+    n_spp_pass = spp // chunk
+    n_row_pass = n_rows // rows
+    box = cfg.rfilter == "box"
+
+    blocked = rows % _BLOCK == 0 and w % _BLOCK == 0 and rows * w * chunk >= _BLOCK
+    if blocked:
+        order = np.arange(rows * w, dtype=np.int64).reshape(
+            rows // _BLOCK, _BLOCK, w // _BLOCK, _BLOCK
+        ).transpose(0, 2, 1, 3).reshape(-1)
+    else:
+        order = np.arange(rows * w, dtype=np.int64)
+    pixel0 = torch.as_tensor(order, device=dev).repeat_interleave(chunk) + row0 * w
+    sidx_local = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(rows * w)
+
+    slabs = [None] * n_row_pass
+    img = wsum = None
+    rays = torch.zeros((), dtype=torch.float64, device=dev)
+    for p in range(n_spp_pass * n_row_pass):
+        row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
+        L, film_xy, stats = render_lanes(
+            scene, spp, seed, integrator, max_depth, ad_mode,
+            pixel=pixel0 + row_pass * rows * w,
+            sample_idx=sidx_local + spp_pass * chunk,
+        )
+        rays = rays + stats["rays_per_bounce"].sum()
+        if not box:
+            part, wpart = film_mod.splat_slab(L, film_xy, row0 - halo, n_rows + 2 * halo, h, w,
+                                              film_mod.FILTER_NAMES[cfg.rfilter])
+            img = part if img is None else img + part
+            wsum = wpart if wsum is None else wsum + wpart
+            continue
+        if blocked:
+            slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
+        else:
+            slab = film_mod.develop_box(L, rows, w, chunk)
+        prev = slabs[row_pass]
+        slabs[row_pass] = slab if prev is None else prev + slab
+    return (torch.cat(slabs) / n_spp_pass if box else (img, wsum)), rays
+
+
 def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
            ad_mode=False, return_stats=False):
     """Full pipeline to an (H, W, C) image (C = 6 for moment, else 3), with
@@ -733,53 +799,10 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
         from mitsuba_customization_tpu_torch.render.bdpt import render_bdpt
 
         return render_bdpt(scene, spp, seed, max_depth, return_stats)
-    dev = scene.device
-    h, w = cfg.height, cfg.width
-    rows = _chunk_rows(h, w)
-    chunk = _chunk_spp(rows * w, spp)
-    n_spp_pass = spp // chunk
-    n_row_pass = h // rows
-    box = cfg.rfilter == "box"
-
-    # 16x16 pixel blocks when the slab tiles evenly, row-major otherwise
-    blocked = rows % _BLOCK == 0 and w % _BLOCK == 0 and rows * w * chunk >= _BLOCK
-    if blocked:
-        order = np.arange(rows * w, dtype=np.int64).reshape(
-            rows // _BLOCK, _BLOCK, w // _BLOCK, _BLOCK
-        ).transpose(0, 2, 1, 3).reshape(-1)
-    else:
-        order = np.arange(rows * w, dtype=np.int64)
-    pixel0 = torch.as_tensor(order, device=dev).repeat_interleave(chunk)
-    sidx_local = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(rows * w)
-
-    # box: row slabs summed out of place over spp passes (autograd keeps
-    # each); splat: the full film's image and weight sums
-    slabs = [None] * n_row_pass
-    img = wsum = None
-    rays = torch.zeros((), dtype=torch.float64, device=dev)
-    for p in range(n_spp_pass * n_row_pass):
-        row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
-        L, film_xy, stats = render_lanes(
-            scene, spp, seed, integrator, max_depth, ad_mode,
-            pixel=pixel0 + row_pass * rows * w,
-            sample_idx=sidx_local + spp_pass * chunk,
-        )
-        rays = rays + stats["rays_per_bounce"].sum()
-        if not box:
-            part, wpart = film_mod.splat(L, film_xy, h, w, film_mod.FILTER_NAMES[cfg.rfilter])
-            img = part if img is None else img + part
-            wsum = wpart if wsum is None else wsum + wpart
-            continue
-        if blocked:
-            slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
-        else:
-            slab = film_mod.develop_box(L, rows, w, chunk)
-        prev = slabs[row_pass]
-        slabs[row_pass] = slab if prev is None else prev + slab
-    if box:
-        out = torch.cat(slabs) / n_spp_pass
-    else:
-        out = img / torch.clamp(wsum, min=1e-12)[..., None]
+    h = cfg.height
+    out, rays = render_rows(scene, spp, seed, integrator, max_depth, ad_mode, 0, h)
+    if cfg.rfilter != "box":
+        out = out[0] / torch.clamp(out[1], min=1e-12)[..., None]
     if cfg.sensor_scale != 1.0:
         out = out * cfg.sensor_scale  # measurement sensors (W/m^2)
     if return_stats:

@@ -175,8 +175,11 @@ def params_from_numpy(arrays, device):
 
 
 def _config(config):
+    # The JAX loader sets use_bvh on every scene past 64 prims and builds
+    # its BVH beside the clusters; `intersector` says which one traces,
+    # and "bvh" is refused below.
     cfg = SceneConfig(**{
-        f: getattr(config, f) for f in SceneConfig.__dataclass_fields__
+        f: getattr(config, f) for f in SceneConfig.__dataclass_fields__ if f != "use_bvh"
     })
     if (cfg.integrator not in INTEGRATOR_TYPES or cfg.rfilter not in FILTER_NAMES
             or cfg.sampler not in SAMPLERS or cfg.intersector not in ("brute", "cluster")):

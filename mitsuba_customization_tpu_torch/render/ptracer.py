@@ -99,8 +99,8 @@ def sample_emitter_ray(emitters, geom, u_sel, u_pos, u_dir):
     beam = emitters.beam_cos[k]
 
     # area: a prim by the emitter's pmf, a uniform point, a cosine direction
-    q, u_rest2 = emitters.prim_dist.sample_reuse(u_rest, row=k)
-    pmf_q = emitters.prim_dist.eval_pmf(q, row=k)
+    q, u_rest2 = emitters.prim_dist.sample_reuse(u_rest, slice_=k)
+    pmf_q = emitters.prim_dist.eval_pmf(q, slice_=k)
     area = torch.clamp(emitters.prim_area[q], min=1e-12)
     p_area, n_area = em_mod._sample_position_on_prim(
         geom, emitters.em_prims[q], torch.stack([u_pos, u_rest2], -1))

@@ -102,7 +102,7 @@ _DEFAULT_K = (3.9129, 2.4528, 2.1421)
 
 @dataclasses.dataclass
 class SceneConfig:
-    """Static scene facts (the JAX SceneConfig's fields this port reads)."""
+    """Static scene facts: the JAX SceneConfig's fields, in its order."""
 
     width: int = 256
     height: int = 256
@@ -112,19 +112,28 @@ class SceneConfig:
     integrator: str = "path"
     sampler: str = "independent"
     rfilter: str = "box"
+    # the JAX package's skip-link BVH (its intersector for scenes past
+    # clusters.MAX_PRIMS); not ported, so True raises
+    use_bvh: bool = False
+    # "brute" (all pairs) or "cluster" (ops/clusters.py, K3 and K4)
+    intersector: str = "brute"
     hide_emitters: bool = False
+    # radiance -> measurement: render multiplies the film by it (pi for an
+    # irradiancemeter)
+    sensor_scale: float = 1.0
     # False when the scene has no emitter at all: the integrator then
     # skips NEE sampling and shadow rays statically.
     nee: bool = True
-    # "brute" (all pairs) or "cluster" (ops/clusters.py, K3 and K4)
-    intersector: str = "brute"
     # Per-bounce wavefront-compaction fraction schedule (None = off):
     # entering bounce b keeps ceil(n * compact[min(b, len-1)]) lanes
     # (render/integrator._run_bounces_compact).
     compact: Optional[tuple] = None
-    # radiance -> measurement: render multiplies the film by it (pi for an
-    # irradiancemeter)
-    sensor_scale: float = 1.0
+
+    def __post_init__(self):
+        if self.use_bvh:
+            raise NotImplementedError(
+                "use_bvh (the skip-link BVH for scenes past clusters.MAX_PRIMS) is not "
+                "ported (ROADMAP item 18)")
 
 
 @dataclasses.dataclass
@@ -963,7 +972,7 @@ def load_dict(d: dict, device="cuda") -> Scene:
             raise ValueError("mesh_attribute texture needs a mesh shape declaring "
                              "'vertex_colors'")
         kernel_stacks[bsdf_mod.TEXTURED_DIFFUSE] = tex_mod.build_stack(
-            texture_rows, device, attr=attr_np)
+            texture_rows, attr_np, device=device)
     if not mat_types:
         mat_types, mat_slots = [bsdf_mod.DIFFUSE], [0]
     blend = {}
@@ -981,7 +990,7 @@ def load_dict(d: dict, device="cuda") -> Scene:
         nm_slot = np.full(len(mat_types), -1, np.int64)
         for mid, row in normal_bindings.items():
             nm_slot[mid] = row
-        normal = dict(normal_tex=tex_mod.build_stack(normal_rows, device),
+        normal = dict(normal_tex=tex_mod.build_stack(normal_rows, device=device),
                       nm_slot=torch.as_tensor(nm_slot, device=device))
     bsdfs = bsdf_mod.BSDFTable(
         mat_type=torch.as_tensor(mat_types, dtype=torch.int64, device=device),

@@ -17,6 +17,10 @@ constant sky. `probe_compact_schedule` is the JAX package's benchmark
 probe (`bench._probe_compact_schedule`). They let scripts and tests build
 the scenes without the JAX package.
 
+`production_dict` is the literal of the production configuration
+(`__graft_entry__._production_scene`).
+`matpreview_xml` writes the same scene as a Mitsuba XML file beside its
+PLY meshes and MERL tables.
 `camera_dict` is the matpreview scene seen through a thin lens focused on
 the blob, sampled by multijitter and developed by the gaussian filter.
 `volpath_dict` is the matpreview scene with a homogeneous fog ball and a
@@ -179,6 +183,100 @@ def matpreview_dict(res=512, spp=16, depth=8, n_sub=5, n_materials=10,
             },
         }
     return d
+
+
+def production_dict(res=32, spp=2, depth=3, compact=(1.0, 0.8, 0.6)):
+    """The literal of the repository's production configuration
+    (`__graft_entry__._production_scene`): a 320-triangle MERL blob (the
+    cluster intersector), a null sphere around a homogeneous medium (the
+    volumetric tracer), a GGX floor, an area light, a sky, the gaussian
+    film filter and a compaction schedule."""
+    v, f = icosphere_blob(n_sub=2)
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": depth, "compact": tuple(compact)},
+        "sensor": {
+            "type": "perspective",
+            "fov": 45,
+            "to_world": look_at([0, 1.2, -3.6], [0, 0, 0], [0, 1, 0]),
+            "film": {"width": res, "height": res, "rfilter": "gaussian"},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "blob": {"type": "mesh", "vertices": v, "faces": f, "normals": vertex_normals(v, f),
+                 "bsdf": {"type": "merl", "table": synthetic_merl_table(0.1, [1.0, 0.8, 0.5])}},
+        "fog_ball": {"type": "sphere", "center": [1.4, 0.2, 0.3], "radius": 0.7,
+                     "bsdf": {"type": "null"},
+                     "interior": {"type": "homogeneous", "sigma_t": [0.8, 0.9, 1.0],
+                                  "albedo": [0.7, 0.7, 0.7]}},
+        "floor": {"type": "rectangle",
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": -90}, "scale": 8.0,
+                               "translate": [0, -1.0, 0]},
+                  "bsdf": {"type": "roughconductor", "alpha": 0.2}},
+        "light": {"type": "rectangle",
+                  "to_world": {"rotate": {"axis": [1, 0, 0], "angle": 90}, "scale": 0.8,
+                               "translate": [1.0, 2.8, -0.5]},
+                  "emitter": {"type": "area", "radiance": [10.0, 9.0, 8.0]}},
+        "sky": {"type": "constant", "radiance": [0.05, 0.06, 0.08]},
+    }
+
+
+def matpreview_xml(root, n_sub=5, n_materials=10):
+    """Write the matpreview scene as a Mitsuba XML file under `root`: each
+    band of the blob a binary PLY (all vertices, their normals and the
+    band's faces, written by utils/ply.write_ply), each band's table a MERL
+    .binary file (models/merl.write_merl), id'd top-level <bsdf>s that the
+    bands <ref>, the floor, the area light and the sky, in
+    matpreview_dict's order and transforms, and <default>s for spp, res
+    and depth (8, 512, 8). Returns the XML's path."""
+    from mitsuba_customization_tpu_torch.models.merl import write_merl
+
+    os.makedirs(root, exist_ok=True)
+    d = matpreview_dict(n_sub=n_sub, n_materials=n_materials)
+    bands, shapes = [], []
+    for i in range(n_materials):
+        blob = d[f"blob_{i}"]
+        write_ply(os.path.join(root, f"blob_{i}.ply"), blob["vertices"], blob["faces"],
+                  normals=blob["normals"])
+        write_merl(os.path.join(root, f"band_{i}.binary"), blob["bsdf"]["table"])
+        bands.append(f'  <bsdf type="merl" id="band_{i}">'
+                     f'<string name="filename" value="band_{i}.binary"/></bsdf>')
+        shapes.append(f'  <shape type="ply" id="blob_{i}">'
+                      f'<string name="filename" value="blob_{i}.ply"/><ref id="band_{i}"/>'
+                      f'</shape>')
+    xml = "\n".join([
+        '<scene version="3.0.0">',
+        '  <default name="spp" value="8"/>',
+        '  <default name="res" value="512"/>',
+        '  <default name="depth" value="8"/>',
+        '  <integrator type="path"><integer name="max_depth" value="$depth"/></integrator>',
+        '  <sensor type="perspective">',
+        '    <float name="fov" value="40"/>',
+        '    <transform name="to_world">'
+        '<lookat origin="0, 1.6, -3.6" target="0, 0.1, 0" up="0, 1, 0"/></transform>',
+        '    <film type="hdrfilm"><integer name="width" value="$res"/>'
+        '<integer name="height" value="$res"/><rfilter type="box"/></film>',
+        '    <sampler type="independent"><integer name="sample_count" value="$spp"/></sampler>',
+        '  </sensor>',
+        *bands,
+        '  <shape type="rectangle" id="floor">',
+        '    <transform name="to_world"><scale value="12"/><rotate x="1" angle="-90"/>'
+        '<translate y="-1.2"/></transform>',
+        '    <bsdf type="roughconductor"><float name="alpha" value="0.25"/></bsdf>',
+        '  </shape>',
+        '  <shape type="rectangle" id="light">',
+        '    <transform name="to_world"><scale value="1.2"/><rotate x="1" angle="90"/>'
+        '<translate x="1.5" y="3.2" z="-1.0"/></transform>',
+        '    <emitter type="area"><rgb name="radiance" value="18, 17, 15"/></emitter>',
+        '  </shape>',
+        '  <emitter type="constant" id="sky"><rgb name="radiance" value="0.08, 0.09, 0.12"/>'
+        '</emitter>',
+        *shapes,
+        '</scene>',
+    ])
+    path = os.path.join(root, "matpreview.xml")
+    with open(path, "w") as f:
+        f.write(xml + "\n")
+    return path
 
 
 def probe_compact_schedule(scene, spp=4):

@@ -43,6 +43,26 @@ from mitsuba_customization_tpu_torch.render import sensors as tsensors
 from mitsuba_customization_tpu_torch.utils import obj as tobj
 from mitsuba_customization_tpu_torch.utils import ply as tply
 from mitsuba_customization_tpu_torch.utils import serialized as tser
+from mitsuba_customization_tpu import api as japi
+from mitsuba_customization_tpu import cli as jcli
+from mitsuba_customization_tpu.core import distr as jdistr
+from mitsuba_customization_tpu.models import tabulated as jtab
+from mitsuba_customization_tpu.models import texture as jtex
+from mitsuba_customization_tpu.parallel import mesh as jmesh
+from mitsuba_customization_tpu.render import scene as jscene
+from mitsuba_customization_tpu.render import xml as jxml
+from mitsuba_customization_tpu.utils import checkpoint as jckpt
+from mitsuba_customization_tpu.utils import chi2 as jchi2
+from mitsuba_customization_tpu_torch import api as tapi
+from mitsuba_customization_tpu_torch import cli as tcli
+from mitsuba_customization_tpu_torch.core import distr as tdistr
+from mitsuba_customization_tpu_torch.models import tabulated as ttab
+from mitsuba_customization_tpu_torch.models import texture as ttex
+from mitsuba_customization_tpu_torch.parallel import mesh as tmesh
+from mitsuba_customization_tpu_torch.render import scene as tscene
+from mitsuba_customization_tpu_torch.render import xml as txml
+from mitsuba_customization_tpu_torch.utils import checkpoint as tckpt
+from mitsuba_customization_tpu_torch.utils import chi2 as tchi2
 from mitsuba_customization_tpu_torch.scenes import flagship_dict
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
@@ -90,6 +110,27 @@ def _positional(fn):
     (tobj.read_obj, jobj.read_obj),
     (tply.read_ply, jply.read_ply),
     (tser.read_serialized, jser.read_serialized),
+    (ttex.build_stack, jtex.build_stack),
+    (ttab.eval_f, jtab.eval_f),
+    (tint.trace_paths, jint.trace_paths),
+    (tdistr.DiscreteDistribution.sample_reuse, jdistr.DiscreteDistribution.sample_reuse),
+    (tdistr.DiscreteDistribution.eval_pmf, jdistr.DiscreteDistribution.eval_pmf),
+    (tapi.render, jint.render),
+    (tapi.traverse, japi.traverse),
+    (txml.load_file, jxml.load_file),
+    (txml.parse_file, jxml.parse_file),
+    (tcli.main, jcli.main),
+    (tchi2.ChiSquareTest.__init__, jchi2.ChiSquareTest.__init__),
+    (tchi2.PlanarDomain.__init__, jchi2.PlanarDomain.__init__),
+    (tckpt.save_checkpoint, jckpt.save_checkpoint),
+    (tckpt.load_checkpoint, jckpt.load_checkpoint),
+    (tckpt.latest_step, jckpt.latest_step),
+    (tmesh.make_mesh, jmesh.make_mesh),
+    (tmesh.make_mesh_2level, jmesh.make_mesh_2level),
+    (tmesh._check_divisible, jmesh._check_divisible),
+    (tmesh.render_sharded, jmesh.render_sharded),
+    (tmesh.loss_and_grad_sharded, jmesh.loss_and_grad_sharded),
+    (tmesh.initialize_distributed, jmesh.initialize_distributed),
 ], ids=["render", "trace_volpath", "phase.eval", "phase.sample",
         "sample_interaction", "transmittance", "sigma_t_at", "build_table",
         "recompute_majorant", "connect_sensor", "sample_emitter_ray", "trace_light_paths",
@@ -97,7 +138,12 @@ def _positional(fn):
         "pdf_hit_area", "render_lanes", "render_ad", "grad_render", "optimize", "Optimizer",
         "bsdf.eval", "bsdf.pdf", "bsdf.sample", "bsdf.eval_pdf", "bsdf.bounce_shade",
         "make_sensor", "sample_ray", "make_sampler", "film.splat", "film.develop",
-        "read_obj", "read_ply", "read_serialized"])
+        "read_obj", "read_ply", "read_serialized", "texture.build_stack", "tabulated.eval_f",
+        "trace_paths", "sample_reuse", "eval_pmf", "api.render", "api.traverse",
+        "xml.load_file", "xml.parse_file", "cli.main", "ChiSquareTest", "PlanarDomain",
+        "save_checkpoint", "load_checkpoint", "latest_step", "make_mesh", "make_mesh_2level",
+        "_check_divisible", "render_sharded", "loss_and_grad_sharded",
+        "initialize_distributed"])
 def test_positional_parameters_are_a_prefix_of_the_references(port, ref):
     ours, theirs = _positional(port), _positional(ref)
     assert ours == theirs[:len(ours)], (ours, theirs)
@@ -130,8 +176,9 @@ def test_unported_integrators_and_optimizers_raise():
     from a reference-style positional call: render(scene, 1, 0,
     "ptracer") is render_ptracer's frame, {"type": "volpath"} the
     volumetric tracer's (on a scene without media, the path tracer's
-    lanes), and render_lanes traces them as the JAX package does; an
-    optimizer other than Adam still raises, naming item 16."""
+    lanes), and render_lanes traces them as the JAX package does. Since
+    item 16 the optimizer in third place is a torch.optim class or a
+    factory; anything else (an optax-style name) raises TypeError."""
     from mitsuba_customization_tpu_torch.render.ptracer import render_ptracer
 
     scene = mt.load_dict(flagship_dict(8, 1, 2), "cpu")
@@ -141,8 +188,10 @@ def test_unported_integrators_and_optimizers_raise():
     for integrator in ("ptracer", {"type": "volpath"}):
         L, film_xy, _ = tint.render_lanes(scene, 1, 0, integrator)
         assert L.shape == (64, 3) and film_xy.shape == (64, 2)
-    with pytest.raises(NotImplementedError, match="16"):
+    with pytest.raises(TypeError, match="optimizer"):
         tad.Optimizer({"x": torch.zeros(1)}, 0.01, "sgd")
+    assert isinstance(tad.Optimizer({"x": torch.zeros(1)}, 0.01, torch.optim.SGD).opt,
+                      torch.optim.SGD)
     opt = tad.Optimizer({"x": torch.ones(1)}, 0.5, None, ["x"])
     assert opt.clip_nonneg == {"x"}
 
@@ -158,3 +207,61 @@ def test_load_dict_defaults_to_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             mt.load_dict(d)
+
+
+def test_scene_config_fields_are_the_references():
+    """SceneConfig has the JAX package's fields in its order (use_bvh
+    included), so a positional construction means the same; use_bvh=True
+    (the skip-link BVH) raises, naming item 18."""
+    import dataclasses
+
+    ours = [f.name for f in dataclasses.fields(tscene.SceneConfig)]
+    assert ours == [f.name for f in dataclasses.fields(jscene.SceneConfig)]
+    cfg = tscene.SceneConfig(8, 4, 2, 3, 5, "direct", "independent", "gaussian", False,
+                             "cluster", True, 2.0, False)
+    assert (cfg.integrator, cfg.rfilter, cfg.intersector, cfg.hide_emitters,
+            cfg.sensor_scale, cfg.nee) == ("direct", "gaussian", "cluster", True, 2.0, False)
+    with pytest.raises(NotImplementedError, match="18"):
+        tscene.SceneConfig(use_bvh=True)
+
+
+def test_reference_style_calls_of_the_repaired_entry_points():
+    """build_stack(rows, attr), eval_f(..., mask, coherent), trace_paths(...,
+    ad_mode, coherent0, compact_caps), sample_reuse / eval_pmf(slice_=)
+    and render_lanes(..., ad_mode, lane_offset, n_lanes) as the reference
+    calls them: coherent and coherent0 change nothing, and a lane range is
+    those lanes of the whole frame."""
+    import numpy as np
+
+    from mitsuba_customization_tpu_torch.core.sampler import make_sampler
+    from mitsuba_customization_tpu_torch.render.sensors import sample_ray
+
+    rows = [{"type": ttex.CHECKERBOARD, "value0": (1, 0, 0), "value1": (0, 1, 0)}]
+    attr = np.ones((1, 9), np.float32)
+    st = ttex.build_stack(rows, attr, device="cpu")
+    assert torch.equal(st.attr, torch.as_tensor(attr))
+
+    scene = mt.load_dict(flagship_dict(8, 2, 3), "cpu")
+    tab = scene.bsdfs.stacks[tbsdf.TABULATED]
+    wi = torch.nn.functional.normalize(torch.rand(16, 3) + 0.1, dim=-1)
+    wo = torch.nn.functional.normalize(torch.rand(16, 3) + 0.1, dim=-1)
+    slot = torch.zeros(16, dtype=torch.int64)
+    assert torch.equal(ttab.eval_f(tab, wi, wo, slot, None, True),
+                       ttab.eval_f(tab, wi, wo, slot))
+
+    n = 8 * 8 * 2
+    lanes = torch.arange(n)
+    smp = make_sampler("independent", 0, lanes // 2, lanes % 2, 2)
+    film = torch.rand(n, 2)
+    ray = sample_ray(scene.sensor, film, None, 1.0)
+    a = tint.trace_paths(scene, ray, smp, 3, 5, False, False, True, None)[0]
+    b = tint.trace_paths(scene, ray, smp, 3, 5, False)[0]
+    assert torch.equal(a, b)
+
+    em = scene.emitters
+    u = torch.rand(32)
+    assert torch.equal(em.select.sample_reuse(u, slice_=None)[0], em.select.sample_reuse(u)[0])
+
+    full = tint.render_lanes(scene, 2, 0, None, None, False)[0]
+    part = tint.render_lanes(scene, 2, 0, None, None, False, 40, 24, None, None, True)[0]
+    assert torch.equal(part, full[40:64])

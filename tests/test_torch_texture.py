@@ -89,7 +89,7 @@ def test_texture_eval_matches_jax():
     rows, n_prims = _rows(rng), 11
     attr = rng.random((n_prims, 9)).astype(np.float32)
     js = jtex.build_stack(rows, attr=attr)
-    ts = ttex.build_stack(rows, "cpu", attr=attr)
+    ts = ttex.build_stack(rows, attr, device="cpu")
     assert ts.images.shape == tuple(js.images.shape) == (3, 16, 16, 3)
     for f in ts._fields:
         np.testing.assert_array_equal(getattr(ts, f).numpy(), np.asarray(getattr(js, f)), f)
@@ -133,7 +133,7 @@ def test_textured_diffuse_matches_jax():
     1e-5)."""
     rng = np.random.default_rng(1)
     rows = _rows(rng)[:4]
-    js, ts = jtex.build_stack(rows), ttex.build_stack(rows, "cpu")
+    js, ts = jtex.build_stack(rows), ttex.build_stack(rows, device="cpu")
     n = 3000
     wi, wo, u2 = _lanes(rng, n)
     uv = rng.uniform(-1, 2, (n, 2)).astype(np.float32)
