@@ -183,7 +183,24 @@ Phases, one printed line each; any failure raises (non-zero exit):
      of phase 13's setup against ad.grad_render (losses within 1e-5
      relative, gradient cosines >= 0.9999, K1-bwd launched into one
      table-gradient buffer). A check of the exchange between ranks needs
-     more than one card (tests/test_torch_parallel.py holds it over gloo).
+     more than one card (tests/test_torch_parallel.py holds it over gloo);
+ 32. the big shapes scene: scenes.shapes_dict on the files
+     scenes.shape_files(n_sub=(8, 6, 5)) writes from seed SHAPES_SEED under
+     build/chip_smoke_big_shapes (a 1,310,720-triangle binary PLY, the OBJ,
+     the serialized pair, the instanced group and the analytic prims:
+     about 1.52M prims, past clusters.MAX_PRIMS) through load_dict ->
+     probe_compact_schedule -> render at 512x512, 8 spp, depth 8: file,
+     load and bvh.build seconds, peak device memory and host RSS, the
+     capacity warning, intersector "bvh"; frame seconds and rays/s after
+     one warm-up, launches (K1, K2, B1, B2 launched, K3 and K4 not); B1 on
+     the camera wavefront (2,097,152 rays) and B2 on NEE shadow rays from
+     its hits against their plain walks and timed (kernel, plain walk,
+     bound from render/bvh.walk_work); every B1 / B2 call of one more
+     render recorded and checked on its first 262,144 lanes (B1: hit/miss
+     equal, prims equal on >= 99.9 % of hits, t, u, v bit-equal where
+     they agree, the lanes not bit-equal printed; B2: equal) and timed on
+     those lanes and on all; card against CPU means at 64x64, 4 spp,
+     depth 3 (the CPU walks 1.52M prims lock-step).
 Each phase prints its wall seconds (`phase ...` lines and a `phase
 seconds` summary). Each phase's counts are set to 0 just before its
 render (or AD step) and read just after. It then prints a JSON line describing each kernel
@@ -211,10 +228,20 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
-Every entry also carries `launches_by_phase` (phases 17-31: the blend,
+B1 (bvh_closest) and B2 (bvh_any), which replace the JAX package's XLA
+while_loop walks (no Pallas kernel), carry phase 32's numbers: `ms`,
+`plain_ms` (one run of the plain walk) and `bound_ms` of the camera
+wavefront's call (B1) and its NEE rays (B2), `frame_ms` summed over the
+recorded calls on all lanes, and `checked_frame_ms` /
+`checked_frame_bound_ms` / `frame_share` over their checked lanes; a
+bound counts each lane's maxt and outputs, o and d of live lanes, each
+node some lane visited and each prim some lane tested (44 bytes each),
+and a box test a visit and a slot test a prim test as K3 counts them.
+Every entry also carries `launches_by_phase` (phases 17-32: the blend,
 image, camera and volpath AD steps, the shapes frame with and without
 the SDF, the volpath, ptracer and bdpt frames, the XML frame through the
-CLI, the sharded frame and the sharded AD step; for K1's backward its
+CLI, the sharded frame and the sharded AD step, the big shapes frame
+(B1 and B2: that frame only); for K1's backward its
 AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
 19, 20, 23, 24, 26 and 28 (`materials_frame_ms`, `blend_frame_ms`,
 `image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`,
@@ -686,23 +713,34 @@ def phase_k3(scene, ray):
     return stats, out + (r,)
 
 
-def phase_k4(scene, hits):
-    from mitsuba_customization_tpu_torch.ops import clusters as cl
+def nee_shadow_rays(scene, si, seed=4):
+    """Shadow rays from the hits `si` toward a light sampled by
+    emitters.sample_direction (seeded draws), maxt just short of the
+    light; maxt = 0 on every fourth lane and where there is no hit or no
+    sample."""
     from mitsuba_customization_tpu_torch.render import emitters as em
     from mitsuba_customization_tpu_torch.render import geometry as geo
     from mitsuba_customization_tpu_torch.render.records import Ray
 
-    t, prim, u, v, g, r = hits
-    si = geo.interaction_from_g(g, r, t, prim, u, v)
-    n_all = t.shape[0]
-    gen = torch.Generator(device=t.device).manual_seed(4)
-    u3 = torch.rand((n_all, 3), generator=gen, device=t.device)
+    n_all = si.t.shape[0]
+    gen = torch.Generator(device=si.t.device).manual_seed(seed)
+    u3 = torch.rand((n_all, 3), generator=gen, device=si.t.device)
     ds = em.sample_direction(scene.emitters, scene.geometry, si.p, u3)
     shadow = geo.spawn_ray(si, ds.d)
-    lane = torch.arange(n_all, device=t.device)
+    lane = torch.arange(n_all, device=si.t.device)
     maxt = torch.where(si.valid & (ds.pdf > 0.0) & (lane % 4 != 0),
                        ds.dist * (1.0 - 1e-3), 0.0)
-    ray = Ray(shadow.o, shadow.d, maxt)
+    return Ray(shadow.o, shadow.d, maxt)
+
+
+def phase_k4(scene, hits):
+    from mitsuba_customization_tpu_torch.ops import clusters as cl
+    from mitsuba_customization_tpu_torch.render import geometry as geo
+
+    t, prim, u, v, g, r = hits
+    ray = nee_shadow_rays(scene, geo.interaction_from_g(g, r, t, prim, u, v))
+    n_all = t.shape[0]
+    lane = torch.arange(n_all, device=t.device)
     cs = scene.clusters
     n, plain_s = _plain_span(lambda k: cl.occluded_plain(cs, _sub(ray, k)), n_all)
     rs = _sub(ray, n)
@@ -1258,7 +1296,7 @@ def _reset_counts():
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
-    from mitsuba_customization_tpu_torch.render import medium, sdf
+    from mitsuba_customization_tpu_torch.render import bvh, medium, sdf
 
     k1.LAUNCHES = 0
     k1.LAUNCHES_BWD = 0
@@ -1266,6 +1304,8 @@ def _reset_counts():
     k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = 0
     cl.LAUNCHES["shadow"] = 0
+    bvh.LAUNCHES["closest"] = 0
+    bvh.LAUNCHES["any"] = 0
     sdf.MARCHES = sdf.STEPS = 0  # not a kernel: the SDF march's plain steps
     medium.LOOPS.clear()  # nor are the media's tracking loops
     medium.GRID_BUFFERS = 0
@@ -2533,6 +2573,283 @@ def phase_sharded(dev, res=512, spp=8, depth=8):
     return launches, ad_launches
 
 
+# phase 32: the big shapes scene past clusters.MAX_PRIMS, on the BVH
+BIG_SHAPES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "chip_smoke_big_shapes")
+# icosphere subdivisions: a 1,310,720-triangle PLY, an 81,920-triangle OBJ
+# and 20,480-triangle meshes, about 1.52M prims in all
+BIG_N_SUB = (8, 6, 5)
+# the card-against-CPU frame's depth: the CPU walks 1.52M prims lock-step
+BIG_CMP_DEPTH = 3
+# B1 / B2 bytes: a node's bounds, skip link and slots; what a prim test
+# reads (type, p0, e1, e2); the outputs (B1: t, u, v, prim; B2: a byte)
+NODE_BYTES = 44
+PRIM_TEST_BYTES = 44
+B1_OUT_BYTES, B2_OUT_BYTES = 16, 1
+# B1 against its plain walk: both round every product and sum on its own
+# and walk the same nodes in the same order, so the prim agrees and t, u,
+# v are bit-equal where it does; a prim may differ only where an
+# arithmetic of the card rounds apart from torch's
+B_PRIM_AGREE = 0.999
+
+
+def _bvh_launches():
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    return {"B1": bvh.LAUNCHES["closest"], "B2": bvh.LAUNCHES["any"]}
+
+
+def bvh_bound(ray, work, out_bytes):
+    """B1's or B2's bound on rays `ray` from the walk's own work
+    (render/bvh.walk_work): per lane maxt and the outputs, o and d of the
+    live lanes; each node some lane visited and each prim some lane
+    tested, read once; a box test (cl.BOX_OPS) a visit and a prim test
+    (cl.SLOT_OPS, the shortest triangle test) a test."""
+    from mitsuba_customization_tpu_torch.ops import clusters as cl
+
+    n = ray.o.shape[0]
+    live = int((torch.broadcast_to(ray.maxt, (n,)) > 0).sum())
+    nbytes = (n * (MAXT_BYTES + out_bytes) + live * RAY_BYTES
+              + int(work.nodes.sum()) * NODE_BYTES + int(work.prims.sum()) * PRIM_TEST_BYTES)
+    ops = int(work.visits.sum()) * cl.BOX_OPS + int(work.tests.sum()) * cl.SLOT_OPS
+    return _bound(nbytes, ops)
+
+
+def check_b1(scene, r):
+    """B1 against its plain walk on rays r: hit/miss equal, prims equal on
+    >= B_PRIM_AGREE of hits, t, u, v bit-equal where they agree. Returns
+    (the kernel's (t, prim, u, v), the walk's work, prim agreement, lanes
+    not bit-equal in t, prim, u or v, hit share, largest |t error| over
+    hits)."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    cyl = scene.has_cylinders
+    got = bvh.intersect(scene.bvh, scene.geometry, r, cyl)
+    want, work = bvh.walk_work(scene.bvh, scene.geometry, r, cyl)
+    torch.cuda.synchronize()
+    (t, prim, u, v), (t_p, prim_p, u_p, v_p) = got, want
+    hit = prim >= 0
+    if not torch.equal(hit, prim_p >= 0):
+        raise AssertionError(f"B1: hit/miss differs on {int((hit != (prim_p >= 0)).sum())} "
+                             "lanes")
+    same = prim == prim_p
+    n_hit = int(hit.sum())
+    agree = int((hit & same).sum()) / n_hit if n_hit else 1.0
+    if not agree >= B_PRIM_AGREE:
+        raise AssertionError(f"B1: prims agree on {agree:.5f} of hits")
+    bits = same.clone()
+    for a, b in ((t, t_p), (u, u_p), (v, v_p)):
+        bits &= a.view(torch.int32) == b.view(torch.int32)
+    if not torch.equal(bits[same], same[same]):
+        raise AssertionError(f"B1: t, u or v differ from the plain walk's on "
+                             f"{int((same & ~bits).sum())} lanes with the same prim")
+    err = float((t - t_p)[hit].abs().max()) if n_hit else 0.0
+    return got, work, agree, int((~bits).sum()), n_hit / max(1, t.shape[0]), err
+
+
+def check_b2(scene, r):
+    """B2 against its plain walk on rays r over the scene's shadow
+    geometry: equal on every lane. Returns (occluded, the walk's work)."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    g = scene.geometry if scene.shadow_geometry is None else scene.shadow_geometry
+    occ = bvh.occluded(scene.bvh, g, r, scene.has_cylinders)
+    occ_p, work = bvh.walk_work(scene.bvh, g, r, scene.has_cylinders, any_hit=True)
+    torch.cuda.synchronize()
+    if not torch.equal(occ, occ_p):
+        raise AssertionError(f"B2: occlusion differs on {int((occ != occ_p).sum())} lanes")
+    return occ, work
+
+
+def _once_ms(fn):
+    """CUDA-event time of one fn() (a plain walk of seconds, already warm)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_b1_b2(scene, ray):
+    """B1 on the camera wavefront `ray` and B2 on NEE shadow rays from its
+    hits (maxt 0 on a quarter of the lanes), each against its plain walk
+    on all lanes (the first 262,144 if a plain walk over all would take
+    over 30 s) and timed there: kernel (median of 5), plain walk (once),
+    bound from the walk's work. Returns (B1 stats, B2 stats)."""
+    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.render import geometry as geo
+
+    tree, cyl = scene.bvh, scene.has_cylinders
+    n_all = ray.o.shape[0]
+    n, plain_s = _plain_span(
+        lambda k: bvh.intersect_plain(tree, scene.geometry, _sub(ray, k), cyl), n_all)
+    r = _sub(ray, n)
+    (t, prim, u, v), work, agree, differ, hits, err = check_b1(scene, r)
+    ms = _time_ms(lambda: bvh.intersect(tree, scene.geometry, r, cyl))
+    plain_ms = _once_ms(lambda: bvh.intersect_plain(tree, scene.geometry, r, cyl))
+    bound_ms, bound_by = bvh_bound(r, work, B1_OUT_BYTES)
+    which = "all" if n == n_all else f"a slice (plain est. {plain_s:.1f} s on all)"
+    print(f"B1 bvh_closest: {n} lanes ({which} of {n_all}), hits {hits:.4f}, hit/miss "
+          f"equal, prim agreement {agree:.6f}, {differ} lanes not bit-equal; node visits "
+          f"{float(work.visits.float().mean()):.1f} a lane (max {int(work.visits.max())}), "
+          f"prim tests {float(work.tests.float().mean()):.1f}, nodes read "
+          f"{int(work.nodes.sum())} of {tree.n_nodes}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    b1 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, lanes=n, lanes_not_bit_equal=differ)
+
+    shadow = nee_shadow_rays(scene, geo.compute_interaction(scene.geometry, r, t, prim, u, v,
+                                                            cyl))
+    lane = torch.arange(n, device=t.device)
+    occ, work = check_b2(scene, shadow)
+    if bool(occ[lane % 4 == 0].any()):
+        raise AssertionError("B2: a lane with maxt = 0 is occluded")
+    g = scene.geometry if scene.shadow_geometry is None else scene.shadow_geometry
+    ms = _time_ms(lambda: bvh.occluded(tree, g, shadow, cyl))
+    plain_ms = _once_ms(lambda: bvh.occluded_plain(tree, g, shadow, cyl))
+    bound_ms, bound_by = bvh_bound(shadow, work, B2_OUT_BYTES)
+    print(f"B2 bvh_any: {n} NEE shadow rays, live {float((shadow.maxt > 0).float().mean()):.4f}"
+          f", occluded {float(occ.float().mean()):.4f}, equal on every lane; node visits "
+          f"{float(work.visits.float().mean()):.1f} a lane (max {int(work.visits.max())}); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    b2 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, lanes=n)
+    return b1, b2
+
+
+def phase_bvh_calls(scene, rec):
+    """Check every recorded B1 / B2 call of one render against its plain
+    walk on its first PLAIN_SLICE lanes, and time it (median of 5) on
+    those lanes (beside the bound from the walk's work) and on all: one
+    line a call. Returns {kernel: (ms on all lanes, ms on the checked
+    lanes, bound ms of the checked lanes)} summed over the calls."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    total = {"B1": [0.0, 0.0, 0.0], "B2": [0.0, 0.0, 0.0]}
+    tree, cyl = scene.bvh, scene.has_cylinders
+    g2 = scene.geometry if scene.shadow_geometry is None else scene.shadow_geometry
+    for key in ("B1", "B2"):
+        for i, r in enumerate(rec[key]):
+            k = min(r.o.shape[0], PLAIN_SLICE)
+            rs = _sub(r, k)
+            if key == "B1":
+                _, work, agree, differ, _, _ = check_b1(scene, rs)
+                fn = lambda x: bvh.intersect(tree, scene.geometry, x, cyl)  # noqa: E731
+                what = f"prim agreement {agree:.6f}, {differ} not bit-equal"
+            else:
+                occ, work = check_b2(scene, rs)
+                fn = lambda x: bvh.occluded(tree, g2, x, cyl)  # noqa: E731
+                what = f"{int(occ.sum())} occluded, equal"
+            ms_all = _time_ms(lambda: fn(r))
+            ms = _time_ms(lambda: fn(rs))
+            bound, by = bvh_bound(rs, work, B1_OUT_BYTES if key == "B1" else B2_OUT_BYTES)
+            print(f"{key} call {i}: {r.o.shape[0]} lanes, {int((r.maxt > 0).sum())} live, "
+                  f"{k} checked ({what}); {ms_all:.4f} ms on all, {ms:.4f} ms on the checked "
+                  f"(bound {bound:.5f}, {by}); node visits {int(work.visits.sum())}")
+            for j, x in enumerate((ms_all, ms, bound)):
+                total[key][j] += x
+    print("frame sums over the recorded calls: " + ", ".join(
+        f"{k} {a:.4f} ms on all lanes, {b:.4f} ms on the checked (bound {c:.4f})"
+        for k, (a, b, c) in total.items()))
+    return {k: tuple(v) for k, v in total.items()}
+
+
+def phase_big_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, cmp_depth=BIG_CMP_DEPTH,
+                     n_sub=BIG_N_SUB):
+    """Phase 32: scenes.shapes_dict on scenes.shape_files(n_sub=BIG_N_SUB)
+    from seed SHAPES_SEED (about 1.52M prims, past clusters.MAX_PRIMS)
+    through load_dict -> probe_compact_schedule -> render at res x res,
+    spp, depth: file, load and bvh.build seconds, peak memory (device and
+    host), the capacity warning, intersector "bvh"; the frame's seconds,
+    rays/s and launches (K1, K2, B1, B2 launched, K3 and K4 not); B1 on
+    the camera wavefront and B2 on NEE shadow rays (phase_b1_b2); every
+    B1 / B2 call of one more render recorded, checked and timed
+    (phase_bvh_calls); card against CPU means at cmp_res x cmp_res, 4 spp,
+    depth cmp_depth. Returns (launches, B1 stats, B2 stats, frame sums)."""
+    import logging
+    import resource
+
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import clusters as cl
+    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.render.records import Ray
+    from mitsuba_customization_tpu_torch.scenes import (
+        probe_compact_schedule,
+        shape_files,
+        shapes_dict,
+    )
+    from mitsuba_customization_tpu_torch.utils.log import logger
+
+    t0 = time.perf_counter()
+    paths = shape_files(BIG_SHAPES_DIR, SHAPES_SEED, n_sub)
+    files_s = time.perf_counter() - t0
+    build_s = []
+    build = bvh.build
+
+    def timed_build(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = build(*args, **kwargs)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t1)
+        return out
+
+    warnings = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logger.addHandler(handler)
+    bvh.build = timed_build
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        scene = mt.load_dict(shapes_dict(paths, res, spp, depth), dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        bvh.build = build
+        logger.removeHandler(handler)
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_prims = scene.geometry.p0.shape[0]
+    tree = scene.bvh
+    tree_mb = sum(x.numel() * x.element_size() for x in tree) / 1e6
+    print(f"big shapes: files written in {files_s:.1f} s, loaded in {load_s:.1f} s (reads, "
+          f"bvh.build {sum(build_s):.2f} s in {len(build_s)} call): {n_prims} prims, "
+          f"{tree.n_nodes} nodes ({tree_mb:.1f} MB), intersector {scene.config.intersector}; "
+          f"peak device memory {load_peak:.2f} GB, host max RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB; warning: "
+          f"{warnings}")
+    if (n_prims <= cl.MAX_PRIMS or scene.config.intersector != "bvh" or not scene.config.use_bvh
+            or scene.clusters is not None or len(build_s) != 1
+            or not any("capacity contract" in w for w in warnings)):
+        raise AssertionError("the big shapes scene is not on the BVH past the cap, or no "
+                             "capacity warning")
+    scene, fracs = probe_compact_schedule(scene, spp=4)
+    torch.cuda.reset_peak_memory_stats()
+    launches = _timed_frame("big shapes", scene, spp, ("K1", "K2"))
+    launches.update(_bvh_launches())
+    print(f"big shapes: launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, schedule "
+          f"{[round(f, 4) for f in fracs]}")
+    if launches["K3"] or launches["K4"] or min(launches["B1"], launches["B2"]) <= 0:
+        raise AssertionError(f"big shapes: K3 / K4 launched or B1 / B2 not: {launches}")
+
+    b1, b2 = phase_b1_b2(scene, camera_wavefront(scene, spp))
+
+    def keep_ray(args, kwargs):
+        return Ray(*(x.clone() for x in cl._rays(args[0])))
+
+    rec = record_calls(lambda: mt.render(scene, spp=spp, seed=1), {
+        "B1": (scene, "ray_intersect", keep_ray), "B2": (scene, "ray_test", keep_ray)})
+    n_calls = {k: len(v) for k, v in rec.items()}
+    if n_calls != {k: launches[k] for k in n_calls}:
+        raise AssertionError(f"recorded calls {n_calls} != launches {launches}")
+    frame = phase_bvh_calls(scene, rec)
+    del rec, scene
+    _gpu_cpu_means(f"big shapes {cmp_res}x{cmp_res} 4spp depth {cmp_depth}",
+                   shapes_dict(paths, cmp_res, 4, cmp_depth, compact=fracs), dev)
+    return launches, b1, b2, frame
+
+
 T_START = time.perf_counter()
 PHASE_SECONDS = {}
 _LAP = [T_START]
@@ -2563,6 +2880,7 @@ def main():
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+    from mitsuba_customization_tpu_torch.render import bvh as bvh_mod
     from mitsuba_customization_tpu_torch.scenes import flagship_dict
 
     dev = torch.device("cuda")
@@ -2662,6 +2980,8 @@ def main():
     lap("30 chi-square on the card")
     sh_launches, sh_ad_launches = phase_sharded(dev)
     lap("31 sharded render and AD step")
+    big_launches, b1_stats, b2_stats, big_frame = phase_big_shapes(dev)
+    lap("32 big shapes")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -2692,7 +3012,8 @@ def main():
             "shapes_sdf": sdf_launches[key], "volpath": vol_launches[key],
             "volpath_ad_step": vol_ad_launches[key], "ptracer": pt_launches[key],
             "bdpt": bd_launches[key], "xml_cli": xml_launches[key],
-            "sharded": sh_launches[key], "sharded_ad_step": sh_ad_launches[key]},
+            "sharded": sh_launches[key], "sharded_ad_step": sh_ad_launches[key],
+            "big_shapes": big_launches[key]},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
             blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
             image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
@@ -2719,6 +3040,21 @@ def main():
                            "xml_cli": xml_launches["K1-bwd"],
                            "sharded": sh_launches["K1-bwd"],
                            "sharded_ad_step": sh_ad_launches["K1-bwd"]}))
+    # B1 / B2 (no Pallas kernel: the JAX BVH walk is an XLA while_loop):
+    # phase 32's camera wavefront and NEE rays, its frame's launches and
+    # recorded calls
+    for name, key, stats, line in (("bvh_closest", "B1", b1_stats, 238),
+                                   ("bvh_any", "B2", b2_stats, 290)):
+        what = "intersect" if key == "B1" else "occluded"
+        kernels.append(dict(
+            name=name, route="cuda", source=bvh_mod.SOURCE,
+            replaces=f"mitsuba_customization_tpu/render/bvh.py:{line} ({what}, XLA "
+                     "while_loop, no Pallas kernel)",
+            launches=big_launches[key], **stats, share=stats["bound_ms"] / stats["ms"],
+            library_ms=None, frame_ms=big_frame[key][0], checked_frame_ms=big_frame[key][1],
+            checked_frame_bound_ms=big_frame[key][2],
+            frame_share=big_frame[key][2] / big_frame[key][1],
+            launches_by_phase={"big_shapes": big_launches[key]}))
     print(f"volpath frame tracking loops: {vol_steps} steps, {vol_checks} host checks; "
           f"volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("merl_eval.cu", "merl_eval_bwd.cu", "cond_sample.cu",
-           "cluster_closest.cu", "cluster_shadow.cu")
+           "cluster_closest.cu", "cluster_shadow.cu", "bvh_traverse.cu")
 HEADERS = ("merl_lane.cuh", "cluster_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libmct_torch_kernels.so"
@@ -49,6 +49,10 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P],
     "mct_cluster_shadow": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,
                            _P, _P],
+    "mct_bvh_closest": [_P, _P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _I, _P, _P, _P, _P, _P],
+    "mct_bvh_any": [_P, _P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                    _P, _P],
 }
 
 _lib = None

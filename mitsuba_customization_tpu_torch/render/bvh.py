@@ -1,0 +1,439 @@
+"""Skip-link BVH: host-side binned-SAH build, and closest-hit (B1) and
+any-hit (B2) traversal, one CUDA thread per ray on the card.
+
+PyTorch port of mitsuba_customization_tpu/render/bvh.py, the JAX package's
+intersector for scenes past ops/clusters.MAX_PRIMS. The tree is the JAX
+package's, array for array: binned SAH over the prim boxes
+(geometry.aabbs), leaves of at most LEAF_SIZE prims (slots padded with
+-1), nodes in depth-first order, each with the index of the node to visit
+when its subtree is done or its box is missed (its skip link).
+
+`build` gives the JAX numpy builder's arrays, but splits every node of a
+depth at once (segment reductions over the prims sorted by node), so no
+Python runs per node; pre-order indices and skip links are then assigned
+top-down from the subtree sizes. `intersect_plain` / `occluded_plain` are
+the JAX lock-step walk in torch (every lane carries one node cursor;
+only the live lanes step, and the loop checks on the host every
+CHECK_EVERY steps), with the prim tests of geometry._intersect_prims in
+its gathered form. `walk_work` counts each lane's node visits and prim
+tests of the same walk (the kernels' bound).
+
+`intersect` and `occluded` pick by device: a CPU tensor runs the plain
+walk, a CUDA tensor launches csrc/bvh_traverse.cu (B1 `bvh_closest`, B2
+`bvh_any`), which walks each ray's skip links on its own thread, or
+raises. The JAX package has no Pallas kernel here (its walk is an XLA
+while_loop).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mitsuba_customization_tpu_torch.ops import build as kbuild
+from mitsuba_customization_tpu_torch.ops.clusters import _inv_dir, _rays
+from mitsuba_customization_tpu_torch.render import geometry as geo
+
+LEAF_SIZE = 4
+N_BINS = 16
+
+SOURCE = "mitsuba_customization_tpu_torch/csrc/bvh_traverse.cu"
+# Kernel launches in this process (each wrapper adds one per launch).
+LAUNCHES = {"closest": 0, "any": 0}
+# the plain walk's lanes go on stepping this many times between host
+# checks for finished lanes
+CHECK_EVERY = 8
+
+
+class BVH(NamedTuple):
+    """Flattened BVH in depth-first order with skip links.
+
+    bb_min/bb_max: (N, 3) f32 node bounds
+    skip:          (N,) i32 node to visit after this one's subtree (or on
+                   a missed box); N past the last
+    leaf_prims:    (N, LEAF_SIZE) i32 prim ids, -1 padded; all -1 for
+                   internal nodes (whose children follow in depth-first
+                   order)
+    """
+
+    bb_min: torch.Tensor
+    bb_max: torch.Tensor
+    skip: torch.Tensor
+    leaf_prims: torch.Tensor
+
+    @property
+    def n_nodes(self):
+        return self.skip.shape[0]
+
+
+def bvh_from_numpy(bb_min, bb_max, skip, leaf_prims, device) -> BVH:
+    """A BVH on `device` from its four numpy arrays."""
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+    return BVH(bb_min=t(bb_min, torch.float32), bb_max=t(bb_max, torch.float32),
+               skip=t(skip, torch.int32), leaf_prims=t(leaf_prims, torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Host-side build (numpy)
+# ---------------------------------------------------------------------------
+
+
+def _box_areas(lo, hi):
+    """Surface areas of boxes (..., 3) as the JAX builder computes them
+    (inf where an extent is not finite)."""
+    e = np.maximum(hi - lo, 0)
+    area = 2 * (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 0] * e[..., 2])
+    return np.where(np.isfinite(e).all(-1), area, np.inf)
+
+
+def _split_level(ids, cnt, bb_min, bb_max, centroid):
+    """Split the internal nodes of one depth: `ids` holds their prims, node
+    after node, each node's in its JAX prim_ids order, `cnt` (k,) how many
+    each has (all > LEAF_SIZE). Returns (ids reordered so that each node's
+    left prims precede its right ones, in the JAX left_ids / right_ids
+    order; each node's left count)."""
+    k, m = cnt.shape[0], ids.shape[0]
+    offs = np.cumsum(cnt) - cnt
+    seg = np.repeat(np.arange(k), cnt)
+    pos = np.arange(m) - offs[seg]
+    c = centroid[ids]
+    c_lo = np.minimum.reduceat(c, offs, axis=0)
+    ext = np.maximum.reduceat(c, offs, axis=0) - c_lo
+    axis = np.argmax(ext, axis=1)
+    ext_a = ext[np.arange(k), axis]
+    flat = ext_a <= 1e-12          # degenerate: median split in place
+    ca = c[np.arange(m), axis[seg]]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = (ca - c_lo[seg, axis[seg]]) / ext_a[seg]
+        bins = np.minimum((rel * N_BINS).astype(np.int64), N_BINS - 1)
+    bins = np.where(flat[seg], 0, bins)
+
+    # per (node, bin): count and box, then prefix / suffix box areas
+    key = seg * N_BINS + bins
+    counts = np.bincount(key, minlength=k * N_BINS).reshape(k, N_BINS)
+    b_lo = np.empty((k * N_BINS, 3))
+    b_hi = np.empty((k * N_BINS, 3))
+    for a in range(3):
+        b_lo[:, a] = np.inf
+        b_hi[:, a] = -np.inf
+        np.minimum.at(b_lo[:, a], key, bb_min[ids, a])
+        np.maximum.at(b_hi[:, a], key, bb_max[ids, a])
+    b_lo = b_lo.reshape(k, N_BINS, 3)
+    b_hi = b_hi.reshape(k, N_BINS, 3)
+    areas_l = _box_areas(np.minimum.accumulate(b_lo, axis=1),
+                         np.maximum.accumulate(b_hi, axis=1))
+    areas_r = _box_areas(np.minimum.accumulate(b_lo[:, ::-1], axis=1)[:, ::-1],
+                         np.maximum.accumulate(b_hi[:, ::-1], axis=1)[:, ::-1])
+    nl = np.cumsum(counts, axis=1)[:, :-1]
+    nr = cnt[:, None] - nl
+    cost = areas_l[:, :-1] * nl + areas_r[:, 1:] * nr
+    # the first split of least cost below inf, among those with prims on
+    # both sides
+    cost = np.where((nl > 0) & (nr > 0) & ~np.isnan(cost), cost, np.inf)
+    best = np.argmin(cost, axis=1)
+    sah = ~flat & (cost[np.arange(k), best] < np.inf)
+
+    # no split below inf: stable sort by the centroid, then a median split
+    for j in np.flatnonzero(~flat & ~sah):
+        sl = slice(offs[j], offs[j] + cnt[j])
+        order = np.argsort(ca[sl], kind="stable")
+        ids[sl] = ids[sl][order]
+    right = np.where(sah[seg], bins > best[seg], pos >= (cnt // 2)[seg])
+
+    # stable partition of each node's prims: left ones first
+    left = ~right
+    n_left = np.bincount(seg, weights=left, minlength=k).astype(np.int64)
+    before = np.cumsum(left) - left          # left prims before each prim
+    left_rank = before - before[offs][seg]
+    dest = offs[seg] + np.where(right, n_left[seg] + pos - left_rank, left_rank)
+    out = np.empty_like(ids)
+    out[dest] = ids
+    return out, n_left
+
+
+def build_arrays(bb_min, bb_max):
+    """(nodes_min, nodes_max, skip, leaf_prims) numpy arrays of the BVH over
+    prim boxes (P, 3): the JAX numpy builder's, for the same boxes."""
+    bb_min = np.asarray(bb_min, dtype=np.float64)
+    bb_max = np.asarray(bb_max, dtype=np.float64)
+    n = bb_min.shape[0]
+    if n == 0:
+        return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+                np.zeros(0, np.int32), np.zeros((0, LEAF_SIZE), np.int32))
+    centroid = 0.5 * (bb_min + bb_max)
+
+    # breadth-first levels: each node's prims (a segment of `ids`), its box,
+    # its leaf slots; every internal node's two children are consecutive
+    # in the next level, the left one first
+    levels = []
+    ids = np.arange(n, dtype=np.int64)
+    cnt = np.array([n], np.int64)
+    while True:
+        k = cnt.shape[0]
+        offs = np.cumsum(cnt) - cnt
+        lo = np.minimum.reduceat(bb_min[ids], offs, axis=0)
+        hi = np.maximum.reduceat(bb_max[ids], offs, axis=0)
+        is_leaf = cnt <= LEAF_SIZE
+        slots = np.full((k, LEAF_SIZE), -1, np.int64)
+        seg = np.repeat(np.arange(k), cnt)
+        in_leaf = is_leaf[seg]
+        slots[seg[in_leaf], (np.arange(ids.shape[0]) - offs[seg])[in_leaf]] = ids[in_leaf]
+        levels.append((lo, hi, is_leaf, slots))
+        inner = ~is_leaf
+        if not inner.any():
+            break
+        ids, n_left = _split_level(ids[~in_leaf], cnt[inner], bb_min, bb_max, centroid)
+        cnt = np.stack([n_left, cnt[inner] - n_left], 1).reshape(-1)
+
+    # subtree sizes, bottom-up
+    sizes = [None] * len(levels)
+    below = np.zeros(0, np.int64)
+    for li in range(len(levels) - 1, -1, -1):
+        is_leaf = levels[li][2]
+        size = np.ones(is_leaf.shape[0], np.int64)
+        size[~is_leaf] += below[0::2] + below[1::2]
+        sizes[li] = below = size
+
+    # pre-order indices and skip links, top-down
+    n_nodes = int(sizes[0][0])
+    nodes_min = np.empty((n_nodes, 3), np.float32)
+    nodes_max = np.empty((n_nodes, 3), np.float32)
+    skip = np.empty(n_nodes, np.int32)
+    leaf = np.empty((n_nodes, LEAF_SIZE), np.int32)
+    idx = np.zeros(1, np.int64)
+    nxt = np.full(1, n_nodes, np.int64)
+    for li, (lo, hi, is_leaf, slots) in enumerate(levels):
+        nodes_min[idx] = lo
+        nodes_max[idx] = hi
+        skip[idx] = nxt
+        leaf[idx] = slots
+        if li + 1 == len(levels):
+            break
+        inner = ~is_leaf
+        left_idx = idx[inner] + 1
+        right_idx = left_idx + sizes[li + 1][0::2]
+        idx = np.stack([left_idx, right_idx], 1).reshape(-1)
+        nxt = np.stack([right_idx, nxt[inner]], 1).reshape(-1)
+    return nodes_min, nodes_max, skip, leaf
+
+
+def build(geom, device) -> BVH:
+    """Binned-SAH BVH over a Geometry's prims (tensors on any device, or
+    numpy arrays), built on the host, on `device`."""
+    g = SimpleNamespace(prim_type=torch.as_tensor(geom.prim_type).cpu(), **{
+        f: torch.as_tensor(getattr(geom, f)).cpu().to(torch.float32) for f in ("p0", "e1", "e2")})
+    bb_min, bb_max = geo.aabbs(g)
+    return bvh_from_numpy(*build_arrays(bb_min.numpy(), bb_max.numpy()), device)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch walk (the CPU path and the kernels' reference)
+# ---------------------------------------------------------------------------
+
+
+def _slab_test(bb_min, bb_max, o, inv_d, t_best):
+    """Ray-box slab test (the JAX `_slab_test`); returns the hit mask."""
+    t0 = (bb_min - o) * inv_d
+    t1 = (bb_max - o) * inv_d
+    near = torch.minimum(t0, t1).amax(-1)
+    far = torch.maximum(t0, t1).amin(-1)
+    return (near <= far) & (far > 0.0) & (near < t_best)
+
+
+class Work(NamedTuple):
+    """What the walk did (`walk_work`): per lane, node visits (box tests)
+    and prim tests, (N,) int64; per call, the nodes and prims some lane
+    read, (n_nodes,) and (P,) bool."""
+
+    visits: torch.Tensor
+    tests: torch.Tensor
+    nodes: torch.Tensor
+    prims: torch.Tensor
+
+
+def _walk(tree: BVH, geom, ray, cylinders, any_hit, count=False):
+    """The JAX lock-step skip-link walk (bvh.intersect / bvh.occluded),
+    stepping only the lanes still walking. A lane with maxt <= 0 (or NaN)
+    hits nothing and does not walk: no prim test can pass below it.
+    The rays are detached: the results carry no gradient, as the kernels'
+    do not. Returns ((t, prim, u, v) or occluded, Work or None)."""
+    o, d, maxt = (x.detach() for x in _rays(ray))
+    n, dev = o.shape[0], o.device
+    n_nodes = tree.n_nodes
+    inv_d = _inv_dir(d)
+    t_out = maxt.clone()
+    prim_out = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    u_out = torch.zeros(n, device=dev)
+    v_out = torch.zeros(n, device=dev)
+    hit_out = torch.zeros(n, dtype=torch.bool, device=dev)
+    work = None
+    if count:
+        work = Work(torch.zeros(n, dtype=torch.int64, device=dev),
+                    torch.zeros(n, dtype=torch.int64, device=dev),
+                    torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+                    torch.zeros(geom.prim_type.shape[0], dtype=torch.bool, device=dev))
+    lane = (maxt > 0).nonzero().squeeze(1) if n_nodes else torch.zeros(0, dtype=torch.int64,
+                                                                        device=dev)
+    # the live lanes' state
+    node = torch.zeros(lane.shape[0], dtype=torch.int64, device=dev)
+    o_l, d_l, inv_l, mt_l = o[lane], d[lane], inv_d[lane], maxt[lane]
+    t_l = mt_l.clone()
+    p_l = torch.full_like(node, -1)
+    u_l = torch.zeros_like(t_l)
+    v_l = torch.zeros_like(t_l)
+    h_l = torch.zeros_like(node, dtype=torch.bool)
+    slot_iota = torch.arange(LEAF_SIZE, device=dev)
+    while lane.shape[0]:
+        for _ in range(CHECK_EVERY):
+            active = node < n_nodes
+            ns = torch.clamp(node, max=n_nodes - 1)
+            hit_box = _slab_test(tree.bb_min[ns], tree.bb_max[ns], o_l, inv_l, t_l) & active
+            leaf = tree.leaf_prims[ns].to(torch.int64)
+            is_leaf = leaf[:, 0] >= 0
+            # the prims of the leaves entered, the slots tested in order
+            sel = (hit_box & is_leaf).nonzero().squeeze(1)
+            pid = leaf[sel]
+            valid = pid >= 0
+            psafe = torch.clamp(pid, min=0)
+            t_i, u_i, v_i = geo._intersect_prims(
+                geom, o_l[sel, None, :], d_l[sel, None, :], psafe, cylinders)
+            ok = valid & (t_i < mt_l[sel, None])
+            if any_hit:
+                hit_s = ok.any(1)
+                h_l[sel] |= hit_s
+                stop = torch.where(ok, slot_iota, LEAF_SIZE).amin(1)
+                n_tested = torch.where(hit_s, stop + 1, valid.sum(1))
+            else:
+                # the first slot of least t: slot after slot with a strict <
+                tt = torch.where(ok, t_i, float("inf"))
+                t_min = tt.amin(1)
+                first = torch.where(tt == t_min[:, None], slot_iota, LEAF_SIZE).amin(1)
+                closer = t_min < t_l[sel]
+                pick = torch.clamp(first, max=LEAF_SIZE - 1)[:, None]
+                upd = sel[closer]
+                t_l[upd] = t_min[closer]
+                p_l[upd] = psafe.gather(1, pick).squeeze(1)[closer]
+                u_l[upd] = u_i.gather(1, pick).squeeze(1)[closer]
+                v_l[upd] = v_i.gather(1, pick).squeeze(1)[closer]
+                n_tested = valid.sum(1)
+            if count:
+                work.visits[lane] += active
+                work.tests[lane[sel]] += n_tested
+                work.nodes[ns[active]] = True
+                if any_hit:
+                    valid = valid & (slot_iota <= stop[:, None])
+                work.prims[pid[valid]] = True
+            nxt = torch.where(hit_box & ~is_leaf, ns + 1, tree.skip[ns].to(torch.int64))
+            if any_hit:
+                nxt = torch.where(h_l, n_nodes, nxt)
+            node = torch.where(active, nxt, node)
+        done = node >= n_nodes
+        fin = lane[done]
+        if any_hit:
+            hit_out[fin] = h_l[done]
+        else:
+            t_out[fin], prim_out[fin] = t_l[done], p_l[done]
+            u_out[fin], v_out[fin] = u_l[done], v_l[done]
+        keep = ~done
+        lane, node, o_l, d_l, inv_l, mt_l = (x[keep] for x in (lane, node, o_l, d_l, inv_l,
+                                                               mt_l))
+        t_l, p_l, u_l, v_l, h_l = (x[keep] for x in (t_l, p_l, u_l, v_l, h_l))
+    if any_hit:
+        return hit_out, work
+    miss = prim_out < 0
+    return (torch.where(miss, float("inf"), t_out), prim_out, u_out, v_out), work
+
+
+def intersect_plain(tree: BVH, geom, ray, cylinders=True):
+    """Plain B1: nearest hit -> (t, prim, u, v), each (N,): t = +inf, prim =
+    -1 and u = v = 0 on a miss, as JAX bvh.intersect returns them."""
+    return _walk(tree, geom, ray, cylinders, any_hit=False)[0]
+
+
+def occluded_plain(tree: BVH, geom, ray, cylinders=True):
+    """Plain B2: any hit with t < maxt -> (N,) bool (JAX bvh.occluded)."""
+    return _walk(tree, geom, ray, cylinders, any_hit=True)[0]
+
+
+def walk_work(tree: BVH, geom, ray, cylinders=True, any_hit=False):
+    """(result, Work) of the walk over these rays: the plain version's
+    result and, per lane, the node visits and prim tests it made (B2's up
+    to its first hit), with the nodes and prims some lane read."""
+    return _walk(tree, geom, ray, cylinders, any_hit, count=True)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(tree, geom, o, d, maxt, what):
+    n = o.shape[0]
+    if o.shape != (n, 3) or d.shape != (n, 3) or maxt.shape != (n,):
+        raise ValueError(f"{what}: rays must be o, d (N, 3) and maxt (N,)")
+    k = tree.n_nodes
+    if (tree.bb_min.shape != (k, 3) or tree.bb_max.shape != (k, 3)
+            or tree.leaf_prims.shape != (k, LEAF_SIZE) or tree.bb_min.dtype != torch.float32
+            or tree.bb_max.dtype != torch.float32 or tree.skip.dtype != torch.int32
+            or tree.leaf_prims.dtype != torch.int32
+            or not all(t.is_contiguous() for t in tree)
+            or tree.leaf_prims.data_ptr() % 16):
+        raise ValueError(f"{what}: malformed BVH")
+    p = geom.prim_type.shape[0]
+    if (geom.prim_type.dtype != torch.int64 or not geom.prim_type.is_contiguous()
+            or any(f.shape != (p, 3) or f.dtype != torch.float32 or not f.is_contiguous()
+                   for f in (geom.p0, geom.e1, geom.e2))):
+        raise ValueError(f"{what}: the geometry's prim_type must be int64 (P,) and p0, e1, "
+                         "e2 contiguous float32 (P, 3)")
+    for t in (d, maxt, *tree, geom.prim_type, geom.p0, geom.e1, geom.e2):
+        if not t.is_cuda or t.device != o.device:
+            raise ValueError(f"{what}: rays, BVH and geometry must be on one GPU")
+
+
+def _launch_args(tree, geom, o, d, maxt, cylinders):
+    p = kbuild.ptr
+    return (p(o), p(d), p(maxt), o.shape[0], p(tree.bb_min), p(tree.bb_max), p(tree.skip),
+            p(tree.leaf_prims), tree.n_nodes, p(geom.prim_type), p(geom.p0), p(geom.e1),
+            p(geom.e2), int(bool(cylinders)))
+
+
+def intersect(tree: BVH, geom, ray, cylinders=True):
+    """Nearest hit -> (t, prim, u, v) as intersect_plain returns them. CPU
+    tensors run intersect_plain; CUDA tensors launch B1."""
+    o, d, maxt = _rays(ray)
+    if not o.is_cuda:
+        return intersect_plain(tree, geom, ray, cylinders)
+    o, d, maxt = o.contiguous(), d.contiguous(), maxt.contiguous()
+    _check_cuda(tree, geom, o, d, maxt, "bvh intersect")
+    n = o.shape[0]
+    out = torch.empty((3, n), dtype=torch.float32, device=o.device)
+    prim = torch.empty(n, dtype=torch.int32, device=o.device)
+    err = kbuild.library().mct_bvh_closest(
+        *_launch_args(tree, geom, o, d, maxt, cylinders), kbuild.ptr(out[0]),
+        kbuild.ptr(out[1]), kbuild.ptr(out[2]), kbuild.ptr(prim), kbuild.stream_of(o))
+    kbuild.check(err, "bvh_closest")
+    LAUNCHES["closest"] += 1
+    return out[0], prim.to(torch.int64), out[1], out[2]
+
+
+def occluded(tree: BVH, geom, ray, cylinders=True):
+    """Any hit with t < maxt -> (N,) bool (Scene.ray_test). CPU tensors run
+    occluded_plain; CUDA tensors launch B2."""
+    o, d, maxt = _rays(ray)
+    if not o.is_cuda:
+        return occluded_plain(tree, geom, ray, cylinders)
+    o, d, maxt = o.contiguous(), d.contiguous(), maxt.contiguous()
+    _check_cuda(tree, geom, o, d, maxt, "bvh occluded")
+    n = o.shape[0]
+    out = torch.empty(n, dtype=torch.uint8, device=o.device)
+    err = kbuild.library().mct_bvh_any(
+        *_launch_args(tree, geom, o, d, maxt, cylinders), kbuild.ptr(out),
+        kbuild.stream_of(o))
+    kbuild.check(err, "bvh_any")
+    LAUNCHES["any"] += 1
+    return out.bool()

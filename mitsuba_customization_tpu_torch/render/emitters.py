@@ -307,7 +307,7 @@ def sample_direction(table: EmitterTable, geom: geo.Geometry, p_ref,
         d_da = -table.direction[k]
         geom_q = geo.Geometry(*(f[table.em_prims] for f in geom))
         t_q, _, _ = geo._intersect_prims(geom_q, p_ref[..., None, :], d_da[..., None, :],
-                                         False)
+                                         cylinders=False)
         owned = table.em_prim_emitter[None, :] == k[..., None]
         t_hit = torch.where(owned, t_q, float("inf")).amin(-1)
         on_beam = torch.isfinite(t_hit)

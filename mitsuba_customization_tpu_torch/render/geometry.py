@@ -3,9 +3,10 @@ intersection.
 
 PyTorch port of mitsuba_customization_tpu/render/geometry.py: `Geometry`,
 `ray_triangle`, `ray_sphere`, `ray_cylinder`, `intersect_brute`,
-`occluded_brute`, `compute_interaction`, `interaction_from_g` and
-`spawn_ray`. The loader builds cylinders from `cylinder` shapes; the
-cluster structure and its kernels test them, as the JAX package's do.
+`occluded_brute`, `compute_interaction`, `interaction_from_g`,
+`spawn_ray` and `aabbs` (the BVH builder's prim boxes). The loader builds
+cylinders from `cylinder` shapes; the cluster structure and the BVH
+(render/bvh.py) and their kernels test them, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -51,26 +52,52 @@ class Geometry(NamedTuple):
         return self.prim_type.shape[0]
 
 
-def ray_triangle(o, d, p0, e1, e2):
+def _dot_rn(a, b):
+    """Dot product over the last axis as (x + y) + z, every product and sum
+    rounded on its own (on the CPU bit-equal to m.dot)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _cross_rn(a, b):
+    """Cross product with every product and difference rounded on its own
+    (torch's cross contracts a * b - c * d into a fused multiply-add)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
+
+
+def _vec_ops(rn):
+    """(cross, dot, norm): torch's, or with every step rounded on its own
+    (rn), as the BVH kernels (csrc/bvh_traverse.cu) compute them."""
+    if rn:
+        return _cross_rn, _dot_rn, lambda v: torch.sqrt(_dot_rn(v, v))
+    return m.cross, m.dot, m.norm
+
+
+def ray_triangle(o, d, p0, e1, e2, rn=False):
     """Moller-Trumbore; broadcasts rays against prims. Returns (t, u, v, hit)
-    with t = inf on a miss."""
-    pvec = m.cross(d, e2)
-    det = m.dot(e1, pvec)
+    with t = inf on a miss. rn: every product and sum rounded on its own
+    (_vec_ops)."""
+    cross, dot, _ = _vec_ops(rn)
+    pvec = cross(d, e2)
+    det = dot(e1, pvec)
     inv_det = m.safe_div(1.0, det)
     tvec = o - p0
-    u = m.dot(tvec, pvec) * inv_det
-    qvec = m.cross(tvec, e1)
-    v = m.dot(d, qvec) * inv_det
-    t = m.dot(e2, qvec) * inv_det
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot(d, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
     hit = (det.abs() > _EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
     return torch.where(hit, t, float("inf")), u, v, hit
 
 
-def ray_sphere(o, d, center, radius):
-    """Stable quadratic sphere intersection. Returns (t, hit)."""
+def ray_sphere(o, d, center, radius, rn=False):
+    """Stable quadratic sphere intersection. Returns (t, hit). rn: as in
+    ray_triangle."""
+    _, dot, _ = _vec_ops(rn)
     oc = o - center
-    b = m.dot(oc, d)
-    c = m.dot(oc, oc) - radius * radius
+    b = dot(oc, d)
+    c = dot(oc, oc) - radius * radius
     disc = b * b - c
     sqrt_d = m.safe_sqrt(disc)
     t0 = -b - sqrt_d
@@ -80,19 +107,21 @@ def ray_sphere(o, d, center, radius):
     return torch.where(hit, t, float("inf")), hit
 
 
-def ray_cylinder(o, d, p0, axis, radius):
+def ray_cylinder(o, d, p0, axis, radius, rn=False):
     """Open cylinder around the segment p0..p0+axis: the nearest quadratic
-    root whose axial coordinate lies on the segment. Returns (t, hit)."""
-    length = torch.clamp(m.norm(axis), min=1e-12)
+    root whose axial coordinate lies on the segment. Returns (t, hit). rn:
+    as in ray_triangle."""
+    _, dot, norm = _vec_ops(rn)
+    length = torch.clamp(norm(axis), min=1e-12)
     a = axis / length[..., None]
     oc = o - p0
-    d_par = m.dot(d, a)
-    oc_par = m.dot(oc, a)
+    d_par = dot(d, a)
+    oc_par = dot(oc, a)
     dd = d - d_par[..., None] * a
     oo = oc - oc_par[..., None] * a
-    qa = m.dot(dd, dd)
-    qb = m.dot(dd, oo)
-    qc = m.dot(oo, oo) - radius * radius
+    qa = dot(dd, dd)
+    qb = dot(dd, oo)
+    qc = dot(oo, oo) - radius * radius
     disc = qb * qb - qa * qc
     sq = m.safe_sqrt(disc)
     inv_a = m.safe_div(1.0, qa)
@@ -109,16 +138,25 @@ def ray_cylinder(o, d, p0, axis, radius):
     return torch.where(hit, t, float("inf")), hit
 
 
-def _intersect_prims(geom: Geometry, o, d, cylinders=True):
-    """Rays (N, 1, 3) against all prims -> (t, u, v), each (N, P).
+def _intersect_prims(geom: Geometry, o, d, prim_idx=None, cylinders=True):
+    """Rays against prims -> (t, u, v) with t = inf on a miss and u = v = 0
+    off triangles. prim_idx None: rays (N, 1, 3) against all prims, each
+    output (N, P). Else the gathered form the BVH walk tests: the prims
+    prim_idx names, rays broadcast against their rows (prim_idx (N, K)
+    with rays (N, 1, 3): each lane's K prims), every product and sum
+    rounded on its own (_vec_ops); outputs of prim_idx's shape.
     cylinders=False: the soup holds none (a host fact), so their test is
     not run."""
-    t_tri, u, v, _ = ray_triangle(o, d, geom.p0, geom.e1, geom.e2)
-    t_sph, _ = ray_sphere(o, d, geom.p0, geom.e1[..., 0])
-    is_tri = geom.prim_type == TRI
+    rn = prim_idx is not None
+    typ, p0, e1, e2 = geom.prim_type, geom.p0, geom.e1, geom.e2
+    if rn:
+        typ, p0, e1, e2 = (f[prim_idx] for f in (typ, p0, e1, e2))
+    t_tri, u, v, _ = ray_triangle(o, d, p0, e1, e2, rn)
+    t_sph, _ = ray_sphere(o, d, p0, e1[..., 0], rn)
+    is_tri = typ == TRI
     if cylinders:
-        t_cyl, _ = ray_cylinder(o, d, geom.p0, geom.e1, geom.e2[..., 0])
-        t_sph = torch.where(geom.prim_type == CYLINDER, t_cyl, t_sph)
+        t_cyl, _ = ray_cylinder(o, d, p0, e1, e2[..., 0], rn)
+        t_sph = torch.where(typ == CYLINDER, t_cyl, t_sph)
     t = torch.where(is_tri, t_tri, t_sph)
     return t, torch.where(is_tri, u, 0.0), torch.where(is_tri, v, 0.0)
 
@@ -126,7 +164,7 @@ def _intersect_prims(geom: Geometry, o, d, cylinders=True):
 def intersect_brute(geom: Geometry, ray: Ray, cylinders=True):
     """All-pairs nearest hit: (t, prim, u, v), prim = -1 on a miss."""
     t, u, v = _intersect_prims(geom, ray.o[..., None, :], ray.d[..., None, :],
-                               cylinders)
+                               cylinders=cylinders)
     t = torch.where(t < ray.maxt[..., None], t, float("inf"))
     t_best, best = t.min(-1)
     # first prim attaining the minimum, as the reference's masked reduction
@@ -141,7 +179,7 @@ def intersect_brute(geom: Geometry, ray: Ray, cylinders=True):
 def occluded_brute(geom: Geometry, ray: Ray, cylinders=True):
     """Shadow-ray test: any hit with t < maxt."""
     t, _, _ = _intersect_prims(geom, ray.o[..., None, :], ray.d[..., None, :],
-                               cylinders)
+                               cylinders=cylinders)
     return (t < ray.maxt[..., None]).any(-1)
 
 
@@ -220,3 +258,23 @@ def spawn_ray(si: SurfaceInteraction, d_world):
     scale = m.RAY_EPSILON * (1.0 + si.p.abs().amax(-1))
     o = si.p + (sgn * scale)[..., None] * si.n
     return Ray.make(o, d_world)
+
+
+def aabbs(geom):
+    """Per-prim boxes (bb_min, bb_max), each (P, 3), in the prims' float
+    type, for the BVH builder: a triangle's corners, a sphere's centre +-
+    radius, a cylinder's end points +- radius. geom: anything with the
+    Geometry fields prim_type, p0, e1 and e2 as tensors."""
+    is_tri = (geom.prim_type == TRI)[..., None]
+    is_cyl = (geom.prim_type == CYLINDER)[..., None]
+    p1 = geom.p0 + geom.e1
+    p2 = geom.p0 + geom.e2
+    tri_min = torch.minimum(geom.p0, torch.minimum(p1, p2))
+    tri_max = torch.maximum(geom.p0, torch.maximum(p1, p2))
+    r = geom.e1[..., 0:1]
+    rc = geom.e2[..., 0:1]
+    bb_min = torch.where(is_tri, tri_min,
+                         torch.where(is_cyl, torch.minimum(geom.p0, p1) - rc, geom.p0 - r))
+    bb_max = torch.where(is_tri, tri_max,
+                         torch.where(is_cyl, torch.maximum(geom.p0, p1) + rc, geom.p0 + r))
+    return bb_min, bb_max

@@ -28,12 +28,13 @@ SceneConfig (any object with the same attribute names). The parity tests
 use it to run both packages on identical arrays. Only the subset the port
 renders is accepted (the ported BSDF kernels, the texture stack, normal
 maps and blends, the shadow geometry and cluster set of a scene with null
-materials, brute or cluster intersector, every emitter type, every sensor
+materials, brute, cluster or bvh intersector (the JAX tree's arrays
+when use_bvh), every emitter type, every sensor
 (a batch sensor's stacked fields and child_types too), sampler and film
 filter, an SDF grid, the media table, the integrators, an optional
-compaction schedule); anything else raises NotImplementedError. The JAX package's BVH and its TPU-only copies
-(`emitters.em_geom`, the tabulated `corners` / `perm` / `condT`) are not
-read.
+compaction schedule); anything else raises NotImplementedError. The JAX
+package's TPU-only copies (`emitters.em_geom`, the tabulated `corners` /
+`perm` / `condT`) are not read.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from mitsuba_customization_tpu_torch.models.thindielectric import (
     ThinDielectricParams,
 )
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
+from mitsuba_customization_tpu_torch.render import bvh as bvh_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
 from mitsuba_customization_tpu_torch.render import geometry as geo
@@ -176,13 +178,11 @@ def params_from_numpy(arrays, device):
 
 def _config(config):
     # The JAX loader sets use_bvh on every scene past 64 prims and builds
-    # its BVH beside the clusters; `intersector` says which one traces,
-    # and "bvh" is refused below.
-    cfg = SceneConfig(**{
-        f: getattr(config, f) for f in SceneConfig.__dataclass_fields__ if f != "use_bvh"
-    })
+    # its BVH beside the clusters; `intersector` says which one traces.
+    cfg = SceneConfig(**{f: getattr(config, f) for f in SceneConfig.__dataclass_fields__})
     if (cfg.integrator not in INTEGRATOR_TYPES or cfg.rfilter not in FILTER_NAMES
-            or cfg.sampler not in SAMPLERS or cfg.intersector not in ("brute", "cluster")):
+            or cfg.sampler not in SAMPLERS
+            or cfg.intersector not in ("brute", "cluster", "bvh")):
         raise NotImplementedError(f"scene configuration not ported: {config}")
     if cfg.compact is not None:
         cfg.compact = tuple(float(f) for f in cfg.compact)
@@ -318,10 +318,16 @@ def scene_from_numpy(arrays, config, device):
     cfg = _config(config)
     if (cfg.intersector == "cluster") != (clusters is not None):
         raise NotImplementedError("cluster intersector without clusters")
+    # the JAX Scene always holds a tree, a dummy one without use_bvh
+    tree = None
+    if cfg.use_bvh:
+        tree = bvh_mod.bvh_from_numpy(*(a["bvh." + f] for f in bvh_mod.BVH._fields), device)
+    elif cfg.intersector == "bvh":
+        raise NotImplementedError("bvh intersector without use_bvh")
     return Scene(
         geometry=geometry, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
         config=cfg, clusters=clusters,
         has_cylinders=bool((a["geometry.prim_type"] == geo.CYLINDER).any()),
         shadow_geometry=shadow_geometry, shadow_clusters=shadow_clusters, sdf=sdf,
-        media=media,
+        media=media, bvh=tree,
     )

@@ -41,9 +41,11 @@ PyTorch port of mitsuba_customization_tpu/render/scene.py (`load_dict`,
 A type the JAX package does not know raises ValueError. A null material
 makes a shadow copy of the geometry in which its prims are degenerate
 (and, with clusters, its own cluster set), so shadow rays pass through
-them. Scenes past BRUTE_FORCE_MAX_PRIMS primitives get the
-cluster structure (ops/clusters.py) and intersector = "cluster"; past
-clusters.MAX_PRIMS the loader raises. `load_dict(d, device="cuda")` runs
+them. Scenes past BRUTE_FORCE_MAX_PRIMS primitives get use_bvh and the
+skip-link BVH (render/bvh.py), as in the JAX loader, and the cluster
+structure (ops/clusters.py) with intersector = "cluster"; past
+clusters.MAX_PRIMS they trace on the BVH (intersector = "bvh", with the JAX
+loader's warning). `load_dict(d, device="cuda")` runs
 on the card unless the caller names another device (the tests name
 "cpu"); without a card it raises. The host-side numpy helpers are copied
 from the JAX package, not imported.
@@ -81,6 +83,7 @@ from mitsuba_customization_tpu_torch.models import thindielectric as thindiel_mo
 from mitsuba_customization_tpu_torch.models.normalmap import bump_to_normal
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
+from mitsuba_customization_tpu_torch.render import bvh as bvh_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
 from mitsuba_customization_tpu_torch.render import geometry as geo
@@ -89,6 +92,7 @@ from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
 from mitsuba_customization_tpu_torch.utils.io import read_image
+from mitsuba_customization_tpu_torch.utils.log import logger
 from mitsuba_customization_tpu_torch.utils.obj import read_obj
 from mitsuba_customization_tpu_torch.utils.ply import read_ply
 from mitsuba_customization_tpu_torch.utils.serialized import read_serialized
@@ -112,10 +116,11 @@ class SceneConfig:
     integrator: str = "path"
     sampler: str = "independent"
     rfilter: str = "box"
-    # the JAX package's skip-link BVH (its intersector for scenes past
-    # clusters.MAX_PRIMS); not ported, so True raises
+    # the scene has the skip-link BVH (render/bvh.py): the loader builds it
+    # past BRUTE_FORCE_MAX_PRIMS prims, as the JAX loader does
     use_bvh: bool = False
-    # "brute" (all pairs) or "cluster" (ops/clusters.py, K3 and K4)
+    # "brute" (all pairs), "cluster" (ops/clusters.py, K3 and K4) or "bvh"
+    # (render/bvh.py, B1 and B2)
     intersector: str = "brute"
     hide_emitters: bool = False
     # radiance -> measurement: render multiplies the film by it (pi for an
@@ -128,12 +133,6 @@ class SceneConfig:
     # entering bounce b keeps ceil(n * compact[min(b, len-1)]) lanes
     # (render/integrator._run_bounces_compact).
     compact: Optional[tuple] = None
-
-    def __post_init__(self):
-        if self.use_bvh:
-            raise NotImplementedError(
-                "use_bvh (the skip-link BVH for scenes past clusters.MAX_PRIMS) is not "
-                "ported (ROADMAP item 18)")
 
 
 @dataclasses.dataclass
@@ -157,20 +156,26 @@ class Scene:
     sdf: Optional[sdf_mod.SDFGrid] = None
     # its participating media (render/medium.py; an empty table without)
     media: Optional[medium_mod.MediumTable] = None
+    # the skip-link BVH over `geometry` (config.use_bvh), else None
+    bvh: Optional[bvh_mod.BVH] = None
 
     @property
     def device(self):
         return self.geometry.p0.device
 
     def ray_intersect(self, ray):
-        """Nearest hit -> SurfaceInteraction (K3 in cluster mode, else
-        brute force)."""
+        """Nearest hit -> SurfaceInteraction (K3 in cluster mode, B1 in bvh
+        mode, else brute force)."""
         cyl = self.has_cylinders
-        if self.config.intersector == "cluster":
+        mode = self.config.intersector
+        if mode == "cluster":
             t, prim, u, v, g = cl_mod.intersect(self.clusters, ray)
             si = geo.interaction_from_g(g, ray, t, prim, u, v, cyl)
         else:
-            t, prim, u, v = geo.intersect_brute(self.geometry, ray, cyl)
+            if mode == "bvh":
+                t, prim, u, v = bvh_mod.intersect(self.bvh, self.geometry, ray, cyl)
+            else:
+                t, prim, u, v = geo.intersect_brute(self.geometry, ray, cyl)
             si = geo.compute_interaction(self.geometry, ray, t, prim, u, v, cyl)
         if self.sdf is not None:
             t_s, hit_s, p_l = sdf_mod.intersect(self.sdf, ray)
@@ -179,15 +184,21 @@ class Scene:
         return si
 
     def ray_test(self, ray):
-        """Shadow-ray occlusion (K4 in cluster mode, else brute force).
-        Null-material prims never occlude: the shadow geometry and its
-        cluster set, where the scene has them, hold them degenerate."""
-        if self.config.intersector == "cluster":
+        """Shadow-ray occlusion (K4 in cluster mode, B2 in bvh mode, else
+        brute force). Null-material prims never occlude: the shadow
+        geometry and its cluster set, where the scene has them, hold them
+        degenerate (B2 walks the tree built on `geometry` over the shadow
+        geometry: a degenerate prim lies inside its old box)."""
+        mode = self.config.intersector
+        if mode == "cluster":
             cs = self.clusters if self.shadow_clusters is None else self.shadow_clusters
             occ = cl_mod.occluded(cs, ray)
         else:
             g = self.geometry if self.shadow_geometry is None else self.shadow_geometry
-            occ = geo.occluded_brute(g, ray, self.has_cylinders)
+            if mode == "bvh":
+                occ = bvh_mod.occluded(self.bvh, g, ray, self.has_cylinders)
+            else:
+                occ = geo.occluded_brute(g, ray, self.has_cylinders)
         if self.sdf is not None:
             t_s, hit_s, _ = sdf_mod.intersect(self.sdf, ray)
             occ = occ | (hit_s & (t_s < ray.maxt))
@@ -928,18 +939,19 @@ def load_dict(d: dict, device="cuda") -> Scene:
             continue
         raise ValueError(f"scene entry '{key}' has an unsupported type '{t}'")
 
-    if gb.count > cl_mod.MAX_PRIMS:
-        raise NotImplementedError(
-            f"scene has {gb.count} primitives, past the cluster structure's "
-            f"capacity ({cl_mod.MAX_PRIMS}); the JAX package's skip-link BVH "
-            "for such scenes is not ported"
-        )
     arrays = gb.arrays()
     geometry = geometry_from_numpy(arrays, device)
+    cfg.use_bvh = gb.count > BRUTE_FORCE_MAX_PRIMS
+    tree = bvh_mod.build(geo.Geometry(**arrays), device) if cfg.use_bvh else None
     clusters = None
-    if gb.count > BRUTE_FORCE_MAX_PRIMS:
+    if cfg.use_bvh and gb.count <= cl_mod.MAX_PRIMS:
         cfg.intersector = "cluster"
         clusters = cl_mod.build(geo.Geometry(**arrays), device)
+    elif cfg.use_bvh:
+        cfg.intersector = "bvh"
+        logger.warning(
+            f"scene has {gb.count} primitives, past the cluster intersector's capacity "
+            f"contract ({cl_mod.MAX_PRIMS}); tracing it on the skip-link BVH")
     # the shadow copy: null-material prims degenerate, so that shadow rays
     # pass through them
     shadow_geometry = shadow_clusters = None
@@ -1021,6 +1033,7 @@ def load_dict(d: dict, device="cuda") -> Scene:
         shadow_clusters=shadow_clusters,
         sdf=sdf_shape,
         media=medium_mod.build_table(media_rows, shape_interior, shape_count, device=device),
+        bvh=tree,
     )
 
 

@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_frame.py
         [--scene flagship|matpreview|materials|blend|image|emitters|camera|
-                 shapes|shapes_sdf|volpath|ptracer|bdpt]
+                 shapes|shapes_sdf|big_shapes|volpath|ptracer|bdpt]
         [--res N] [--spp N] [--depth N] [--reps 3] [--top 20]
         [--against TREE ...]
     python3 scripts/profile_torch_frame.py --ad [--scene image|volpath] [--res 256]
@@ -25,7 +25,10 @@ spp, depth 8) or shapes frame (scenes.shapes_dict on the meshes
 scenes.shape_files writes under build/profile_shapes: about 532,500 prims
 from PLY, OBJ and serialized files, a shapegroup, a cube, a disk,
 cylinders and a sphere; 512x512, 8 spp, depth 8), or shapes_sdf (a 128^3
-SDF sphere in place of the largest mesh), all with the probed schedule;
+SDF sphere in place of the largest mesh), or big_shapes (chip_smoke's
+phase-32 scene: the shapes frame with a 1,310,720-triangle PLY, about
+1.52M prims, past clusters.MAX_PRIMS, traced on the skip-link BVH; its
+files under build/chip_smoke_big_shapes), all with the probed schedule;
 or the volpath frame (scenes.volpath_dict: the matpreview scene with a
 homogeneous fog ball and a heterogeneous smoke cube of a 256^3 density
 grid, the volumetric tracer, no compaction; 512x512, 8 spp, depth 8), or
@@ -107,6 +110,8 @@ GROUPS = (
     ("cond_sample", "K2 cond_sample (CUDA)"),
     ("cluster_closest", "K3 cluster_closest (CUDA)"),
     ("cluster_shadow", "K4 cluster_shadow (CUDA)"),
+    ("bvh_closest", "B1 bvh_closest (CUDA)"),
+    ("bvh_any", "B2 bvh_any (CUDA)"),
     ("sort", "torch sort"),
     ("index", "torch gather/scatter"),
     ("gather", "torch gather/scatter"),
@@ -317,7 +322,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("flagship", "matpreview", "materials", "blend",
                                         "image", "emitters", "camera", "shapes", "shapes_sdf",
-                                        "volpath", "ptracer", "bdpt"),
+                                        "big_shapes", "volpath", "ptracer", "bdpt"),
                     default="flagship")
     ap.add_argument("--ad", action="store_true")
     ap.add_argument("--res", type=int, default=None)
@@ -392,10 +397,15 @@ def main():
                 del d["sky"]
         scene = mt.load_dict(d, "cuda")
         print(f"{scene.geometry.p0.shape[0]} prims, {scene.media.n_media} media")
-    elif args.scene in ("camera", "shapes", "shapes_sdf"):
+    elif args.scene in ("camera", "shapes", "shapes_sdf", "big_shapes"):
         args.res, args.spp, args.depth = args.res or 512, args.spp or 8, args.depth or 8
         if args.scene == "camera":
             d = scenes.camera_dict(args.res, args.spp, args.depth)
+        elif args.scene == "big_shapes":
+            from chip_smoke import BIG_N_SUB, BIG_SHAPES_DIR, SHAPES_SEED
+
+            d = scenes.shapes_dict(scenes.shape_files(BIG_SHAPES_DIR, SHAPES_SEED, BIG_N_SUB),
+                                   args.res, args.spp, args.depth)
         else:
             root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "build", "profile_shapes")
@@ -435,6 +445,8 @@ def main():
         return stats["rays_traced"]
 
     frame()  # warm-up: kernel build, allocator, lazy init
+    if args.against and scene.clusters is None:
+        ap.error("--against compares K1-K4: the scene must have a cluster set")
     if args.against:
         compare(scene, args.spp, args.reps, args.against)
     secs = []
@@ -449,10 +461,11 @@ def main():
           f"median {med:.4f} s of {args.reps} ({', '.join(f'{s:.4f}' for s in secs)})"
           + ("" if args.ad else f", {rays:.0f} rays, {rays / med / 1e6:.2f} Mrays/s"))
 
-    from mitsuba_customization_tpu_torch.render import film, medium, sdf
+    from mitsuba_customization_tpu_torch.render import bvh, film, medium, sdf
 
     k1.LAUNCHES = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
+    bvh.LAUNCHES["closest"] = bvh.LAUNCHES["any"] = 0
     sdf.MARCHES = sdf.STEPS = 0
     medium.LOOPS.clear()
     medium.GRID_BUFFERS = 0
@@ -475,6 +488,7 @@ def main():
           f"{dev_us / 1e6:.4f} s, busy share {dev_us / 1e6 / wall:.3f}; "
           f"launches K1 {k1.LAUNCHES} K2 {k2.LAUNCHES} "
           f"K3 {cl.LAUNCHES['closest']} K4 {cl.LAUNCHES['shadow']} "
+          f"B1 {bvh.LAUNCHES['closest']} B2 {bvh.LAUNCHES['any']} "
           f"K1-bwd {k1.LAUNCHES_BWD}")
     by_group = collections.Counter()
     by_name = collections.Counter()

@@ -235,11 +235,21 @@ def _blob_scene(n_sub):
     }
 
 
-def test_loader_builds_clusters_and_raises_past_max_prims(monkeypatch):
+def test_loader_builds_clusters_and_takes_the_bvh_past_max_prims(monkeypatch, caplog):
+    """Past 64 prims the loader builds the BVH (use_bvh) and the cluster
+    set; past MAX_PRIMS it traces on the BVH alone, with the JAX loader's
+    capacity warning."""
+    import logging
+
     small = mt.load_dict(_blob_scene(1), "cpu")  # 80 faces > 64
     assert small.config.intersector == "cluster" and small.clusters is not None
+    assert small.config.use_bvh and small.bvh is not None
     monkeypatch.setattr(tcl, "MAX_PRIMS", 79)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        mt.load_dict(_blob_scene(1), "cpu")
+    with caplog.at_level(logging.WARNING, "mitsuba_customization_tpu_torch"):
+        big = mt.load_dict(_blob_scene(1), "cpu")
+    assert big.config.intersector == "bvh" and big.clusters is None
+    assert big.config.use_bvh and big.bvh is not None
+    assert any("capacity contract" in r.message for r in caplog.records)
     brute = mt.load_dict(_blob_scene(0), "cpu")  # 20 faces
     assert brute.config.intersector == "brute" and brute.clusters is None
+    assert not brute.config.use_bvh and brute.bvh is None

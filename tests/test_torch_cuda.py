@@ -1328,3 +1328,109 @@ def test_volpath_ad_step_gpu_matches_cpu(dev):
     assert abs(lg - lc) <= 0.02 * abs(lc)
     for k in keys:
         assert float(gg[k] @ gc[k] / (gg[k].norm() * gc[k].norm())) >= 0.98, k
+
+
+def _bvh_soup(dev):
+    """The _cluster_scene geometry (1,280 blob triangles, a sphere and a
+    cylinder) as a Geometry on the card, its BVH, and the same 65,536
+    rays with maxt inf, 3.5 or 0."""
+    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.render.scene import geometry_from_numpy
+
+    v, f = icosphere_blob(n_sub=3)
+    p = len(f)
+    arrays = dict(
+        prim_type=np.r_[np.zeros(p), geo.SPHERE, geo.CYLINDER].astype(np.int32),
+        p0=np.r_[v[f[:, 0]], [[2.0, 0.3, 0.1], [-2.0, -1.0, 0.0]]].astype(np.float32),
+        e1=np.r_[v[f[:, 1]] - v[f[:, 0]], [[0.7, 0, 0], [0, 2.0, 0]]].astype(np.float32),
+        e2=np.r_[v[f[:, 2]] - v[f[:, 0]], [[0, 0, 0], [0.5, 0, 0]]].astype(np.float32),
+        **{k: np.zeros((p + 2, 3), np.float32) for k in ("vn0", "vn1", "vn2")},
+        **{k: np.zeros((p + 2, 2), np.float32) for k in ("uv0", "uv1", "uv2")},
+        mat_id=np.zeros(p + 2, np.int32), emitter_id=np.full(p + 2, -1, np.int32),
+        shape_id=np.zeros(p + 2, np.int32))
+    g = geometry_from_numpy(arrays, dev)
+    _, o, d = _cluster_scene(dev)
+    maxt = torch.full((o.shape[0],), float("inf"), device=dev)
+    maxt[1::7] = 0.0
+    maxt[2::7] = 3.5
+    return bvh.build(g, dev), g, Ray(o, d, maxt)
+
+
+def test_b1_b2_kernels_match_plain(dev):
+    """B1 against intersect_plain: hit/miss and prims equal, t, u, v equal
+    bit for bit (both sides round every product and sum on its own and
+    walk the same nodes); B2 against occluded_plain on every lane; every
+    prim type hit; maxt 0 lanes miss."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    tree, g, ray = _bvh_soup(dev)
+    before = dict(bvh.LAUNCHES)
+    t, prim, u, v = bvh.intersect(tree, g, ray)
+    occ = bvh.occluded(tree, g, ray)
+    torch.cuda.synchronize()
+    assert bvh.LAUNCHES == {"closest": before["closest"] + 1, "any": before["any"] + 1}
+    t_p, prim_p, u_p, v_p = bvh.intersect_plain(tree, g, ray)
+    assert torch.equal(prim, prim_p)
+    for a, b in ((t, t_p), (u, u_p), (v, v_p)):
+        assert torch.equal(a, b)
+    hit = prim >= 0
+    assert 0.3 < hit.float().mean() < 0.9 and not hit[1::7].any()
+    assert set(g.prim_type[prim[hit]].unique().tolist()) == {geo.TRI, geo.SPHERE,
+                                                             geo.CYLINDER}
+    assert torch.equal(occ, bvh.occluded_plain(tree, g, ray))
+    assert torch.equal(occ, hit)  # every hit lies below its own maxt
+
+
+def test_b1_b2_on_a_shadow_geometry_and_without_cylinders(dev):
+    """B2 over a shadow geometry whose first 200 prims are degenerate (the
+    tree built on the geometry), and both kernels with the cylinders flag
+    off on a soup whose cylinder is then tested as the plain version tests
+    it (as a sphere): equal to the plain versions."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    tree, g, ray = _bvh_soup(dev)
+    keep = (torch.arange(g.p0.shape[0], device=dev) >= 200)[:, None]
+    shadow = g._replace(e1=torch.where(keep, g.e1, 0.0), e2=torch.where(keep, g.e2, 0.0))
+    assert torch.equal(bvh.occluded(tree, shadow, ray), bvh.occluded_plain(tree, shadow, ray))
+    got = bvh.intersect(tree, g, ray, False)
+    want = bvh.intersect_plain(tree, g, ray, False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(bvh.occluded(tree, g, ray, False), bvh.occluded_plain(tree, g, ray, False))
+
+
+def test_bvh_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    tree, g, ray = _bvh_soup(dev)
+    cpu_tree = bvh.BVH(*(x.cpu() for x in tree))
+    for fn in (bvh.intersect, bvh.occluded):
+        with pytest.raises(ValueError):
+            fn(cpu_tree, g, ray)
+        with pytest.raises(ValueError):
+            fn(tree._replace(skip=tree.skip.long()), g, ray)
+        with pytest.raises(ValueError):
+            fn(tree, g._replace(p0=g.p0.double()), ray)
+
+
+def test_bvh_frame_gpu_matches_cpu(dev):
+    """The matpreview scene at 32x32, 4 spp, depth 3 on the "bvh"
+    intersector: B1 and B2 launched on the card, means within 2 % of the
+    CPU's (plain walks)."""
+    import dataclasses
+
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(32, 4, 3, n_sub=3)
+    imgs = []
+    for where in (dev, "cpu"):
+        scene = mt.load_dict(d, where)
+        scene = dataclasses.replace(scene, config=dataclasses.replace(scene.config,
+                                                                      intersector="bvh"))
+        before = dict(bvh.LAUNCHES)
+        imgs.append(mt.render(scene, spp=4, seed=0).cpu())
+        if where == dev:
+            assert bvh.LAUNCHES["closest"] > before["closest"]
+            assert bvh.LAUNCHES["any"] > before["any"]
+    torch.testing.assert_close(imgs[0].mean((0, 1)), imgs[1].mean((0, 1)), rtol=0.02, atol=0)

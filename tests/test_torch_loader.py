@@ -285,7 +285,8 @@ def test_sensor_sampler_filter_and_shape_types_load_as_in_jax(entry):
         assert (a is None) == (b is None), f
         if a is not None:
             torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)
-    for f in ("sampler", "rfilter", "spp", "width", "height", "sensor_scale", "intersector"):
+    for f in ("sampler", "rfilter", "spp", "width", "height", "sensor_scale", "intersector",
+              "use_bvh"):
         assert getattr(own.config, f) == getattr(ref.config, f), f
     for f, a, b in zip(own.geometry._fields, own.geometry, ref.geometry):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)

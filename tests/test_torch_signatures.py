@@ -212,7 +212,7 @@ def test_load_dict_defaults_to_the_card():
 def test_scene_config_fields_are_the_references():
     """SceneConfig has the JAX package's fields in its order (use_bvh
     included), so a positional construction means the same; use_bvh=True
-    (the skip-link BVH) raises, naming item 18."""
+    (the skip-link BVH, render/bvh.py) constructs."""
     import dataclasses
 
     ours = [f.name for f in dataclasses.fields(tscene.SceneConfig)]
@@ -221,8 +221,8 @@ def test_scene_config_fields_are_the_references():
                              "cluster", True, 2.0, False)
     assert (cfg.integrator, cfg.rfilter, cfg.intersector, cfg.hide_emitters,
             cfg.sensor_scale, cfg.nee) == ("direct", "gaussian", "cluster", True, 2.0, False)
-    with pytest.raises(NotImplementedError, match="18"):
-        tscene.SceneConfig(use_bvh=True)
+    cfg = tscene.SceneConfig(use_bvh=True, intersector="bvh")
+    assert cfg.use_bvh and cfg.intersector == "bvh"
 
 
 def test_reference_style_calls_of_the_repaired_entry_points():
