@@ -2713,6 +2713,9 @@ def phase_b1_b2(scene, ray):
           f", occluded {float(occ.float().mean()):.4f}, equal on every lane; node visits "
           f"{float(work.visits.float().mean()):.1f} a lane (max {int(work.visits.max())}); "
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    print("B1 / B2 launch: a plain grid of 128-thread blocks, one thread a ray, no shared "
+          "memory (the tree's top in shared memory with persistent blocks was measured and "
+          "dropped: PERF.md §6)")
     b2 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, lanes=n)
     return b1, b2
@@ -2812,9 +2815,12 @@ def phase_big_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, cmp_depth=BIG_CMP
     n_prims = scene.geometry.p0.shape[0]
     tree = scene.bvh
     tree_mb = sum(x.numel() * x.element_size() for x in tree) / 1e6
+    node_pack, prim_pack = bvh.packed(tree, scene.geometry)
+    pack_mb = sum(x.numel() * x.element_size() for x in (node_pack.nodes, prim_pack)) / 1e6
     print(f"big shapes: files written in {files_s:.1f} s, loaded in {load_s:.1f} s (reads, "
-          f"bvh.build {sum(build_s):.2f} s in {len(build_s)} call): {n_prims} prims, "
-          f"{tree.n_nodes} nodes ({tree_mb:.1f} MB), intersector {scene.config.intersector}; "
+          f"bvh.build {sum(build_s):.2f} s in {len(build_s)} call, the kernels' packs): "
+          f"{n_prims} prims, {tree.n_nodes} nodes ({tree_mb:.1f} MB; packed nodes and prims "
+          f"{pack_mb:.1f} MB), intersector {scene.config.intersector}; "
           f"peak device memory {load_peak:.2f} GB, host max RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB; warning: "
           f"{warnings}")

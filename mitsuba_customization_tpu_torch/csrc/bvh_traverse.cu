@@ -1,36 +1,52 @@
 // B1 (bvh_closest) and B2 (bvh_any): closest hit and any hit over the
-// skip-link BVH that render/bvh.py builds, one CUDA thread per ray.
+// skip-link BVH that render/bvh.py builds, on the packed storage that
+// render/bvh.pack_nodes / pack_prims make of it, one CUDA thread a ray.
 //
 // Replaces the JAX package's mitsuba_customization_tpu/render/bvh.py
 // `intersect` (:238) and `occluded` (:290). Those are not Pallas kernels
 // but an XLA while_loop in lock-step: every ray carries one node cursor
-// and the loop runs until the slowest ray of the wavefront is done. On
-// the card each thread walks its own ray: from node 0 it tests the node's
-// box; on a miss it jumps to the node's skip link, on a hit it steps to
-// the next node in depth-first order (the first child) or, at a leaf,
-// tests the leaf's prims slot after slot and then jumps to the skip link;
-// it stops when the cursor passes the last node. B2 stops at its first
-// hit below maxt. No stack, no shared memory.
+// and the loop runs until the slowest ray of the wavefront is done.
+//
+// B1 walks each ray in the lock-step walk's own order, the pre-order
+// skip-link walk: it tests a node's box; on a miss it jumps to the node's
+// skip link, on a hit it steps to the node's first child or, at a leaf,
+// tests the leaf's prims slot after slot and then jumps to the skip link.
+// It then tests the same prims against the same best t as the plain walk,
+// and the first slot in walk order wins a tie. B2 answers whether some
+// prim of an entered leaf lies below maxt; every box is tested against
+// maxt, so the leaves entered do not depend on the order of the visits:
+// it visits the nearer entered child first, the other on a short stack
+// (trees deeper than kStack take the skip-link walk), and stops at its
+// first hit.
 //
 // Numerics follow the plain walk in render/bvh.py (the prim tests of
 // geometry._intersect_prims in its gathered form, geometry.ray_triangle /
 // ray_sphere / ray_cylinder with rn=True): every product and sum is
 // rounded on its own (cluster_common.cuh's mul / add / sub / dot3), the
 // dot products sum x, y, z in that order, divisions and square roots
-// round to nearest, and the epsilons are geometry.py's. A thread then
-// walks the same nodes and tests the same prims as its lane of the
-// lock-step walk, and its t, prim, u, v are the plain version's bit for
-// bit. A lane with maxt <= 0 (or NaN) returns a miss at once: no prim
-// test passes below such a maxt, so the plain walk's result is the same.
+// round to nearest, and the epsilons are geometry.py's. B1's t, prim, u,
+// v are then the plain version's bit for bit, and B2's answer is. A lane
+// with maxt <= 0 (or NaN) returns a miss at once: no prim test passes
+// below such a maxt, so the plain walk's result is the same.
 //
-// What bounds it on the H100: the walk's latency. A ray reads 28 bytes
-// and writes 16 (B2: 1), but visits tens to thousands of nodes one after
-// another, each a dependent chain of loads (box, then leaf slots, then
-// the skip link) from a tree of ~0.63 nodes a prim (44 bytes a node,
-// ~42 MB at 1.5M prims, near the 50 MB L2). This first version loads a
-// node's 6 bounds, its 4 slots (one int4) and its skip link through
-// __ldg and keeps nothing in shared memory; node packing, warp voting and
-// ray sorting are left to a later redesign.
+// What bounds it on the H100: the walk's loads. A ray reads 28 bytes and
+// writes 16 (B2: 1), but visits tens to hundreds of nodes one after
+// another, each a load the next step waits on, from lanes of a warp that
+// soon sit at different nodes. The storage cuts the loads and the cache
+// sectors a visit touches (the parent layout read four arrays a node and
+// four a prim):
+//   - one 32-byte record a node, bb_min.xyz + `first` (the first child's
+//     slot, or for a leaf ~(start << 3 | count) into the prim records) and
+//     bb_max.xyz + the skip link's slot (-1 past the last node): two
+//     16-byte loads from one sector; a node's two children side by side,
+//     so B2 loads both boxes at once;
+//   - one 48-byte record a prim, p0 + type, e1 + the prim's id, e2, in
+//     walk order: a leaf's prims side by side.
+// A plain grid of 128-thread blocks keeps about 40 warps on a SM. Tried
+// on the H100 and dropped (PERF.md §6): the tree's top in shared
+// memory with persistent blocks that fetch rays a warp at a time, the
+// while-while walk, a register cap for more warps, loading both
+// successors or both children ahead, and 64-byte aligned pairs.
 #include "cluster_common.cuh"
 
 namespace {
@@ -42,27 +58,25 @@ using mct_cluster::mul;
 using mct_cluster::Ray;
 using mct_cluster::sub;
 
-constexpr int kThreadsBvh = 128;
-constexpr int kLeafSize = 4;    // render/bvh.LEAF_SIZE
-constexpr float kEps = 1e-7f;   // geometry._EPS
-constexpr int64_t kTri = 0, kCylinder = 2;
+constexpr int kThreads = 128;
+constexpr int kStack = 64;     // B2 near child first: the deepest tree it takes
+constexpr float kEps = 1e-7f;  // geometry._EPS
+constexpr int kTri = 0, kCylinder = 2;
+constexpr int kEnd = -1;       // the skip link past the last node
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
 // The JAX `_slab_test`: the box is entered (near <= far), not behind the
 // origin (far > 0) and nearer than the best hit so far (near < t_best).
-__device__ __forceinline__ bool slab(const float* __restrict__ bb_min,
-                                     const float* __restrict__ bb_max,
-                                     int node, const Ray& r, float t_best) {
-  const float* lo = bb_min + 3 * (int64_t)node;
-  const float* hi = bb_max + 3 * (int64_t)node;
-  const float lx = mul(sub(__ldg(lo), r.ox), r.ix);
-  const float ly = mul(sub(__ldg(lo + 1), r.oy), r.iy);
-  const float lz = mul(sub(__ldg(lo + 2), r.oz), r.iz);
-  const float hx = mul(sub(__ldg(hi), r.ox), r.ix);
-  const float hy = mul(sub(__ldg(hi + 1), r.oy), r.iy);
-  const float hz = mul(sub(__ldg(hi + 2), r.oz), r.iz);
-  const float near = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+__device__ __forceinline__ bool slab(const float4& lo, const float4& hi, const Ray& r,
+                                     float t_best, float& near) {
+  const float lx = mul(sub(lo.x, r.ox), r.ix);
+  const float ly = mul(sub(lo.y, r.oy), r.iy);
+  const float lz = mul(sub(lo.z, r.oz), r.iz);
+  const float hx = mul(sub(hi.x, r.ox), r.ix);
+  const float hy = mul(sub(hi.y, r.oy), r.iy);
+  const float hz = mul(sub(hi.z, r.oz), r.iz);
+  near = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
   const float far = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
   return near <= far && far > 0.f && near < t_best;
 }
@@ -70,16 +84,6 @@ __device__ __forceinline__ bool slab(const float* __restrict__ bb_min,
 struct Prim {
   float p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
-
-__device__ __forceinline__ Prim load_prim(const float* __restrict__ p0,
-                                          const float* __restrict__ e1,
-                                          const float* __restrict__ e2,
-                                          int pid) {
-  const int64_t i = 3 * (int64_t)pid;
-  return Prim{__ldg(p0 + i), __ldg(p0 + i + 1), __ldg(p0 + i + 2),
-              __ldg(e1 + i), __ldg(e1 + i + 1), __ldg(e1 + i + 2),
-              __ldg(e2 + i), __ldg(e2 + i + 1), __ldg(e2 + i + 2)};
-}
 
 // geometry.ray_triangle (Moller-Trumbore); +inf on a miss. It returns as
 // soon as det, u or v rules the triangle out, which gives the same t as
@@ -148,14 +152,8 @@ __device__ __forceinline__ float cylinder(const Prim& p, const Ray& r) {
 // geometry._intersect_prims for one prim: t (+inf on a miss), with u, v
 // set for triangles and 0 otherwise. Without cylinders (a host fact)
 // every non-triangle is a sphere, as in the plain version.
-__device__ __forceinline__ float prim_test(const int64_t* __restrict__ prim_type,
-                                           const float* __restrict__ p0,
-                                           const float* __restrict__ e1,
-                                           const float* __restrict__ e2,
-                                           bool cylinders, int pid,
+__device__ __forceinline__ float prim_test(const Prim& p, int type, bool cylinders,
                                            const Ray& r, float& u, float& v) {
-  const int64_t type = __ldg(prim_type + pid);
-  const Prim p = load_prim(p0, e1, e2, pid);
   u = 0.f;
   v = 0.f;
   if (type == kTri) return tri(p, r, u, v);
@@ -164,63 +162,113 @@ __device__ __forceinline__ float prim_test(const int64_t* __restrict__ prim_type
 }
 
 struct Tree {
-  const float* bb_min;
-  const float* bb_max;
-  const int32_t* skip;
-  const int4* leaf;   // (n_nodes, 4) i32 slots, one int4 a node
+  const float4* nodes;  // two a node (pack_nodes)
+  const float4* prims;  // three a prim, in walk order (pack_prims)
   int n_nodes;
-  const int64_t* prim_type;
-  const float* p0;
-  const float* e1;
-  const float* e2;
   bool cylinders;
 };
 
-// The skip-link walk of one ray. kAny: stop at the first prim hit below
-// maxt (B2), else keep the nearest (B1: the first slot in walk order
-// among equal t). Returns the hit prim, -1 for none.
+__device__ __forceinline__ void fetch(const Tree& tr, int i, float4& lo, float4& hi) {
+  const float4* p = tr.nodes + 2 * (int64_t)i;
+  lo = __ldg(p);
+  hi = __ldg(p + 1);
+}
+
+// The prims of the leaf with code ~(start << 3 | count), slot after slot
+// against the best so far (B1: the first slot in walk order among equal
+// t). kAny: true at the first prim hit below maxt.
 template <bool kAny>
-__device__ __forceinline__ int walk(const Tree& tr, const Ray& r, float mt,
-                                   float& t_best, float& u_best,
-                                   float& v_best) {
+__device__ __forceinline__ bool leaf(const Tree& tr, int code, const Ray& r, float mt,
+                                     float& t_best, float& u_best, float& v_best,
+                                     int& best) {
+  const int start = (~code) >> 3, count = (~code) & 7;
+  for (int i = 0; i < count; ++i) {
+    const float4* q = tr.prims + 3 * (int64_t)(start + i);
+    const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    const Prim p{a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
+    float u, v;
+    const float t = prim_test(p, __float_as_int(a.w), tr.cylinders, r, u, v);
+    if (t < t_best && t < mt) {
+      best = __float_as_int(b.w);
+      if (kAny) return true;
+      t_best = t;
+      u_best = u;
+      v_best = v;
+    }
+  }
+  return false;
+}
+
+// The skip-link walk of one ray. Returns the hit prim, -1 for none.
+template <bool kAny>
+__device__ __forceinline__ int walk(const Tree& tr, const Ray& r, float mt, float& t_best,
+                                    float& u_best, float& v_best) {
   int best = -1;
-  int node = 0;
-  while (node < tr.n_nodes) {
-    if (!slab(tr.bb_min, tr.bb_max, node, r, t_best)) {
-      node = __ldg(tr.skip + node);
+  int node = tr.n_nodes > 0 ? 0 : kEnd;
+  while (node != kEnd) {
+    float4 lo, hi;
+    fetch(tr, node, lo, hi);
+    const int first = __float_as_int(lo.w), skip = __float_as_int(hi.w);
+    float near;
+    if (!slab(lo, hi, r, t_best, near)) {
+      node = skip;
       continue;
     }
-    const int4 slots = __ldg(tr.leaf + node);
-    if (slots.x < 0) {  // internal: its first child follows
-      ++node;
+    if (first >= 0) {  // internal: its first child
+      node = first;
       continue;
     }
-    const int ids[kLeafSize] = {slots.x, slots.y, slots.z, slots.w};
-#pragma unroll
-    for (int i = 0; i < kLeafSize; ++i) {
-      if (ids[i] < 0) continue;
-      float u, v;
-      const float t = prim_test(tr.prim_type, tr.p0, tr.e1, tr.e2, tr.cylinders,
-                                ids[i], r, u, v);
-      if (t < t_best && t < mt) {
-        best = ids[i];
-        if (kAny) return best;
-        t_best = t;
-        u_best = u;
-        v_best = v;
-      }
-    }
-    node = __ldg(tr.skip + node);
+    if (leaf<kAny>(tr, first, r, mt, t_best, u_best, v_best, best)) return best;
+    node = skip;
   }
   return best;
 }
 
-__global__ void __launch_bounds__(kThreadsBvh)
+// B2 near child first: an entered node's two children load together (they
+// sit side by side); of two entered children the nearer goes first and
+// the other's code (its first child's slot or its leaf code) waits on the
+// stack.
+__device__ __forceinline__ bool any_near_first(const Tree& tr, const Ray& r, float mt) {
+  if (tr.n_nodes == 0) return false;
+  int stack[kStack];
+  int sp = 0;
+  float4 lo, hi;
+  fetch(tr, 0, lo, hi);
+  float near_l, near_r;
+  if (!slab(lo, hi, r, mt, near_l)) return false;
+  int code = __float_as_int(lo.w);
+  float t_best = mt, u, v;
+  int best = -1;
+  for (;;) {
+    if (code < 0) {
+      if (leaf<true>(tr, code, r, mt, t_best, u, v, best)) return true;
+      if (sp == 0) return false;
+      code = stack[--sp];
+      continue;
+    }
+    float4 l0, l1, r0, r1;
+    fetch(tr, code, l0, l1);
+    fetch(tr, code + 1, r0, r1);
+    const bool hl = slab(l0, l1, r, mt, near_l), hr = slab(r0, r1, r, mt, near_r);
+    if (hl && hr) {
+      const bool left = near_l <= near_r;
+      stack[sp++] = __float_as_int(left ? r0.w : l0.w);
+      code = __float_as_int(left ? l0.w : r0.w);
+    } else if (hl || hr) {
+      code = __float_as_int(hl ? l0.w : r0.w);
+    } else {
+      if (sp == 0) return false;
+      code = stack[--sp];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
     bvh_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                        const float* __restrict__ maxt, int64_t n, Tree tr,
                        float* __restrict__ out_t, float* __restrict__ out_u,
                        float* __restrict__ out_v, int32_t* __restrict__ out_prim) {
-  const int64_t lane = (int64_t)blockIdx.x * kThreadsBvh + threadIdx.x;
+  const int64_t lane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (lane >= n) return;
   const float mt = maxt[lane];
   float t = mt, u = 0.f, v = 0.f;
@@ -232,66 +280,58 @@ __global__ void __launch_bounds__(kThreadsBvh)
   out_prim[lane] = prim;
 }
 
-__global__ void __launch_bounds__(kThreadsBvh)
+__global__ void __launch_bounds__(kThreads)
     bvh_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ maxt, int64_t n, Tree tr,
+                   const float* __restrict__ maxt, int64_t n, Tree tr, int near_first,
                    uint8_t* __restrict__ out) {
-  const int64_t lane = (int64_t)blockIdx.x * kThreadsBvh + threadIdx.x;
+  const int64_t lane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (lane >= n) return;
   const float mt = maxt[lane];
   bool hit = false;
   if (mt > 0.f) {
-    float t = mt, u, v;
-    hit = walk<true>(tr, load_ray(o, d, lane), mt, t, u, v) >= 0;
+    const Ray r = load_ray(o, d, lane);
+    if (near_first) {
+      hit = any_near_first(tr, r, mt);
+    } else {
+      float t = mt, u, v;
+      hit = walk<true>(tr, r, mt, t, u, v) >= 0;
+    }
   }
   out[lane] = hit ? 1 : 0;
 }
 
-Tree make_tree(const float* bb_min, const float* bb_max, const int32_t* skip,
-               const int32_t* leaf, int n_nodes, const int64_t* prim_type,
-               const float* p0, const float* e1, const float* e2, int cylinders) {
-  return Tree{bb_min, bb_max, skip, reinterpret_cast<const int4*>(leaf), n_nodes,
-              prim_type, p0, e1, e2, cylinders != 0};
-}
+unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreadsBvh - 1) / kThreadsBvh);
+Tree make_tree(const void* nodes, int n_nodes, const void* prims, int cylinders) {
+  return Tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(prims),
+              n_nodes, cylinders != 0};
 }
 
 }  // namespace
 
-// o, d: (n, 3) f32; maxt: (n,) f32; bb_min, bb_max: (n_nodes, 3) f32;
-// skip: (n_nodes,) i32; leaf: (n_nodes, 4) i32 (16-byte aligned rows);
-// prim_type: (P,) i64; p0, e1, e2: (P, 3) f32; cylinders: 0 when the soup
-// holds none. out_t, out_u, out_v: (n,) f32; out_prim: (n,) i32, -1 on a
-// miss (t = +inf, u = v = 0).
-extern "C" int mct_bvh_closest(const float* o, const float* d, const float* maxt,
-                               int64_t n, const float* bb_min, const float* bb_max,
-                               const int32_t* skip, const int32_t* leaf,
-                               int n_nodes, const int64_t* prim_type,
-                               const float* p0, const float* e1, const float* e2,
-                               int cylinders, float* out_t, float* out_u,
-                               float* out_v, int32_t* out_prim,
-                               cudaStream_t stream) {
+// o, d: (n, 3) f32; maxt: (n,) f32; nodes: (n_nodes, 8) i32 records
+// (render/bvh.pack_nodes), prims: (P, 12) i32 records (pack_prims), both
+// 16-byte aligned; cylinders: 0 when the soup holds none. out_t, out_u,
+// out_v: (n,) f32; out_prim: (n,) i32, -1 on a miss (t = +inf, u = v = 0).
+extern "C" int mct_bvh_closest(const float* o, const float* d, const float* maxt, int64_t n,
+                               const void* nodes, int n_nodes, const void* prims,
+                               int cylinders, float* out_t, float* out_u, float* out_v,
+                               int32_t* out_prim, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  bvh_closest_kernel<<<blocks_for(n), kThreadsBvh, 0, stream>>>(
-      o, d, maxt, n,
-      make_tree(bb_min, bb_max, skip, leaf, n_nodes, prim_type, p0, e1, e2, cylinders),
-      out_t, out_u, out_v, out_prim);
+  bvh_closest_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+      o, d, maxt, n, make_tree(nodes, n_nodes, prims, cylinders), out_t, out_u, out_v,
+      out_prim);
   return (int)cudaGetLastError();
 }
 
-// As mct_bvh_closest; out: (n,) u8, 1 = a prim hit below maxt.
-extern "C" int mct_bvh_any(const float* o, const float* d, const float* maxt,
-                           int64_t n, const float* bb_min, const float* bb_max,
-                           const int32_t* skip, const int32_t* leaf, int n_nodes,
-                           const int64_t* prim_type, const float* p0,
-                           const float* e1, const float* e2, int cylinders,
-                           uint8_t* out, cudaStream_t stream) {
+// As mct_bvh_closest; depth: the tree's depth (NodePack.depth), at most
+// kStack for B2 to visit near children first; out: (n,) u8, 1 = a prim
+// hit below maxt.
+extern "C" int mct_bvh_any(const float* o, const float* d, const float* maxt, int64_t n,
+                           const void* nodes, int n_nodes, const void* prims, int cylinders,
+                           int depth, uint8_t* out, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  bvh_any_kernel<<<blocks_for(n), kThreadsBvh, 0, stream>>>(
-      o, d, maxt, n,
-      make_tree(bb_min, bb_max, skip, leaf, n_nodes, prim_type, p0, e1, e2, cylinders),
-      out);
+  bvh_any_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+      o, d, maxt, n, make_tree(nodes, n_nodes, prims, cylinders), depth <= kStack, out);
   return (int)cudaGetLastError();
 }

@@ -49,10 +49,8 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P],
     "mct_cluster_shadow": [_P, _P, _P, _I64, _P, _P, _I, _P, _P, _I, _P,
                            _P, _P],
-    "mct_bvh_closest": [_P, _P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                        _I, _P, _P, _P, _P, _P],
-    "mct_bvh_any": [_P, _P, _P, _I64, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                    _P, _P],
+    "mct_bvh_closest": [_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "mct_bvh_any": [_P, _P, _P, _I64, _P, _I, _P, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -1,5 +1,5 @@
 """Skip-link BVH: host-side binned-SAH build, and closest-hit (B1) and
-any-hit (B2) traversal, one CUDA thread per ray on the card.
+any-hit (B2) traversal, one CUDA thread a ray on the card.
 
 PyTorch port of mitsuba_customization_tpu/render/bvh.py, the JAX package's
 intersector for scenes past ops/clusters.MAX_PRIMS. The tree is the JAX
@@ -20,13 +20,20 @@ tests of the same walk (the kernels' bound).
 
 `intersect` and `occluded` pick by device: a CPU tensor runs the plain
 walk, a CUDA tensor launches csrc/bvh_traverse.cu (B1 `bvh_closest`, B2
-`bvh_any`), which walks each ray's skip links on its own thread, or
-raises. The JAX package has no Pallas kernel here (its walk is an XLA
-while_loop).
+`bvh_any`), one thread a ray, or raises. The JAX package has no Pallas
+kernel here (its walk is an XLA while_loop). The kernels read the tree
+and the geometry packed (`pack_nodes`, `pack_prims`): a node as one
+32-byte record with explicit first-child and skip slots, a node's two
+children side by side; a prim as one 48-byte record, the leaves' prims
+in walk order. `packed` keeps the packs of a (tree, geometry) pair while
+neither changes; the loader makes them for a scene traced on the BVH on
+the card, and any other pair packs on its first call.
 """
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -368,6 +375,123 @@ def walk_work(tree: BVH, geom, ray, cylinders=True, any_hit=False):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' packed storage
+# ---------------------------------------------------------------------------
+
+
+class NodePack(NamedTuple):
+    """The kernels' storage of a BVH's nodes (`pack_nodes`): one 32-byte
+    record a node.
+
+    nodes: (N, 8) i32 records by storage slot: bb_min.xyz (float bits) and
+           `first` (an internal node's first child's slot; a leaf's
+           ~(start << 3 | count), its prims in the prim pack), then
+           bb_max.xyz and the skip link's slot (-1 past the last node)
+    order: (N,) i64, the storage slot of each pre-order node: the root at
+           0, then each internal node's two children side by side, the
+           pairs in their parents' pre-order
+    depth: the tree's depth, in edges from the root to the deepest leaf
+    """
+
+    nodes: torch.Tensor
+    order: torch.Tensor
+    depth: int
+
+
+def _i32(x):
+    """The bits of a float32 tensor as int32 (a contiguous copy)."""
+    return x.detach().to(torch.float32).contiguous().view(torch.int32)
+
+
+def pack_nodes(tree: BVH) -> NodePack:
+    """The kernels' node records of `tree`, on its device. The records
+    encode the tree's pre-order skip-link walk through explicit slots;
+    only the storage differs from the pre-order numbering: a node's two
+    children sit side by side (B2 loads both boxes at once)."""
+    dev, n = tree.skip.device, tree.n_nodes
+    if n == 0:
+        return NodePack(torch.zeros((0, 8), dtype=torch.int32, device=dev),
+                        torch.zeros(0, dtype=torch.int64, device=dev), 0)
+    skip = tree.skip.to(torch.int64)
+    slots = tree.leaf_prims.to(torch.int64)
+    is_leaf = slots[:, 0] >= 0
+    inner = (~is_leaf).nonzero().squeeze(1)  # pre-order
+    left = inner + 1
+    right = skip[left]
+    pair = torch.arange(inner.shape[0], device=dev)
+    order = torch.zeros(n, dtype=torch.int64, device=dev)
+    order[left] = 1 + 2 * pair
+    order[right] = 2 + 2 * pair
+    # depth by pointer jumping over the parent links
+    up = torch.zeros(n, dtype=torch.int64, device=dev)
+    up[left] = inner
+    up[right] = inner
+    depth = (torch.arange(n, device=dev) > 0).to(torch.int64)
+    while bool((up > 0).any()):
+        depth, up = depth + depth[up], up[up]
+
+    count = (slots >= 0).sum(1)
+    start = torch.cumsum(count, 0) - count
+    if int(start[-1] + count[-1]) >= 1 << 28:
+        raise ValueError("pack_nodes: more than 2**28 prims")
+    nxt = order[torch.clamp(torch.arange(n, device=dev) + 1, max=n - 1)]
+    first = torch.where(is_leaf, -(start * 8 + count) - 1, nxt)
+    skip_slot = torch.where(skip < n, order[torch.clamp(skip, max=n - 1)], -1)
+    recs = torch.cat([_i32(tree.bb_min), first[:, None].to(torch.int32), _i32(tree.bb_max),
+                      skip_slot[:, None].to(torch.int32)], 1)
+    nodes = torch.empty_like(recs)
+    nodes[order] = recs
+    return NodePack(nodes, order, int(depth.max()))
+
+
+def pack_prims(tree: BVH, geom) -> torch.Tensor:
+    """(P, 12) i32: one 48-byte record a prim of the tree's leaves, in walk
+    order (leaf after leaf in pre-order, slot order kept): p0.xyz (float
+    bits) and the prim type, e1.xyz and the prim's id, e2.xyz and 0."""
+    slots = tree.leaf_prims.to(torch.int64)
+    ids = slots[slots >= 0]
+    dev = slots.device
+    return torch.cat([_i32(geom.p0[ids]), geom.prim_type[ids].to(torch.int32)[:, None],
+                      _i32(geom.e1[ids]), ids.to(torch.int32)[:, None], _i32(geom.e2[ids]),
+                      torch.zeros((ids.shape[0], 1), dtype=torch.int32, device=dev)], 1)
+
+
+# (kind, (id, _version) of each tensor keyed on) -> (weak references to
+# those tensors, the pack). An in-place edit bumps a version, so the pack
+# is made anew; an entry goes when one of its tensors is freed, and the
+# least recently used go past PACK_CACHE_SIZE entries.
+_PACKS: OrderedDict = OrderedDict()
+PACK_CACHE_SIZE = 8
+
+
+def _cached(kind, tensors, make):
+    key = (kind,) + tuple((id(t), t._version) for t in tensors)
+    hit = _PACKS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        _PACKS.move_to_end(key)
+        return hit[1]
+    out = make()
+
+    def drop(_, key=key):
+        _PACKS.pop(key, None)
+
+    _PACKS[key] = (tuple(weakref.ref(t, drop) for t in tensors), out)
+    while len(_PACKS) > PACK_CACHE_SIZE:
+        _PACKS.popitem(last=False)
+    return out
+
+
+def packed(tree: BVH, geom):
+    """(NodePack, prim pack) of the tree and a geometry, made once and kept
+    while neither changes (the loader makes them for a scene traced on the
+    BVH on the card, so that no frame of it packs)."""
+    nodes = _cached("nodes", tuple(tree), lambda: pack_nodes(tree))
+    prims = _cached("prims", (tree.leaf_prims, geom.prim_type, geom.p0, geom.e1, geom.e2),
+                    lambda: pack_prims(tree, geom))
+    return nodes, prims
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
@@ -380,26 +504,33 @@ def _check_cuda(tree, geom, o, d, maxt, what):
     if (tree.bb_min.shape != (k, 3) or tree.bb_max.shape != (k, 3)
             or tree.leaf_prims.shape != (k, LEAF_SIZE) or tree.bb_min.dtype != torch.float32
             or tree.bb_max.dtype != torch.float32 or tree.skip.dtype != torch.int32
-            or tree.leaf_prims.dtype != torch.int32
-            or not all(t.is_contiguous() for t in tree)
-            or tree.leaf_prims.data_ptr() % 16):
+            or tree.leaf_prims.dtype != torch.int32):
         raise ValueError(f"{what}: malformed BVH")
     p = geom.prim_type.shape[0]
-    if (geom.prim_type.dtype != torch.int64 or not geom.prim_type.is_contiguous()
-            or any(f.shape != (p, 3) or f.dtype != torch.float32 or not f.is_contiguous()
+    if (geom.prim_type.dtype != torch.int64
+            or any(f.shape != (p, 3) or f.dtype != torch.float32
                    for f in (geom.p0, geom.e1, geom.e2))):
         raise ValueError(f"{what}: the geometry's prim_type must be int64 (P,) and p0, e1, "
-                         "e2 contiguous float32 (P, 3)")
+                         "e2 float32 (P, 3)")
     for t in (d, maxt, *tree, geom.prim_type, geom.p0, geom.e1, geom.e2):
         if not t.is_cuda or t.device != o.device:
             raise ValueError(f"{what}: rays, BVH and geometry must be on one GPU")
 
 
-def _launch_args(tree, geom, o, d, maxt, cylinders):
+def _launch(kind, tree, geom, o, d, maxt, cylinders, out):
+    """Launch B1 (kind "closest", out (t, u, v, prim)) or B2 ("any", out
+    the occlusion bytes) on the packed storage of (tree, geom)."""
+    nodes, prims = packed(tree, geom)
     p = kbuild.ptr
-    return (p(o), p(d), p(maxt), o.shape[0], p(tree.bb_min), p(tree.bb_max), p(tree.skip),
-            p(tree.leaf_prims), tree.n_nodes, p(geom.prim_type), p(geom.p0), p(geom.e1),
-            p(geom.e2), int(bool(cylinders)))
+    args = (p(o), p(d), p(maxt), o.shape[0], p(nodes.nodes), tree.n_nodes, p(prims),
+            int(bool(cylinders)))
+    lib = kbuild.library()
+    if kind == "closest":
+        err = lib.mct_bvh_closest(*args, *map(p, out), kbuild.stream_of(o))
+    else:
+        err = lib.mct_bvh_any(*args, nodes.depth, p(out), kbuild.stream_of(o))
+    kbuild.check(err, "bvh_" + kind)
+    LAUNCHES[kind] += 1
 
 
 def intersect(tree: BVH, geom, ray, cylinders=True):
@@ -413,11 +544,7 @@ def intersect(tree: BVH, geom, ray, cylinders=True):
     n = o.shape[0]
     out = torch.empty((3, n), dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
-    err = kbuild.library().mct_bvh_closest(
-        *_launch_args(tree, geom, o, d, maxt, cylinders), kbuild.ptr(out[0]),
-        kbuild.ptr(out[1]), kbuild.ptr(out[2]), kbuild.ptr(prim), kbuild.stream_of(o))
-    kbuild.check(err, "bvh_closest")
-    LAUNCHES["closest"] += 1
+    _launch("closest", tree, geom, o, d, maxt, cylinders, (out[0], out[1], out[2], prim))
     return out[0], prim.to(torch.int64), out[1], out[2]
 
 
@@ -429,11 +556,6 @@ def occluded(tree: BVH, geom, ray, cylinders=True):
         return occluded_plain(tree, geom, ray, cylinders)
     o, d, maxt = o.contiguous(), d.contiguous(), maxt.contiguous()
     _check_cuda(tree, geom, o, d, maxt, "bvh occluded")
-    n = o.shape[0]
-    out = torch.empty(n, dtype=torch.uint8, device=o.device)
-    err = kbuild.library().mct_bvh_any(
-        *_launch_args(tree, geom, o, d, maxt, cylinders), kbuild.ptr(out),
-        kbuild.stream_of(o))
-    kbuild.check(err, "bvh_any")
-    LAUNCHES["any"] += 1
+    out = torch.empty(o.shape[0], dtype=torch.uint8, device=o.device)
+    _launch("any", tree, geom, o, d, maxt, cylinders, out)
     return out.bool()

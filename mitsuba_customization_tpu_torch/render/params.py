@@ -82,6 +82,7 @@ from mitsuba_customization_tpu_torch.render.scene import (
     Scene,
     SceneConfig,
     geometry_from_numpy,
+    pack_bvh,
 )
 
 _STACK = re.compile(r"^bsdfs\.stacks\[(\d+)\]\.(.+)$")
@@ -324,6 +325,7 @@ def scene_from_numpy(arrays, config, device):
         tree = bvh_mod.bvh_from_numpy(*(a["bvh." + f] for f in bvh_mod.BVH._fields), device)
     elif cfg.intersector == "bvh":
         raise NotImplementedError("bvh intersector without use_bvh")
+    pack_bvh(cfg, tree, geometry, shadow_geometry)
     return Scene(
         geometry=geometry, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
         config=cfg, clusters=clusters,

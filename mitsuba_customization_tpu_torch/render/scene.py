@@ -963,6 +963,7 @@ def load_dict(d: dict, device="cuda") -> Scene:
         shadow_geometry = geometry_from_numpy(shadow, device)
         if clusters is not None:
             shadow_clusters = cl_mod.build(geo.Geometry(**shadow), device)
+    pack_bvh(cfg, tree, geometry, shadow_geometry)
 
     def stack_params(plist):
         return type(plist[0])(*(
@@ -1035,6 +1036,18 @@ def load_dict(d: dict, device="cuda") -> Scene:
         media=medium_mod.build_table(media_rows, shape_interior, shape_count, device=device),
         bvh=tree,
     )
+
+
+def pack_bvh(cfg, tree, geometry, shadow_geometry):
+    """Make the BVH kernels' packed storage of a scene traced on the BVH
+    (cfg.intersector "bvh") on the card: B1's over the geometry, B2's over
+    the shadow geometry where there is one, so that no frame packs
+    (render/bvh.packed keeps it). A scene on the clusters packs nothing;
+    switched to the BVH later, it packs on its first call."""
+    if cfg.intersector != "bvh" or tree is None or not tree.skip.is_cuda:
+        return
+    for g in (geometry, shadow_geometry if shadow_geometry is not None else geometry):
+        bvh_mod.packed(tree, g)
 
 
 def _load_sensor(t, val, cfg, device):

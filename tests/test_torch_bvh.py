@@ -30,6 +30,7 @@ Z-test of tests/reference_renderer.ztest_images.
 
 import dataclasses
 import logging
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -228,14 +229,17 @@ def test_plain_walks_match_jax(soup, numpy_builder):
     assert (occ == tgeo.occluded_brute(tg, ray, has_cyl).numpy()).mean() >= BRUTE_AGREE
 
 
-def _scalar_walk(tree, tg, o, d, maxt, any_hit):
+def _scalar_walk(tree, tg, o, d, maxt, any_hit, seq=None):
     """One lane's skip-link walk in plain Python over the numpy tree, prim
-    tests one at a time: (prim or hit, node visits, prim tests)."""
+    tests one at a time: (prim or hit, node visits, prim tests). seq: a
+    list the visited nodes are appended to."""
     bb_min, bb_max, skip, leaf = (x.numpy() for x in tree)
     inv = 1.0 / np.where(np.abs(d) < 1e-12, np.float32(1e-12), d)
     node, visits, tests, best, t_best = 0, 0, 0, -1, maxt
     while maxt > 0 and node < tree.n_nodes:
         visits += 1
+        if seq is not None:
+            seq.append(int(node))
         t0, t1 = (bb_min[node] - o) * inv, (bb_max[node] - o) * inv
         near, far = np.minimum(t0, t1).max(), np.maximum(t0, t1).min()
         if not (near <= far and far > 0 and near < t_best):
@@ -281,6 +285,207 @@ def test_walk_work_counts_the_walk(any_hit):
         assert got == want, i
     assert int(work.nodes.sum()) <= tree.n_nodes and bool(work.nodes[0])
     assert 0 < int(work.prims.sum()) <= int(work.tests.sum())
+
+
+def _unpack(pack, prims):
+    """The records of the kernels' packed storage as tensors: node bounds,
+    first-child / leaf codes and skip slots by storage slot; the prims as a
+    Geometry-like namespace by walk-order position, and their ids."""
+    def f32(cols):
+        return cols.contiguous().view(torch.float32)
+
+    rec = pack.nodes
+    nodes = SimpleNamespace(lo=f32(rec[:, 0:3]), hi=f32(rec[:, 4:7]), first=rec[:, 3].long(),
+                            skip=rec[:, 7].long())
+    geom = SimpleNamespace(prim_type=prims[:, 3].long(), p0=f32(prims[:, 0:3]),
+                           e1=f32(prims[:, 4:7]), e2=f32(prims[:, 8:11]))
+    return nodes, geom, prims[:, 7].long()
+
+
+def _packed_walk(pack, prims, ray, cylinders, any_hit, trace=0):
+    """tbvh._walk over the kernels' packed storage, step for step: a lane's
+    cursor is a storage slot; a node's record gives its box, its first
+    child's slot or its leaf's prims (start and count in the prim pack)
+    and its skip link's slot (-1 past the last node). Returns ((t, prim,
+    u, v) or occluded, node visits per lane, the pre-order nodes the first
+    `trace` lanes visited, lane by lane)."""
+    nodes, pg, ids = _unpack(pack, prims)
+    n_nodes = pack.order.shape[0]
+    pre = torch.empty_like(pack.order)
+    pre[pack.order] = torch.arange(n_nodes)
+    o, d, maxt = tcl._rays(ray)
+    n = o.shape[0]
+    inv_d = tcl._inv_dir(d)
+    t_out, prim_out = maxt.clone(), torch.full((n,), -1, dtype=torch.int64)
+    u_out, v_out = torch.zeros(n), torch.zeros(n)
+    hit_out = torch.zeros(n, dtype=torch.bool)
+    visits = torch.zeros(n, dtype=torch.int64)
+    seqs = [[] for _ in range(trace)]
+    lane = (maxt > 0).nonzero().squeeze(1) if n_nodes else torch.zeros(0, dtype=torch.int64)
+    node = torch.zeros(lane.shape[0], dtype=torch.int64)
+    o_l, d_l, inv_l, mt_l = o[lane], d[lane], inv_d[lane], maxt[lane]
+    t_l, p_l = mt_l.clone(), torch.full_like(node, -1)
+    u_l, v_l = torch.zeros_like(t_l), torch.zeros_like(t_l)
+    h_l = torch.zeros_like(node, dtype=torch.bool)
+    slot_iota = torch.arange(tbvh.LEAF_SIZE)
+    while lane.shape[0]:
+        for _ in range(tbvh.CHECK_EVERY):
+            active = node >= 0
+            ns = torch.clamp(node, min=0)
+            visits[lane] += active
+            shown = active & (lane < trace)
+            for i, k in zip(lane[shown].tolist(), pre[ns[shown]].tolist()):
+                seqs[i].append(k)
+            hit_box = tbvh._slab_test(nodes.lo[ns], nodes.hi[ns], o_l, inv_l, t_l) & active
+            code = nodes.first[ns]
+            is_leaf = code < 0
+            sel = (hit_box & is_leaf).nonzero().squeeze(1)
+            packed_leaf = ~code[sel]
+            valid = slot_iota < (packed_leaf & 7)[:, None]
+            pos = torch.where(valid, (packed_leaf >> 3)[:, None] + slot_iota, 0)
+            t_i, u_i, v_i = tgeo._intersect_prims(pg, o_l[sel, None, :], d_l[sel, None, :], pos,
+                                                  cylinders)
+            ok = valid & (t_i < mt_l[sel, None])
+            if any_hit:
+                h_l[sel] |= ok.any(1)
+            else:
+                tt = torch.where(ok, t_i, float("inf"))
+                t_min = tt.amin(1)
+                first = torch.where(tt == t_min[:, None], slot_iota, tbvh.LEAF_SIZE).amin(1)
+                closer = t_min < t_l[sel]
+                pick = torch.clamp(first, max=tbvh.LEAF_SIZE - 1)[:, None]
+                upd = sel[closer]
+                t_l[upd] = t_min[closer]
+                p_l[upd] = ids[pos.gather(1, pick).squeeze(1)][closer]
+                u_l[upd] = u_i.gather(1, pick).squeeze(1)[closer]
+                v_l[upd] = v_i.gather(1, pick).squeeze(1)[closer]
+            nxt = torch.where(hit_box & ~is_leaf, code, nodes.skip[ns])
+            if any_hit:
+                nxt = torch.where(h_l, -1, nxt)
+            node = torch.where(active, nxt, node)
+        done = node < 0
+        fin = lane[done]
+        hit_out[fin] = h_l[done]
+        t_out[fin], prim_out[fin] = t_l[done], p_l[done]
+        u_out[fin], v_out[fin] = u_l[done], v_l[done]
+        keep = ~done
+        lane, node, o_l, d_l, inv_l, mt_l = (x[keep] for x in (lane, node, o_l, d_l, inv_l,
+                                                               mt_l))
+        t_l, p_l, u_l, v_l, h_l = (x[keep] for x in (t_l, p_l, u_l, v_l, h_l))
+    if any_hit:
+        return hit_out, visits, seqs
+    miss = prim_out < 0
+    return (torch.where(miss, float("inf"), t_out), prim_out, u_out, v_out), visits, seqs
+
+
+@pytest.mark.parametrize("soup", sorted(SOUPS))
+def test_packs_round_trip_to_the_tree_and_the_geometry(soup):
+    """pack_nodes / pack_prims hold the BVH's arrays and the geometry bit
+    for bit: each pre-order node's record at its slot has its bounds, its
+    first child's slot (a leaf: its prims' start and count), its skip
+    link's slot; the slots are a permutation with the root first and
+    every node's children side by side, in their parents' pre-order;
+    every prim once, in leaf order, with its type, id and fields; the
+    depth is the tree's."""
+    _, tg = _both(_soup(np.random.default_rng(7), **SOUPS[soup]))
+    tree = tbvh.build(tg, "cpu")
+    pack = tbvh.pack_nodes(tree)
+    prims = tbvh.pack_prims(tree, tg)
+    n = tree.n_nodes
+    nodes, pg, ids = _unpack(pack, prims)
+    order = pack.order
+    assert torch.equal(torch.sort(order).values, torch.arange(n)) and int(order[0]) == 0
+    assert torch.equal(nodes.lo[order].view(torch.int32), tree.bb_min.view(torch.int32))
+    assert torch.equal(nodes.hi[order].view(torch.int32), tree.bb_max.view(torch.int32))
+    skip = tree.skip.long()
+    want_skip = torch.where(skip < n, order[torch.clamp(skip, max=n - 1)], -1)
+    assert torch.equal(nodes.skip[order], want_skip)
+    slots = tree.leaf_prims.long()
+    is_leaf = slots[:, 0] >= 0
+    code = nodes.first[order]
+    assert torch.equal(code < 0, is_leaf)
+    inner = (~is_leaf).nonzero().squeeze(1)
+    assert torch.equal(code[inner], order[inner + 1])
+    # children side by side, the pairs in their parents' pre-order
+    assert torch.equal(order[inner + 1], 1 + 2 * torch.arange(inner.shape[0]))
+    assert torch.equal(order[skip[inner + 1]], order[inner + 1] + 1)
+    leaf_code = ~code[is_leaf]
+    for k, (start, count) in enumerate(zip((leaf_code >> 3).tolist(), (leaf_code & 7).tolist())):
+        row = slots[is_leaf][k]
+        assert ids[start:start + count].tolist() == row[row >= 0].tolist()
+    # every prim once, leaf after leaf, slot order kept
+    assert torch.equal(ids, slots[slots >= 0])
+    assert torch.equal(torch.sort(ids).values, torch.arange(tg.prim_type.shape[0]))
+    assert torch.equal(pg.prim_type, tg.prim_type[ids])
+    for f in ("p0", "e1", "e2"):
+        assert torch.equal(getattr(pg, f).view(torch.int32), getattr(tg, f)[ids].view(torch.int32))
+    assert bool((prims[:, 11] == 0).all())
+    depth = torch.zeros(n, dtype=torch.int64)
+    for i in inner.tolist():  # pre-order: a parent precedes its children
+        depth[i + 1] = depth[skip[i + 1]] = depth[i] + 1
+    assert pack.depth == int(depth.max())
+
+
+@pytest.mark.parametrize("soup", ["triangles_spheres", "cylinders", "degenerate",
+                                  "single_triangle"])
+def test_the_packed_walk_is_the_plain_walk(soup):
+    """A walk over the packed storage (the kernels' records, read by slot,
+    following their explicit child and skip slots) visits the pre-order
+    nodes of the skip-link
+    walk in its order, as many per lane as walk_work counts, and returns
+    intersect_plain's t, prim, u, v bit for bit and occluded_plain's
+    occlusion."""
+    rng = np.random.default_rng(11)
+    f = _soup(rng, **SOUPS[soup])
+    _, tg = _both(f)
+    tree = tbvh.build(tg, "cpu")
+    o, d, maxt = _rays(rng, 2000)
+    maxt[5::23] = np.nan
+    ray = Ray(torch.tensor(o), torch.tensor(d), torch.tensor(maxt))
+    has_cyl = bool((f["prim_type"] == jgeo.CYLINDER).any())
+    pack, prims = tbvh.pack_nodes(tree), tbvh.pack_prims(tree, tg)
+    for any_hit in (False, True):
+        got, visits, seqs = _packed_walk(pack, prims, ray, has_cyl, any_hit, trace=40)
+        want, work = tbvh.walk_work(tree, tg, ray, has_cyl, any_hit)
+        if any_hit:
+            assert torch.equal(got, want) and torch.equal(got, tbvh.occluded_plain(tree, tg, ray,
+                                                                                  has_cyl))
+        else:
+            for a, b in zip(got, want):
+                assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                                   b.view(torch.int32) if b.is_floating_point() else b)
+        assert torch.equal(visits, work.visits)
+        for i in range(40):
+            seq = []
+            _scalar_walk(tree, tg, o[i], d[i], maxt[i], any_hit, seq)
+            assert seqs[i] == seq, i
+
+
+def test_packs_follow_an_in_place_edit():
+    """packed() keeps a pack while the tree and the geometry are unchanged,
+    and makes it anew after an in-place edit of either: no stale pack; a
+    freed geometry's pack goes with it."""
+    _, tg = _both(_soup(np.random.default_rng(2), n_tri=200, n_sph=20))
+    tree = tbvh.build(tg, "cpu")
+    nodes, prims = tbvh.packed(tree, tg)
+    again = tbvh.packed(tree, tg)
+    assert again[0] is nodes and again[1] is prims
+    pid = int(tree.leaf_prims[tree.leaf_prims >= 0][5])
+    tg.e1[pid, 1] += 0.25
+    nodes2, prims2 = tbvh.packed(tree, tg)
+    assert nodes2 is nodes and prims2 is not prims
+    assert float(prims2[5, 4:7].contiguous().view(torch.float32)[1]) == float(tg.e1[pid, 1])
+    assert torch.equal(prims2, tbvh.pack_prims(tree, tg))
+    tree.bb_max[0, 2] += 1.0
+    nodes3, _ = tbvh.packed(tree, tg)
+    assert nodes3 is not nodes and torch.equal(nodes3.nodes, tbvh.pack_nodes(tree).nodes)
+    assert float(nodes3.nodes[0, 6].view(torch.float32)) == float(tree.bb_max[0, 2])
+    other = tg._replace(e2=tg.e2.clone())
+    assert tbvh.packed(tree, other)[1] is not prims2
+    # the cache holds no tensor alive: freeing one drops its entries
+    before = len(tbvh._PACKS)
+    del other
+    assert len(tbvh._PACKS) == before - 1
 
 
 def _blob_dict(n_sub):

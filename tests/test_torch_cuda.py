@@ -1330,14 +1330,12 @@ def test_volpath_ad_step_gpu_matches_cpu(dev):
         assert float(gg[k] @ gc[k] / (gg[k].norm() * gc[k].norm())) >= 0.98, k
 
 
-def _bvh_soup(dev):
-    """The _cluster_scene geometry (1,280 blob triangles, a sphere and a
-    cylinder) as a Geometry on the card, its BVH, and the same 65,536
-    rays with maxt inf, 3.5 or 0."""
-    from mitsuba_customization_tpu_torch.render import bvh
+def _blob_geometry(dev, n_sub):
+    """A Geometry on the card: the n_sub icosphere blob's triangles, a
+    sphere and a cylinder."""
     from mitsuba_customization_tpu_torch.render.scene import geometry_from_numpy
 
-    v, f = icosphere_blob(n_sub=3)
+    v, f = icosphere_blob(n_sub=n_sub)
     p = len(f)
     arrays = dict(
         prim_type=np.r_[np.zeros(p), geo.SPHERE, geo.CYLINDER].astype(np.int32),
@@ -1348,7 +1346,16 @@ def _bvh_soup(dev):
         **{k: np.zeros((p + 2, 2), np.float32) for k in ("uv0", "uv1", "uv2")},
         mat_id=np.zeros(p + 2, np.int32), emitter_id=np.full(p + 2, -1, np.int32),
         shape_id=np.zeros(p + 2, np.int32))
-    g = geometry_from_numpy(arrays, dev)
+    return geometry_from_numpy(arrays, dev)
+
+
+def _bvh_soup(dev):
+    """The _cluster_scene geometry (1,280 blob triangles, a sphere and a
+    cylinder) as a Geometry on the card, its BVH, and the same 65,536
+    rays with maxt inf, 3.5 or 0."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    g = _blob_geometry(dev, 3)
     _, o, d = _cluster_scene(dev)
     maxt = torch.full((o.shape[0],), float("inf"), device=dev)
     maxt[1::7] = 0.0
@@ -1396,6 +1403,122 @@ def test_b1_b2_on_a_shadow_geometry_and_without_cylinders(dev):
     want = bvh.intersect_plain(tree, g, ray, False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(bvh.occluded(tree, g, ray, False), bvh.occluded_plain(tree, g, ray, False))
+
+
+def _rays_around(dev, n, seed):
+    """n rays from a shell around the unit blob, half aimed at it, with
+    maxt inf, 3.5 or 0."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o *= (3.0 / np.linalg.norm(o, axis=-1, keepdims=True)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[: n // 2] = -o[: n // 2] + rng.normal(size=(n // 2, 3)).astype(np.float32) * 0.5
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    maxt = np.full(n, np.inf, np.float32)
+    maxt[1::7] = 0.0
+    maxt[2::7] = 3.5
+    return Ray(*(torch.tensor(x, device=dev) for x in (o, d, maxt)))
+
+
+def _b1_b2_cases(dev, case):
+    """(tree, geometry, rays) of one case of test_b1_b2_match_plain_on_every_shape."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    if case == "small_tree":
+        g = _blob_geometry(dev, 2)  # 322 prims
+        return bvh.build(g, dev), g, _rays_around(dev, 20_000, 1)
+    if case == "tree_of_330k_prims":
+        g = _blob_geometry(dev, 7)
+        return bvh.build(g, dev), g, _rays_around(dev, 1 << 18, 2)
+    tree, g, ray = _bvh_soup(dev)
+    if case == "dead_lanes":
+        maxt = ray.maxt.clone()
+        maxt[0::5] = float("nan")
+        maxt[3::11] = -1.0
+        maxt[4::13] = float("-inf")
+        maxt[6::17] = -0.0
+        return tree, g, Ray(ray.o, ray.d, maxt)
+    # more rays than the card runs at once (2,048 threads a SM), ragged
+    n = 2 * torch.cuda.get_device_properties(dev).multi_processor_count * 2048 + 4097
+    return tree, g, _rays_around(dev, n, 3)
+
+
+@pytest.mark.parametrize("case", ["small_tree", "tree_of_330k_prims", "dead_lanes",
+                                  "rays_past_one_wave"])
+def test_b1_b2_match_plain_on_every_shape(dev, case):
+    """B1 bit-equal to intersect_plain (t, prim, u, v) and B2 equal to
+    occluded_plain on every lane: a tree of a few hundred nodes, one of
+    327,682 prims, lanes with maxt NaN, -1, -inf, -0 or 0 (misses), and
+    more rays than the card runs at once. Each launch counted; the packed
+    storage made once; B2 walks near child first (the trees are shallow
+    enough), and its skip-link walk (a deeper tree's) gives the same."""
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    tree, g, ray = _b1_b2_cases(dev, case)
+    pack, _ = bvh.packed(tree, g)
+    assert pack.depth <= 64
+    if case == "small_tree":
+        assert tree.n_nodes < 1000
+    if case == "tree_of_330k_prims":
+        assert tree.n_nodes > 100_000
+    before = dict(bvh.LAUNCHES)
+    got = bvh.intersect(tree, g, ray)
+    occ = bvh.occluded(tree, g, ray)
+    torch.cuda.synchronize()
+    assert bvh.LAUNCHES == {"closest": before["closest"] + 1, "any": before["any"] + 1}
+    assert bvh.packed(tree, g)[0] is pack
+    want = bvh.intersect_plain(tree, g, ray)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+    hit = got[1] >= 0
+    live = ray.maxt > 0
+    assert not bool(hit[~live].any()) and 0.05 < float(hit.float().mean()) < 0.95
+    assert torch.equal(occ, bvh.occluded_plain(tree, g, ray))
+    assert torch.equal(occ, hit)  # every hit lies below its own maxt
+    # B2's skip-link walk, which it takes on a tree deeper than its stack
+    from mitsuba_customization_tpu_torch.ops import build as kbuild
+
+    p = kbuild.ptr
+    o, d, maxt = (x.contiguous() for x in cl._rays(ray))
+    deep = torch.empty(o.shape[0], dtype=torch.uint8, device=dev)
+    kbuild.check(kbuild.library().mct_bvh_any(
+        p(o), p(d), p(maxt), o.shape[0], p(pack.nodes), tree.n_nodes, p(bvh.packed(tree, g)[1]),
+        1, 1 << 30, p(deep), kbuild.stream_of(o)), "bvh_any")
+    assert torch.equal(deep.bool(), occ)
+
+
+def test_the_loader_packs_the_bvh_on_the_card(dev, monkeypatch):
+    """load_dict makes the kernels' packed storage of a scene on the BVH
+    (past a lowered MAX_PRIMS; B1's over the geometry, B2's over the
+    shadow geometry), so that its first calls find it made; a scene on the
+    clusters makes none."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import clusters as tcl
+    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(16, 2, 2, n_sub=3)
+    d["null_ball"] = {"type": "sphere", "center": [0, 3, 0], "radius": 0.2,
+                      "bsdf": {"type": "null"}}
+    calls = []
+    make = bvh.pack_nodes, bvh.pack_prims
+    monkeypatch.setattr(bvh, "pack_nodes",
+                        lambda *a, **k: calls.append("nodes") or make[0](*a, **k))
+    monkeypatch.setattr(bvh, "pack_prims",
+                        lambda *a, **k: calls.append("prims") or make[1](*a, **k))
+    on_clusters = mt.load_dict(d, dev)
+    assert on_clusters.config.intersector == "cluster" and on_clusters.bvh is not None
+    assert calls == []
+    monkeypatch.setattr(tcl, "MAX_PRIMS", on_clusters.geometry.p0.shape[0] - 1)
+    scene = mt.load_dict(d, dev)
+    assert scene.config.intersector == "bvh" and scene.shadow_geometry is not None
+    assert calls == ["nodes", "prims", "prims"]
+    calls.clear()
+    ray = _rays_around(dev, 1000, 4)
+    bvh.intersect(scene.bvh, scene.geometry, ray)
+    bvh.occluded(scene.bvh, scene.shadow_geometry, ray)
+    assert calls == []
 
 
 def test_bvh_wrappers_reject_what_the_kernels_do_not_take(dev):
