@@ -179,7 +179,8 @@ Phases, one printed line each; any failure raises (non-zero exit):
      alpha 0.1; p-values printed, both pass;
  31. parallel/mesh on a process group of one rank over NCCL: render_sharded
      of the matpreview frame against render (equal bit for bit, means
-     within 2 %, largest pixel difference printed; seconds, launches), and loss_and_grad_sharded
+     within 2 %, largest pixel difference printed; seconds, launches),
+     render_sharded_jit against render_sharded (bit for bit at two seeds), and loss_and_grad_sharded
      of phase 13's setup against ad.grad_render (losses within 1e-5
      relative, gradient cosines >= 0.9999, K1-bwd launched into one
      table-gradient buffer). A check of the exchange between ranks needs
@@ -200,7 +201,24 @@ Phases, one printed line each; any failure raises (non-zero exit):
      equal, prims equal on >= 99.9 % of hits, t, u, v bit-equal where
      they agree, the lanes not bit-equal printed; B2: equal) and timed on
      those lanes and on all; card against CPU means at 64x64, 4 spp,
-     depth 3 (the CPU walks 1.52M prims lock-step).
+     depth 3 (the CPU walks 1.52M prims lock-step);
+ 33. the captured frames (render/integrator.render_jit, a CUDA graph of the
+     whole frame replayed with the seed in a buffer) of the flagship frame
+     (phase 5's scene: K1, K2), the matpreview frame (phase 9's scene and
+     schedule: K1-K4), the big shapes frame (phase 32's scene: K1, K2,
+     B1, B2) and the matpreview scene under the orthogonal sampler at
+     256x256, 9 spp (its own probed schedule; Kensler's walk over a range
+     of 3, every round in the graph): each replay equal bit for bit to render at
+     seeds 1 and 2; a replay's launches of every kernel, counted by name
+     in its trace (a replay calls no wrapper), equal to a traced render's
+     and to the wrappers' counts in a render (and > 0); the first call's
+     and the capture's seconds, the graph's nodes (libcuda's
+     cuGraphGetNodes) and the device memory the frame keeps (reserved
+     after its first call against before); the replay and render timed
+     in JIT_TURNS turns (medians, spread); one profiled replay and render
+     (device seconds, kernels, busy share); the camera frame (512x512, 8
+     spp, depth 8, probed schedule) through render_jit, its means within
+     2 % of render's (a gaussian splat adds atomically: not bit-equal).
 Each phase prints its wall seconds (`phase ...` lines and a `phase
 seconds` summary). Each phase's counts are set to 0 just before its
 render (or AD step) and read just after. It then prints a JSON line describing each kernel
@@ -237,16 +255,21 @@ recorded calls on all lanes, and `checked_frame_ms` /
 bound counts each lane's maxt and outputs, o and d of live lanes, each
 node some lane visited and each prim some lane tested (44 bytes each),
 and a box test a visit and a slot test a prim test as K3 counts them.
-Every entry also carries `launches_by_phase` (phases 17-32: the blend,
+Every entry also carries `launches_by_phase` (phases 17-33: the blend,
 image, camera and volpath AD steps, the shapes frame with and without
 the SDF, the volpath, ptracer and bdpt frames, the XML frame through the
 CLI, the sharded frame and the sharded AD step, the big shapes frame
-(B1 and B2: that frame only); for K1's backward its
+(B1 and B2: that frame and its replay only), and the replays of phase
+33 as `render_jit_<frame>`, counted in each replay's trace; for K1's
+backward its
 AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
 19, 20, 23, 24, 26 and 28 (`materials_frame_ms`, `blend_frame_ms`,
 `image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`,
 `volpath_frame_ms`, `ptracer_frame_ms`, `bdpt_frame_ms` and their
 bounds).
+Before it, a `captured frames:` line holds phase 33's numbers by frame
+(first call, capture, nodes, pool MB, replay and render medians and
+spread, device seconds and busy share of the profiled replay and render).
 Imports nothing of JAX.
 """
 
@@ -2495,7 +2518,9 @@ def phase_sharded(dev, res=512, spp=8, depth=8):
     of the matpreview frame (one warm-up, then timed with the counts set to
     0 just before) against render: equal bit for bit (a world of one
     renders render's own passes), means within FRAME_MEAN_RTOL, largest
-    pixel difference printed; loss_and_grad_sharded on phase 13's setup
+    pixel difference printed; render_sharded_jit (the rank's passes
+    captured) against render_sharded at two seeds, bit for bit;
+    loss_and_grad_sharded on phase 13's setup
     (256x256, 4 spp, depth 6, the 10 tables and the floor's alpha) against
     ad.grad_render: losses within SHARDED_LOSS_RTOL, each gradient at
     cosine >= SHARDED_GRAD_COS, K1-bwd launched into one table-gradient
@@ -2541,6 +2566,17 @@ def phase_sharded(dev, res=512, spp=8, depth=8):
             raise AssertionError("the sharded frame's means disagree with render's")
         if not torch.equal(img, want):
             raise AssertionError("one rank's sharded frame differs from render's")
+        # the captured slab (render_sharded_jit) against render_sharded at
+        # two seeds: the first call captures, the second replays
+        jit_equal = all(torch.equal(pm.render_sharded_jit(scene, mesh, spp, sd),
+                                    pm.render_sharded(scene, mesh, spp, sd)) for sd in (1, 2))
+        print(f"sharded matpreview render_sharded_jit on {dist.get_world_size()} rank: "
+              f"bit-equal to render_sharded at seeds 1, 2: {jit_equal}")
+        if not jit_equal:
+            raise AssertionError("one rank's render_sharded_jit differs from render_sharded")
+        from mitsuba_customization_tpu_torch.render import frame_graph
+
+        frame_graph.clear()
         del scene, img, want
 
         ad_scene, _, params = ad_setup(dev)
@@ -2769,7 +2805,8 @@ def phase_big_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, cmp_depth=BIG_CMP
     the camera wavefront and B2 on NEE shadow rays (phase_b1_b2); every
     B1 / B2 call of one more render recorded, checked and timed
     (phase_bvh_calls); card against CPU means at cmp_res x cmp_res, 4 spp,
-    depth cmp_depth. Returns (launches, B1 stats, B2 stats, frame sums)."""
+    depth cmp_depth. Returns (launches, B1 stats, B2 stats, frame sums, the
+    scene with its probed schedule)."""
     import logging
     import resource
 
@@ -2850,10 +2887,183 @@ def phase_big_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, cmp_depth=BIG_CMP
     if n_calls != {k: launches[k] for k in n_calls}:
         raise AssertionError(f"recorded calls {n_calls} != launches {launches}")
     frame = phase_bvh_calls(scene, rec)
-    del rec, scene
+    del rec
     _gpu_cpu_means(f"big shapes {cmp_res}x{cmp_res} 4spp depth {cmp_depth}",
                    shapes_dict(paths, cmp_res, 4, cmp_depth, compact=fracs), dev)
-    return launches, b1, b2, frame
+    return launches, b1, b2, frame, scene
+
+
+# phase 33: the captured frames (render/integrator.render_jit) against render
+JIT_TURNS = 5
+
+
+def _all_launches():
+    return dict(_launch_counts(), **_bvh_launches())
+
+
+# each kernel of a frame's path by the name its trace gives it
+TRACE_NAMES = {"K1": "merl_eval_kernel", "K2": "cond_sample_kernel",
+               "K3": "cluster_closest_kernel", "K4": "cluster_shadow_kernel",
+               "B1": "bvh_closest_kernel", "B2": "bvh_any_kernel"}
+
+
+def _profiled(fn):
+    """One fn() under torch.profiler: (wall s, device s, kernels traced,
+    busy share = device over wall, {K1..B2: launches of that kernel in the
+    trace}); device and busy None where the trace holds no kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(e.device_time for e in kernels) / 1e6 if kernels else None
+    traced = {k: sum(name in e.name for e in kernels) for k, name in TRACE_NAMES.items()}
+    return wall, dev_s, len(kernels), None if dev_s is None else dev_s / wall, traced
+
+
+def _frame_seconds(fn):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _graph_nodes(graph):
+    """The nodes of a captured graph (kept by CUDAGraph(keep_graph=True))
+    from libcuda's cuGraphGetNodes; None where it cannot say."""
+    import ctypes
+
+    try:
+        raw = graph.raw_cuda_graph()
+        cuda = ctypes.CDLL("libcuda.so.1")
+    except (AttributeError, RuntimeError, OSError):
+        return None
+    count = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(count))
+    return int(count.value) if err == 0 else None
+
+
+def phase_jit_frame(what, scene, spp, need, card, exact=True):
+    """Phase 33 for one scene: render_jit's first call (plan, warm-up,
+    capture, replay) at seed 1, with the device memory it keeps (reserved
+    after against before, the allocator's cache emptied at both: the
+    graph's pool, the plan's inputs and the static output); then replays
+    at seeds 2 and 1, each against render at the same seed: equal bit for
+    bit (exact) or in per-channel means within FRAME_MEAN_RTOL (a splat's
+    atomic adds). Then the graph's nodes; the replay and render in
+    JIT_TURNS turns (medians and spread); one profiled replay and render
+    (device seconds, kernels, busy share). A replay calls no wrapper, so
+    its launches of each kernel are counted in its trace by name: they
+    must equal the profiled render's, and those the wrappers counted in
+    a render, those of `need` > 0. Returns a dict of these numbers."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import frame_graph as fg
+    from mitsuba_customization_tpu_torch.render.integrator import render_jit
+
+    cfg = scene.config
+    fg.clear()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    first_s = _frame_seconds(lambda: render_jit(scene, spp, 1))
+    torch.cuda.empty_cache()
+    frame_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
+    frame = fg.latest()
+    nodes = _graph_nodes(frame.graph)
+    got = {s: render_jit(scene, spp, s) for s in (2, 1)}
+    _reset_counts()
+    want = {2: mt.render(scene, spp, 2)}
+    torch.cuda.synchronize()
+    eager_launches = _all_launches()
+    want[1] = mt.render(scene, spp, 1)
+    if exact:
+        agree = all(torch.equal(got[s], want[s]) for s in (1, 2))
+        how = "bit-equal to render at seeds 1, 2"
+    else:
+        gm, wm = got[1].mean((0, 1)), want[1].mean((0, 1))
+        rel = ((gm - wm).abs() / wm.abs()).max().item()
+        agree = rel <= FRAME_MEAN_RTOL
+        how = (f"means {gm.tolist()} against render's {wm.tolist()}, max rel diff {rel:.2e} "
+               f"(limit {FRAME_MEAN_RTOL})")
+    again = render_jit(scene, spp, 1)
+    if (exact and not torch.equal(got[1], again)) or torch.equal(got[1], got[2]):
+        raise AssertionError(f"render_jit {what}: a seed's replay is not its own frame")
+    replay_s, eager_s = [], []
+    for _ in range(JIT_TURNS):
+        replay_s.append(_frame_seconds(lambda: render_jit(scene, spp, 3)))
+        eager_s.append(_frame_seconds(lambda: mt.render(scene, spp, 3)))
+    p_replay = _profiled(lambda: render_jit(scene, spp, 4))
+    p_eager = _profiled(lambda: mt.render(scene, spp, 4))
+    launches, eager_traced = p_replay[4], p_eager[4]
+
+    def busy(p):
+        if p[1] is None:
+            return f"wall {p[0]:.4f} s, device not measured (no kernel traced)"
+        return f"wall {p[0]:.4f} s, device {p[1]:.4f} s, {p[2]} kernels, busy {p[3]:.3f}"
+
+    out = dict(launches=launches, first_s=first_s, capture_s=frame.capture_s, nodes=nodes,
+               frame_mb=frame_mb,
+               replay_s=statistics.median(replay_s), replay_spread=max(replay_s) - min(replay_s),
+               eager_s=statistics.median(eager_s), eager_spread=max(eager_s) - min(eager_s),
+               replay_device_s=p_replay[1], replay_busy=p_replay[3],
+               eager_device_s=p_eager[1], eager_busy=p_eager[3])
+    print(f"render_jit {what} {cfg.width}x{cfg.height} {spp}spp depth {cfg.max_depth} "
+          f"({cfg.integrator}, {cfg.sampler}, {cfg.intersector}; card {card}): {how}; "
+          f"launches traced in a replay {launches}, in a render {eager_traced}, counted by "
+          f"the wrappers in a render {eager_launches}; first call {first_s:.3f} s, capture "
+          f"{frame.capture_s:.3f} s, {nodes} graph nodes, frame memory {frame_mb:.1f} MB; "
+          f"replay median {out['replay_s']:.4f} s (spread {out['replay_spread']:.4f}, "
+          f"{', '.join(f'{x:.4f}' for x in replay_s)}) against render {out['eager_s']:.4f} s "
+          f"(spread {out['eager_spread']:.4f}, {', '.join(f'{x:.4f}' for x in eager_s)}) "
+          f"in {JIT_TURNS} turns; profiled replay: {busy(p_replay)}; profiled render: "
+          f"{busy(p_eager)}")
+    if not agree:
+        raise AssertionError(f"render_jit {what} disagrees with render")
+    if (launches != eager_traced or eager_traced != eager_launches
+            or min(launches[k] for k in need) <= 0):
+        raise AssertionError(f"render_jit {what}: replay launches {launches}, render's "
+                             f"traced {eager_traced}, counted {eager_launches}")
+    return out
+
+
+def phase_jit(dev, card, flagship, matpreview, big_shapes, res=512, spp=8, depth=8,
+              ortho_res=256):
+    """Phase 33: render_jit against render on the flagship frame (K1 / K2),
+    the matpreview frame with its probed schedule (K1-K4) and phase 32's
+    big shapes frame (K1, K2, B1 / B2), bit for bit at two seeds
+    (phase_jit_frame); on the matpreview scene under the orthogonal
+    sampler at ortho_res^2 and 9 spp (Kensler's walk over a range of 3,
+    which a captured frame runs for every round), bit for bit too; and on
+    the camera frame
+    (thin lens, multijitter, gaussian splat; the probed schedule) in
+    means. Returns {frame: its numbers}."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import frame_graph as fg
+    from mitsuba_customization_tpu_torch.scenes import (
+        camera_dict,
+        matpreview_dict,
+        probe_compact_schedule,
+    )
+
+    out = {
+        "flagship": phase_jit_frame("flagship", flagship, 64, ("K1", "K2"), card),
+        "matpreview": phase_jit_frame("matpreview", matpreview, spp, ("K1", "K2", "K3", "K4"),
+                                      card),
+        "big_shapes": phase_jit_frame("big shapes", big_shapes, spp, ("K1", "K2", "B1", "B2"),
+                                      card),
+    }
+    d = matpreview_dict(ortho_res, 9, depth)
+    d["sensor"]["sampler"]["type"] = "orthogonal"
+    ortho, _ = probe_compact_schedule(mt.load_dict(d, dev), spp=4)
+    out["orthogonal"] = phase_jit_frame("orthogonal", ortho, 9, ("K1", "K2", "K3", "K4"),
+                                        card)
+    del ortho
+    camera, _ = probe_compact_schedule(mt.load_dict(camera_dict(res, spp, depth), dev), spp=4)
+    out["camera"] = phase_jit_frame("camera", camera, spp, ("K1", "K2", "K3", "K4"), card,
+                                    exact=False)
+    fg.clear()
+    return out
 
 
 T_START = time.perf_counter()
@@ -2943,7 +3153,6 @@ def main():
 
     bwd_stats = phase_k1_bwd(tab.table[0].contiguous(),
                              mp_scene.bsdfs.stacks[bsdf_mod.TABULATED].table, dev)
-    del mp_scene
     lap("12 K1-bwd")
     setup = ad_setup(dev)
     ad_launches, ad_frame = phase_ad_step(setup)
@@ -2986,8 +3195,11 @@ def main():
     lap("30 chi-square on the card")
     sh_launches, sh_ad_launches = phase_sharded(dev)
     lap("31 sharded render and AD step")
-    big_launches, b1_stats, b2_stats, big_frame = phase_big_shapes(dev)
+    big_launches, b1_stats, b2_stats, big_frame, big_scene = phase_big_shapes(dev)
     lap("32 big shapes")
+    jit = phase_jit(dev, card, scene, mp_scene, big_scene)
+    del big_scene, mp_scene
+    lap("33 captured frames")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -3019,7 +3231,8 @@ def main():
             "volpath_ad_step": vol_ad_launches[key], "ptracer": pt_launches[key],
             "bdpt": bd_launches[key], "xml_cli": xml_launches[key],
             "sharded": sh_launches[key], "sharded_ad_step": sh_ad_launches[key],
-            "big_shapes": big_launches[key]},
+            "big_shapes": big_launches[key],
+            **{"render_jit_" + f: jit[f]["launches"][key] for f in jit}},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
             blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
             image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
@@ -3060,7 +3273,10 @@ def main():
             library_ms=None, frame_ms=big_frame[key][0], checked_frame_ms=big_frame[key][1],
             checked_frame_bound_ms=big_frame[key][2],
             frame_share=big_frame[key][2] / big_frame[key][1],
-            launches_by_phase={"big_shapes": big_launches[key]}))
+            launches_by_phase={"big_shapes": big_launches[key],
+                               **{"render_jit_" + f: jit[f]["launches"][key] for f in jit}}))
+    print("captured frames: " + json.dumps({f: {k: v for k, v in jit[f].items()
+                                                   if k != "launches"} for f in jit}))
     print(f"volpath frame tracking loops: {vol_steps} steps, {vol_checks} host checks; "
           f"volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "

@@ -11,6 +11,8 @@ import torch
 
 EPSILON = 1e-7
 RAY_EPSILON = 1e-4  # min-t offset used to avoid self-intersection
+ONE_MINUS_EPSILON = 1.0 - 2.0 ** -24  # the largest float32 below 1
+INF = float("inf")
 
 
 def safe_sqrt(x):
@@ -20,6 +22,10 @@ def safe_sqrt(x):
 
 def safe_acos(x):
     return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+
+def safe_asin(x):
+    return torch.arcsin(torch.clamp(x, -1.0, 1.0))
 
 
 def safe_div(a, b, default=0.0):
@@ -40,6 +46,18 @@ def dot(a, b):
 
 def dot_keep(a, b):
     return (a * b).sum(-1, keepdim=True)
+
+
+def abs_dot(a, b):
+    return dot(a, b).abs()
+
+
+def squared_norm(v):
+    return (v * v).sum(-1)
+
+
+def lerp(a, b, t):
+    return a * (1.0 - t) + b * t
 
 
 def cross(a, b):
@@ -110,8 +128,38 @@ def cos_theta(w):
     return w[..., 2]
 
 
+def cos_theta2(w):
+    return w[..., 2] * w[..., 2]
+
+
+def abs_cos_theta(w):
+    return w[..., 2].abs()
+
+
 def sin_theta2(w):
     return torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0)
+
+
+def sin_theta(w):
+    return torch.sqrt(sin_theta2(w))
+
+
+def tan_theta(w):
+    return safe_div(sin_theta(w), cos_theta(w))
+
+
+def tan_theta2(w):
+    return safe_div(sin_theta2(w), cos_theta2(w))
+
+
+def sin_phi(w):
+    s = sin_theta(w)
+    return torch.where(s == 0.0, 0.0, torch.clamp(safe_div(w[..., 1], s), -1.0, 1.0))
+
+
+def cos_phi(w):
+    s = sin_theta(w)
+    return torch.where(s == 0.0, 1.0, torch.clamp(safe_div(w[..., 0], s), -1.0, 1.0))
 
 
 def gather_rows(t, idx):

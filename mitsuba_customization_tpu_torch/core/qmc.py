@@ -16,11 +16,14 @@ MASK32 = 0xFFFFFFFF
 
 
 def as_u32(x, like=None):
-    """Python int or integer tensor -> int64 tensor holding a uint32 value."""
+    """An integer tensor -> int64 tensor holding a uint32 value; a Python
+    int -> that value as a Python int (the hashes below take either, and
+    combined with a tensor give the same bits as a 0-d tensor would: no
+    host-to-device copy, so a captured frame holds no constant of it).
+    `like` is the JAX package's argument and is not read."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK32
-    device = like.device if like is not None else None
-    return torch.tensor(int(x) & MASK32, dtype=torch.int64, device=device)
+    return int(x) & MASK32
 
 
 def _mul32(x, c):

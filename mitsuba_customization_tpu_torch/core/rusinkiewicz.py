@@ -1,15 +1,16 @@
 """Rusinkiewicz half/difference-angle parameterization for measured BRDFs.
 
 PyTorch port of mitsuba_customization_tpu/core/rusinkiewicz.py
-(`dirs_to_half_diff`, `dirs_to_half_diff_fast`). Directions are (..., 3)
-unit vectors in the local shading frame (+z = normal).
+(`dirs_to_half_diff`, `dirs_to_half_diff_fast`, `half_diff_to_dirs`,
+`half_dir_to_diff`). Directions are (..., 3) unit vectors in the local
+shading frame (+z = normal).
 """
 
 from __future__ import annotations
 
 import torch
 
-from mitsuba_customization_tpu_torch.core.math import dir_to_sph, normalize
+from mitsuba_customization_tpu_torch.core.math import dir_to_sph, dot_keep, normalize, sph_to_dir
 
 
 def _rotate_z(v, angle):
@@ -35,6 +36,21 @@ def dirs_to_half_diff(wi, wo):
     d = _rotate_y(_rotate_z(wi, -phi_h), -theta_h)
     theta_d, phi_d = dir_to_sph(d)
     return theta_h, phi_h, theta_d, phi_d
+
+
+def half_diff_to_dirs(theta_h, phi_h, theta_d, phi_d):
+    """(theta_h, phi_h, theta_d, phi_d) -> (wi, wo), the inverse of
+    dirs_to_half_diff: wi = Rz(phi_h) Ry(theta_h) sph(theta_d, phi_d), wo
+    its reflection about the half vector."""
+    wi = _rotate_z(_rotate_y(sph_to_dir(theta_d, phi_d), theta_h), phi_h)
+    h = sph_to_dir(theta_h, phi_h)
+    return wi, 2.0 * dot_keep(wi, h) * h - wi
+
+
+def half_dir_to_diff(h, wi):
+    """(theta_d, phi_d) of wi about the half vector h."""
+    theta_h, phi_h = dir_to_sph(h)
+    return dir_to_sph(_rotate_y(_rotate_z(wi, -phi_h), -theta_h))
 
 
 def dirs_to_half_diff_fast(wi, wo):

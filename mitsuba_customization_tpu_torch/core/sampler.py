@@ -34,7 +34,11 @@ from mitsuba_customization_tpu_torch.core.qmc import (
 
 
 def _uniform_from_bits(bits):
-    """uint32 (in int64) -> float32 in [0, 1) from the top 24 bits."""
+    """uint32 (in int64) -> float32 in [0, 1) from the top 24 bits; a
+    Python int -> the same value as a Python float (exact: 24 bits times a
+    power of two)."""
+    if not torch.is_tensor(bits):
+        return (bits >> 8) * (1.0 / (1 << 24))
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -48,15 +52,18 @@ def _div(x, n):
 class Sampler:
     """Deterministic per-(lane, dim) sample streams.
 
-    seed: uint32 Python int; lane: int64 tensor of lane ids (pixel * spp +
-    sample index, masked to 32 bits); base_dim: Python int; dim: Python
-    offset within the base.
+    seed: uint32 Python int, or a 0-d int64 tensor on the lanes' device
+    (a captured frame's seed buffer, render/frame_graph.py: the draws are
+    bit-equal to the int's, and the sampler then reads nothing back to the
+    host); lane: int64 tensor of lane ids (pixel * spp + sample index,
+    masked to 32 bits); base_dim: Python int; dim: Python offset within
+    the base.
     """
 
     ARRAYS = ("lane",)
 
     def __init__(self, seed, lane, dim=0, base_dim=0):
-        self.seed = int(seed) & MASK32
+        self.seed = seed & MASK32 if torch.is_tensor(seed) else int(seed) & MASK32
         self.lane = lane
         self.dim = dim
         self.base_dim = int(base_dim)
@@ -170,6 +177,11 @@ class StratifiedSampler(Sampler):
     def _pixel(self):
         return self.lane // self.spp
 
+    def _permute(self, i, l, p):
+        """_kensler_permute, stopping early only under a Python-int seed
+        (a tensor seed is a captured frame's: no host reads)."""
+        return _kensler_permute(i, l, p, early_stop=not torch.is_tensor(self.seed))
+
     def _draw(self, dim):
         d = self._dim_value(dim)
         jitter = _uniform_from_bits(hash_combine(hash_combine(self._seed(), self.lane), d))
@@ -178,13 +190,16 @@ class StratifiedSampler(Sampler):
         return _div(stratum + jitter, self.spp)
 
 
-def _kensler_permute(i, l, p, rounds=24):
+def _kensler_permute(i, l, p, rounds=24, early_stop=True):
     """Cycle-walking hash permutation of [0, l) (the pattern of Kensler
     2013): `rounds` lock-step rounds, each a bijection of the masked
     field, applied where the value is still >= l; a lane still out of
-    range then falls back to i % l, as the JAX package's. The walk stops
-    early once no lane is out of range (checked every 4 rounds: lanes in
-    range do not change, so the result is the same)."""
+    range then falls back to i % l, as the JAX package's. A round's value
+    lies in [0, w], w + 1 the power of two at or above l, so for l a power
+    of two the first round is the answer and no walk is made. With
+    early_stop the walk stops once no lane is out of range (checked on
+    the host every 4 rounds: lanes in range do not change, so the result
+    is the same); without, it runs every round and reads nothing back."""
     l = int(l)
     w = max(l - 1, 1)
     for s in (1, 2, 4, 8, 16):
@@ -212,11 +227,12 @@ def _kensler_permute(i, l, p, rounds=24):
         return i
 
     out = one_round(i)
-    for r in range(rounds - 1):
-        if r % 4 == 0 and not bool((out >= l).any()):
-            break
-        out = torch.where(out >= l, one_round(out), out)
-    out = torch.where(out >= l, i % l, out)
+    if w + 1 != l:
+        for r in range(rounds - 1):
+            if early_stop and r % 4 == 0 and not bool((out >= l).any()):
+                break
+            out = torch.where(out >= l, one_round(out), out)
+        out = torch.where(out >= l, i % l, out)
     return ((out + p) & MASK32) % l
 
 
@@ -240,9 +256,9 @@ class MultijitterSampler(StratifiedSampler):
         m, n = self._grid()
         key = self._pair_key(pair_offset)
         # shuffle the sample order per (pixel, pair) so pairs decorrelate
-        s = _kensler_permute(self.sample_index, self.spp, key ^ 0x51633E2D)
-        sx = _kensler_permute(s % m, m, key ^ 0x68BC21EB)
-        sy = _kensler_permute(s // m, n, key ^ 0x02E5BE93)
+        s = self._permute(self.sample_index, self.spp, key ^ 0x51633E2D)
+        sx = self._permute(s % m, m, key ^ 0x68BC21EB)
+        sy = self._permute(s // m, n, key ^ 0x02E5BE93)
         jx = _uniform_from_bits(hash_combine(key ^ 0x967A889B, s))
         jy = _uniform_from_bits(hash_combine(key ^ 0x368CC8B7, s))
         x = _div((s % m).to(torch.float32) + _div(sy.to(torch.float32) + jx, n), m)
@@ -280,12 +296,12 @@ class OrthogonalSampler(StratifiedSampler):
         key = hash_combine(hash_combine(self._seed(0x8C98C8EF), pixel), d)
         # the sample-order shuffle is per pixel, shared by every dimension
         pix_key = hash_combine(self._seed(0x19AD25CB), pixel)
-        s = _kensler_permute(self.sample_index, self.spp, pix_key)
+        s = self._permute(self.sample_index, self.spp, pix_key)
         a = s // p
         b = s % p
         stratum = ((a + d * b) & MASK32) % p
-        stratum = _kensler_permute(stratum, p, key ^ 0x66D13D09)
-        sub = _kensler_permute(b, p, key ^ hash_combine(key, stratum))
+        stratum = self._permute(stratum, p, key ^ 0x66D13D09)
+        sub = self._permute(b, p, key ^ hash_combine(key, stratum))
         jitter = _uniform_from_bits(hash_combine(key ^ 0x4E7A4A33, s))
         return _div(stratum.to(torch.float32)
                     + _div(sub.to(torch.float32) + jitter, p), p)

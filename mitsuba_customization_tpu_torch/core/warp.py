@@ -1,7 +1,7 @@
 """Sampling warps: [0,1)^2 -> disk / hemisphere / sphere, with pdfs.
 
 PyTorch port of mitsuba_customization_tpu/core/warp.py's disk, hemisphere,
-sphere, cone and triangle warps.
+sphere, cone and triangle warps, the Box-Muller normal and the tent.
 """
 
 from __future__ import annotations
@@ -91,3 +91,19 @@ def square_to_uniform_triangle(sample):
     """Uniform barycentrics (b1, b2) on the unit triangle (sqrt mapping)."""
     t = safe_sqrt(1.0 - sample[..., 0])
     return torch.stack([1.0 - t, t * sample[..., 1]], -1)
+
+
+def square_to_std_normal(sample):
+    """Box-Muller: (..., 2) -> a 2-D standard normal sample."""
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(1.0 - sample[..., 0], min=1e-38)))
+    phi = 2.0 * math.pi * sample[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], -1)
+
+
+def interval_to_tent(sample):
+    """[0, 1) -> the tent distribution on (-1, 1)."""
+    return torch.where(
+        sample >= 0.5,
+        1.0 - safe_sqrt(torch.clamp(2.0 - 2.0 * sample, min=0.0)),
+        safe_sqrt(torch.clamp(2.0 * sample, min=0.0)) - 1.0,
+    )

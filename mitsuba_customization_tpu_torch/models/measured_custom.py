@@ -8,7 +8,8 @@ PyTorch port of mitsuba_customization_tpu/models/measured_custom.py:
     float64  data[3 * prod(dims)]        channel-major planes, MERL index
                                          order within a plane
 
-Evaluation and sampling are models/tabulated's.
+Evaluation and sampling are models/tabulated's (eval, eval_raw, pdf and
+sample are its functions, under the JAX package's names here).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import struct
 import numpy as np
 import torch
 
+from mitsuba_customization_tpu_torch.models import tabulated
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
 
 MAGIC = b"CMBRDF01"
@@ -54,3 +56,10 @@ def write_custom(path, table, scale=(1.0, 1.0, 1.0)):
 def load(path, device) -> TabulatedBRDF:
     """A CMBRDF01 file as a BSDF on `device`, its sampling CDFs built."""
     return TabulatedBRDF.build(torch.as_tensor(read_custom(path), device=device))
+
+
+# the BSDF interface: the shared tabulated core's, as in the JAX package
+eval = tabulated.eval
+eval_raw = tabulated.eval_raw
+pdf = tabulated.pdf
+sample = tabulated.sample

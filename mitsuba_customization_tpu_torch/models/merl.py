@@ -10,7 +10,8 @@ File format:
     channel scales on read: R 1/1500, G 1.15/1500, B 1.66/1500
 
 Negative entries mark unmeasured configurations and clamp to zero.
-Evaluation and sampling are models/tabulated's.
+Evaluation and sampling are models/tabulated's (eval, eval_raw, pdf and
+sample are its functions, under the JAX package's names here).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import struct
 import numpy as np
 import torch
 
+from mitsuba_customization_tpu_torch.models import tabulated
 from mitsuba_customization_tpu_torch.models.tabulated import TabulatedBRDF
 
 MERL_DIMS = (90, 90, 180)
@@ -58,3 +60,10 @@ def write_merl(path, table):
 def load(path, device) -> TabulatedBRDF:
     """A MERL file as a BSDF on `device`, its sampling CDFs built."""
     return TabulatedBRDF.build(torch.as_tensor(read_merl(path), device=device))
+
+
+# the BSDF interface: the shared tabulated core's, as in the JAX package
+eval = tabulated.eval
+eval_raw = tabulated.eval_raw
+pdf = tabulated.pdf
+sample = tabulated.sample

@@ -110,7 +110,7 @@ def sample_vndf(alpha_u, alpha_v, wi, sample2):
             [-vh[..., 1] * inv_len, vh[..., 0] * inv_len,
              torch.zeros_like(inv_len)], -1,
         ),
-        torch.tensor([1.0, 0.0, 0.0], device=vh.device),
+        torch.eye(3, dtype=torch.float32, device=vh.device)[0],  # made on the device
     )
     t2 = m.cross(vh, t1)
     r = torch.sqrt(sample2[..., 0])

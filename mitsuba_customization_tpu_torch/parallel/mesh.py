@@ -6,6 +6,8 @@ workers). The frame's rows split into equal contiguous slabs, one for each
 rank of a process group; every rank holds the whole scene and renders its
 slab's lanes in render's own passes (render/integrator.render_rows); the
 image is gathered, and a loss's gradients all-reduce over the ranks.
+render_sharded_jit captures a rank's passes as a frame
+(render/frame_graph.py) and keeps the collectives outside it.
 
 A layout is a torch.distributed DeviceMesh that covers every rank of the
 world: `make_mesh` a 1-D one, `make_mesh_2level` the ("dcn", "ici") one
@@ -35,7 +37,13 @@ import torch
 import torch.distributed as dist
 
 from mitsuba_customization_tpu_torch.render import params as params_mod
-from mitsuba_customization_tpu_torch.render.integrator import render_rows
+from mitsuba_customization_tpu_torch.render.integrator import (
+    captured_rows,
+    check_capturable,
+    plan_rows,
+    rows_body,
+    rows_inputs,
+)
 
 AXIS = "shards"
 
@@ -157,20 +165,32 @@ def _halo_exchange(slab, ranks, shard):
     return _HaloExchange.apply(slab, ranks, shard)
 
 
+def _slab_plan(scene, spp, ranks, shard):
+    """The RowsPlan of this rank's rows (H / n of them, with HALO rows each
+    side for a splat filter) under the scene's integrator."""
+    cfg = scene.config
+    _check_divisible(cfg.height, len(ranks), need_halo=cfg.rfilter != "box")
+    rows = cfg.height // len(ranks)
+    return plan_rows(scene, spp, None, None, shard * rows, rows, HALO)
+
+
+def _develop_slab(cfg, out, ranks, shard):
+    """A slab's render_rows out -> its (H / n, W, C) rows: a splat's halo
+    rows exchanged with the neighbours and divided by the weights; times
+    the sensor's scale."""
+    if cfg.rfilter != "box":
+        both = _halo_exchange(torch.cat([out[0], out[1][..., None]], -1), ranks, shard)
+        out = both[..., :-1] / torch.clamp(both[..., -1], min=1e-12)[..., None]
+    return out * cfg.sensor_scale if cfg.sensor_scale != 1.0 else out
+
+
 def _slab(scene, spp, seed, ranks, shard, ad_mode):
     """This rank's rows of the frame, (H / n, W, C), in render's passes
     (render/integrator.render_rows: a world of one renders render's very
     lanes): box-averaged, or splatted with the halo rows and exchanged."""
-    cfg = scene.config
-    box = cfg.rfilter == "box"
-    _check_divisible(cfg.height, len(ranks), need_halo=not box)
-    rows = cfg.height // len(ranks)
-    row0 = shard * rows
-    out, _ = render_rows(scene, spp, seed, None, None, ad_mode, row0, rows, HALO)
-    if not box:
-        both = _halo_exchange(torch.cat([out[0], out[1][..., None]], -1), ranks, shard)
-        out = both[..., :-1] / torch.clamp(both[..., -1], min=1e-12)[..., None]
-    return out * cfg.sensor_scale if cfg.sensor_scale != 1.0 else out
+    plan = _slab_plan(scene, spp, ranks, shard)
+    out, _ = rows_body(scene, plan, rows_inputs(scene, plan), seed, ad_mode)
+    return _develop_slab(scene.config, out, ranks, shard)
 
 
 def render_slab(scene, mesh=None, spp=None, seed=0):
@@ -186,6 +206,16 @@ def render_slab(scene, mesh=None, spp=None, seed=0):
     return slab, shard * slab.shape[0]
 
 
+def _gather(slab, mesh):
+    """Every rank's slab, in slab order: the whole (H, W, C) image."""
+    if not dist.is_initialized():
+        return slab
+    ranks, _ = _layout(mesh)
+    parts = [torch.empty_like(slab) for _ in ranks]
+    dist.all_gather(parts, slab.contiguous())
+    return torch.cat([parts[r] for r in ranks])
+
+
 def render_sharded(scene, mesh=None, spp=None, seed=0):
     """Render with the image rows sharded over the mesh (1-D or ("dcn",
     "ici")): each rank renders its slab, and the slabs are gathered, so
@@ -194,12 +224,24 @@ def render_sharded(scene, mesh=None, spp=None, seed=0):
     The JAX package's docstring says the same, but its function returns a
     row-sharded array (ROADMAP's reference faults)."""
     slab, _ = render_slab(scene, mesh, spp, seed)
-    if not dist.is_initialized():
-        return slab
-    ranks, _ = _layout(mesh)
-    parts = [torch.empty_like(slab) for _ in ranks]
-    dist.all_gather(parts, slab.contiguous())
-    return torch.cat([parts[r] for r in ranks])
+    return _gather(slab, mesh)
+
+
+def render_sharded_jit(scene, mesh=None, spp=None, seed=0):
+    """render_sharded with each rank's slab passes a captured frame
+    (render/frame_graph.py), the JAX package's render_sharded_jit (its
+    arguments, in its order). The rank's render_rows passes are captured
+    on the card and replayed (run as they are on the CPU); the halo
+    exchange of a splat filter and the gathering all_gather stay outside,
+    as eager collectives. The image is render_sharded's bit for bit (a
+    splat's atomic adds on the card aside). What render_jit cannot
+    capture raises NotImplementedError here too."""
+    ranks, shard = _layout(mesh)
+    cfg = scene.config
+    plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
+    check_capturable(scene, plan.kind)
+    out = captured_rows(scene, plan, seed, False)
+    return _gather(_develop_slab(cfg, out, ranks, shard), mesh)
 
 
 def loss_and_grad_sharded(scene, params, target, mesh=None, spp=None, seed=0):

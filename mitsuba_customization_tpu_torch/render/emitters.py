@@ -106,6 +106,17 @@ class EmitterTable(NamedTuple):
         return self.em_type.shape[0]
 
 
+def prim_surface_area(geom: geo.Geometry, prim):
+    """Surface area of primitives `prim`: a triangle's, a sphere's (radius
+    e1.x) or a cylinder's side (height |e1|, radius e2.x)."""
+    g = geo.Geometry(*(f[prim] for f in geom))
+    tri = 0.5 * m.norm(m.cross(g.e1, g.e2))
+    sph = 4.0 * math.pi * g.e1[..., 0] ** 2
+    cyl = 2.0 * math.pi * g.e2[..., 0] * m.norm(g.e1)
+    return torch.where(g.prim_type == geo.TRI, tri,
+                       torch.where(g.prim_type == geo.CYLINDER, cyl, sph))
+
+
 def _sample_position_on_prim(geom: geo.Geometry, prim, sample2):
     """Uniform-area point and outward normal on primitives `prim`."""
     g = geo.Geometry(*(f[prim] for f in geom))

@@ -1,0 +1,182 @@
+"""Captured frames: the port's counterpart of the JAX package's jitted
+entry points (render/integrator.render_jit, parallel/mesh.render_sharded_jit).
+
+`jax.jit` over a frame traces it once and runs it as one program. In
+PyTorch the counterpart is a CUDA graph: the frame's kernels are recorded
+once and replayed with no host work per kernel. A frame is split in two:
+a plan, made on the host, that resolves every host fact (sensor types,
+pass layout, compaction capacities, the BVH's packed storage) and
+allocates the inputs; and a body that does device work only. On the card
+a Frame warms the body up once on a side stream, captures it into a
+`torch.cuda.CUDAGraph`, and replays that graph at every call, the seed
+written first into the frame's 0-d int64 seed buffer (the sampler reads
+its seed from it, as the JAX package's jit takes `jnp.uint32(seed)` as a
+traced argument). A capture that fails raises; nothing falls back to the
+eager frame. On the CPU the body runs as it is, with the same plan and
+seed buffer.
+
+A frame is kept per key: the entry point's plan, the scene's identity,
+a snapshot of its host values (scene.config, every host fact of its
+tables) and the address, shape, strides and type of every tensor it holds,
+with the BVH's packs. A mutated config or a replaced tensor therefore
+makes a new frame, and the frame it replaces (same plan, same scene) is
+dropped with its graph's memory; an in-place edit of a tensor's values is
+read by the next replay, as JAX's jit reads new array values. The entry
+holds the scene, the plan's inputs and the packs, so no address it
+recorded is freed or reused while it lives; at most CACHE_SIZE frames are
+kept (least recently used first out), each with its graph's memory pool.
+
+The kernel wrappers count their launches when they are called: the
+warm-up's launches and the capture's recorded ones count, a replay calls
+no wrapper and counts nothing. A replay's launches are read from its
+trace (chip_smoke.py phase 33).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from mitsuba_customization_tpu_torch.core.qmc import MASK32
+from mitsuba_customization_tpu_torch.render import bvh
+
+CACHE_SIZE = 4
+_FRAMES: OrderedDict = OrderedDict()
+# frames planned (on the card: captured) since the process started
+PLANS = 0
+
+
+def _leaves(obj, out, seen):
+    """Append obj's host values and its tensors' (address, shape, strides,
+    type, device) to out, walking containers, dataclasses and objects."""
+    if torch.is_tensor(obj):
+        out.append((obj.data_ptr(), tuple(obj.shape), obj.stride(), obj.dtype, obj.device))
+        return
+    if obj is None or isinstance(obj, (bool, int, float, str, np.generic)):
+        out.append(obj)
+        return
+    if isinstance(obj, np.ndarray):
+        out.append((obj.shape, obj.dtype.str, obj.tobytes()))
+        return
+    if id(obj) in seen:
+        out.append(("seen", id(obj)))
+        return
+    seen.add(id(obj))
+    out.append(type(obj).__name__)
+    if isinstance(obj, dict):
+        items = sorted(obj.items(), key=lambda kv: repr(kv[0]))
+    elif isinstance(obj, (set, frozenset)):
+        items = enumerate(sorted(obj, key=repr))
+    elif isinstance(obj, (tuple, list)):
+        items = enumerate(obj)
+    elif dataclasses.is_dataclass(obj):
+        items = ((f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    elif hasattr(obj, "__dict__"):
+        items = sorted(vars(obj).items())
+    else:
+        out.append(repr(obj))
+        return
+    for k, v in items:
+        out.append(k)
+        _leaves(v, out, seen)
+
+
+def bvh_packs(scene):
+    """The BVH's packed storage a frame of `scene` reads (render/bvh.packed,
+    made here on the host when missing): B1's over the geometry, B2's over
+    the shadow geometry. None off the BVH."""
+    if scene.config.intersector != "bvh" or scene.bvh is None:
+        return None
+    shadow = scene.geometry if scene.shadow_geometry is None else scene.shadow_geometry
+    return bvh.packed(scene.bvh, scene.geometry), bvh.packed(scene.bvh, shadow)
+
+
+def scene_key(scene, packs=None):
+    """The scene's part of a frame's key: its identity, host values and
+    tensors, and the packs a frame of it reads."""
+    out = [id(scene)]
+    _leaves(scene, out, set())
+    _leaves(packs, out, set())
+    return tuple(out)
+
+
+def _clone(out):
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+
+class Frame:
+    """A planned frame: its body, what the body reads besides the scene
+    (held), the seed buffer and, on the card, the captured graph (its
+    cudaGraph_t kept) with its static output and the capture's seconds
+    (None on the CPU)."""
+
+    def __init__(self, scene, body, keep):
+        self.scene, self.body, self.keep = scene, body, keep
+        self.seed = torch.zeros((), dtype=torch.int64, device=scene.device)
+        self.graph = self.out = self.capture_s = None
+        if self.seed.is_cuda:
+            self._capture()
+
+    def _capture(self):
+        dev = self.seed.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        # the warm-up loads the kernels and sets their attributes, and warms
+        # torch's allocator and libraries, none of which a capture may do
+        with torch.cuda.stream(side), torch.no_grad():
+            self.body(self.seed)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.cuda.graph(graph):
+            out = self.body(self.seed)
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.out = graph, out
+
+    def __call__(self, seed):
+        """The frame at `seed` (a fresh tensor, or tuple of tensors)."""
+        self.seed.fill_(int(seed) & MASK32)
+        if self.graph is None:
+            with torch.no_grad():
+                return self.body(self.seed)
+        self.graph.replay()
+        return _clone(self.out)
+
+
+def frame(key, scene, make):
+    """The frame of `key` (scene's part added here), planned with make()
+    -> (body, what the body reads besides the scene) on a miss."""
+    global PLANS
+    packs = bvh_packs(scene)
+    key = (key, scene_key(scene, packs))
+    hit = _FRAMES.get(key)
+    if hit is not None:
+        _FRAMES.move_to_end(key)
+        return hit
+    # the frame this one replaces (same plan, same scene, older state)
+    for old in [k for k, f in _FRAMES.items() if k[0] == key[0] and f.scene is scene]:
+        del _FRAMES[old]
+    body, keep = make()
+    hit = Frame(scene, body, (keep, packs))
+    PLANS += 1
+    _FRAMES[key] = hit
+    while len(_FRAMES) > CACHE_SIZE:
+        _FRAMES.popitem(last=False)
+    return hit
+
+
+def latest():
+    """The frame used last (None: none kept), for its capture's numbers."""
+    return next(reversed(_FRAMES.values()), None)
+
+
+def clear():
+    """Drop every kept frame (and with them their graphs' memory)."""
+    _FRAMES.clear()

@@ -26,6 +26,8 @@ stateless sampler (see `trace_paths`).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,6 +40,7 @@ from mitsuba_customization_tpu_torch.models import phase as phase_mod
 from mitsuba_customization_tpu_torch.models.normalmap import apply_normal_maps
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.render import film as film_mod
+from mitsuba_customization_tpu_torch.render import frame_graph
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render import medium as medium_mod
 from mitsuba_customization_tpu_torch.render.records import Ray
@@ -358,7 +361,10 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
         """full[name][:k] = new (a tensor or a scalar), out of place in
         ad_mode."""
         if not ad_mode:
-            full[name][:k] = new
+            if torch.is_tensor(new):
+                full[name][:k] = new
+            else:
+                full[name][:k].fill_(new)
         else:
             head = new if torch.is_tensor(new) else torch.full_like(full[name][:k], new)
             full[name] = torch.cat([head, full[name][k:]])
@@ -625,6 +631,13 @@ def _integrator_kind(scene, integrator):
     return kind
 
 
+def _depth(scene, kind, max_depth):
+    """The path depth of a render: max_depth or the scene's, at most 2 for
+    direct."""
+    max_depth = max_depth or scene.config.max_depth
+    return min(max_depth, 2) if kind == "direct" else max_depth
+
+
 def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=False,
                  lane_offset=0, n_lanes=None, pixel=None, sample_idx=None,
                  coherent0=False):
@@ -651,27 +664,37 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
     """
     kind = _integrator_kind(scene, integrator)
     cfg = scene.config
-    max_depth = max_depth or cfg.max_depth
-    if kind == "direct":
-        max_depth = min(max_depth, 2)
     h, w = cfg.height, cfg.width
     if pixel is None:
         n = h * w * spp - lane_offset if n_lanes is None else n_lanes
         lanes = torch.arange(lane_offset, lane_offset + n, dtype=torch.int64,
                              device=scene.device)
         pixel, sample_idx = lanes // spp, lanes % spp
+    wh = torch.tensor([w, h], dtype=torch.float32, device=pixel.device)
+    return _trace_lanes(scene, spp, seed, kind, _depth(scene, kind, max_depth), ad_mode,
+                        pixel, sample_idx, sensor_mod.types_present(scene.sensor), wh)
+
+
+def _trace_lanes(scene, spp, seed, kind, max_depth, ad_mode, pixel, sample_idx, present,
+                 wh):
+    """render_lanes on resolved host facts: the integrator `kind`, the
+    path depth, the sensor's types `present` and the film size `wh` as a
+    (2,) float32 tensor on the lanes' device. Device work only (a seed
+    tensor keeps the sampler off the host too), so a captured frame's body
+    runs it as it is."""
+    cfg = scene.config
+    h, w = cfg.height, cfg.width
     smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
 
     jitter = smp.next_2d()
     # dims 2-3: the aperture, drawn only for a thin lens (each bounce
     # repositions the sampler with with_dim, so no other draw moves)
-    aperture = (smp.next_2d() if sensor_mod.THINLENS in sensor_mod.types_present(scene.sensor)
-                else None)
+    aperture = smp.next_2d() if sensor_mod.THINLENS in present else None
     px = (pixel % w).to(torch.float32)
     py = (pixel // w).to(torch.float32)
     film_xy = torch.stack([px, py], -1) + jitter
-    film_uv = film_xy / torch.tensor([w, h], dtype=torch.float32, device=px.device)
-    ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h)
+    film_uv = film_xy / wh
+    ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h, present=present)
 
     if kind in ("depth", "aov", "aov_normals", "aov_position", "aov_uv"):
         si = scene.ray_intersect(ray0)
@@ -716,6 +739,102 @@ def _chunk_rows(h, w):
     return rows
 
 
+class RowsPlan(NamedTuple):
+    """The host facts of render_rows' passes over the frame's rows [row0,
+    row0 + n_rows): the integrator kind and path depth, spp, `rows` rows
+    and `chunk` samples of each a pass (n_row_pass x n_spp_pass passes),
+    whether a pass orders its pixels in 16x16 blocks, whether the box
+    filter develops the rows (else they splat with `halo` rows each side)
+    and the sensor's types. Hashable: a captured frame's key holds it."""
+
+    kind: str
+    max_depth: int
+    spp: int
+    row0: int
+    n_rows: int
+    halo: int
+    rows: int
+    chunk: int
+    blocked: bool
+    box: bool
+    present: frozenset
+
+    @property
+    def n_spp_pass(self):
+        return self.spp // self.chunk
+
+    @property
+    def n_row_pass(self):
+        return self.n_rows // self.rows
+
+
+def plan_rows(scene, spp, integrator, max_depth, row0, n_rows, halo=0):
+    """render_rows' RowsPlan: host work only (the sensor's types are read
+    from its type tensor)."""
+    cfg = scene.config
+    kind = _integrator_kind(scene, integrator)
+    w = cfg.width
+    rows = _chunk_rows(n_rows, w)
+    chunk = _chunk_spp(rows * w, spp)
+    blocked = rows % _BLOCK == 0 and w % _BLOCK == 0 and rows * w * chunk >= _BLOCK
+    return RowsPlan(kind, _depth(scene, kind, max_depth), spp, row0, n_rows, halo, rows,
+                    chunk, blocked, cfg.rfilter == "box",
+                    frozenset(sensor_mod.types_present(scene.sensor)))
+
+
+def rows_inputs(scene, plan):
+    """The tensors a plan's passes read besides the scene: the first pass's
+    pixels and the sample indices of a pass (lane order: pixel-major,
+    blocked or row-major), and the film size (W, H) as float32."""
+    cfg = scene.config
+    dev = scene.device
+    w, rows, chunk = cfg.width, plan.rows, plan.chunk
+    if plan.blocked:
+        order = np.arange(rows * w, dtype=np.int64).reshape(
+            rows // _BLOCK, _BLOCK, w // _BLOCK, _BLOCK
+        ).transpose(0, 2, 1, 3).reshape(-1)
+    else:
+        order = np.arange(rows * w, dtype=np.int64)
+    pixel0 = torch.as_tensor(order, device=dev).repeat_interleave(chunk) + plan.row0 * w
+    sidx_local = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(rows * w)
+    wh = torch.tensor([w, cfg.height], dtype=torch.float32, device=dev)
+    return pixel0, sidx_local, wh
+
+
+def rows_body(scene, plan, inputs, seed, ad_mode):
+    """The passes of a plan on its inputs: device work only, so a captured
+    frame records it as it is (seed: a Python int, or a 0-d int64 tensor
+    on the scene's device). Returns render_rows' (out, rays traced)."""
+    cfg = scene.config
+    h, w = cfg.height, cfg.width
+    pixel0, sidx_local, wh = inputs
+    rows, chunk, n_spp_pass = plan.rows, plan.chunk, plan.n_spp_pass
+    slabs = [None] * plan.n_row_pass
+    img = wsum = None
+    rays = torch.zeros((), dtype=torch.float64, device=scene.device)
+    for p in range(n_spp_pass * plan.n_row_pass):
+        row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
+        L, film_xy, stats = _trace_lanes(
+            scene, plan.spp, seed, plan.kind, plan.max_depth, ad_mode,
+            pixel0 + row_pass * rows * w, sidx_local + spp_pass * chunk, plan.present, wh,
+        )
+        rays = rays + stats["rays_per_bounce"].sum()
+        if not plan.box:
+            part, wpart = film_mod.splat_slab(L, film_xy, plan.row0 - plan.halo,
+                                              plan.n_rows + 2 * plan.halo, h, w,
+                                              film_mod.FILTER_NAMES[cfg.rfilter])
+            img = part if img is None else img + part
+            wsum = wpart if wsum is None else wsum + wpart
+            continue
+        if plan.blocked:
+            slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
+        else:
+            slab = film_mod.develop_box(L, rows, w, chunk)
+        prev = slabs[row_pass]
+        slabs[row_pass] = slab if prev is None else prev + slab
+    return (torch.cat(slabs) / n_spp_pass if plan.box else (img, wsum)), rays
+
+
 def render_rows(scene, spp, seed, integrator, max_depth, ad_mode, row0, n_rows, halo=0):
     """The frame's rows [row0, row0 + n_rows) in (row slab, spp slice)
     passes of at most MAX_WAVEFRONT lanes, the pixels of a slab in 16x16
@@ -726,50 +845,21 @@ def render_rows(scene, spp, seed, integrator, max_depth, ad_mode, row0, n_rows, 
     (img (n_rows + 2 halo, W, C), wsum (n_rows + 2 halo, W)), every pass's
     samples splatted into the film rows [row0 - halo, row0 + n_rows +
     halo). `render` takes all rows (halo 0); a sharded render
-    (parallel/mesh.py) a rank's slab with HALO rows on each side."""
-    cfg = scene.config
-    dev = scene.device
-    h, w = cfg.height, cfg.width
-    rows = _chunk_rows(n_rows, w)
-    chunk = _chunk_spp(rows * w, spp)
-    n_spp_pass = spp // chunk
-    n_row_pass = n_rows // rows
-    box = cfg.rfilter == "box"
+    (parallel/mesh.py) a rank's slab with HALO rows on each side. The
+    plan (plan_rows, host facts), its inputs (rows_inputs) and the passes
+    (rows_body, device work) are the steps a captured frame takes apart."""
+    plan = plan_rows(scene, spp, integrator, max_depth, row0, n_rows, halo)
+    return rows_body(scene, plan, rows_inputs(scene, plan), seed, ad_mode)
 
-    blocked = rows % _BLOCK == 0 and w % _BLOCK == 0 and rows * w * chunk >= _BLOCK
-    if blocked:
-        order = np.arange(rows * w, dtype=np.int64).reshape(
-            rows // _BLOCK, _BLOCK, w // _BLOCK, _BLOCK
-        ).transpose(0, 2, 1, 3).reshape(-1)
-    else:
-        order = np.arange(rows * w, dtype=np.int64)
-    pixel0 = torch.as_tensor(order, device=dev).repeat_interleave(chunk) + row0 * w
-    sidx_local = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(rows * w)
 
-    slabs = [None] * n_row_pass
-    img = wsum = None
-    rays = torch.zeros((), dtype=torch.float64, device=dev)
-    for p in range(n_spp_pass * n_row_pass):
-        row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
-        L, film_xy, stats = render_lanes(
-            scene, spp, seed, integrator, max_depth, ad_mode,
-            pixel=pixel0 + row_pass * rows * w,
-            sample_idx=sidx_local + spp_pass * chunk,
-        )
-        rays = rays + stats["rays_per_bounce"].sum()
-        if not box:
-            part, wpart = film_mod.splat_slab(L, film_xy, row0 - halo, n_rows + 2 * halo, h, w,
-                                              film_mod.FILTER_NAMES[cfg.rfilter])
-            img = part if img is None else img + part
-            wsum = wpart if wsum is None else wsum + wpart
-            continue
-        if blocked:
-            slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
-        else:
-            slab = film_mod.develop_box(L, rows, w, chunk)
-        prev = slabs[row_pass]
-        slabs[row_pass] = slab if prev is None else prev + slab
-    return (torch.cat(slabs) / n_spp_pass if box else (img, wsum)), rays
+def develop(cfg, out):
+    """render_rows' out over all rows -> the image: a splat divided by its
+    weights, times cfg.sensor_scale."""
+    if cfg.rfilter != "box":
+        out = out[0] / torch.clamp(out[1], min=1e-12)[..., None]
+    if cfg.sensor_scale != 1.0:
+        out = out * cfg.sensor_scale  # measurement sensors (W/m^2)
+    return out
 
 
 def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
@@ -799,12 +889,66 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
         from mitsuba_customization_tpu_torch.render.bdpt import render_bdpt
 
         return render_bdpt(scene, spp, seed, max_depth, return_stats)
-    h = cfg.height
-    out, rays = render_rows(scene, spp, seed, integrator, max_depth, ad_mode, 0, h)
-    if cfg.rfilter != "box":
-        out = out[0] / torch.clamp(out[1], min=1e-12)[..., None]
-    if cfg.sensor_scale != 1.0:
-        out = out * cfg.sensor_scale  # measurement sensors (W/m^2)
+    out, rays = render_rows(scene, spp, seed, integrator, max_depth, ad_mode, 0, cfg.height)
+    out = develop(cfg, out)
     if return_stats:
         return out, {"rays_traced": float(rays)}
     return out
+
+
+def check_capturable(scene, kind):
+    """Raise NotImplementedError for what a captured frame cannot hold
+    yet: the loops that check a condition on the host (media tracking,
+    the SDF march, the light and bidirectional tracers; ROADMAP item
+    21)."""
+    what = None
+    if kind in _VOL_TYPES or scene.media.n_media > 0:
+        what = "the volumetric tracer (its tracking loops check on the host)"
+    elif kind in ("ptracer", "bdpt"):
+        what = f"{kind} (its loops check on the host)"
+    elif scene.sdf is not None:
+        what = "a scene with an SDF (its march checks on the host)"
+    if what is not None:
+        raise NotImplementedError(f"a captured frame of {what} is ROADMAP item 21; "
+                                  "render it with render / render_sharded")
+
+
+def render_jit(scene, spp=None, seed=0, integrator=None, max_depth=None):
+    """`render` as one captured frame, the JAX package's render_jit (its
+    arguments, in its order; no ad_mode, no return_stats).
+
+    The frame is planned on the host (plan_rows, rows_inputs) and its
+    passes and develop are the body, device work only, with the seed in a
+    buffer of the frame (render/frame_graph.py). On the card the body is
+    captured once into a CUDA graph for each (scene, its config and
+    tensors, spp, integrator, depth) and replayed, the seed written into
+    its buffer first; a capture that fails raises. On the CPU the body
+    runs as it is. The image is render's bit for bit (a splat filter's
+    atomic adds on the card aside), and a fresh tensor at every call.
+
+    The path tracer's integrators (path, prb, prb_basic, direct, moment,
+    depth, aov*) are captured, on every intersector. Those whose loops
+    check a condition on the host raise NotImplementedError (ROADMAP item
+    21): volpath, volpathmis, prbvolpath and any scene with media,
+    ptracer, bdpt, and scenes with an SDF."""
+    kind = _integrator_kind(scene, integrator)
+    check_capturable(scene, kind)
+    cfg = scene.config
+    plan = plan_rows(scene, int(spp or cfg.spp), kind, max_depth, 0, cfg.height)
+    return captured_rows(scene, plan, seed, True)
+
+
+def captured_rows(scene, plan, seed, whole_image):
+    """rows_body's out of `plan` at `seed` as a captured frame
+    (render/frame_graph.py; its inputs made on the frame's first call),
+    developed into the image (`develop`) when whole_image."""
+    def make():
+        inputs = rows_inputs(scene, plan)
+
+        def body(seed_t):
+            out = rows_body(scene, plan, inputs, seed_t, False)[0]
+            return develop(scene.config, out) if whole_image else out
+
+        return body, inputs
+
+    return frame_graph.frame((plan, whole_image), scene, make)(seed)

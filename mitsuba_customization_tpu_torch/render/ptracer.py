@@ -45,6 +45,9 @@ from mitsuba_customization_tpu_torch.render.sensors import PERSPECTIVE, THINLENS
 EM_DIMS = 6  # 0 emitter select, 1-2 position / prim, 3-4 direction
 BOUNCE_DIMS = 8  # 0-1 bsdf 2d, 2 lobe, 3 RR
 _LIGHT_SEED = 0x9E3779B9
+# the emitters a light path starts from (the loader refuses the others in
+# a ptracer scene)
+SUPPORTED_EMITTERS = (em_mod.AREA, em_mod.POINT, em_mod.SPOT)
 _PASS_STRIDE = 0x85EBCA6B
 
 

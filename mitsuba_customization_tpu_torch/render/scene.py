@@ -454,8 +454,6 @@ _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 _PHASE_TYPES = {"isotropic": phase_mod.ISOTROPIC, "hg": phase_mod.HG,
                 "rayleigh": phase_mod.RAYLEIGH, "sggx": phase_mod.SGGX}
 _TEXTURE_TYPES = ("bitmap", "checkerboard", "mesh_attribute", "volume")
-# the emitter types a ptracer scene may hold (render/ptracer.py)
-_PTRACER_EMITTERS = (em_mod.AREA, em_mod.POINT, em_mod.SPOT)
 
 
 def _bitmap(spec):
@@ -1013,7 +1011,9 @@ def load_dict(d: dict, device="cuda") -> Scene:
     cfg.nee = len(em_rows) > 0
     if cfg.integrator == "ptracer":
         # light paths start on area, point and spot emitters only
-        bad = {r["type"] for r in em_rows} - set(_PTRACER_EMITTERS)
+        from mitsuba_customization_tpu_torch.render.ptracer import SUPPORTED_EMITTERS
+
+        bad = {r["type"] for r in em_rows} - set(SUPPORTED_EMITTERS)
         if bad:
             names = {0: "area", 1: "constant", 2: "envmap", 3: "point", 4: "spot",
                      5: "directional"}

@@ -12,8 +12,10 @@ fields stacked on a leading axis and `child_types`: the film splits into
 vertical strips, one per child.
 
 The JAX package computes every type's rays and selects with `where`; the
-port computes only the types present (a host fact, read from the sensor's
-type tensor once per call), so the rays are the same and fewer kernels run.
+port computes only the types present (a host fact: `types_present` reads
+the sensor's type tensor, once per call of sample_ray unless the caller
+hands it in as `present`, as a captured frame's plan does), so the rays
+are the same and fewer kernels run.
 """
 
 from __future__ import annotations
@@ -125,22 +127,25 @@ def types_present(sensor):
     return {int(t) for t in types.reshape(-1).tolist()}
 
 
-def sample_ray(sensor: Sensor, film_uv, aperture_uv, aspect):
+def sample_ray(sensor: Sensor, film_uv, aperture_uv, aspect, *, present=None):
     """World-space primary rays for film_uv (..., 2) in [0,1)^2, (0,0) =
     top-left, aperture_uv (..., 2) (thinlens; may be None when no thinlens
-    type is present) and aspect = width / height.
+    type is present) and aspect = width / height. present: the sensor's
+    types_present, read here when None.
 
     A batch sensor selects each lane's child by its strip of the film and
     reads that child's fields by plain indexing, then runs the per-type
     formulas below with per-lane fields."""
+    if present is None:
+        present = types_present(sensor)
     if sensor.child_types is not None:
         b = sensor.child_types.shape[0]
         xi = torch.clamp((film_uv[..., 0] * b).to(torch.int64), 0, b - 1)
         local_x = film_uv[..., 0] * b - xi
         per_lane = Sensor(*(f[xi] for f in sensor[:-1]))
         uv2 = torch.stack([local_x, film_uv[..., 1]], -1)
-        return _sample_ray(per_lane, uv2, aperture_uv, aspect / b, types_present(sensor))
-    return _sample_ray(sensor, film_uv, aperture_uv, aspect, types_present(sensor))
+        return _sample_ray(per_lane, uv2, aperture_uv, aspect / b, present)
+    return _sample_ray(sensor, film_uv, aperture_uv, aspect, present)
 
 
 def _sample_ray(sensor, film_uv, aperture_uv, aspect, present):
@@ -157,7 +162,8 @@ def _sample_ray(sensor, film_uv, aperture_uv, aspect, present):
         d_persp = m.normalize(torch.stack([x, y, torch.ones_like(x)], -1))
     shape = film_uv.shape[:-1] + (3,)
     zero = film_uv.new_zeros(())
-    z_axis = torch.tensor([0.0, 0.0, 1.0], device=film_uv.device).expand(shape)
+    # a row of an identity made on the device: no host-to-device copy
+    z_axis = torch.eye(3, dtype=torch.float32, device=film_uv.device)[2].expand(shape)
     rays = {}  # type -> (o_cam, d_cam)
     if PERSPECTIVE in present:
         rays[PERSPECTIVE] = (zero.expand(shape), d_persp)

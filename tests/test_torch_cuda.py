@@ -1557,3 +1557,121 @@ def test_bvh_frame_gpu_matches_cpu(dev):
             assert bvh.LAUNCHES["closest"] > before["closest"]
             assert bvh.LAUNCHES["any"] > before["any"]
     torch.testing.assert_close(imgs[0].mean((0, 1)), imgs[1].mean((0, 1)), rtol=0.02, atol=0)
+
+
+def _all_counts():
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    return (k1.LAUNCHES, k2.LAUNCHES, cl.LAUNCHES["closest"], cl.LAUNCHES["shadow"],
+            bvh.LAUNCHES["closest"], bvh.LAUNCHES["any"])
+
+
+def _launched(fn):
+    before = _all_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [a - b for a, b in zip(_all_counts(), before)]
+
+
+# K1-K4, B1 and B2 by the names a trace gives them, in _all_counts' order
+_TRACE_NAMES = ("merl_eval_kernel", "cond_sample_kernel", "cluster_closest_kernel",
+                "cluster_shadow_kernel", "bvh_closest_kernel", "bvh_any_kernel")
+
+
+def _traced(fn):
+    """fn()'s result and the launches of each kernel of _TRACE_NAMES in
+    its trace (a replayed graph calls no wrapper)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, [sum(k in n for n in names) for k in _TRACE_NAMES]
+
+
+@pytest.mark.parametrize("scene_name", ["flagship", "matpreview_probed"])
+def test_render_jit_replays_render_bit_for_bit(dev, scene_name):
+    """render_jit on the card (a captured CUDA graph, replayed) against
+    render at two seeds, bit for bit on these box-filter frames: the
+    flagship (K1, K2) and the matpreview scene with its probed compaction
+    schedule (K1-K4), 64x64. A replay launches each kernel as often as
+    render (counted in both traces, and by the wrappers in render), each
+    kernel of the path > 0; a new seed replays the same graph."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import frame_graph
+    from mitsuba_customization_tpu_torch.render.integrator import render_jit
+    from mitsuba_customization_tpu_torch.scenes import (
+        flagship_dict,
+        matpreview_dict,
+        probe_compact_schedule,
+    )
+
+    if scene_name == "flagship":
+        scene, need = mt.load_dict(flagship_dict(64, 8, 4), dev), (0, 1)
+    else:
+        scene, _ = probe_compact_schedule(mt.load_dict(matpreview_dict(64, 4, 6, n_sub=3), dev))
+        need = (0, 1, 2, 3)
+    frame_graph.clear()
+    for seed in (1, 2):
+        want = mt.render(scene, scene.config.spp, seed)
+        got = render_jit(scene, scene.config.spp, seed)
+        assert torch.equal(got, want), seed
+    plans = frame_graph.PLANS
+    got, jit_traced = _traced(lambda: render_jit(scene, scene.config.spp, 3))
+    (want, counts), traced = _traced(lambda: _launched(
+        lambda: mt.render(scene, scene.config.spp, 3)))
+    assert torch.equal(got, want) and frame_graph.PLANS == plans
+    assert jit_traced == traced == counts and all(counts[i] > 0 for i in need), (
+        jit_traced, traced, counts)
+    assert frame_graph.latest().graph is not None and frame_graph.latest().capture_s > 0
+    frame_graph.clear()
+
+
+def test_render_jit_reads_an_in_place_geometry_edit_on_the_bvh(dev, monkeypatch):
+    """A scene on the BVH (past a lowered MAX_PRIMS): render_jit equals
+    render; after an in-place edit of the geometry's vertices the packs
+    are made anew (their addresses are in the frame's key), so the next
+    render_jit captures again, drops the frame it replaces and still
+    equals render; its replay launches B1 and B2."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import clusters as tcl
+    from mitsuba_customization_tpu_torch.render import frame_graph
+    from mitsuba_customization_tpu_torch.render.integrator import render_jit
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    d = matpreview_dict(48, 4, 4, n_sub=3)
+    monkeypatch.setattr(tcl, "MAX_PRIMS", 64)
+    scene = mt.load_dict(d, dev)
+    assert scene.config.intersector == "bvh"
+    frame_graph.clear()
+    assert torch.equal(render_jit(scene, 4, 1), mt.render(scene, 4, 1))
+    plans = frame_graph.PLANS
+    with torch.no_grad():  # triangles shrink toward p0, inside the tree's boxes
+        for g in {id(scene.geometry): scene.geometry,
+                  id(scene.shadow_geometry): scene.shadow_geometry}.values():
+            if g is not None:
+                g.e1.mul_(0.9)
+                g.e2.mul_(0.9)
+    render_jit(scene, 4, 1)
+    assert frame_graph.PLANS == plans + 1 and len(frame_graph._FRAMES) == 1
+    got, jit_traced = _traced(lambda: render_jit(scene, 4, 1))
+    assert torch.equal(got, mt.render(scene, 4, 1))
+    assert jit_traced[4] > 0 and jit_traced[5] > 0
+    frame_graph.clear()
+
+
+def test_render_sharded_jit_on_one_rank_equals_render_sharded(dev):
+    """render_sharded_jit without a process group (a world of one) on the
+    card: the rank's captured slab equals render_sharded and render_jit."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.parallel import mesh as pm
+    from mitsuba_customization_tpu_torch.render import frame_graph
+    from mitsuba_customization_tpu_torch.render.integrator import render_jit
+    from mitsuba_customization_tpu_torch.scenes import flagship_dict
+
+    scene = mt.load_dict(flagship_dict(32, 4, 3), dev)
+    frame_graph.clear()
+    got = pm.render_sharded_jit(scene, None, 4, 5)
+    assert torch.equal(got, pm.render_sharded(scene, None, 4, 5))
+    assert torch.equal(got, render_jit(scene, 4, 5))
+    frame_graph.clear()
