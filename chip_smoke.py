@@ -46,7 +46,8 @@ Phases, one printed line each; any failure raises (non-zero exit):
      within K1_BWD_ID_RTOL, and the relative L2 error against the plain
      version within K1_BWD_L2_RTOL; timed as the main path calls it, and
      torch's index_add_ of the same updates as a yardstick;
- 13. one AD step (render/ad.grad_render, MSE against a zero image) of the
+ 13. one AD step (grad_render's eager step, render/ad._eager_loss_and_grad,
+     whose kernel calls the wrappers count; MSE against a zero image) of the
      matpreview scene at 256x256, 4 spp, depth 6 with the probed schedule,
      gradients of the 10-table stack and the floor's alpha: one warm-up,
      one timed step (seconds, loss, nonzero share of table-gradient bins,
@@ -55,7 +56,8 @@ Phases, one printed line each; any failure raises (non-zero exit):
      one buffer; one more step records every K1-bwd call, each checked as
      in phase 12 and timed into one buffer, and holds the step's table
      gradient to the sum of the calls' own gradients;
- 14. the AD step at 64x64, 4 spp, depth 3 on the card and on the CPU
+ 14. the AD step (grad_render: captured on the card) at 64x64, 4 spp,
+     depth 3 on the card and on the CPU
      (plain kernels): losses within 2 %, table gradients at cosine >= 0.98,
      alpha gradients within 5 %; then, on the card, the floor alpha's
      gradient by AD against a central difference of the same render
@@ -67,8 +69,10 @@ Phases, one printed line each; any failure raises (non-zero exit):
      the spread of its sums over two seeds without compaction, if larger);
  16. five Adam steps of render/ad.optimize on the phase 13 scene (target
      the scene at 16 spp, alpha starting at 0.4), on the table and floor
-     alpha, then on the alpha alone: each step's seconds, loss and alpha;
-     finite throughout, the table >= 0;
+     alpha, then on the alpha alone, each through grad_render's captured
+     step (as optimize runs) and through its eager step: each step's
+     seconds, loss and alpha, the median of steps 1-4 of each; finite
+     throughout, the table >= 0, the first step's loss equal;
  17. BASELINE configs[0]: a sphere with the flagship MERL table under a
      constant emitter, the `direct` integrator, 512x512, 64 spp (eight
      passes of 2,097,152 lanes): seconds, rays/s, K1 and K2 launched;
@@ -84,8 +88,8 @@ Phases, one printed line each; any failure raises (non-zero exit):
      null, mask and blendbsdf bands: K1 launched with one half, as often
      as the JAX package's sample / eval / pdf composition calls it (5 a
      shading bounce), K2 not at all, K4 on the shadow cluster set (null
-     prims degenerate); every recorded call checked and timed; one
-     ad.grad_render of its table stack (one table-gradient buffer, K1-bwd
+     prims degenerate); every recorded call checked and timed; one eager
+     AD step of its table stack (one table-gradient buffer, K1-bwd
      launched) and, at 64x64, card against CPU losses within 2 % and
      table gradients at cosine >= 0.98;
  20. the image frame: matpreview_dict(512, 8, 8, n_materials=12) with
@@ -107,7 +111,7 @@ Phases, one printed line each; any failure raises (non-zero exit):
      JAX tests' expectations as numbers on the card (the point light's
      inverse square, the directionalarea footprint, the projector's
      left-red / right-blue pattern);
- 22. one ad.grad_render of the image frame at 256x256, 4 spp, depth 6
+ 22. one eager AD step of the image frame at 256x256, 4 spp, depth 6
      with its probed schedule, on the table stack, the texture images and
      the envmap's image: one warm-up, one timed step (seconds, peak memory,
      one table-gradient buffer, K1-bwd launched, the nonzero share of each
@@ -118,8 +122,8 @@ Phases, one printed line each; any failure raises (non-zero exit):
      sampler, the gaussian filter; 512x512, 8 spp, depth 8, 2,097,152
      lanes in one pass, the probed schedule): seconds, rays/s, K1-K4
      launched; every K1-K4 call of one more render recorded, checked and
-     timed (as phase 10); card against CPU means at 64x64; one
-     ad.grad_render of its table stack at 256x256, 4 spp, depth 6 (one
+     timed (as phase 10); card against CPU means at 64x64; one eager AD
+     step of its table stack at 256x256, 4 spp, depth 6 (one
      buffer, K1-bwd launched, seconds, peak memory) and at 64x64 card
      against CPU losses within 2 % and gradients at cosine >= 0.98;
  24. the shapes frame (scenes.shapes_dict on the meshes scenes.shape_files
@@ -151,7 +155,8 @@ Phases, one printed line each; any failure raises (non-zero exit):
      version and timed (K3 twice a bounce: the shadow ray's first
      boundary); card against CPU means at 64x64; the JAX tests'
      Beer-Lambert and emissive-medium expectations on the card;
- 27. one ad.grad_render of the volpath scene at 256x256, 4 spp, depth 6 on
+ 27. one eager AD step (the one grad_render takes for volpath) of the
+     volpath scene at 256x256, 4 spp, depth 6 on
      the table stack and medium.sigma_t, albedo, phase_g and density:
      seconds, peak memory, K1-bwd launches, one table-gradient buffer and
      the grid-sized buffers (one a tracking step of the backward's
@@ -218,7 +223,26 @@ Phases, one printed line each; any failure raises (non-zero exit):
      in JIT_TURNS turns (medians, spread); one profiled replay and render
      (device seconds, kernels, busy share); the camera frame (512x512, 8
      spp, depth 8, probed schedule) through render_jit, its means within
-     2 % of render's (a gaussian splat adds atomically: not bit-equal).
+     2 % of render's (a gaussian splat adds atomically: not bit-equal);
+ 34. the captured AD steps (render/ad._loss_and_grad behind grad_render:
+     one CUDA graph of the forward, the checkpointed bounces' replay and
+     K1-bwd, replayed with the seed, parameters and target copied into its
+     buffers) of phase 13's matpreview setup (on the clusters, and switched
+     to the BVH: B1 / B2), and the blend, image and camera AD scenes of
+     phases 19, 22 and 23: each replay against JIT_TURNS (5) eager
+     steps at one seed (the loss equal bit for bit under the box filter,
+     within three times the eager losses' largest difference under the
+     camera's gaussian splat; each gradient's relative L2 error within
+     three times their largest); a
+     replay's launches of K1-K4, B1 / B2 and K1-bwd, counted by name in
+     its trace, equal to a traced eager step's and the wrappers' counts in
+     one (those of the path > 0); the first call's and the capture's
+     seconds, the graph's nodes and the device memory the step keeps; the
+     replay and the eager step timed in those turns; one profiled replay and
+     eager step (device seconds, busy share); on a process group of one
+     rank over NCCL, loss_and_grad_sharded_jit of the matpreview (one
+     graph) and camera scenes (the split step: forward and backward graphs
+     around the eager halo exchange) against grad_render's replay.
 Each phase prints its wall seconds (`phase ...` lines and a `phase
 seconds` summary). Each phase's counts are set to 0 just before its
 render (or AD step) and read just after. It then prints a JSON line describing each kernel
@@ -259,9 +283,9 @@ Every entry also carries `launches_by_phase` (phases 17-33: the blend,
 image, camera and volpath AD steps, the shapes frame with and without
 the SDF, the volpath, ptracer and bdpt frames, the XML frame through the
 CLI, the sharded frame and the sharded AD step, the big shapes frame
-(B1 and B2: that frame and its replay only), and the replays of phase
-33 as `render_jit_<frame>`, counted in each replay's trace; for K1's
-backward its
+(B1 and B2: that frame and its replay only), the replays of phase
+33 as `render_jit_<frame>` and those of phase 34 as `grad_jit_<step>`,
+counted in each replay's trace; for K1's backward its
 AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
 19, 20, 23, 24, 26 and 28 (`materials_frame_ms`, `blend_frame_ms`,
 `image_frame_ms`, `camera_frame_ms`, `shapes_frame_ms`,
@@ -269,10 +293,14 @@ AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
 bounds).
 Before it, a `captured frames:` line holds phase 33's numbers by frame
 (first call, capture, nodes, pool MB, replay and render medians and
-spread, device seconds and busy share of the profiled replay and render).
+spread, device seconds and busy share of the profiled replay and render),
+a `captured AD steps:` line phase 34's by step (the same, and the
+gradients' errors and limits) and an `optimize` line phase 16's medians.
 Imports nothing of JAX.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -1073,8 +1101,9 @@ def ad_setup(dev, res=256, spp=4, depth=6):
 
 
 def phase_ad_step(setup):
-    """Phase 13: one loss-and-gradient step (grad_render, MSE against a
-    zero image) of the matpreview scene at 256x256, 4 spp, depth 6 with
+    """Phase 13: one loss-and-gradient step (grad_render's eager step,
+    ad._eager_loss_and_grad, whose kernel calls go through the wrappers;
+    MSE against a zero image) of the matpreview scene at 256x256, 4 spp, depth 6 with
     the probed schedule, on the table stack and the floor's alpha: one
     warm-up, one timed step with the counts set to 0 just before it (one
     table-gradient buffer allocated), then one recorded step whose K1-bwd
@@ -1091,12 +1120,12 @@ def phase_ad_step(setup):
     res = scene.config.width
     dev = scene.device
     target = torch.zeros((res, res, 3), device=dev)
-    ad.grad_render(scene, params, target, spp=4, seed=1)  # warm-up
+    ad._eager_loss_and_grad(scene, params, target, 4, 1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    loss, grads = ad.grad_render(scene, params, target, spp=4, seed=2)
+    loss, grads = ad._eager_loss_and_grad(scene, params, target, 4, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
@@ -1116,7 +1145,7 @@ def phase_ad_step(setup):
                              f"{launches}, table-gradient buffers {buffers}")
     step = {}
     rec = record_calls(
-        lambda: step.update(grads=ad.grad_render(scene, params, target, spp=4, seed=2)[1]),
+        lambda: step.update(grads=ad._eager_loss_and_grad(scene, params, target, 4, 2)[1]),
         {"K1-bwd": (k1, "eval_trilinear_bwd", _keep_bwd)})["K1-bwd"]
     if len(rec) != launches["K1-bwd"]:
         raise AssertionError(f"recorded {len(rec)} K1-bwd calls != launches {launches}")
@@ -1242,8 +1271,6 @@ def phase_ad_compaction(setup):
     without compaction for the spread: their correlation, each material's
     summed gradient, and the gate: each material's sums within
     max(AD_COMPACT_RTOL, 3 x that material's two-seed spread)."""
-    import dataclasses
-
     from mitsuba_customization_tpu_torch.render import ad
 
     scene, _, params = setup
@@ -1274,35 +1301,63 @@ def phase_optimize(setup, steps=5):
     (256x256, 4 spp, depth 6, the probed schedule), on the table stack and
     the floor's alpha, then on the alpha alone: the target is the scene
     itself (floor alpha 0.25) at 16 spp; the optimiser starts from the
-    table as loaded and alpha 0.4. Each step's seconds, loss and alpha;
-    finite throughout, the table >= 0."""
+    table as loaded and alpha 0.4. Each key set runs twice: through
+    grad_render's captured step, as `optimize` runs (the first step plans,
+    warms up and captures it, the others replay), and with grad_render's
+    eager step in its place. Each step's seconds, loss and alpha, the
+    median of steps 1-4 of each; finite throughout, the table >= 0, the
+    first step's loss the eager one's bit for bit (the same parameters,
+    the box filter; later steps differ by K1-bwd's atomic order). Returns
+    {key set: (captured median s, eager median s)}."""
+    from unittest import mock
+
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render import frame_graph as fg
     from mitsuba_customization_tpu_torch.render.params import update
+
+    def eager(scene, params, target, spp=16, seed=0):
+        return ad._eager_loss_and_grad(scene, params, target, spp, seed)
 
     scene, _, params = setup
     target = mt.render(scene, spp=16, seed=0)
     start = update(scene, {k: torch.full_like(params[k], 0.4) for k in AD_KEYS[1:]})
+    out = {}
     for keys, what in ((AD_KEYS, "table and alpha"), (AD_KEYS[1:], "alpha alone")):
-        times = [time.perf_counter()]
-        rows = []
+        runs = {}
+        for how in ("captured", "eager"):
+            times = [time.perf_counter()]
+            rows = []
 
-        def step_done(it, loss, p):
-            torch.cuda.synchronize()
-            times.append(time.perf_counter())
-            rows.append((it, times[-1] - times[-2], loss, float(p[AD_KEYS[1]][0].detach())))
+            def step_done(it, loss, p):
+                torch.cuda.synchronize()
+                times.append(time.perf_counter())
+                rows.append((it, times[-1] - times[-2], loss, float(p[AD_KEYS[1]][0].detach())))
 
-        p, losses = ad.optimize(start, target, list(keys), n_steps=steps, lr=OPT_LR,
-                                spp=4, callback=step_done)
-        for it, secs, loss, alpha in rows:
-            print(f"optimize ({what}) step {it}: {secs:.3f} s, loss {loss:.6e}, "
-                  f"floor alpha_u {alpha:.5f}")
-        ok = (all(torch.isfinite(torch.tensor(losses)))
-              and all(bool(torch.isfinite(v).all()) for v in p.values())
-              and bool((p.get(AD_KEYS[0], torch.zeros(1)) >= 0).all()))
-        if not ok:
-            raise AssertionError(f"optimize ({what}): a loss or parameter is not finite, "
-                                 "or the table < 0")
+            with mock.patch.object(ad, "grad_render", eager) if how == "eager" \
+                    else contextlib.nullcontext():
+                p, losses = ad.optimize(start, target, list(keys), n_steps=steps, lr=OPT_LR,
+                                        spp=4, callback=step_done)
+            for it, secs, loss, alpha in rows:
+                print(f"optimize ({what}, {how} step) step {it}: {secs:.3f} s, loss "
+                      f"{loss:.6e}, floor alpha_u {alpha:.5f}")
+            ok = (all(torch.isfinite(torch.tensor(losses)))
+                  and all(bool(torch.isfinite(v).all()) for v in p.values())
+                  and bool((p.get(AD_KEYS[0], torch.zeros(1)) >= 0).all()))
+            if not ok:
+                raise AssertionError(f"optimize ({what}, {how} step): a loss or parameter is "
+                                     "not finite, or the table < 0")
+            runs[how] = (losses, statistics.median(r[1] for r in rows[1:]))
+        (lc, tc), (le, te) = runs["captured"], runs["eager"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(lc, le)]
+        print(f"optimize ({what}): steps 1-{steps - 1} median {tc:.4f} s captured against "
+              f"{te:.4f} s eager ({te / tc:.2f}x); losses' relative differences {rel}")
+        if lc[0] != le[0]:
+            raise AssertionError(f"optimize ({what}): the captured step's first loss {lc[0]} "
+                                 f"is not the eager step's {le[0]}")
+        out[what] = (tc, te)
+    fg.clear()
+    return out
 
 
 def _launch_counts():
@@ -1480,11 +1535,13 @@ def phase_blend(dev, res=256, spp=4, depth=6):
     of the JAX composition (K1_PER_BLENDED_BOUNCE a shading bounce), K2
     not at all (blends take the plain Marginal2D path), K4 on the shadow
     cluster set; every recorded call checked against its plain version and
-    timed. Then one ad.grad_render of the table stack: one table-gradient
+    timed. Then one eager AD step (ad._eager_loss_and_grad) of the table
+    stack: one table-gradient
     buffer, K1-bwd launched; and at 64x64, 4 spp, depth 3 on the card and
     on the CPU: losses within AD_LOSS_RTOL, table gradients at cosine >=
-    AD_TABLE_COS. Returns (launches of the frame, of the AD step, frame
-    sums)."""
+    AD_TABLE_COS (grad_render, captured on the card). Returns (launches of
+    the frame, of the AD step, frame sums, (the AD scene, its parameters)
+    for phase 34)."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch.render import ad
@@ -1514,11 +1571,11 @@ def phase_blend(dev, res=256, spp=4, depth=6):
     key = AD_KEYS[0]
     target = torch.zeros((res, res, 3), device=dev)
     table = {key: traverse(scene)[key]}
-    ad.grad_render(scene, table, target, spp=spp, seed=1)  # warm-up
+    ad._eager_loss_and_grad(scene, table, target, spp, 1)  # warm-up
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
-    loss, grads = ad.grad_render(scene, table, target, spp=spp, seed=2)
+    loss, grads = ad._eager_loss_and_grad(scene, table, target, spp, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     ad_launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
@@ -1547,7 +1604,7 @@ def phase_blend(dev, res=256, spp=4, depth=6):
           f"limit {AD_LOSS_RTOL}); table-gradient cosine {cos:.6f} (limit {AD_TABLE_COS})")
     if not (loss_rel <= AD_LOSS_RTOL and cos >= AD_TABLE_COS):
         raise AssertionError("GPU and CPU blend gradients disagree")
-    return launches, ad_launches, frame
+    return launches, ad_launches, frame, (scene, table)
 
 
 # ---------------------------------------------------------------------------
@@ -1825,13 +1882,16 @@ def phase_emitters(dev, res=512, spp=16, depth=4):
 
 
 def phase_image_ad(dev, paths, res=256, spp=4, depth=6):
-    """Phase 22: one ad.grad_render (MSE against a zero image) of the image
+    """Phase 22: one eager AD step (ad._eager_loss_and_grad, grad_render's
+    eager form, whose kernel calls the wrappers count; MSE against a zero
+    image) of the image
     frame at res x res, spp, depth with its probed schedule, on the table
     stack, the texture stack's images and the envmap's image: one warm-up,
     one timed step (seconds, peak memory, table-gradient buffers, K1-bwd
     launched, the nonzero share of each gradient); then at 64x64, 4 spp,
     depth 3 card against CPU: losses within AD_LOSS_RTOL, each gradient at
-    cosine >= AD_TABLE_COS. Returns the step's launches."""
+    cosine >= AD_TABLE_COS (grad_render, captured on the card). Returns
+    the step's launches and (the scene, its parameters) for phase 34."""
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch.render import ad
     from mitsuba_customization_tpu_torch.render.params import traverse
@@ -1841,12 +1901,12 @@ def phase_image_ad(dev, paths, res=256, spp=4, depth=6):
     full = traverse(scene)
     params = {k: full[k] for k in IMAGE_AD_KEYS}
     target = torch.zeros((res, res, 3), device=dev)
-    ad.grad_render(scene, params, target, spp=spp, seed=1)  # warm-up
+    ad._eager_loss_and_grad(scene, params, target, spp, 1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    loss, grads = ad.grad_render(scene, params, target, spp=spp, seed=2)
+    loss, grads = ad._eager_loss_and_grad(scene, params, target, spp, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
@@ -1876,7 +1936,7 @@ def phase_image_ad(dev, paths, res=256, spp=4, depth=6):
           f"limit {AD_LOSS_RTOL}); gradient cosines {cos} (limit {AD_TABLE_COS})")
     if not (loss_rel <= AD_LOSS_RTOL and min(cos.values()) >= AD_TABLE_COS):
         raise AssertionError("GPU and CPU image-frame gradients disagree")
-    return launches
+    return launches, (scene, params)
 
 
 # ---------------------------------------------------------------------------
@@ -1896,7 +1956,9 @@ BATCH_STRIP_ATOL, SDF_MEAN_ATOL, SDF_MAE = 0.05, 0.02, 0.03
 
 
 def _ad_step(what, scene, res, spp, depth, key=AD_KEYS[0]):
-    """One warm-up and one timed ad.grad_render (MSE against a zero image)
+    """One warm-up and one timed eager AD step (ad._eager_loss_and_grad,
+    grad_render's eager form, whose kernel calls the wrappers count; MSE
+    against a zero image)
     of `scene` on the parameter `key`, the counts set to 0 just before
     it: prints seconds, loss, peak memory, table-gradient buffers and
     launches; one buffer, K1-bwd launched, finite and nonzero. Returns the
@@ -1907,12 +1969,12 @@ def _ad_step(what, scene, res, spp, depth, key=AD_KEYS[0]):
 
     params = {key: traverse(scene)[key]}
     target = torch.zeros((res, res, 3), device=scene.device)
-    ad.grad_render(scene, params, target, spp=spp, seed=1)  # warm-up
+    ad._eager_loss_and_grad(scene, params, target, spp, 1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    loss, grads = ad.grad_render(scene, params, target, spp=spp, seed=2)
+    loss, grads = ad._eager_loss_and_grad(scene, params, target, spp, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
@@ -1957,13 +2019,15 @@ def phase_camera(dev, res=512, spp=8, depth=8, ad_res=256, cmp_res=64):
     filter, res x res x spp lanes in one pass, the probed schedule:
     seconds, rays/s, K1-K4 launched; every K1-K4 call of one more render
     recorded, checked against its plain version and timed (as phase 10);
-    card against CPU means at 64x64, 4 spp, depth 4. Then one
-    ad.grad_render of the table stack at 256x256, 4 spp, depth 6 (one
+    card against CPU means at 64x64, 4 spp, depth 4. Then one eager AD
+    step (_ad_step) of the table stack at 256x256, 4 spp, depth 6 (one
     buffer, K1-bwd launched, seconds and peak memory) and at 64x64, 4 spp,
-    depth 3 card against CPU losses and gradients. Returns (launches of
-    the frame, of the AD step, frame sums)."""
+    depth 3 card against CPU losses and gradients (grad_render, captured
+    on the card). Returns (launches of the frame, of the AD step, frame
+    sums, (the AD scene, its parameters) for phase 34)."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import sensors
+    from mitsuba_customization_tpu_torch.render.params import traverse
     from mitsuba_customization_tpu_torch.scenes import camera_dict, probe_compact_schedule
 
     scene = mt.load_dict(camera_dict(res, spp, depth), dev)
@@ -1985,10 +2049,10 @@ def phase_camera(dev, res=512, spp=8, depth=8, ad_res=256, cmp_res=64):
     ad_scene, ad_fracs = probe_compact_schedule(
         mt.load_dict(camera_dict(ad_res, 4, 6), dev), spp=4)
     ad_launches = _ad_step("camera", ad_scene, ad_res, 4, 6)
-    del ad_scene
     _ad_gpu_cpu(f"camera AD {cmp_res}x{cmp_res} 4spp depth 3",
                 camera_dict(cmp_res, 4, 3, compact=ad_fracs), dev, cmp_res)
-    return launches, ad_launches, frame
+    key = AD_KEYS[0]
+    return launches, ad_launches, frame, (ad_scene, {key: traverse(ad_scene)[key]})
 
 
 def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
@@ -2225,7 +2289,8 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
 
 
 def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_res=64):
-    """Phase 27: one ad.grad_render (MSE against a zero image) of the
+    """Phase 27: one eager AD step (ad._eager_loss_and_grad, the step
+    grad_render takes for volpath; MSE against a zero image) of the
     volpath scene at res x res, spp, depth on the table stack and the four
     medium keys: one warm-up, one timed step (seconds, peak memory, K1-bwd
     launches, table- and grid-sized gradient buffers, each gradient
@@ -2243,12 +2308,12 @@ def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_re
     scene = mt.load_dict(volpath_dict(res, spp, depth, grid_res, VOLPATH_SEED), dev)
     params = {k: traverse(scene)[k] for k in keys}
     target = torch.zeros((res, res, 3), device=dev)
-    ad.grad_render(scene, params, target, spp=spp, seed=1)  # warm-up
+    ad._eager_loss_and_grad(scene, params, target, spp, 1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    loss, grads = ad.grad_render(scene, params, target, spp=spp, seed=2)
+    loss, grads = ad._eager_loss_and_grad(scene, params, target, spp, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
@@ -2907,19 +2972,24 @@ TRACE_NAMES = {"K1": "merl_eval_kernel", "K2": "cond_sample_kernel",
                "B1": "bvh_closest_kernel", "B2": "bvh_any_kernel"}
 
 
-def _profiled(fn):
+def _profiled(fn, names=TRACE_NAMES):
     """One fn() under torch.profiler: (wall s, device s, kernels traced,
-    busy share = device over wall, {K1..B2: launches of that kernel in the
-    trace}); device and busy None where the trace holds no kernel."""
+    busy share = device over wall, {kernel of `names`: launches of it in
+    the trace}); device and busy None where the trace holds no kernel.
+    The trace's device events are read as the profiler recorded them
+    (kineto_results), not parsed into a tree of torch's FunctionEvents,
+    which takes tens of seconds for an eager AD step's ~100,000 kernels
+    and their host operators."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_s = sum(e.device_time for e in kernels) / 1e6 if kernels else None
-    traced = {k: sum(name in e.name for e in kernels) for k, name in TRACE_NAMES.items()}
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(e.duration_ns() for e in kernels) / 1e9 if kernels else None
+    traced = {k: sum(name in e.name() for e in kernels) for k, name in names.items()}
     return wall, dev_s, len(kernels), None if dev_s is None else dev_s / wall, traced
 
 
@@ -3066,6 +3136,181 @@ def phase_jit(dev, card, flagship, matpreview, big_shapes, res=512, spp=8, depth
     return out
 
 
+# phase 34: the captured AD steps (render/ad._loss_and_grad behind grad_render)
+AD_TRACE_NAMES = dict(TRACE_NAMES, **{"K1-bwd": "merl_eval_bwd_kernel"})
+# floor of a gradient's tolerance against the eager step: float32 rounding
+STEP_GRAD_FLOOR = 1e-6
+
+
+def _ad_launches():
+    from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
+
+    return dict(_all_launches(), **{"K1-bwd": k1.LAUNCHES_BWD})
+
+
+def _spread_check(got, eager):
+    """(relative L2 error of each gradient of `got` against the first of
+    `eager`, eager steps' gradients at one seed; its limit:
+    three times the largest relative L2 difference of two of them, which
+    K1-bwd's, autograd's and a splat's atomic adds set; STEP_GRAD_FLOOR at
+    least)."""
+    want = eager[0]
+    return ({k: rel_l2(got[k], want[k]) for k in want},
+            {k: max(3 * max(float((a[k] - b[k]).double().norm() / want[k].double().norm())
+                            for i, a in enumerate(eager) for b in eager[:i]),
+                    STEP_GRAD_FLOOR) for k in want})
+
+
+def phase_jit_step(what, scene, params, spp, need, card, mesh=None):
+    """Phase 34 for one scene: grad_render's first call (plan, warm-up
+    with a whole backward, capture of the forward and the backward, replay)
+    at seed 1, with the device memory the step keeps (reserved after
+    against before, the allocator's cache emptied at both: the graph's
+    pool, the plan's inputs and buffers, the static outputs) and the
+    graph's nodes; at seed 2 a replay and an eager step
+    (ad._eager_loss_and_grad) in JIT_TURNS turns, timed (medians,
+    spread): the last replay's loss the first eager one's bit for bit
+    (the box filter) or within three times the eager losses' largest
+    difference (SHARDED_LOSS_RTOL at least), each gradient within three
+    times the eager steps' largest relative L2 difference (_spread_check).
+    Then one profiled replay and eager step (device seconds, kernels, busy
+    share). A replay calls no wrapper: its launches of each kernel (K1-bwd
+    too) are counted in its trace by name and must equal the profiled
+    eager step's and those the wrappers counted in it (the counts set to
+    0 just before it), those of `need` > 0.
+    With `mesh` (a process group of one rank), loss_and_grad_sharded_jit
+    at seed 2 too (first call and a replay timed) against the replay:
+    loss within SHARDED_LOSS_RTOL, gradients as above. Returns a dict of
+    these numbers."""
+    import torch.distributed as dist
+
+    from mitsuba_customization_tpu_torch.parallel import mesh as pm
+    from mitsuba_customization_tpu_torch.render import ad
+    from mitsuba_customization_tpu_torch.render import frame_graph as fg
+
+    t_start = time.perf_counter()
+    cfg = scene.config
+    exact = cfg.rfilter == "box"
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.device)
+    fg.clear()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    first_s = _frame_seconds(lambda: ad.grad_render(scene, params, target, spp, 1))
+    torch.cuda.empty_cache()
+    step_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
+    step = fg.latest()
+    nodes = _graph_nodes(step.graph)
+    replay_s, eager_s, eager = [], [], []
+    for _ in range(JIT_TURNS):
+        t0 = time.perf_counter()
+        got = ad.grad_render(scene, params, target, spp, 2)
+        torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        eager.append(ad._eager_loss_and_grad(scene, params, target, spp, 2))
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+    want = eager[0]
+    err, limit = _spread_check(got[1], [e[1] for e in eager])
+    loss_diff = abs(float(got[0]) - float(want[0]))
+    losses = [float(e[0]) for e in eager]
+    loss_limit = max(3 * (max(losses) - min(losses)), SHARDED_LOSS_RTOL * abs(losses[0]))
+    loss_ok = torch.equal(got[0], want[0]) if exact else loss_diff <= loss_limit
+    if torch.equal(got[0], ad.grad_render(scene, params, target, spp, 3)[0]):
+        raise AssertionError(f"captured step {what}: a seed's replay is not its own step")
+    p_replay = _profiled(lambda: ad.grad_render(scene, params, target, spp, 4), AD_TRACE_NAMES)
+    _reset_counts()
+    p_eager = _profiled(lambda: ad._eager_loss_and_grad(scene, params, target, spp, 4),
+                        AD_TRACE_NAMES)
+    eager_launches = _ad_launches()
+    launches, eager_traced = p_replay[4], p_eager[4]
+
+    def busy(p):
+        if p[1] is None:
+            return f"wall {p[0]:.4f} s, device not measured (no kernel traced)"
+        return f"wall {p[0]:.4f} s, device {p[1]:.4f} s, {p[2]} kernels, busy {p[3]:.3f}"
+
+    out = dict(launches=launches, first_s=first_s, capture_s=step.capture_s, nodes=nodes,
+               step_mb=step_mb, loss_diff=loss_diff, grad_err=err, grad_limit=limit,
+               replay_s=statistics.median(replay_s), replay_spread=max(replay_s) - min(replay_s),
+               eager_s=statistics.median(eager_s), eager_spread=max(eager_s) - min(eager_s),
+               replay_device_s=p_replay[1], replay_busy=p_replay[3],
+               eager_device_s=p_eager[1], eager_busy=p_eager[3])
+    print(f"captured AD step {what} {cfg.width}x{cfg.height} {spp}spp depth {cfg.max_depth} "
+          f"({cfg.rfilter}, {cfg.intersector}; keys {list(params)}; card {card}): loss "
+          f"{float(got[0]):.9e} against the eager step's {float(want[0]):.9e} (difference "
+          f"{loss_diff:.3e}, {'equal bit for bit required' if exact else f'limit {loss_limit:.3e}'}"
+          f"); gradients' relative L2 error against the eager step {err}, limits {limit} "
+          f"(three times {JIT_TURNS} eager steps' spread); launches traced in a replay "
+          f"{launches}, in an eager step {eager_traced}, counted by the wrappers in an eager step "
+          f"{eager_launches}; first call {first_s:.3f} s, capture {step.capture_s:.3f} s, "
+          f"{nodes} graph nodes, step memory {step_mb:.1f} MB; replay median "
+          f"{out['replay_s']:.4f} s (spread {out['replay_spread']:.4f}, "
+          f"{', '.join(f'{x:.4f}' for x in replay_s)}) against the eager step "
+          f"{out['eager_s']:.4f} s (spread {out['eager_spread']:.4f}, "
+          f"{', '.join(f'{x:.4f}' for x in eager_s)}) in {JIT_TURNS} turns; profiled replay: "
+          f"{busy(p_replay)}; profiled eager step: {busy(p_eager)}")
+    if not loss_ok or any(err[k] > limit[k] for k in err):
+        raise AssertionError(f"captured AD step {what} disagrees with the eager step")
+    if (launches != eager_traced or eager_traced != eager_launches
+            or min(launches[k] for k in need) <= 0):
+        raise AssertionError(f"captured AD step {what}: replay launches {launches}, the eager "
+                             f"step's traced {eager_traced}, counted {eager_launches}")
+    if mesh is not None:
+        fg.clear()
+        sh_first = _frame_seconds(
+            lambda: pm.loss_and_grad_sharded_jit(scene, params, target, mesh, spp, 1))
+        sh_nodes = [_graph_nodes(g) for g in (fg.latest().graph, fg.latest().bwd_graph)
+                    if g is not None]
+        t0 = time.perf_counter()
+        sh = pm.loss_and_grad_sharded_jit(scene, params, target, mesh, spp, 2)
+        torch.cuda.synchronize()
+        sh_s = time.perf_counter() - t0
+        sh_err, sh_limit = _spread_check(sh[1], [got[1]] + [e[1] for e in eager[1:]])
+        lrel = abs(float(sh[0]) - float(got[0])) / abs(float(got[0]))
+        out.update(sharded_first_s=sh_first, sharded_replay_s=sh_s, sharded_nodes=sh_nodes)
+        print(f"loss_and_grad_sharded_jit {what} on 1 rank ({dist.get_backend()}; "
+              f"{'one graph' if cfg.rfilter == 'box' else 'split: forward and backward graphs'}"
+              f", {sh_nodes} nodes): loss {float(sh[0]):.9e} against grad_render's replay "
+              f"{float(got[0]):.9e} (rel {lrel:.2e}, limit {SHARDED_LOSS_RTOL}); gradients' "
+              f"relative L2 error {sh_err}, limits {sh_limit}; first call {sh_first:.3f} s, "
+              f"replay {sh_s:.4f} s")
+        if lrel > SHARDED_LOSS_RTOL or any(sh_err[k] > sh_limit[k] for k in sh_err):
+            raise AssertionError(f"loss_and_grad_sharded_jit {what} disagrees with grad_render")
+    fg.clear()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"captured AD step {what}: {out['seconds']:.1f} s in phase 34")
+    return out
+
+
+def phase_jit_ad(dev, card, steps):
+    """Phase 34: the captured AD steps (phase_jit_step) of `steps`, {name:
+    (scene, params, spp, kernels that must launch, sharded too)}: phase
+    13's matpreview setup, on the clusters and switched to the BVH (B1 /
+    B2 in the forward and the backward's replay), the blend, image and
+    camera scenes of phases 19, 22 and 23; those marked sharded
+    also through loss_and_grad_sharded_jit on a process group of one rank
+    over NCCL (the box filter's one graph, the gaussian's split step).
+    Returns {step: its numbers}."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mitsuba_customization_tpu_torch.parallel import mesh as pm
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pm.initialize_distributed(f"tcp://localhost:{port}", 1, 0, device=str(dev), timeout=300)
+    try:
+        mesh = pm.make_mesh()
+        return {name: phase_jit_step(name, scene, params, spp, need, card,
+                                     mesh if sharded else None)
+                for name, (scene, params, spp, need, sharded) in steps.items()}
+    finally:
+        dist.destroy_process_group()
+
+
 T_START = time.perf_counter()
 PHASE_SECONDS = {}
 _LAP = [T_START]
@@ -3159,15 +3404,14 @@ def main():
     phase_ad_cpu(dev, setup[1])
     phase_alpha_fd(dev, setup[1])
     phase_ad_compaction(setup)
-    phase_optimize(setup)
-    del setup
+    opt_seconds = phase_optimize(setup)
     lap("13-16 AD")
 
     cfg0_launches = phase_config0(dev)
     lap("17 configs[0]")
     mat_launches, mat_frame = phase_materials(dev)
     lap("18 materials")
-    blend_launches, blend_ad_launches, blend_frame = phase_blend(dev)
+    blend_launches, blend_ad_launches, blend_frame, blend_ad = phase_blend(dev)
     lap("19 blend")
     paths = image_files(IMAGE_DIR)
     lap("20 image files")
@@ -3175,9 +3419,9 @@ def main():
     lap("20 image frame")
     emitter_launches = phase_emitters(dev)
     lap("21 emitters")
-    image_ad_launches = phase_image_ad(dev, paths)
+    image_ad_launches, image_ad = phase_image_ad(dev, paths)
     lap("22 image AD step")
-    cam_launches, cam_ad_launches, cam_frame = phase_camera(dev)
+    cam_launches, cam_ad_launches, cam_frame, cam_ad = phase_camera(dev)
     lap("23 camera")
     shapes_launches, shapes_frame, sdf_launches = phase_shapes(dev)
     lap("24 shapes")
@@ -3200,6 +3444,18 @@ def main():
     jit = phase_jit(dev, card, scene, mp_scene, big_scene)
     del big_scene, mp_scene
     lap("33 captured frames")
+    ad_scene, _, ad_params = setup
+    ad_bvh = dataclasses.replace(ad_scene, config=dataclasses.replace(ad_scene.config,
+                                                                      intersector="bvh"))
+    mp_need, bvh_need = ("K1", "K2", "K3", "K4", "K1-bwd"), ("K1", "K2", "B1", "B2", "K1-bwd")
+    jit_ad = phase_jit_ad(dev, card, {
+        "matpreview": (ad_scene, ad_params, 4, mp_need, True),
+        "matpreview_bvh": (ad_bvh, ad_params, 4, bvh_need, False),
+        "blend": (*blend_ad, 4, ("K1", "K3", "K4", "K1-bwd"), False),
+        "image": (*image_ad, 4, mp_need, False),
+        "camera": (*cam_ad, 4, mp_need, True)})
+    del setup, ad_scene, ad_bvh, blend_ad, image_ad, cam_ad
+    lap("34 captured AD steps")
 
     kernels = [
         dict(name="merl_eval", route="cuda", source=k1.SOURCE,
@@ -3232,7 +3488,8 @@ def main():
             "bdpt": bd_launches[key], "xml_cli": xml_launches[key],
             "sharded": sh_launches[key], "sharded_ad_step": sh_ad_launches[key],
             "big_shapes": big_launches[key],
-            **{"render_jit_" + f: jit[f]["launches"][key] for f in jit}},
+            **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
+            **{"grad_jit_" + f: jit_ad[f]["launches"][key] for f in jit_ad}},
             materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
             blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
             image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
@@ -3258,7 +3515,9 @@ def main():
                            "volpath_ad_step": vol_ad_launches["K1-bwd"],
                            "xml_cli": xml_launches["K1-bwd"],
                            "sharded": sh_launches["K1-bwd"],
-                           "sharded_ad_step": sh_ad_launches["K1-bwd"]}))
+                           "sharded_ad_step": sh_ad_launches["K1-bwd"],
+                           **{"grad_jit_" + f: jit_ad[f]["launches"]["K1-bwd"]
+                              for f in jit_ad}}))
     # B1 / B2 (no Pallas kernel: the JAX BVH walk is an XLA while_loop):
     # phase 32's camera wavefront and NEE rays, its frame's launches and
     # recorded calls
@@ -3274,9 +3533,14 @@ def main():
             checked_frame_bound_ms=big_frame[key][2],
             frame_share=big_frame[key][2] / big_frame[key][1],
             launches_by_phase={"big_shapes": big_launches[key],
-                               **{"render_jit_" + f: jit[f]["launches"][key] for f in jit}}))
+                               **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
+                               **{"grad_jit_" + f: jit_ad[f]["launches"][key]
+                                  for f in jit_ad}}))
     print("captured frames: " + json.dumps({f: {k: v for k, v in jit[f].items()
                                                    if k != "launches"} for f in jit}))
+    print("captured AD steps: " + json.dumps({f: {k: v for k, v in jit_ad[f].items()
+                                                     if k != "launches"} for f in jit_ad}))
+    print("optimize, median step s (captured, eager): " + json.dumps(opt_seconds))
     print(f"volpath frame tracking loops: {vol_steps} steps, {vol_checks} host checks; "
           f"volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "

@@ -7,7 +7,9 @@ rank of a process group; every rank holds the whole scene and renders its
 slab's lanes in render's own passes (render/integrator.render_rows); the
 image is gathered, and a loss's gradients all-reduce over the ranks.
 render_sharded_jit captures a rank's passes as a frame
-(render/frame_graph.py) and keeps the collectives outside it.
+(render/frame_graph.py) and keeps the collectives outside it;
+loss_and_grad_sharded_jit captures a rank's slab step (its forward and
+backward) and keeps the halo exchange and the all-reduce outside it.
 
 A layout is a torch.distributed DeviceMesh that covers every rank of the
 world: `make_mesh` a 1-D one, `make_mesh_2level` the ("dcn", "ici") one
@@ -36,7 +38,9 @@ import os
 import torch
 import torch.distributed as dist
 
+from mitsuba_customization_tpu_torch.render import frame_graph
 from mitsuba_customization_tpu_torch.render import params as params_mod
+from mitsuba_customization_tpu_torch.render.ad import captured_step, gradients
 from mitsuba_customization_tpu_torch.render.integrator import (
     captured_rows,
     check_capturable,
@@ -174,13 +178,26 @@ def _slab_plan(scene, spp, ranks, shard):
     return plan_rows(scene, spp, None, None, shard * rows, rows, HALO)
 
 
+def _joined(out):
+    """A splat's (img, wsum) slab as one (rows + 2 HALO, W, C + 1) tensor."""
+    return torch.cat([out[0], out[1][..., None]], -1)
+
+
+def _develop_joined(cfg, both, ranks, shard):
+    """A joined splat slab -> its (H / n, W, C) rows: the halo rows
+    exchanged with the neighbours and divided by the weights; times the
+    sensor's scale."""
+    both = _halo_exchange(both, ranks, shard)
+    out = both[..., :-1] / torch.clamp(both[..., -1], min=1e-12)[..., None]
+    return out * cfg.sensor_scale if cfg.sensor_scale != 1.0 else out
+
+
 def _develop_slab(cfg, out, ranks, shard):
     """A slab's render_rows out -> its (H / n, W, C) rows: a splat's halo
     rows exchanged with the neighbours and divided by the weights; times
     the sensor's scale."""
     if cfg.rfilter != "box":
-        both = _halo_exchange(torch.cat([out[0], out[1][..., None]], -1), ranks, shard)
-        out = both[..., :-1] / torch.clamp(both[..., -1], min=1e-12)[..., None]
+        return _develop_joined(cfg, _joined(out), ranks, shard)
     return out * cfg.sensor_scale if cfg.sensor_scale != 1.0 else out
 
 
@@ -264,14 +281,75 @@ def loss_and_grad_sharded(scene, params, target, mesh=None, spp=None, seed=0):
     rows = slab.shape[0]
     ref = target[shard * rows:(shard + 1) * rows]
     loss = torch.sum((slab - ref) ** 2) / target.numel()
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for (k, v), g in zip(leaves.items(), grads)}
-    loss = loss.detach()
+    grads = dict(zip(leaves, gradients(loss, list(leaves.values()))))
+    return _all_reduce(loss.detach(), grads)
+
+
+def _all_reduce(loss, grads):
+    """Sum the loss and every gradient over the ranks, in place."""
     if dist.is_initialized():
         for t in (loss, *grads.values()):
             dist.all_reduce(t)
     return loss, grads
+
+
+def _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard):
+    """A splat slab's step with the halo exchange between its two graphs:
+    the forward (update, the slab's passes in ad_mode, joined) and the
+    backward of a split captured step (render/frame_graph.py), the
+    exchange, the division and the slab loss eager between them, with the
+    loss's gradient with respect to the joined slab handed back."""
+    keys = tuple(params)
+
+    def make():
+        inputs = rows_inputs(scene, plan)
+        leaves = frame_graph.buffers(params.values(), requires_grad=True)
+
+        def body(seed_t, *leaves):
+            scene_p = params_mod.update(scene, dict(zip(keys, leaves)))
+            return _joined(rows_body(scene_p, plan, inputs, seed_t, True)[0])
+
+        return {"body": body, "keep": inputs, "inputs": leaves, "grad": True,
+                "backward": lambda both, g: gradients(both, leaves, g)}
+
+    step = frame_graph.frame(("split_slab_step", plan, tuple(ranks), keys,
+                              frame_graph.input_key(params.values())), scene, make)
+    both = step(seed, *params.values()).requires_grad_(True)
+    slab = _develop_joined(scene.config, both, ranks, shard)
+    loss = torch.sum((slab - ref) ** 2) / n
+    (g,) = torch.autograd.grad(loss, both)
+    return loss.detach(), dict(zip(keys, step.backward(g)))
+
+
+def loss_and_grad_sharded_jit(scene, params, target, mesh, spp, seed):
+    """loss_and_grad_sharded with each rank's slab step captured
+    (render/frame_graph.py), the JAX package's loss_and_grad_sharded_jit
+    (its arguments, in its order; `mesh` and `spp` positional, as its jit
+    takes them static). Under the box filter the rank's update, slab
+    passes in ad_mode, slab loss and backward are one captured step
+    (render/ad.captured_step); under a splat filter the halo exchange,
+    point to point in the forward and the backward, sits between the
+    step's forward and backward graphs (two graphs in one pool, the
+    exchange, the division and the slab loss eager between them). The loss
+    and gradient all-reduce run eager after the replay. Equal to
+    loss_and_grad_sharded on the CPU (up to K1-bwd's and a splat's atomic
+    adds on the card); on the CPU the bodies run as they are. What a
+    captured frame cannot hold raises NotImplementedError (ROADMAP item
+    21)."""
+    ranks, shard = _layout(mesh)
+    cfg = scene.config
+    plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
+    check_capturable(scene, plan.kind)
+    ref = target[shard * plan.n_rows:(shard + 1) * plan.n_rows]
+    n = target.numel()
+    if plan.box:
+        loss, grads = captured_step(
+            ("slab_step", tuple(ranks)), scene, plan, params, seed, ref,
+            lambda out, r: torch.sum((_develop_slab(scene.config, out, ranks, shard) - r) ** 2)
+            / n)
+    else:
+        loss, grads = _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard)
+    return _all_reduce(loss, grads)
 
 
 def initialize_distributed(coordinator=None, num_processes=None, process_id=None, *,

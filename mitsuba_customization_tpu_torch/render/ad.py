@@ -18,14 +18,31 @@ any torch.optim optimiser, in place of optax's) over a parameter dict and
 loop of BASELINE configs[3]: recover MERL tables or GGX roughness from a
 reference render by pixel-gradient descent, rebuilding the sampling CDFs
 from the new table at every step.
+
+`grad_render` runs the JAX package's jitted `_loss_and_grad`: on the card
+one CUDA graph of the forward and the backward (`captured_step`,
+render/frame_graph.py), captured once per scene, spp, parameter keys and
+shapes and target shape, and replayed with the seed, the parameters and
+the target copied into its buffers. `params.update` runs inside it, so the
+table's sampling CDFs are rebuilt and its GradSink made in the step, as
+in the JAX jit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mitsuba_customization_tpu_torch.render import frame_graph
 from mitsuba_customization_tpu_torch.render import params as params_mod
-from mitsuba_customization_tpu_torch.render.integrator import render
+from mitsuba_customization_tpu_torch.render.integrator import (
+    check_capturable,
+    develop,
+    plan_rows,
+    render,
+    rows_body,
+    rows_inputs,
+    uncapturable,
+)
 
 
 def render_ad(scene, params, spp=None, seed=0, max_depth=None):
@@ -36,19 +53,81 @@ def render_ad(scene, params, spp=None, seed=0, max_depth=None):
                   ad_mode=True)
 
 
-def grad_render(scene, params, target, spp=16, seed=0):
-    """One evaluation of the MSE between render_ad(scene, params) and
-    `target` (H, W, 3): returns (loss, {key: gradient}); a parameter the
-    image does not depend on gets zeros."""
+def gradients(out, leaves, g=None):
+    """torch.autograd.grad of `out` (cotangent g) with respect to the
+    tensors `leaves`; zeros for a leaf `out` does not depend on."""
+    grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    return tuple(torch.zeros_like(v) if gr is None else gr for v, gr in zip(leaves, grads))
+
+
+def _eager_loss_and_grad(scene, params, target, spp, seed):
+    """grad_render's step run eagerly (render_ad, the MSE, autograd): the
+    step of the integrators a captured step cannot hold yet (the loops
+    that check on the host: volpath, volpathmis, prbvolpath, media, SDF
+    scenes, ptracer, bdpt; ROADMAP item 21). The checks of the eager
+    kernels' calls take it too."""
     leaves = {k: v if v.requires_grad else v.detach().requires_grad_(True)
               for k, v in params.items()}
     img = render_ad(scene, leaves, spp=spp, seed=seed)
     loss = torch.mean((img - target) ** 2)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return loss.detach(), {
-        k: torch.zeros_like(v) if gr is None else gr
-        for (k, v), gr in zip(leaves.items(), grads)
-    }
+    return loss.detach(), dict(zip(leaves, gradients(loss, list(leaves.values()))))
+
+
+def captured_step(key, scene, plan, params, seed, target, loss_of):
+    """(loss, {key: gradient}) of loss_of(out, target), out being
+    rows_body's out of `plan` (a RowsPlan of `scene`) on
+    params.update(scene, params) in ad_mode, as a captured step
+    (render/frame_graph.py): one leaf a parameter and a target buffer,
+    the caller's values copied in at each call; on the card the update,
+    the passes, the loss and torch.autograd.grad are one CUDA graph. The
+    step is kept per `key`, plan, each parameter's key, shape, type and
+    device, and the target's shape and type (and the scene's part)."""
+    keys = tuple(params)
+
+    def make():
+        inputs = rows_inputs(scene, plan)
+        statics = (frame_graph.buffers([target])
+                   + frame_graph.buffers(params.values(), requires_grad=True))
+
+        def body(seed_t, target_t, *leaves):
+            scene_p = params_mod.update(scene, dict(zip(keys, leaves)))
+            loss = loss_of(rows_body(scene_p, plan, inputs, seed_t, True)[0], target_t)
+            return (loss.detach(),) + gradients(loss, leaves)
+
+        return {"body": body, "keep": inputs, "inputs": statics, "grad": True}
+
+    step = frame_graph.frame((key, plan, keys, frame_graph.input_key(params.values()),
+                              frame_graph.input_key([target])), scene, make)
+    loss, *grads = step(seed, target, *params.values())
+    return loss, dict(zip(keys, grads))
+
+
+def _loss_and_grad(scene, params, spp, seed, target):
+    """The JAX package's jitted step (its arguments, in its order): the MSE
+    between render_ad(scene, params, spp, seed) and `target` and its
+    gradients, as a captured step (captured_step) of render's passes over
+    the whole image, developed. Bit for bit the eager step's on the CPU;
+    on the card equal to it up to the order of K1-bwd's and a splat's
+    atomic adds. What a captured frame cannot hold raises
+    NotImplementedError (ROADMAP item 21)."""
+    cfg = scene.config
+    plan = plan_rows(scene, int(spp or cfg.spp), None, None, 0, cfg.height)
+    check_capturable(scene, plan.kind)
+    return captured_step("loss_and_grad", scene, plan, params, seed, target,
+                         lambda out, t: torch.mean((develop(scene.config, out) - t) ** 2))
+
+
+def grad_render(scene, params, target, spp=16, seed=0):
+    """One evaluation of the MSE between render_ad(scene, params) and
+    `target` (H, W, 3): returns (loss, {key: gradient}); a parameter the
+    image does not depend on gets zeros. Runs _loss_and_grad, the
+    captured step, for every scene a captured frame holds (the path
+    tracer's integrators on every intersector, textures, the envmap,
+    blends, splat filters); by the scene's integrator and contents, the
+    loops that check on the host (ROADMAP item 21) take the eager step."""
+    if uncapturable(scene, scene.config.integrator) is not None:
+        return _eager_loss_and_grad(scene, params, target, spp, seed)
+    return _loss_and_grad(scene, params, spp, seed, target)
 
 
 class Optimizer:
@@ -96,7 +175,9 @@ def optimize(scene, target, param_keys, n_steps=50, lr=0.02, spp=16, seed0=0,
 
     Returns (params, losses). Step `it` renders with seed seed0 + it + 1
     (decorrelated Monte Carlo gradients) and rebuilds the sampling CDFs
-    from the current table (params.update). callback(it, loss, params) is
+    from the current table (params.update), through grad_render's
+    captured step (the optimiser's update runs eagerly, as optax's runs
+    outside the JAX package's jit). callback(it, loss, params) is
     called after each step.
     """
     full = params_mod.traverse(scene)

@@ -1,5 +1,7 @@
-"""Captured frames: the port's counterpart of the JAX package's jitted
-entry points (render/integrator.render_jit, parallel/mesh.render_sharded_jit).
+"""Captured frames and steps: the port's counterpart of the JAX package's
+jitted entry points (render/integrator.render_jit,
+parallel/mesh.render_sharded_jit, render/ad._loss_and_grad,
+parallel/mesh.loss_and_grad_sharded_jit).
 
 `jax.jit` over a frame traces it once and runs it as one program. In
 PyTorch the counterpart is a CUDA graph: the frame's kernels are recorded
@@ -15,21 +17,37 @@ traced argument). A capture that fails raises; nothing falls back to the
 eager frame. On the CPU the body runs as it is, with the same plan and
 seed buffer.
 
-A frame is kept per key: the entry point's plan, the scene's identity,
-a snapshot of its host values (scene.config, every host fact of its
-tables) and the address, shape, strides and type of every tensor it holds,
-with the BVH's packs. A mutated config or a replaced tensor therefore
-makes a new frame, and the frame it replaces (same plan, same scene) is
-dropped with its graph's memory; an in-place edit of a tensor's values is
-read by the next replay, as JAX's jit reads new array values. The entry
-holds the scene, the plan's inputs and the packs, so no address it
-recorded is freed or reused while it lives; at most CACHE_SIZE frames are
-kept (least recently used first out), each with its graph's memory pool.
+A step (a loss and its gradients) is a Frame with grad on: besides the
+seed it holds static input buffers, one leaf (requires_grad) a parameter
+and one for the target, into which each call copies the caller's values
+(values passed as arguments, as `jax.jit` takes `params` and `target`).
+Its warm-up runs a whole forward and backward with grad enabled (which
+starts autograd's device thread and settles the checkpoint's hooks and
+the allocator), and its graph holds the forward and `torch.autograd.grad`
+together. A step whose loss needs an eager operation between its forward
+and its backward (the halo exchange of a sharded splat) is split: the
+forward and the backward are two graphs in one memory pool, the caller
+runs the operation on the forward's output and hands the gradient of the
+loss with respect to it to `Frame.backward`, as
+`torch.cuda.make_graphed_callables` does.
+
+A frame is kept per key: the entry point's plan (for a step, each
+parameter's key, shape, type and device and the target's shape and type
+too), the scene's identity, a snapshot of its host values (scene.config,
+every host fact of its tables) and the address, shape, strides and type
+of every tensor it holds, with the BVH's packs. A mutated config or a
+replaced tensor therefore makes a new frame, and the frame it replaces
+(same plan, same scene) is dropped with its graph's memory; an in-place
+edit of a tensor's values is read by the next replay, as JAX's jit reads
+new array values. The entry holds the scene, the plan's inputs and the
+packs, so no address it recorded is freed or reused while it lives; at
+most CACHE_SIZE frames and steps are kept together (least recently used
+first out), each with its graph's memory pool.
 
 The kernel wrappers count their launches when they are called: the
 warm-up's launches and the capture's recorded ones count, a replay calls
 no wrapper and counts nothing. A replay's launches are read from its
-trace (chip_smoke.py phase 33).
+trace (chip_smoke.py phases 33 and 34).
 """
 
 from __future__ import annotations
@@ -104,55 +122,115 @@ def scene_key(scene, packs=None):
     return tuple(out)
 
 
+def input_key(tensors):
+    """The part of a step's key for the tensors a call copies into its
+    static inputs: each one's shape, type and device."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+
+
+def buffers(tensors, requires_grad=False):
+    """A step's static inputs: zeroed tensors of `tensors`' shapes, types
+    and devices (leaves that require grad)."""
+    return tuple(torch.zeros(t.shape, dtype=t.dtype, device=t.device,
+                             requires_grad=requires_grad) for t in tensors)
+
+
 def _clone(out):
-    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+    if isinstance(out, tuple):
+        return tuple(t.detach().clone() for t in out)
+    return out.detach().clone()
 
 
 class Frame:
-    """A planned frame: its body, what the body reads besides the scene
-    (held), the seed buffer and, on the card, the captured graph (its
-    cudaGraph_t kept) with its static output and the capture's seconds
-    (None on the CPU)."""
+    """A planned frame or step: its body, what the body reads besides the
+    scene (held), the seed buffer and the static `inputs` a call copies its
+    tensors into (body(seed, *inputs) -> out), whether it runs with grad
+    enabled, and for a split step its `backward` (backward(out, g) -> the
+    gradients, g the loss's gradient with respect to out). On the card:
+    the captured graph (its cudaGraph_t kept) with its static output, the
+    backward's graph and its static g, and the capture's seconds (None on
+    the CPU)."""
 
-    def __init__(self, scene, body, keep):
+    def __init__(self, scene, body, keep, inputs=(), grad=False, backward=None):
         self.scene, self.body, self.keep = scene, body, keep
+        self.inputs, self.grad, self.backward_body = tuple(inputs), grad, backward
         self.seed = torch.zeros((), dtype=torch.int64, device=scene.device)
         self.graph = self.out = self.capture_s = None
-        if self.seed.is_cuda:
-            self._capture()
+        self.bwd_graph = self.g = self.bwd_out = None
+
+    def _mode(self):
+        return torch.enable_grad() if self.grad else torch.no_grad()
 
     def _capture(self):
         dev = self.seed.device
+        args = (self.seed,) + self.inputs
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         # the warm-up loads the kernels and sets their attributes, and warms
-        # torch's allocator and libraries, none of which a capture may do
-        with torch.cuda.stream(side), torch.no_grad():
-            self.body(self.seed)
+        # torch's allocator and libraries (and for a step autograd's device
+        # thread and the checkpoint's hooks, by a whole backward), none of
+        # which a capture may do
+        with torch.cuda.stream(side), self._mode():
+            out = self.body(*args)
+            if self.backward_body is not None:
+                self.backward_body(out, torch.ones_like(out))
+        del out
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with torch.no_grad(), torch.cuda.graph(graph):
-            out = self.body(self.seed)
+        with self._mode(), torch.cuda.graph(graph):
+            out = self.body(*args)
         graph.instantiate()
+        if self.backward_body is not None:
+            self.g = torch.zeros_like(out)
+            bwd = torch.cuda.CUDAGraph(keep_graph=True)
+            with self._mode(), torch.cuda.graph(bwd, pool=graph.pool()):
+                self.bwd_out = self.backward_body(out, self.g)
+            bwd.instantiate()
+            self.bwd_graph = bwd
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.graph, self.out = graph, out
 
-    def __call__(self, seed):
-        """The frame at `seed` (a fresh tensor, or tuple of tensors)."""
+    def __call__(self, seed, *values):
+        """The frame at `seed` with `values` copied into its inputs: a fresh
+        tensor, or tuple of tensors (for a split step its forward's output,
+        detached, whose gradient `backward` takes next)."""
         self.seed.fill_(int(seed) & MASK32)
-        if self.graph is None:
-            with torch.no_grad():
-                return self.body(self.seed)
-        self.graph.replay()
-        return _clone(self.out)
+        with torch.no_grad():
+            for buf, v in zip(self.inputs, values, strict=True):
+                buf.copy_(v)
+        if self.seed.is_cuda:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            return _clone(self.out)
+        with self._mode():
+            out = self.body(self.seed, *self.inputs)
+        if self.backward_body is None:
+            return out
+        self.out = out
+        return out.detach()
+
+    def backward(self, g):
+        """A split step's gradients after its forward (the last call), g the
+        loss's gradient with respect to that call's output."""
+        if self.bwd_graph is None:
+            out, self.out = self.out, None
+            with self._mode():
+                return self.backward_body(out, g)
+        with torch.no_grad():
+            self.g.copy_(g)
+        self.bwd_graph.replay()
+        return _clone(self.bwd_out)
 
 
 def frame(key, scene, make):
     """The frame of `key` (scene's part added here), planned with make()
-    -> (body, what the body reads besides the scene) on a miss."""
+    -> Frame's arguments after the scene ({"body": ..., "keep": what the
+    body reads besides the scene, and for a step "inputs", "grad",
+    "backward"}) on a miss."""
     global PLANS
     packs = bvh_packs(scene)
     key = (key, scene_key(scene, packs))
@@ -163,8 +241,9 @@ def frame(key, scene, make):
     # the frame this one replaces (same plan, same scene, older state)
     for old in [k for k, f in _FRAMES.items() if k[0] == key[0] and f.scene is scene]:
         del _FRAMES[old]
-    body, keep = make()
-    hit = Frame(scene, body, (keep, packs))
+    kw = make()
+    kw["keep"] = (kw["keep"], packs)
+    hit = Frame(scene, **kw)
     PLANS += 1
     _FRAMES[key] = hit
     while len(_FRAMES) > CACHE_SIZE:

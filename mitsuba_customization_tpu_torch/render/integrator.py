@@ -896,21 +896,28 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     return out
 
 
+def uncapturable(scene, kind):
+    """What a captured frame of integrator `kind` on `scene` cannot hold
+    yet, or None: the loops that check a condition on the host (media
+    tracking, the SDF march, the light and bidirectional tracers; ROADMAP
+    item 21)."""
+    if kind in _VOL_TYPES or scene.media.n_media > 0:
+        return "the volumetric tracer (its tracking loops check on the host)"
+    if kind in ("ptracer", "bdpt"):
+        return f"{kind} (its loops check on the host)"
+    if scene.sdf is not None:
+        return "a scene with an SDF (its march checks on the host)"
+    return None
+
+
 def check_capturable(scene, kind):
     """Raise NotImplementedError for what a captured frame cannot hold
-    yet: the loops that check a condition on the host (media tracking,
-    the SDF march, the light and bidirectional tracers; ROADMAP item
-    21)."""
-    what = None
-    if kind in _VOL_TYPES or scene.media.n_media > 0:
-        what = "the volumetric tracer (its tracking loops check on the host)"
-    elif kind in ("ptracer", "bdpt"):
-        what = f"{kind} (its loops check on the host)"
-    elif scene.sdf is not None:
-        what = "a scene with an SDF (its march checks on the host)"
+    yet (uncapturable)."""
+    what = uncapturable(scene, kind)
     if what is not None:
-        raise NotImplementedError(f"a captured frame of {what} is ROADMAP item 21; "
-                                  "render it with render / render_sharded")
+        raise NotImplementedError(f"a captured frame of {what} is ROADMAP item 21; use "
+                                  "the eager entry point (render, render_sharded, "
+                                  "loss_and_grad_sharded)")
 
 
 def render_jit(scene, spp=None, seed=0, integrator=None, max_depth=None):
@@ -949,6 +956,6 @@ def captured_rows(scene, plan, seed, whole_image):
             out = rows_body(scene, plan, inputs, seed_t, False)[0]
             return develop(scene.config, out) if whole_image else out
 
-        return body, inputs
+        return {"body": body, "keep": inputs}
 
     return frame_graph.frame((plan, whole_image), scene, make)(seed)

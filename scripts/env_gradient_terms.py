@@ -81,7 +81,9 @@ def main():
     try:
         for name, fn in variants.items():
             params.em_mod.build_env_distribution = fn
-            grads[name] = ad.grad_render(scene, {KEY: img}, target, spp=args.spp)[1][KEY]
+            # the eager step: a captured step would replay the first variant's graph
+            grads[name] = ad._eager_loss_and_grad(scene, {KEY: img}, target, args.spp,
+                                                  0)[1][KEY]
             proj[name] = []
             for seed in range(args.seeds):
                 x = img.clone().requires_grad_(True)

@@ -47,9 +47,10 @@ summed device time and its share of the profiled wall time (the device's
 busy share; kernels run on one stream). Needs a CUDA GPU; imports nothing
 of JAX.
 
---ad profiles one AD step in place of a frame: render/ad.grad_render (MSE
-against a zero image) of the matpreview scene at --res 256, --spp 4,
---depth 6 with the probed compaction schedule, on the 10-table stack and
+--ad profiles one AD step in place of a frame: grad_render's eager step,
+render/ad._eager_loss_and_grad (MSE against a zero image; a captured
+step's replay, chip_smoke.py phase 34, launches the same kernels) of the
+matpreview scene at --res 256, --spp 4, --depth 6 with the probed compaction schedule, on the 10-table stack and
 the floor's alpha (chip_smoke.ad_setup, phase 13); the launches of K1's
 backward are printed too, and the operators on tensors of the table's
 shape (recorded with their input shapes): each one's calls and the device
@@ -437,7 +438,7 @@ def main():
 
     def frame():
         if args.ad:
-            ad.grad_render(scene, params, target, spp=args.spp, seed=0)
+            ad._eager_loss_and_grad(scene, params, target, args.spp, 0)
             torch.cuda.synchronize()
             return 0.0
         img, stats = mt.render(scene, spp=args.spp, seed=0, return_stats=True)

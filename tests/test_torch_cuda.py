@@ -542,8 +542,10 @@ def test_k1_bwd_accumulates_into_out(dev):
 
 
 def test_grad_render_launches_k1_bwd(dev):
-    """grad_render on the card goes through K1's backward kernel, and its
-    gradients are finite and nonzero."""
+    """grad_render's eager step (ad._eager_loss_and_grad, whose kernel calls
+    the wrappers count: a captured step's replay calls none) on the card
+    goes through K1's backward kernel into one table-gradient buffer, and
+    its gradients are finite and nonzero."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import ad
     from mitsuba_customization_tpu_torch.render.params import traverse
@@ -553,8 +555,8 @@ def test_grad_render_launches_k1_bwd(dev):
     full = traverse(scene)
     keys = ("bsdf.tabulated.table", "bsdf.roughconductor.alpha_u")
     before = k1.LAUNCHES_BWD, k1.GRAD_BUFFERS
-    loss, grads = ad.grad_render(scene, {k: full[k] for k in keys},
-                                 torch.zeros((32, 32, 3), device=dev), spp=4)
+    loss, grads = ad._eager_loss_and_grad(scene, {k: full[k] for k in keys},
+                                          torch.zeros((32, 32, 3), device=dev), 4, 0)
     assert k1.LAUNCHES_BWD > before[0] and bool(torch.isfinite(loss))
     assert k1.GRAD_BUFFERS == before[1] + 1  # one table-gradient buffer
     for k in keys:
@@ -1053,8 +1055,9 @@ def test_k4_on_a_shadow_cluster_set_with_null_prims(dev):
 
 
 def test_blended_ad_step_has_one_gradient_buffer(dev):
-    """grad_render of a matpreview scene with null, mask and blendbsdf bands
-    over MERL tables: K1 runs with one half (the blend fallback), K1's
+    """grad_render's eager step (ad._eager_loss_and_grad) of a matpreview
+    scene with null, mask and blendbsdf bands over MERL tables: K1 runs
+    with one half (the blend fallback), K1's
     backward adds every call into one table-gradient buffer; finite,
     nonzero gradients."""
     import mitsuba_customization_tpu_torch as mt
@@ -1070,8 +1073,8 @@ def test_blended_ad_step_has_one_gradient_buffer(dev):
     scene = mt.load_dict(d, dev)
     key = "bsdf.tabulated.table"
     before = k1.LAUNCHES, k1.LAUNCHES_BWD, k1.GRAD_BUFFERS
-    loss, grads = ad.grad_render(scene, {key: traverse(scene)[key]},
-                                 torch.zeros((32, 32, 3), device=dev), spp=2)
+    loss, grads = ad._eager_loss_and_grad(scene, {key: traverse(scene)[key]},
+                                          torch.zeros((32, 32, 3), device=dev), 2, 0)
     torch.cuda.synchronize()
     assert k1.LAUNCHES > before[0] and k1.LAUNCHES_BWD > before[1]
     assert k1.GRAD_BUFFERS == before[2] + 1
@@ -1675,3 +1678,146 @@ def test_render_sharded_jit_on_one_rank_equals_render_sharded(dev):
     assert torch.equal(got, pm.render_sharded(scene, None, 4, 5))
     assert torch.equal(got, render_jit(scene, 4, 5))
     frame_graph.clear()
+
+
+def _rel_l2(a, b):
+    return float((a - b).double().norm() / b.double().norm())
+
+
+def _ad_step_scene(dev):
+    """A matpreview-like AD step: 64x64, 4 spp, depth 6, the probed
+    schedule, the 10-table stack and the floor's alpha."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict, probe_compact_schedule
+
+    scene, _ = probe_compact_schedule(mt.load_dict(matpreview_dict(64, 4, 6, n_sub=3), dev))
+    full = traverse(scene)
+    keys = ("bsdf.tabulated.table", "bsdf.roughconductor.alpha_u")
+    return scene, {k: full[k] for k in keys}, torch.zeros((64, 64, 3), device=dev)
+
+
+SPREAD_STEPS = 4
+
+
+def _eager_steps(ad, *args):
+    """SPREAD_STEPS eager steps of the same arguments (their losses and
+    gradients differ only by atomic order)."""
+    return [ad._eager_loss_and_grad(*args) for _ in range(SPREAD_STEPS)]
+
+
+def _assert_within_spread(got, eager):
+    """Each gradient of `got` against the first of `eager` (eager steps'
+    gradients at one seed) within three times the largest relative L2
+    difference of two of them, which K1-bwd's atomic adds (and autograd's
+    accumulating index backward, and a splat's) set; 1e-6 at least,
+    float32 rounding."""
+    want = eager[0]
+    for k in want:
+        spread = max(float((a[k] - b[k]).double().norm() / want[k].double().norm())
+                     for i, a in enumerate(eager) for b in eager[:i])
+        limit = max(3 * spread, 1e-6)
+        assert _rel_l2(got[k], want[k]) <= limit, (k, _rel_l2(got[k], want[k]), limit)
+
+
+def test_captured_ad_step_against_the_eager_step(dev):
+    """grad_render on the card (a captured CUDA graph of the forward and the
+    backward, replayed) against the eager step at two seeds: the loss
+    equal bit for bit (the box filter), each gradient within three times
+    the measured spread of SPREAD_STEPS eager steps. The first call warms up and captures (one
+    table-gradient buffer each: the capture's lives in the graph's pool),
+    a replay allocates none. A replay launches K1-K4 and K1-bwd as often
+    as the eager step's wrappers count (counted in its trace), each > 0."""
+    from mitsuba_customization_tpu_torch.render import ad, frame_graph
+
+    scene, params, target = _ad_step_scene(dev)
+    frame_graph.clear()
+    buffers = k1.GRAD_BUFFERS
+    ad.grad_render(scene, params, target, 4, 1)
+    assert k1.GRAD_BUFFERS == buffers + 2
+    step = frame_graph.latest()
+    assert step.graph is not None and step.grad and step.capture_s > 0
+    plans = frame_graph.PLANS
+    for seed in (1, 2):
+        eager = _eager_steps(ad, scene, params, target, 4, seed)
+        buffers = k1.GRAD_BUFFERS
+        got = ad.grad_render(scene, params, target, 4, seed)
+        torch.cuda.synchronize()
+        assert k1.GRAD_BUFFERS == buffers and frame_graph.PLANS == plans
+        assert torch.equal(got[0], eager[0][0]), seed
+        _assert_within_spread(got[1], [e[1] for e in eager])
+    names = _TRACE_NAMES[:4] + ("merl_eval_bwd_kernel",)
+
+    def traced(fn):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return [sum(n in e for e in ev) for n in names]
+
+    jit_traced = traced(lambda: ad.grad_render(scene, params, target, 4, 3))
+    before = _all_counts()[:4] + (k1.LAUNCHES_BWD,)
+    ad._eager_loss_and_grad(scene, params, target, 4, 3)
+    torch.cuda.synchronize()
+    counts = [a - b for a, b in zip(_all_counts()[:4] + (k1.LAUNCHES_BWD,), before)]
+    assert jit_traced == counts and min(counts) > 0, (jit_traced, counts)
+    frame_graph.clear()
+
+
+def test_captured_ad_step_reads_an_in_place_parameter_change(dev):
+    """A replay after an in-place edit of the parameters (the table scaled,
+    the alpha raised) plans nothing new and equals a fresh eager step on
+    the edited values: the loss bit for bit, each gradient within three
+    times the spread of SPREAD_STEPS eager steps."""
+    from mitsuba_customization_tpu_torch.render import ad, frame_graph
+
+    scene, params, target = _ad_step_scene(dev)
+    params = {k: v.clone() for k, v in params.items()}
+    frame_graph.clear()
+    before = ad.grad_render(scene, params, target, 4, 1)
+    plans = frame_graph.PLANS
+    with torch.no_grad():
+        params["bsdf.tabulated.table"].mul_(0.7)
+        params["bsdf.roughconductor.alpha_u"].add_(0.1)
+    got = ad.grad_render(scene, params, target, 4, 1)
+    assert frame_graph.PLANS == plans and not torch.equal(got[0], before[0])
+    eager = _eager_steps(ad, scene, params, target, 4, 1)
+    assert torch.equal(got[0], eager[0][0])
+    _assert_within_spread(got[1], [e[1] for e in eager])
+    frame_graph.clear()
+
+
+def test_loss_and_grad_sharded_jit_on_one_rank_equals_grad_render(dev):
+    """loss_and_grad_sharded_jit without a process group (a world of one)
+    on the card: the box filter's slab step (one graph) and the gaussian
+    filter's split step (forward and backward graphs around the eager
+    exchange) against grad_render's eager step at the same seed: the loss
+    equal bit for bit under the box filter, under the gaussian's atomic
+    splat within three times the spread of SPREAD_STEPS eager steps (1e-6
+    relative at least); each gradient within three times their spread."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.parallel import mesh as pm
+    from mitsuba_customization_tpu_torch.render import ad, frame_graph
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import flagship_dict
+
+    for rfilter in ("box", "gaussian"):
+        d = flagship_dict(32, 4, 3)
+        d["sensor"]["film"]["rfilter"] = rfilter
+        scene = mt.load_dict(d, dev)
+        full = traverse(scene)
+        params = {k: full[k] for k in ("bsdf.tabulated.table", "bsdf.roughconductor.alpha_u")}
+        target = torch.zeros((32, 32, 3), device=dev)
+        frame_graph.clear()
+        for seed in (5, 6):
+            got = pm.loss_and_grad_sharded_jit(scene, params, target, None, 4, seed)
+            eager = _eager_steps(ad, scene, params, target, 4, seed)
+            losses = [float(e[0]) for e in eager]
+            if rfilter == "box":
+                assert torch.equal(got[0], eager[0][0])
+            else:
+                assert abs(float(got[0]) - losses[0]) <= max(3 * (max(losses) - min(losses)),
+                                                             1e-6 * losses[0])
+            _assert_within_spread(got[1], [e[1] for e in eager])
+        frame_graph.clear()

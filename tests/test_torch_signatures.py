@@ -133,6 +133,8 @@ def _positional(fn):
     (tmesh.initialize_distributed, jmesh.initialize_distributed),
     (tint.render_jit, jint.render_jit),
     (tmesh.render_sharded_jit, jmesh.render_sharded_jit),
+    (tad._loss_and_grad, jad._loss_and_grad),
+    (tmesh.loss_and_grad_sharded_jit, jmesh.loss_and_grad_sharded_jit),
 ], ids=["render", "trace_volpath", "phase.eval", "phase.sample",
         "sample_interaction", "transmittance", "sigma_t_at", "build_table",
         "recompute_majorant", "connect_sensor", "sample_emitter_ray", "trace_light_paths",
@@ -145,7 +147,8 @@ def _positional(fn):
         "xml.load_file", "xml.parse_file", "cli.main", "ChiSquareTest", "PlanarDomain",
         "save_checkpoint", "load_checkpoint", "latest_step", "make_mesh", "make_mesh_2level",
         "_check_divisible", "render_sharded", "loss_and_grad_sharded",
-        "initialize_distributed", "render_jit", "render_sharded_jit"])
+        "initialize_distributed", "render_jit", "render_sharded_jit", "_loss_and_grad",
+        "loss_and_grad_sharded_jit"])
 def test_positional_parameters_are_a_prefix_of_the_references(port, ref):
     ours, theirs = _positional(port), _positional(ref)
     assert ours == theirs[:len(ours)], (ours, theirs)
