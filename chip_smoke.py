@@ -136,9 +136,12 @@ Phases, one printed line each; any failure raises (non-zero exit):
      first 262,144 lanes, sphere and cylinder hits among them, and
      timed; card against CPU means at
      64x64; the same frame with a 128^3 SDF sphere in place of the PLY
-     blob (seconds, the march's steps, card against CPU at 64x64) and the
-     JAX SDF test's expectation (SDF sphere against analytic sphere) on
-     the card;
+     blob (seconds, S1's launches and the march's steps, no host check;
+     every S1 call of one more render against march_plain: the hit flag
+     and steps on >= 99.9 % of lanes, t within 1e-4 where they agree, the
+     lanes not bit-equal printed; each timed beside its bound from its
+     own steps; card against CPU at 64x64) and the JAX SDF test's
+     expectation (SDF sphere against analytic sphere) on the card;
  25. at 64x64 card against CPU means within 2 %: each of the six samplers
      (orthogonal at 9 spp), each of the five splat filters, and the
      orthographic, distant and a two-child batch sensor; the JAX tests'
@@ -149,26 +152,34 @@ Phases, one printed line each; any failure raises (non-zero exit):
      the volumetric tracer with the production scene's homogeneous fog
      ball and a null cube of a heterogeneous medium whose density is a
      seeded 256^3 float32 grid; 512x512, 8 spp, depth 8, one 2,097,152-
-     lane pass, no compaction): load and frame seconds, rays/s, K1-K4
-     launched, each tracking loop's lanes, steps and host checks; every
-     K1-K4 call of one more render recorded, checked against its plain
-     version and timed (K3 twice a bounce: the shadow ray's first
-     boundary); card against CPU means at 64x64; the JAX tests'
-     Beer-Lambert and emissive-medium expectations on the card;
- 27. one eager AD step (the one grad_render takes for volpath) of the
-     volpath scene at 256x256, 4 spp, depth 6 on
+     lane pass, no compaction): load and frame seconds, rays/s, K1-K4, T1
+     and T2 launched, each tracking loop's tracked lanes and steps (read
+     from T1 / T2's step counts after the frame) and host checks (0);
+     every K1-K4 call of one more render recorded, checked against its
+     plain version and timed (K3 twice a bounce: the shadow ray's first
+     boundary); every T1 / T2 call of one more checked against its plain
+     version (flags and steps on >= 99.9 % of lanes, values within rtol
+     1e-4, atol 1e-6 where they agree, the lanes not bit-equal printed)
+     and timed beside its bound (each lane's ray read once, the grid
+     cells the lookups read, operations from the kernel's step counts);
+     card against CPU means at 64x64; the JAX tests' Beer-Lambert and
+     emissive-medium expectations on the card;
+ 27. one eager AD step (ad._eager_loss_and_grad, the captured step's
+     eager counterpart) of the volpath scene at 256x256, 4 spp, depth 6 on
      the table stack and medium.sigma_t, albedo, phase_g and density:
-     seconds, peak memory, K1-bwd launches, one table-gradient buffer and
-     the grid-sized buffers (one a tracking step of the backward's
-     replay); at 64x64 card against CPU losses within 2 % and each
+     seconds, peak memory, K1-bwd launches, one table-gradient buffer, the
+     tracking scan's steps with no host check and the grid-sized buffers
+     (one a tracking step of the backward's replay); at 64x64 card
+     against CPU losses within 2 % and each
      gradient at cosine >= 0.98; the homogeneous extinction's gradient
      against a central difference on the JAX test's absorbing fog ball
      (means over 10 seeds within 5 % or 4 standard errors);
  28. ptracer on the matpreview scene without its sky and bdpt on the whole
      of it (512x512, 8 spp, depth 8): seconds, rays/s, launches; every
      K1-K4 call recorded, checked on its first 262,144 lanes and timed;
-     card against CPU means at 64x64; on the card the JAX tests'
-     comparisons with the path tracer (means within 5 % / 7 %,
+     the light pass's splat of every row timed beside the splat of its
+     nonzero rows alone; card against CPU means at 64x64; on the card the
+     JAX tests' comparisons with the path tracer (means within 5 % / 7 %,
      normalised cross-correlation > 0.95);
  29. the matpreview scene written as a Mitsuba XML file under
      build/chip_smoke_xml (binary PLY bands, MERL .binary tables,
@@ -212,7 +223,7 @@ Phases, one printed line each; any failure raises (non-zero exit):
      (phase 5's scene: K1, K2), the matpreview frame (phase 9's scene and
      schedule: K1-K4), the big shapes frame (phase 32's scene: K1, K2,
      B1, B2) and the matpreview scene under the orthogonal sampler at
-     256x256, 9 spp (its own probed schedule; Kensler's walk over a range
+     256x256, 9 spp, depth 4 (its own probed schedule; Kensler's walk over a range
      of 3, every round in the graph): each replay equal bit for bit to render at
      seeds 1 and 2; a replay's launches of every kernel, counted by name
      in its trace (a replay calls no wrapper), equal to a traced render's
@@ -221,20 +232,31 @@ Phases, one printed line each; any failure raises (non-zero exit):
      cuGraphGetNodes) and the device memory the frame keeps (reserved
      after its first call against before); the replay and render timed
      in JIT_TURNS turns (medians, spread); one profiled replay and render
-     (device seconds, kernels, busy share); the camera frame (512x512, 8
-     spp, depth 8, probed schedule) through render_jit, its means within
-     2 % of render's (a gaussian splat adds atomically: not bit-equal);
+     (device seconds, kernels, busy share); the same for the frames whose
+     loops run to a condition per lane: phase 26's volpath frame (T1 /
+     T2), its scene under the path integrator at 256x256, phase 24's SDF
+     frame (S1), bit for bit, and phase 28's ptracer and bdpt frames,
+     whose camera connections splat with atomic adds, in means within 2 %;
+     the camera frame (512x512, 8
+     spp, depth JIT_CUT_DEPTH (4), probed schedule) through render_jit,
+     its means within 2 % of render's (a gaussian splat adds atomically:
+     not bit-equal); the orthogonal and camera frames run at that depth,
+     and the blend and volpath AD steps of phase 34 at depth
+     JIT_STEP_DEPTH (3), to keep the script inside its time limit;
  34. the captured AD steps (render/ad._loss_and_grad behind grad_render:
      one CUDA graph of the forward, the checkpointed bounces' replay and
      K1-bwd, replayed with the seed, parameters and target copied into its
      buffers) of phase 13's matpreview setup (on the clusters, and switched
-     to the BVH: B1 / B2), and the blend, image and camera AD scenes of
-     phases 19, 22 and 23: each replay against JIT_TURNS (5) eager
+     to the BVH: B1 / B2), the blend (at depth 3), image and camera AD
+     scenes of phases 19, 22 and 23, phase 27's volpath step at depth 3
+     (ad_mode's 48-step tracking scan in the graph) and phase 24's SDF
+     scene at 256x256, depth 6 (S1 in the forward and the replay): each
+     replay against JIT_TURNS (5) eager
      steps at one seed (the loss equal bit for bit under the box filter,
      within three times the eager losses' largest difference under the
      camera's gaussian splat; each gradient's relative L2 error within
      three times their largest); a
-     replay's launches of K1-K4, B1 / B2 and K1-bwd, counted by name in
+     replay's launches of K1-K4, B1 / B2, T1 / T2, S1 and K1-bwd, counted by name in
      its trace, equal to a traced eager step's and the wrappers' counts in
      one (those of the path > 0); the first call's and the capture's
      seconds, the graph's nodes and the device memory the step keeps; the
@@ -270,7 +292,13 @@ and K4 both come from ops/clusters.min_work: the box and slot tests an
 exact walk must do, and of the structure only the boxes and slabs some
 lane must enter; dead lanes (maxt <= 0) count their maxt and output. No
 single PyTorch call computes any of K1-K4, so their `library_ms` is null.
-B1 (bvh_closest) and B2 (bvh_any), which replace the JAX package's XLA
+T1 (medium_delta_track), T2 (medium_ratio_track) and S1 (sdf_march),
+which replace the JAX package's XLA while_loops (no Pallas kernel),
+carry phases 26's and 24's numbers: `ms`, `plain_ms` (one run of the
+plain version, host checks and all), `bound_ms` and `max_abs_err` of the
+recorded call of the most lane steps, `frame_ms` / `frame_bound_ms`
+summed over the frame's recorded calls, launches of the volpath (T1, T2)
+and SDF (S1) frames and of the replays. B1 (bvh_closest) and B2 (bvh_any), which replace the JAX package's XLA
 while_loop walks (no Pallas kernel), carry phase 32's numbers: `ms`,
 `plain_ms` (one run of the plain walk) and `bound_ms` of the camera
 wavefront's call (B1) and its NEE rays (B2), `frame_ms` summed over the
@@ -283,7 +311,8 @@ Every entry also carries `launches_by_phase` (phases 17-33: the blend,
 image, camera and volpath AD steps, the shapes frame with and without
 the SDF, the volpath, ptracer and bdpt frames, the XML frame through the
 CLI, the sharded frame and the sharded AD step, the big shapes frame
-(B1 and B2: that frame and its replay only), the replays of phase
+(B1 and B2: that frame and its replay only; T1 / T2 the volpath frame,
+S1 the SDF frame, and their replays), the replays of phase
 33 as `render_jit_<frame>` and those of phase 34 as `grad_jit_<step>`,
 counted in each replay's trace; for K1's backward its
 AD steps) and, for K1-K4, the recorded calls' sums of phases 18,
@@ -1384,9 +1413,25 @@ def _reset_counts():
     cl.LAUNCHES["shadow"] = 0
     bvh.LAUNCHES["closest"] = 0
     bvh.LAUNCHES["any"] = 0
-    sdf.MARCHES = sdf.STEPS = 0  # not a kernel: the SDF march's plain steps
-    medium.LOOPS.clear()  # nor are the media's tracking loops
+    medium.LAUNCHES["delta"] = 0
+    medium.LAUNCHES["ratio"] = 0
+    sdf.LAUNCHES = 0
+    medium.LOOPS = sdf.MARCHES = None  # the loops' steps: recorded where a phase asks
     medium.GRID_BUFFERS = 0
+
+
+def _loop_launches():
+    from mitsuba_customization_tpu_torch.render import medium, sdf
+
+    return {"T1": medium.LAUNCHES["delta"], "T2": medium.LAUNCHES["ratio"], "S1": sdf.LAUNCHES}
+
+
+def _record_loops():
+    """Record the tracking loops' and the SDF march's steps from here on
+    (medium.LOOPS, sdf.MARCHES)."""
+    from mitsuba_customization_tpu_torch.render import medium, sdf
+
+    medium.LOOPS, sdf.MARCHES = [], []
 
 
 def phase_matpreview(dev, res=512, spp=8, depth=8):
@@ -1453,16 +1498,20 @@ def _gpu_cpu_means(what, d, dev, spp=4, scenes=None):
         raise AssertionError(f"GPU and CPU {what} means disagree")
 
 
-def _timed_frame(what, scene, spp, need):
+def _timed_frame(what, scene, spp, need, loops=False):
     """One warm-up render, then one timed render with the counts set to 0
-    just before it: prints seconds, rays/s and launches; `need` names the
-    kernels that must have run. Returns the launches."""
+    just before it (and with `loops` the loops' steps recorded): prints
+    seconds, rays/s and launches; `need` names the kernels that must have
+    run. Returns the launches of K1-K4 (those of T1, T2 and S1 stay in
+    their counts until the next reset)."""
     import mitsuba_customization_tpu_torch as mt
 
     cfg = scene.config
     mt.render(scene, spp=spp, seed=0)  # warm-up
     torch.cuda.synchronize()
     _reset_counts()
+    if loops:
+        _record_loops()
     t0 = time.perf_counter()
     img, stats = mt.render(scene, spp=spp, seed=1, return_stats=True)
     torch.cuda.synchronize()
@@ -1471,7 +1520,8 @@ def _timed_frame(what, scene, spp, need):
     rays = stats["rays_traced"]
     print(f"{what} {cfg.width}x{cfg.height} {spp}spp depth {cfg.max_depth} "
           f"({cfg.integrator}, {scene.geometry.p0.shape[0]} prims): {secs:.3f} s, "
-          f"{rays:.0f} rays, {rays / secs / 1e6:.2f} Mrays/s; launches {launches}")
+          f"{rays:.0f} rays, {rays / secs / 1e6:.2f} Mrays/s; launches {launches}, "
+          f"{_loop_launches()}")
     if min(launches[k] for k in need) <= 0:
         raise AssertionError(f"a kernel was not launched on the {what} path: {launches}")
     if img.shape != (cfg.height, cfg.width, 3) or not bool(torch.isfinite(img).all()):
@@ -2068,10 +2118,12 @@ def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
     against its plain version on its first 262,144 lanes (the plain
     version takes seconds for that many), with sphere and cylinder hits
     among the checked lanes, and timed; card against CPU means at 64x64. Then the same frame
-    with a SDF_RES^3 SDF sphere in place of the PLY blob: seconds, the SDF
-    march's steps, card against CPU means at 64x64, and the JAX SDF test's
-    expectation on the card. Returns (launches, frame sums, launches with
-    the SDF)."""
+    with a SDF_RES^3 SDF sphere in place of the PLY blob: seconds, S1's
+    launches and the march's steps (no host check); every S1 call of one
+    more render checked against march_plain and timed (phase_loop_calls);
+    card against CPU means at 64x64, and the JAX SDF test's expectation on
+    the card. Returns (launches, frame sums, launches with the SDF (S1
+    too), (S1's first call's stats, its frame sums), the SDF scene)."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import geometry as geo
     from mitsuba_customization_tpu_torch.render import sdf
@@ -2114,12 +2166,27 @@ def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
 
     sdf_scene, sdf_fracs = probe_compact_schedule(
         mt.load_dict(shapes_dict(paths, res, spp, depth, sdf_res=sdf_res), dev), spp=4)
-    sdf_launches = _timed_frame("shapes with SDF", sdf_scene, spp, ("K1", "K2", "K3", "K4"))
+    sdf_launches = _timed_frame("shapes with SDF", sdf_scene, spp, ("K1", "K2", "K3", "K4"),
+                                loops=True)
+    s1 = _loop_launches()["S1"]
+    marches = sdf.MARCHES
+    checks = sum(c for _, c in marches)
     print(f"shapes with SDF: {sdf_scene.geometry.p0.shape[0]} prims and a "
           f"{tuple(sdf_scene.sdf.values.shape)} grid ({sdf_scene.sdf.values.numel() * 4 / 1e6:.1f}"
-          f" MB); the timed frame marched {sdf.MARCHES} times, {sdf.STEPS} steps in all (at "
-          f"most {sdf.MAX_STEPS} a march, a host check every {sdf.CHECK_EVERY})")
-    del sdf_scene
+          f" MB); the timed frame marched {len(marches)} times ({s1} S1 launches): the slowest "
+          f"lanes {sum(int(st.max()) for st, _ in marches)} steps in all (at most "
+          f"{sdf.MAX_STEPS} a march), every lane {sum(int(st.sum()) for st, _ in marches)}; "
+          f"{checks} host checks")
+    if s1 <= 0 or s1 != len(marches) or (checks and torch.device(dev).type == "cuda"):
+        raise AssertionError(f"the SDF frame's march: {s1} S1 launches, {len(marches)} "
+                             f"marches, {checks} host checks")
+    sdf_launches = dict(sdf_launches, S1=s1)
+    rec = record_calls(lambda: mt.render(sdf_scene, spp=spp, seed=1),
+                       {"S1": (sdf, "march", lambda args, kwargs: _keep_args(args))})
+    if len(rec["S1"]) != s1:
+        raise AssertionError(f"recorded S1 calls {len(rec['S1'])} != launches {s1}")
+    s1_first, s1_frame = phase_loop_calls(rec, "SDF march")
+    del rec
     _gpu_cpu_means(f"shapes with SDF {cmp_res}x{cmp_res} 4spp depth 4",
                    shapes_dict(paths, cmp_res, 4, 4, compact=sdf_fracs, sdf_res=sdf_res), dev)
     img_sdf, img_ref = (x.cpu() for x in sdf_and_analytic_spheres(dev))
@@ -2130,7 +2197,7 @@ def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
           f"limit {SDF_MEAN_ATOL}), mean abs diff {mae:.5f} (limit {SDF_MAE})")
     if not (bool(torch.isfinite(img_sdf).all()) and mean_d < SDF_MEAN_ATOL and mae < SDF_MAE):
         raise AssertionError("the SDF sphere does not render like the analytic sphere")
-    return launches, frame, sdf_launches
+    return launches, frame, sdf_launches, (s1_first["S1"], s1_frame["S1"]), sdf_scene
 
 
 def phase_variants(dev):
@@ -2191,17 +2258,204 @@ MEDIUM_KEYS = ("medium.sigma_t", "medium.albedo", "medium.phase_g", "medium.dens
 SIGMA_FD_STEP, SIGMA_FD_SEEDS, SIGMA_FD_RTOL = 0.05, 10, 0.05
 
 
+# T1 / T2 / S1, the per-lane loops (no Pallas kernel: the JAX package's
+# tracking loops and SDF march are XLA while_loops). Their operations a
+# step, counted from the kernels' source: T1 two lowbias32 draws (13
+# integer operations and 2 for the float each), the free flight (the
+# clamp, log1pf at ~20, a division and an addition), the point (6), the
+# world-to-grid affine (18), the cell (floors, clamps, fractions and the
+# index: ~30), seven lerps (28), the extinction, the mean and p_real (9)
+# and the weight update (9); T2 one draw, no mean, three ratio factors
+# (12); S1 the point (6), the cell (~24), seven lerps (28) and the step
+# (4).
+T1_STEP_OPS, T2_STEP_OPS, S1_STEP_OPS = 150, 130, 60
+# their bytes: every lane's medium id (T1 / T2) or active flag and t_start
+# (S1) and outputs (T1 t, weight, flag, steps: 21; T2 weight, steps: 16;
+# S1 t, hit, steps: 9); a tracked or active lane's o and d (24) and its
+# segment end and key (T1 / T2: 12) or t_end and d_norm (S1: 8); each grid
+# cell some lane's lookup read (4), once
+LOOP_OUT_BYTES = {"T1": 21, "T2": 16, "S1": 9}
+# the standing gate (ROADMAP §3) for a loop against its plain version on
+# the card: flags and steps equal on >= LOOP_AGREE of lanes, values within
+# LOOP_RTOL / LOOP_ATOL where they agree (tests/test_torch_cuda.py holds
+# them bit for bit)
+LOOP_AGREE, LOOP_RTOL, LOOP_ATOL = 0.999, 1e-4, 1e-6
+
+
+def _marking(mod, name, mark):
+    """A context that wraps mod.name so that each call first runs
+    mark(*args)."""
+    orig = getattr(mod, name)
+
+    def wrapped(*args):
+        mark(*args)
+        return orig(*args)
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(mod, name, wrapped)
+        try:
+            yield
+        finally:
+            setattr(mod, name, orig)
+
+    return ctx()
+
+
+def _check_loop(kind, got, want, flags):
+    """A loop's outputs `got` against its plain version's `want` (tuples of
+    tensors, the steps last; `flags`: the indices of the bool outputs):
+    steps and flags equal on >= LOOP_AGREE of lanes, the values within
+    LOOP_RTOL / LOOP_ATOL where all of those agree. Returns (max abs error
+    of the values where they agree, lanes not bit-equal)."""
+    n = got[0].shape[0]
+    agree = torch.ones(n, dtype=torch.bool, device=got[0].device)
+    differ = torch.zeros_like(agree)
+    for i, (a, b) in enumerate(zip(got, want)):
+        same = (a == b).reshape(n, -1).all(-1)
+        differ |= ~same
+        if i in flags or i == len(got) - 1:
+            agree &= same
+    share = float(agree.float().mean())
+    if share < LOOP_AGREE:
+        raise AssertionError(f"{kind}: flags and steps agree with the plain version on {share:.5f}"
+                             " of lanes")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+        if i not in flags:
+            err = max(err, _check_close(f"{kind}[{i}]", a[agree], b[agree], LOOP_RTOL, LOOP_ATOL))
+    return err, int(differ.sum())
+
+
+def loop_bound(kind, lanes, steps, cells, lane_in_bytes):
+    """A T1 / T2 / S1 call's bound: `lanes` every lane's inputs and outputs,
+    the tracked (steps > 0) lanes' rays, `cells` grid cells read once;
+    operations a step from its own step count."""
+    n = steps.shape[0]
+    live = int((steps > 0).sum())
+    nbytes = n * (lanes + LOOP_OUT_BYTES[kind]) + live * lane_in_bytes + cells * 4
+    ops = int(steps.sum()) * {"T1": T1_STEP_OPS, "T2": T2_STEP_OPS, "S1": S1_STEP_OPS}[kind]
+    return _bound(nbytes, ops)
+
+
+def check_tracking(kind, args):
+    """T1 (kind "T1", args delta_track's) or T2 against its plain version
+    on the card (_check_loop), the grid cells the plain version's lookups
+    read counted. Returns (the kernel's outputs, max abs error, lanes not
+    bit-equal, cells read)."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    fn, plain = ((medium.delta_track, medium.delta_track_plain) if kind == "T1"
+                 else (medium.ratio_track, medium.ratio_track_plain))
+    got = fn(*args)
+    seen = torch.zeros(args[0].grid.numel(), dtype=torch.bool, device=args[2].device)
+
+    def mark(grid, look, p):
+        seen[medium._corners(grid, look, p)[0]] = True
+
+    with _marking(medium, "_density_at", mark):
+        want = plain(*args)
+    torch.cuda.synchronize()
+    err, differ = _check_loop(kind, got, want, (2,) if kind == "T1" else ())
+    return got, err, differ, int(seen.sum())
+
+
+def check_march(args):
+    """S1 on march's args against march_plain on the card (_check_loop: the
+    hit flag and steps; t), the grid cells the plain version's samples
+    read counted. Returns (the kernel's outputs, max abs error, lanes not
+    bit-equal, cells read)."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    got = sdf.march(*args)
+    g = args[0]
+    _, ny, nz = g.values.shape
+    seen = torch.zeros(g.values.numel(), dtype=torch.bool, device=g.values.device)
+
+    def mark(grid, p):
+        base = sdf.cell(grid, p)[0].reshape(-1)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    seen[base + (dx * ny + dy) * nz + dz] = True
+
+    with _marking(sdf, "sample", mark):
+        want = sdf.march_plain(*args)
+    torch.cuda.synchronize()
+    err, differ = _check_loop("S1", got, want, (1,))
+    return got, err, differ, int(seen.sum())
+
+
+def _loop_call(kind, args):
+    """Check one recorded T1 / T2 / S1 call and time it: (its line, its
+    stats)."""
+    from mitsuba_customization_tpu_torch.render import medium, sdf
+
+    if kind == "S1":
+        got, err, differ, cells = check_march(args)
+        fn, plain = (lambda: sdf.march(*args)), (lambda: sdf.march_plain(*args))
+        lanes, lane_in = 5, 32
+    else:
+        got, err, differ, cells = check_tracking(kind, args)
+        fn = ((lambda: medium.delta_track(*args)) if kind == "T1"
+              else (lambda: medium.ratio_track(*args)))
+        plain = ((lambda: medium.delta_track_plain(*args)) if kind == "T1"
+                 else (lambda: medium.ratio_track_plain(*args)))
+        lanes, lane_in = 8, 36
+    steps = got[-1]
+    ms, plain_ms = _time_ms(fn), _once_ms(plain)
+    bound_ms, bound_by = loop_bound(kind, lanes, steps, cells, lane_in)
+    live = int((steps > 0).sum())
+    line = (f"{kind} {steps.shape[0]} lanes, {live} {'active' if kind == 'S1' else 'tracked'}, "
+            f"steps max {int(steps.max())} mean {float(steps.sum()) / max(live, 1):.1f} "
+            f"({int(steps.sum())} in all), {cells} grid cells read, {differ} lanes not "
+            f"bit-equal, {ms:.4f} ms (bound {bound_ms:.5f}, {bound_by}; plain {plain_ms:.2f})")
+    return line, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, lanes=steps.shape[0], live=live,
+                      steps=int(steps.sum()), max_steps=int(steps.max()),
+                      lanes_not_bit_equal=differ)
+
+
+def phase_loop_calls(rec, label):
+    """Check and time every recorded call of rec ({kernel: [args]}, the
+    kernels of one frame in call order: T1 and T2 a bounce each, or S1),
+    one line per group (a bounce's T1 and T2, or one S1 march). Returns
+    ({kernel: the stats of its call of the most lane steps (the camera
+    bounce's rays start in vacuum: the volpath frame's first tracking call
+    tracks no lane)}, {kernel: (frame ms, frame bound ms)} summed over the
+    calls)."""
+    first, total = {}, {k: [0.0, 0.0] for k in rec}
+    for i in range(max(len(v) for v in rec.values())):
+        parts = []
+        for kind, calls in rec.items():
+            if i < len(calls):
+                line, st = _loop_call(kind, calls[i])
+                if kind not in first or st["steps"] > first[kind]["steps"]:
+                    first[kind] = st
+                total[kind][0] += st["ms"]
+                total[kind][1] += st["bound_ms"]
+                parts.append(line)
+        print(f"{label} {i}: " + "; ".join(parts))
+    print(f"{label} sums over the recorded calls: " + ", ".join(
+        f"{k} {ms:.4f} ms (bound {bound:.5f})" for k, (ms, bound) in total.items()))
+    return first, {k: tuple(v) for k, v in total.items()}
+
+
 def _tracking_summary(loops):
     """The tracking loops of a frame (medium.LOOPS) as per-bounce lines:
     each bounce runs delta tracking (the free flight) and ratio tracking
-    (the shadow ray), each over the lanes in the heterogeneous medium.
-    Returns (lines, total steps, total host checks)."""
-    lines, steps, checks = [], 0, 0
+    (the shadow ray), each a launch over every lane (T1 / T2), or in
+    ad_mode the 48-step scan. Returns (lines, the slowest lanes' steps
+    summed over the loops, all lanes' steps, host checks)."""
+    lines, steps, lane_steps, checks = [], 0, 0, 0
     for kind, lanes, n_steps, n_checks in loops:
-        lines.append(f"{kind} {lanes} lanes {n_steps} steps {n_checks} checks")
-        steps += n_steps
+        live = int((n_steps > 0).sum())
+        lines.append(f"{kind} {live} of {lanes} lanes tracked, {int(n_steps.max())} steps at "
+                     f"most, {int(n_steps.sum())} in all, {n_checks} host checks")
+        steps += int(n_steps.max())
+        lane_steps += int(n_steps.sum())
         checks += n_checks
-    return lines, steps, checks
+    return lines, steps, lane_steps, checks
 
 
 def _volpath_expectations(dev):
@@ -2242,12 +2496,15 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
     scene's homogeneous fog ball and a heterogeneous smoke cube of a
     grid_res^3 density grid, res x res x spp lanes in one pass (the
     volumetric tracer has no compaction): load and frame seconds, rays/s,
-    K1-K4 launched, and the tracking loops' steps and host checks, bounce
-    by bounce; every K1-K4 call of one more render recorded, checked
-    against its plain version and timed (K3 twice a bounce: the shadow
-    ray's first boundary); card against CPU means at 64x64; the JAX
-    tests' analytic media expectations on the card. Returns (launches,
-    frame sums)."""
+    K1-K4, T1 and T2 launched, and the tracking loops' steps (read from
+    the kernels' step counts after the frame) and host checks (none),
+    bounce by bounce; every K1-K4 call of one more render recorded,
+    checked against its plain version and timed (K3 twice a bounce: the
+    shadow ray's first boundary), and every T1 / T2 call of one more
+    (phase_loop_calls); card against CPU means at 64x64; the JAX tests'
+    analytic media expectations on the card. Returns (launches (T1 and T2
+    too), frame sums, the slowest lanes' steps, host checks, T1 / T2's
+    first calls' stats, their frame sums, the scene)."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import medium
     from mitsuba_customization_tpu_torch.scenes import volpath_dict
@@ -2269,35 +2526,47 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
     if (media.n_media != 2 or not media.has_het or scene.config.integrator != "volpath"
             or scene.shadow_clusters is None):
         raise AssertionError("the volpath scene lacks its media or its shadow cluster set")
-    launches = _timed_frame("volpath", scene, spp, ("K1", "K2", "K3", "K4"))
-    lines, steps, checks = _tracking_summary(medium.LOOPS)
-    print(f"volpath tracking loops of the timed frame: {len(lines)} loops, {steps} steps, "
-          f"{checks} host checks (one every {medium.CHECK_EVERY} steps; at most "
-          f"{medium.MAX_TRACKING_STEPS + 1} steps a loop): " + "; ".join(lines))
-    if not any(kind == "delta" for kind, *_ in medium.LOOPS) or not any(
-            kind == "ratio" for kind, *_ in medium.LOOPS):
-        raise AssertionError("the volpath frame ran no delta or no ratio tracking")
+    launches = _timed_frame("volpath", scene, spp, ("K1", "K2", "K3", "K4"), loops=True)
+    loops = _loop_launches()
+    lines, steps, lane_steps, checks = _tracking_summary(medium.LOOPS)
+    print(f"volpath tracking loops of the timed frame: {len(lines)} loops ({loops['T1']} T1 and "
+          f"{loops['T2']} T2 launches), the slowest lanes {steps} steps in all (at most "
+          f"{medium.MAX_TRACKING_STEPS + 1} a loop), every lane {lane_steps}, {checks} host "
+          f"checks: " + "; ".join(lines))
+    if min(loops["T1"], loops["T2"]) <= 0 or (checks and torch.device(dev).type == "cuda"):
+        raise AssertionError(f"the volpath frame's tracking: launches {loops}, {checks} host "
+                             "checks")
     rec = record_wavefronts(scene, spp, seed=1)
     if {k: len(v) for k, v in rec.items()} != launches:
         raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
     frame = phase_bounces(scene, rec, k3_per_bounce=2)
-    del rec, scene
+    del rec
+    rec = record_calls(lambda: mt.render(scene, spp=spp, seed=1), {
+        "T1": (medium, "delta_track", lambda args, kwargs: _keep_args(args)),
+        "T2": (medium, "ratio_track", lambda args, kwargs: _keep_args(args))})
+    if {k: len(v) for k, v in rec.items()} != {k: loops[k] for k in rec}:
+        raise AssertionError(f"recorded T1 / T2 calls {[len(v) for v in rec.values()]} != "
+                             f"{loops}")
+    t_first, t_frame = phase_loop_calls(rec, "tracking, bounce")
+    del rec
     _gpu_cpu_means(f"volpath {cmp_res}x{cmp_res} 4spp depth 4",
                    volpath_dict(cmp_res, 4, 4, 64, VOLPATH_SEED), dev)
     _volpath_expectations(dev)
-    return launches, frame, steps, checks
+    return dict(launches, **loops), frame, steps, checks, t_first, t_frame, scene
 
 
 def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_res=64):
-    """Phase 27: one eager AD step (ad._eager_loss_and_grad, the step
-    grad_render takes for volpath; MSE against a zero image) of the
+    """Phase 27: one eager AD step (ad._eager_loss_and_grad, the captured
+    step's eager counterpart; MSE against a zero image) of the
     volpath scene at res x res, spp, depth on the table stack and the four
     medium keys: one warm-up, one timed step (seconds, peak memory, K1-bwd
-    launches, table- and grid-sized gradient buffers, each gradient
-    finite and nonzero); at 64x64, 4 spp, depth 3 card against CPU losses
-    within AD_LOSS_RTOL and each gradient at cosine >= AD_TABLE_COS; the
-    homogeneous extinction's AD gradient against a central difference on
-    the JAX test's absorbing fog ball. Returns the step's launches."""
+    launches, table- and grid-sized gradient buffers, the tracking scan's
+    steps with no host check, each gradient finite and nonzero); at
+    cmp_res x cmp_res (64x64), 4 spp, depth 3 card against CPU losses within AD_LOSS_RTOL
+    and each gradient at cosine >= AD_TABLE_COS; the homogeneous extinction's
+    AD gradient against a central difference on the JAX test's absorbing
+    fog ball. Returns (the step's launches, its grid-sized buffers, (its
+    scene, its parameters))."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
     from mitsuba_customization_tpu_torch.render import ad, medium
@@ -2312,29 +2581,34 @@ def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_re
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    _record_loops()
     t0 = time.perf_counter()
     loss, grads = ad._eager_loss_and_grad(scene, params, target, spp, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
     buffers, grid_buffers = k1.GRAD_BUFFERS, medium.GRID_BUFFERS
-    lines, steps, checks = _tracking_summary(medium.LOOPS)
+    lines, steps, _, checks = _tracking_summary(medium.LOOPS)
+    medium.LOOPS = None
     grid_mb = scene.media.grid.numel() * 4 / 2 ** 20
     nonzero = {k: float((g != 0).float().mean()) for k, g in grads.items()}
     print(f"volpath AD step {res}x{res} {spp}spp depth {depth} (keys {list(keys)}): "
           f"{secs:.3f} s, loss {float(loss):.6e}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, table-gradient buffers "
           f"{buffers}, grid-sized gradient buffers {grid_buffers} ({grid_mb:.0f} MiB each, one "
-          f"a tracking step of the backward's replay), tracking loops {len(lines)} ({steps} "
-          f"steps, {checks} checks, forward and replay); nonzero shares {nonzero}; "
+          f"a tracking step of the backward's replay), tracking loops {len(lines)} (the "
+          f"{medium.AD_TRACKING_STEPS}-step masked scan over every lane: {steps} steps of the "
+          f"slowest lanes, {checks} host checks, forward and replay); nonzero shares {nonzero}; "
           f"launches {launches}; sigma_t gradient {grads['medium.sigma_t'].tolist()}, phase_g "
           f"{grads['medium.phase_g'].tolist()}")
     finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
                                                 for g in grads.values())
     if (not finite or buffers != 1 or grid_buffers <= 0 or launches["K1-bwd"] <= 0
-            or min(nonzero.values()) <= 0):
+            or min(nonzero.values()) <= 0 or checks):
         raise AssertionError(f"volpath AD step: finite {finite}, buffers {buffers}, grid "
-                             f"buffers {grid_buffers}, launches {launches}, nonzero {nonzero}")
+                             f"buffers {grid_buffers}, launches {launches}, nonzero {nonzero}, "
+                             f"host checks {checks}")
+    ad_scene = (scene, params)
     del scene, grads, params
 
     d = volpath_dict(cmp_res, 4, 3, 64, VOLPATH_SEED)
@@ -2354,7 +2628,7 @@ def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_re
     if not (loss_rel <= AD_LOSS_RTOL and min(cos.values()) >= AD_TABLE_COS):
         raise AssertionError("GPU and CPU volpath gradients disagree")
     _sigma_fd(dev)
-    return launches, grid_buffers
+    return launches, grid_buffers, ad_scene
 
 
 def _sigma_fd(dev, spp=256):
@@ -2400,6 +2674,47 @@ def _sigma_fd(dev, spp=256):
         raise AssertionError("the extinction's AD gradient disagrees with the central difference")
 
 
+def _splat_span(kind, scene, spp):
+    """The light pass's splats of one render of `scene` (kind ptracer or
+    bdpt), recorded: each timed (median of 5) as the frame runs it, every
+    row (ptracer.splat_rows), beside the splat of its nonzero rows alone
+    as the eager frame ran it before (the rows found by nonzero, a host
+    sync, then index_select and film.splat), and the most device memory
+    one splat_rows call of the frame holds above what was allocated
+    before it (its temporaries, ptracer.SPLAT_CHUNK rows at a time): one
+    line."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import bdpt, film, ptracer
+
+    mod = ptracer if kind == "ptracer" else bdpt
+    rec = record_calls(lambda: mt.render(scene, spp=spp, seed=1), {
+        "splat": (mod, "splat_rows", lambda args, kwargs: tuple(
+            a.clone() if torch.is_tensor(a) else a for a in args))})
+    rows = nonzero = peak = 0
+    ms = ms_nonzero = 0.0
+    for values, xy, h, w, ft in rec["splat"]:
+        ms += _time_ms(lambda: ptracer.splat_rows(values, xy, h, w, ft))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ptracer.splat_rows(values, xy, h, w, ft)
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated() - before)
+
+        def nonzero_only():
+            keep = (values != 0.0).any(-1).nonzero().squeeze(1)
+            return film.splat(values.index_select(0, keep), xy.index_select(0, keep), h, w,
+                              ft)[0]
+
+        ms_nonzero += _time_ms(nonzero_only)
+        rows += values.shape[0]
+        nonzero += int((values != 0.0).any(-1).sum())
+    print(f"{kind} splat: {len(rec['splat'])} calls, {rows} rows ({nonzero} not zero, 9 "
+          f"neighbours each): every row {ms:.3f} ms, the nonzero rows alone (nonzero, "
+          f"index_select, splat) {ms_nonzero:.3f} ms; one call's temporaries at most "
+          f"{peak / 1e6:.1f} MB ({ptracer.SPLAT_CHUNK} rows a chunk)")
+
+
 def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
     """Phase 28: ptracer on matpreview_dict(res, spp, depth) without its
     sky (ptracer takes area, point and spot emitters) and bdpt on the
@@ -2408,8 +2723,10 @@ def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
     each recorded and checked against its plain version on its first
     PLAIN_SLICE lanes, and timed; card against CPU means at 64x64; and on
     the card the JAX tests' comparisons with the path tracer (image means
-    within 5 % / 7 %, normalised cross-correlation > 0.95). Returns
-    (ptracer launches, bdpt launches, their frame sums)."""
+    within 5 % / 7 %, normalised cross-correlation > 0.95); the light
+    pass's splat of every row timed beside the splat of its nonzero rows
+    (_splat_span). Returns (ptracer launches, bdpt launches, their frame
+    sums, {kind: its scene})."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.scenes import (
         aggregate_agreement,
@@ -2433,10 +2750,11 @@ def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
             raise AssertionError(f"{kind}: recorded calls {[len(v) for v in rec.values()]} "
                                  f"!= {launches}")
         frame = phase_bounces(scene, rec, hit_types={}, label=f"{kind} call group")
-        del rec, scene
+        del rec
+        _splat_span(kind, scene, spp)
         _gpu_cpu_means(f"{kind} {cmp_res}x{cmp_res} 4spp depth 4",
                        light_dict(kind, cmp_res, 4, 4), dev)
-        out[kind] = (launches, frame)
+        out[kind] = (launches, frame, scene)
     for kind, (path_img, img, tol) in light_paths_vs_path(dev).items():
         ok, diff, ncc = aggregate_agreement(path_img, img, tol)
         print(f"{kind} against path on the card (the JAX test's scene, 32x32): means "
@@ -2444,7 +2762,8 @@ def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
               f"{tol} x the path mean + 1e-3), correlation {ncc:.4f} (limit 0.95)")
         if not ok:
             raise AssertionError(f"{kind} disagrees with the path tracer on the card")
-    return out["ptracer"][0], out["bdpt"][0], out["ptracer"][1], out["bdpt"][1]
+    return out["ptracer"][0], out["bdpt"][0], out["ptracer"][1], out["bdpt"][1], {
+        kind: v[2] for kind, v in out.items()}
 
 
 XML_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -2960,16 +3279,21 @@ def phase_big_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, cmp_depth=BIG_CMP
 
 # phase 33: the captured frames (render/integrator.render_jit) against render
 JIT_TURNS = 5
+# the depths at which phases 33 and 34 run the earlier orthogonal and
+# camera frames and the blend and volpath AD steps: the script's time limit
+JIT_CUT_DEPTH, JIT_STEP_DEPTH = 4, 3
 
 
 def _all_launches():
-    return dict(_launch_counts(), **_bvh_launches())
+    return dict(_launch_counts(), **_bvh_launches(), **_loop_launches())
 
 
 # each kernel of a frame's path by the name its trace gives it
 TRACE_NAMES = {"K1": "merl_eval_kernel", "K2": "cond_sample_kernel",
                "K3": "cluster_closest_kernel", "K4": "cluster_shadow_kernel",
-               "B1": "bvh_closest_kernel", "B2": "bvh_any_kernel"}
+               "B1": "bvh_closest_kernel", "B2": "bvh_any_kernel",
+               "T1": "medium_delta_track_kernel", "T2": "medium_ratio_track_kernel",
+               "S1": "sdf_march_kernel"}
 
 
 def _profiled(fn, names=TRACE_NAMES):
@@ -3097,12 +3421,22 @@ def phase_jit_frame(what, scene, spp, need, card, exact=True):
     return out
 
 
-def phase_jit(dev, card, flagship, matpreview, big_shapes, res=512, spp=8, depth=8,
+def _at_depth(scene, depth):
+    """`scene` (its tensors shared) with its path depth set to `depth`."""
+    return dataclasses.replace(scene, config=dataclasses.replace(scene.config,
+                                                                 max_depth=depth))
+
+
+def phase_jit(dev, card, flagship, matpreview, big_shapes, looped, res=512, spp=8, depth=8,
               ortho_res=256):
     """Phase 33: render_jit against render on the flagship frame (K1 / K2),
     the matpreview frame with its probed schedule (K1-K4) and phase 32's
     big shapes frame (K1, K2, B1 / B2), bit for bit at two seeds
-    (phase_jit_frame); on the matpreview scene under the orthogonal
+    (phase_jit_frame); on the frames of `looped` ({name: (scene, spp,
+    kernels that must launch, bit for bit or in means)}: the volpath
+    frame (T1 / T2), its scene under the path integrator, the SDF frame
+    (S1) bit for bit, ptracer and bdpt, whose camera connections splat
+    with atomic adds, in means); on the matpreview scene under the orthogonal
     sampler at ortho_res^2 and 9 spp (Kensler's walk over a range of 3,
     which a captured frame runs for every round), bit for bit too; and on
     the camera frame
@@ -3123,6 +3457,9 @@ def phase_jit(dev, card, flagship, matpreview, big_shapes, res=512, spp=8, depth
         "big_shapes": phase_jit_frame("big shapes", big_shapes, spp, ("K1", "K2", "B1", "B2"),
                                       card),
     }
+    for name, (scene, n_spp, need, exact) in looped.items():
+        out[name] = phase_jit_frame(name, scene, n_spp, need, card, exact)
+        fg.clear()
     d = matpreview_dict(ortho_res, 9, depth)
     d["sensor"]["sampler"]["type"] = "orthogonal"
     ortho, _ = probe_compact_schedule(mt.load_dict(d, dev), spp=4)
@@ -3287,8 +3624,10 @@ def phase_jit_ad(dev, card, steps):
     """Phase 34: the captured AD steps (phase_jit_step) of `steps`, {name:
     (scene, params, spp, kernels that must launch, sharded too)}: phase
     13's matpreview setup, on the clusters and switched to the BVH (B1 /
-    B2 in the forward and the backward's replay), the blend, image and
-    camera scenes of phases 19, 22 and 23; those marked sharded
+    B2 in the forward and the backward's replay), the blend (main cuts it
+    to JIT_STEP_DEPTH), image and camera scenes of phases 19, 22 and 23,
+    phase 27's volpath scene (at JIT_STEP_DEPTH) and phase 24's SDF scene
+    at 256x256, depth 6; those marked sharded
     also through loss_and_grad_sharded_jit on a process group of one rank
     over NCCL (the box filter's one graph, the gaussian's split step).
     Returns {step: its numbers}."""
@@ -3423,15 +3762,16 @@ def main():
     lap("22 image AD step")
     cam_launches, cam_ad_launches, cam_frame, cam_ad = phase_camera(dev)
     lap("23 camera")
-    shapes_launches, shapes_frame, sdf_launches = phase_shapes(dev)
+    shapes_launches, shapes_frame, sdf_launches, s1_stats, sdf_scene = phase_shapes(dev)
     lap("24 shapes")
     phase_variants(dev)
     lap("25 sensors, samplers, filters")
-    vol_launches, vol_frame, vol_steps, vol_checks = phase_volpath(dev)
+    (vol_launches, vol_frame, vol_steps, vol_checks, t_stats, t_frame,
+     vol_scene) = phase_volpath(dev)
     lap("26 volpath")
-    vol_ad_launches, vol_grid_buffers = phase_volpath_ad(dev)
+    vol_ad_launches, vol_grid_buffers, vol_ad = phase_volpath_ad(dev)
     lap("27 volpath AD step")
-    pt_launches, bd_launches, pt_frame, bd_frame = phase_light_tracers(dev)
+    pt_launches, bd_launches, pt_frame, bd_frame, light_scenes = phase_light_tracers(dev)
     lap("28 ptracer, bdpt")
     xml_launches = phase_xml_cli(dev)
     lap("29 XML scene through the CLI")
@@ -3441,20 +3781,38 @@ def main():
     lap("31 sharded render and AD step")
     big_launches, b1_stats, b2_stats, big_frame, big_scene = phase_big_shapes(dev)
     lap("32 big shapes")
-    jit = phase_jit(dev, card, scene, mp_scene, big_scene)
-    del big_scene, mp_scene
+    cfg = vol_scene.config
+    media_scene = dataclasses.replace(vol_scene, config=dataclasses.replace(
+        cfg, integrator="path", width=cfg.width // 2, height=cfg.height // 2))
+    vol_need = ("K1", "K2", "K3", "K4", "T1", "T2")
+    jit = phase_jit(dev, card, scene, mp_scene, big_scene, depth=JIT_CUT_DEPTH, looped={
+        "volpath": (vol_scene, 8, vol_need, True),
+        "media": (media_scene, 8, vol_need, True),
+        "sdf": (sdf_scene, 8, ("K1", "K2", "K3", "K4", "S1"), True),
+        "ptracer": (light_scenes["ptracer"], 8, ("K1", "K3", "K4"), False),
+        "bdpt": (light_scenes["bdpt"], 8, ("K1", "K2", "K3", "K4"), False)})
+    del big_scene, mp_scene, vol_scene, media_scene, light_scenes
     lap("33 captured frames")
+    cfg = sdf_scene.config
+    sdf_ad = dataclasses.replace(sdf_scene, config=dataclasses.replace(
+        cfg, width=cfg.width // 2, height=cfg.height // 2, max_depth=6))
+    del sdf_scene
     ad_scene, _, ad_params = setup
     ad_bvh = dataclasses.replace(ad_scene, config=dataclasses.replace(ad_scene.config,
                                                                       intersector="bvh"))
     mp_need, bvh_need = ("K1", "K2", "K3", "K4", "K1-bwd"), ("K1", "K2", "B1", "B2", "K1-bwd")
+    vol_ad = (_at_depth(vol_ad[0], JIT_STEP_DEPTH), vol_ad[1])
+    blend_ad = (_at_depth(blend_ad[0], JIT_STEP_DEPTH), blend_ad[1])
     jit_ad = phase_jit_ad(dev, card, {
         "matpreview": (ad_scene, ad_params, 4, mp_need, True),
         "matpreview_bvh": (ad_bvh, ad_params, 4, bvh_need, False),
         "blend": (*blend_ad, 4, ("K1", "K3", "K4", "K1-bwd"), False),
         "image": (*image_ad, 4, mp_need, False),
-        "camera": (*cam_ad, 4, mp_need, True)})
-    del setup, ad_scene, ad_bvh, blend_ad, image_ad, cam_ad
+        "camera": (*cam_ad, 4, mp_need, True),
+        "volpath": (*vol_ad, 4, mp_need, False),
+        "sdf": (sdf_ad, {AD_KEYS[0]: mt.traverse(sdf_ad)[AD_KEYS[0]]}, 4,
+                ("K1", "K3", "K4", "S1", "K1-bwd"), False)})
+    del setup, ad_scene, ad_bvh, blend_ad, image_ad, cam_ad, vol_ad, sdf_ad
     lap("34 captured AD steps")
 
     kernels = [
@@ -3536,13 +3894,39 @@ def main():
                                **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
                                **{"grad_jit_" + f: jit_ad[f]["launches"][key]
                                   for f in jit_ad}}))
+    # T1, T2 (the tracking loops) and S1 (the SDF march), which replace the
+    # JAX package's XLA while_loops (no Pallas kernel): phase 26's and 24's
+    # first recorded call (the camera's wavefront), their frames' launches
+    # and recorded calls
+    from mitsuba_customization_tpu_torch.render import medium as medium_mod
+    from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
+
+    for name, key, source, replaces, stats, sums, where, launches in (
+            ("medium_delta_track", "T1", medium_mod.SOURCE,
+             "mitsuba_customization_tpu/render/medium.py:55 (_tracking_loop over dt_body :293, "
+             "XLA while_loop, no Pallas kernel)", t_stats["T1"], t_frame["T1"], "volpath",
+             vol_launches["T1"]),
+            ("medium_ratio_track", "T2", medium_mod.SOURCE,
+             "mitsuba_customization_tpu/render/medium.py:55 (_tracking_loop over rt_body :386, "
+             "XLA while_loop, no Pallas kernel)", t_stats["T2"], t_frame["T2"], "volpath",
+             vol_launches["T2"]),
+            ("sdf_march", "S1", sdf_mod.SOURCE,
+             "mitsuba_customization_tpu/render/sdf.py:153 (_bounded_trace, XLA while_loop, no "
+             "Pallas kernel)", s1_stats[0], s1_stats[1], "shapes_sdf", sdf_launches["S1"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            **stats, share=stats["bound_ms"] / stats["ms"], library_ms=None,
+            frame_ms=sums[0], frame_bound_ms=sums[1], frame_share=sums[1] / sums[0],
+            launches_by_phase={where: launches,
+                               **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
+                               **{"grad_jit_" + f: jit_ad[f]["launches"][key] for f in jit_ad}}))
     print("captured frames: " + json.dumps({f: {k: v for k, v in jit[f].items()
                                                    if k != "launches"} for f in jit}))
     print("captured AD steps: " + json.dumps({f: {k: v for k, v in jit_ad[f].items()
                                                      if k != "launches"} for f in jit_ad}))
     print("optimize, median step s (captured, eager): " + json.dumps(opt_seconds))
-    print(f"volpath frame tracking loops: {vol_steps} steps, {vol_checks} host checks; "
-          f"volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
+    print(f"volpath frame tracking loops: {vol_steps} steps of the slowest lanes, {vol_checks} "
+          f"host checks; volpath AD step: {vol_grid_buffers} grid-sized gradient buffers")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
           f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("merl_eval.cu", "merl_eval_bwd.cu", "cond_sample.cu",
-           "cluster_closest.cu", "cluster_shadow.cu", "bvh_traverse.cu")
+           "cluster_closest.cu", "cluster_shadow.cu", "bvh_traverse.cu",
+           "medium_track.cu", "sdf_march.cu")
 HEADERS = ("merl_lane.cuh", "cluster_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libmct_torch_kernels.so"
@@ -36,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
 # C entry point -> argument types (see csrc/*.cu); every one returns the
 # cudaError_t of its launch as an int
 _SIGNATURES = {
@@ -51,6 +53,11 @@ _SIGNATURES = {
                            _P, _P],
     "mct_bvh_closest": [_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _P, _P],
     "mct_bvh_any": [_P, _P, _P, _I64, _P, _I, _P, _I, _I, _P, _P],
+    "mct_delta_track": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P, _P, _P, _P, _P, _P, _I64,
+                        _I64, _I64, _P, _P, _P, _P, _P],
+    "mct_ratio_track": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P, _P, _P, _P, _P, _P, _I64,
+                        _I64, _I64, _P, _P, _P],
+    "mct_sdf_march": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P],
 }
 
 _lib = None

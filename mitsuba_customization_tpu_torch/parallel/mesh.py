@@ -40,10 +40,9 @@ import torch.distributed as dist
 
 from mitsuba_customization_tpu_torch.render import frame_graph
 from mitsuba_customization_tpu_torch.render import params as params_mod
-from mitsuba_customization_tpu_torch.render.ad import captured_step, gradients
+from mitsuba_customization_tpu_torch.render.ad import captured_step, gradients, rows_loss
 from mitsuba_customization_tpu_torch.render.integrator import (
     captured_rows,
-    check_capturable,
     plan_rows,
     rows_body,
     rows_inputs,
@@ -251,12 +250,10 @@ def render_sharded_jit(scene, mesh=None, spp=None, seed=0):
     on the card and replayed (run as they are on the CPU); the halo
     exchange of a splat filter and the gathering all_gather stay outside,
     as eager collectives. The image is render_sharded's bit for bit (a
-    splat's atomic adds on the card aside). What render_jit cannot
-    capture raises NotImplementedError here too."""
+    splat's atomic adds on the card aside)."""
     ranks, shard = _layout(mesh)
     cfg = scene.config
     plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
-    check_capturable(scene, plan.kind)
     out = captured_rows(scene, plan, seed, False)
     return _gather(_develop_slab(cfg, out, ranks, shard), mesh)
 
@@ -333,20 +330,17 @@ def loss_and_grad_sharded_jit(scene, params, target, mesh, spp, seed):
     exchange, the division and the slab loss eager between them). The loss
     and gradient all-reduce run eager after the replay. Equal to
     loss_and_grad_sharded on the CPU (up to K1-bwd's and a splat's atomic
-    adds on the card); on the CPU the bodies run as they are. What a
-    captured frame cannot hold raises NotImplementedError (ROADMAP item
-    21)."""
+    adds on the card); on the CPU the bodies run as they are."""
     ranks, shard = _layout(mesh)
     cfg = scene.config
     plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
-    check_capturable(scene, plan.kind)
     ref = target[shard * plan.n_rows:(shard + 1) * plan.n_rows]
     n = target.numel()
     if plan.box:
         loss, grads = captured_step(
-            ("slab_step", tuple(ranks)), scene, plan, params, seed, ref,
-            lambda out, r: torch.sum((_develop_slab(scene.config, out, ranks, shard) - r) ** 2)
-            / n)
+            ("slab_step", plan, tuple(ranks)), scene, params, seed, ref,
+            rows_loss(scene, plan, lambda out, r: torch.sum(
+                (_develop_slab(scene.config, out, ranks, shard) - r) ** 2) / n))
     else:
         loss, grads = _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard)
     return _all_reduce(loss, grads)

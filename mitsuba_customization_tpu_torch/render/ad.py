@@ -19,13 +19,13 @@ loop of BASELINE configs[3]: recover MERL tables or GGX roughness from a
 reference render by pixel-gradient descent, rebuilding the sampling CDFs
 from the new table at every step.
 
-`grad_render` runs the JAX package's jitted `_loss_and_grad`: on the card
-one CUDA graph of the forward and the backward (`captured_step`,
-render/frame_graph.py), captured once per scene, spp, parameter keys and
-shapes and target shape, and replayed with the seed, the parameters and
-the target copied into its buffers. `params.update` runs inside it, so the
-table's sampling CDFs are rebuilt and its GradSink made in the step, as
-in the JAX jit.
+`grad_render` runs the JAX package's jitted `_loss_and_grad` for every
+integrator: on the card one CUDA graph of the forward and the backward
+(`captured_step`, render/frame_graph.py), captured once per scene, spp,
+parameter keys and shapes and target shape, and replayed with the seed,
+the parameters and the target copied into its buffers. `params.update`
+runs inside it, so the table's sampling CDFs are rebuilt and its GradSink
+made in the step, as in the JAX jit.
 """
 
 from __future__ import annotations
@@ -35,13 +35,14 @@ import torch
 from mitsuba_customization_tpu_torch.render import frame_graph
 from mitsuba_customization_tpu_torch.render import params as params_mod
 from mitsuba_customization_tpu_torch.render.integrator import (
-    check_capturable,
+    TRACERS,
+    _integrator_kind,
     develop,
     plan_rows,
     render,
     rows_body,
     rows_inputs,
-    uncapturable,
+    tracer,
 )
 
 
@@ -62,10 +63,8 @@ def gradients(out, leaves, g=None):
 
 def _eager_loss_and_grad(scene, params, target, spp, seed):
     """grad_render's step run eagerly (render_ad, the MSE, autograd): the
-    step of the integrators a captured step cannot hold yet (the loops
-    that check on the host: volpath, volpathmis, prbvolpath, media, SDF
-    scenes, ptracer, bdpt; ROADMAP item 21). The checks of the eager
-    kernels' calls take it too."""
+    captured step's counterpart, which the checks of the eager kernels'
+    calls take and chip_smoke times beside its replay."""
     leaves = {k: v if v.requires_grad else v.detach().requires_grad_(True)
               for k, v in params.items()}
     img = render_ad(scene, leaves, spp=spp, seed=seed)
@@ -73,60 +72,76 @@ def _eager_loss_and_grad(scene, params, target, spp, seed):
     return loss.detach(), dict(zip(leaves, gradients(loss, list(leaves.values()))))
 
 
-def captured_step(key, scene, plan, params, seed, target, loss_of):
-    """(loss, {key: gradient}) of loss_of(out, target), out being
-    rows_body's out of `plan` (a RowsPlan of `scene`) on
-    params.update(scene, params) in ad_mode, as a captured step
-    (render/frame_graph.py): one leaf a parameter and a target buffer,
-    the caller's values copied in at each call; on the card the update,
-    the passes, the loss and torch.autograd.grad are one CUDA graph. The
-    step is kept per `key`, plan, each parameter's key, shape, type and
-    device, and the target's shape and type (and the scene's part)."""
+def captured_step(key, scene, params, seed, target, make_loss):
+    """(loss, {key: gradient}) of a loss of params.update(scene, params) as
+    a captured step (render/frame_graph.py): one leaf a parameter and a
+    target buffer, the caller's values copied in at each call; on the card
+    the update, the forward, the loss and torch.autograd.grad are one CUDA
+    graph. make_loss() -> (what the loss reads besides the scene, kept
+    with the step; loss(scene_p, seed_t, target_t)), called when the step
+    is planned. The step is kept per `key` (which holds the plan), each
+    parameter's key, shape, type and device, and the target's shape and
+    type (and the scene's part)."""
     keys = tuple(params)
 
     def make():
-        inputs = rows_inputs(scene, plan)
+        keep, loss_of = make_loss()
         statics = (frame_graph.buffers([target])
                    + frame_graph.buffers(params.values(), requires_grad=True))
 
         def body(seed_t, target_t, *leaves):
-            scene_p = params_mod.update(scene, dict(zip(keys, leaves)))
-            loss = loss_of(rows_body(scene_p, plan, inputs, seed_t, True)[0], target_t)
+            loss = loss_of(params_mod.update(scene, dict(zip(keys, leaves))), seed_t, target_t)
             return (loss.detach(),) + gradients(loss, leaves)
 
-        return {"body": body, "keep": inputs, "inputs": statics, "grad": True}
+        return {"body": body, "keep": keep, "inputs": statics, "grad": True}
 
-    step = frame_graph.frame((key, plan, keys, frame_graph.input_key(params.values()),
+    step = frame_graph.frame((key, keys, frame_graph.input_key(params.values()),
                               frame_graph.input_key([target])), scene, make)
     loss, *grads = step(seed, target, *params.values())
     return loss, dict(zip(keys, grads))
+
+
+def rows_loss(scene, plan, loss_of):
+    """captured_step's make_loss for a RowsPlan of `scene`: loss_of(out,
+    target) of rows_body's out of the plan in ad_mode, its inputs made
+    and kept with the step."""
+    def make():
+        inputs = rows_inputs(scene, plan)
+        return inputs, lambda scene_p, seed_t, target_t: loss_of(
+            rows_body(scene_p, plan, inputs, seed_t, True)[0], target_t)
+
+    return make
 
 
 def _loss_and_grad(scene, params, spp, seed, target):
     """The JAX package's jitted step (its arguments, in its order): the MSE
     between render_ad(scene, params, spp, seed) and `target` and its
     gradients, as a captured step (captured_step) of render's passes over
-    the whole image, developed. Bit for bit the eager step's on the CPU;
-    on the card equal to it up to the order of K1-bwd's and a splat's
-    atomic adds. What a captured frame cannot hold raises
-    NotImplementedError (ROADMAP item 21)."""
+    the whole image, developed, or of a light tracer's body. Bit for bit
+    the eager step's on the CPU; on the card equal to it up to the order
+    of K1-bwd's and a splat's atomic adds."""
     cfg = scene.config
-    plan = plan_rows(scene, int(spp or cfg.spp), None, None, 0, cfg.height)
-    check_capturable(scene, plan.kind)
-    return captured_step("loss_and_grad", scene, plan, params, seed, target,
-                         lambda out, t: torch.mean((develop(scene.config, out) - t) ** 2))
+    spp = int(spp or cfg.spp)
+    kind = _integrator_kind(scene, None)
+    if kind in TRACERS:
+        mod = tracer(kind)
+        plan = mod.plan(scene, spp)
+
+        def make_loss():
+            return None, lambda scene_p, seed_t, target_t: torch.mean(
+                (mod.body(scene_p, plan, seed_t)[0] - target_t) ** 2)
+    else:
+        plan = plan_rows(scene, spp, None, None, 0, cfg.height)
+        make_loss = rows_loss(scene, plan,
+                              lambda out, t: torch.mean((develop(cfg, out) - t) ** 2))
+    return captured_step(("loss_and_grad", plan), scene, params, seed, target, make_loss)
 
 
 def grad_render(scene, params, target, spp=16, seed=0):
     """One evaluation of the MSE between render_ad(scene, params) and
     `target` (H, W, 3): returns (loss, {key: gradient}); a parameter the
     image does not depend on gets zeros. Runs _loss_and_grad, the
-    captured step, for every scene a captured frame holds (the path
-    tracer's integrators on every intersector, textures, the envmap,
-    blends, splat filters); by the scene's integrator and contents, the
-    loops that check on the host (ROADMAP item 21) take the eager step."""
-    if uncapturable(scene, scene.config.integrator) is not None:
-        return _eager_loss_and_grad(scene, params, target, spp, seed)
+    captured step, for every integrator and scene."""
     return _loss_and_grad(scene, params, spp, seed, target)
 
 

@@ -15,6 +15,10 @@ pinhole sensor, area emitters for the t = 1 strategy (constant and
 envmap backgrounds through the eye strategies only), Russian roulette off
 in both passes (rr_depth is ignored), and a path with a delta vertex drops
 the t = 1 strategy on both sides.
+
+A frame is a plan (`plan`: the host facts, the checks, the passes) and a
+body (`body`: device work only, the seed a Python int or a 0-d int64
+tensor), as render/ptracer.py's; `render_bdpt` runs the two.
 """
 
 from __future__ import annotations
@@ -39,12 +43,13 @@ from mitsuba_customization_tpu_torch.render.integrator import (
 )
 from mitsuba_customization_tpu_torch.render.ptracer import (
     EM_DIMS,
+    TracerPlan,
     _camera_frame,
     _passes,
     check_sensor,
     connect_sensor,
     sample_emitter_ray,
-    splat_nonzero,
+    splat_rows,
 )
 from mitsuba_customization_tpu_torch.render.records import Ray
 
@@ -305,12 +310,11 @@ def trace_light_bdpt(scene, n_paths, seed, max_depth):
     return torch.cat(values), torch.cat(films), n_rays + n_paths
 
 
-def render_bdpt(scene, spp=None, seed=0, max_depth=None, return_stats=False):
-    """A bdpt frame: the eye pass box-developed plus the light pass splatted
-    and divided by spp, both over H * W * spp paths (so the strategies'
-    densities compare lane for lane). Rejects the batch sensor, other
-    sensors than a pinhole, media and emitters other than area, constant
-    and envmap, with the JAX package's messages."""
+def plan(scene, spp=None, max_depth=None):
+    """render_bdpt's TracerPlan: it rejects the batch sensor, other sensors
+    than a pinhole, media and emitters other than area, constant and
+    envmap, with the JAX package's messages; spp and depth (None: the
+    scene's), the passes and the sensor's types."""
     cfg = scene.config
     check_sensor(scene.sensor, "bdpt", "bdpt does not support the 'batch' sensor")
     if scene.media.n_media:
@@ -320,35 +324,53 @@ def render_bdpt(scene, spp=None, seed=0, max_depth=None, return_stats=False):
         raise ValueError("bdpt supports area emitters (+ constant/envmap backgrounds "
                          "through the eye strategies); scene has unsupported emitter "
                          f"types {sorted(bad)}")
-    spp = spp or cfg.spp
-    max_depth = max_depth or cfg.max_depth
+    spp = int(spp or cfg.spp)
+    return TracerPlan("bdpt", spp, int(max_depth or cfg.max_depth),
+                      _passes(cfg.height * cfg.width * spp),
+                      frozenset(sensor_mod.types_present(scene.sensor)))
+
+
+def body(scene, plan, seed):
+    """A planned bdpt frame: the eye pass box-developed plus the light pass
+    splatted and divided by spp, both over H * W * spp paths (so the
+    strategies' densities compare lane for lane). Device work only.
+    Returns (image, rays traced, a 0-d float64 tensor)."""
+    cfg = scene.config
+    spp, max_depth = plan.spp, plan.max_depth
     h, w = cfg.height, cfg.width
     dev = scene.device
-    total = h * w * spp
-    n_pass = _passes(total)
-    n_chunk = total // n_pass
-    thin = sensor_mod.THINLENS in sensor_mod.types_present(scene.sensor)
+    n_chunk = h * w * spp // plan.n_pass
     light_img = torch.zeros((h, w, 3), device=dev)
-    rays = 0.0
+    rays = torch.zeros((), dtype=torch.float64, device=dev)
     eye_parts = []
-    for p in range(n_pass):
+    for p in range(plan.n_pass):
         lanes = p * n_chunk + torch.arange(n_chunk, dtype=torch.int64, device=dev)
         pixel, sidx = lanes // spp, lanes % spp
         smp = make_sampler(cfg.sampler, seed, pixel, sidx, spp)
         jitter = smp.next_2d()
-        aperture = smp.next_2d() if thin else None
+        aperture = smp.next_2d() if sensor_mod.THINLENS in plan.present else None
         film_xy = torch.stack([(pixel % w).to(torch.float32),
                                (pixel // w).to(torch.float32)], -1) + jitter
-        film_uv = film_xy / torch.tensor([w, h], dtype=torch.float32, device=dev)
-        ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h)
+        # the film size made on the device (no host copy in a captured frame)
+        wh = torch.stack([film_xy.new_full((), float(w)), film_xy.new_full((), float(h))])
+        film_uv = film_xy / wh
+        ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h,
+                                     present=plan.present)
         L, nr = trace_eye_bdpt(scene, ray0, smp, max_depth)
         eye_parts.append(L)
         vals, xy, nr2 = trace_light_bdpt(scene, n_chunk, (seed + p * _PASS_STRIDE) & MASK32,
                                          max_depth)
-        light_img = light_img + splat_nonzero(vals, xy, h, w, film_mod.BOX)
-        rays += float(nr) + float(nr2)
+        light_img = light_img + splat_rows(vals, xy, h, w, film_mod.BOX)
+        rays = rays + nr.to(torch.float64) + nr2.to(torch.float64)
     # the eye lanes are pixel-major chunks: together the whole wavefront
     img = film_mod.develop_box(torch.cat(eye_parts), h, w, spp) + light_img / spp
+    return img, rays
+
+
+def render_bdpt(scene, spp=None, seed=0, max_depth=None, return_stats=False):
+    """A bdpt frame (`plan`, then `body`). return_stats adds
+    {"rays_traced": ...}."""
+    img, rays = body(scene, plan(scene, spp, max_depth), seed)
     if return_stats:
-        return img, {"rays_traced": rays}
+        return img, {"rays_traced": float(rays)}
     return img

@@ -7,8 +7,11 @@ parallel/mesh.loss_and_grad_sharded_jit).
 PyTorch the counterpart is a CUDA graph: the frame's kernels are recorded
 once and replayed with no host work per kernel. A frame is split in two:
 a plan, made on the host, that resolves every host fact (sensor types,
-pass layout, compaction capacities, the BVH's packed storage) and
-allocates the inputs; and a body that does device work only. On the card
+pass layout, compaction capacities, the BVH's packed storage, a light
+tracer's passes and checks) and allocates the inputs; and a body that
+does device work only (the loops that run to a condition per lane are
+kernels that check nothing on the host: the media's tracking, the SDF
+march, the BVH walks). On the card
 a Frame warms the body up once on a side stream, captures it into a
 `torch.cuda.CUDAGraph`, and replays that graph at every call, the seed
 written first into the frame's 0-d int64 seed buffer (the sampler reads

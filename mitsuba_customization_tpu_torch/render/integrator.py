@@ -877,6 +877,7 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     shadow rays}. ad_mode: see trace_paths (render/ad.render_ad is the
     differentiable entry). ptracer and bdpt (which ignore ad_mode) are
     rendered by render/ptracer.render_ptracer and render/bdpt.render_bdpt.
+    render_jit is this frame captured, for every integrator.
     """
     kind = _integrator_kind(scene, integrator)
     cfg = scene.config
@@ -896,52 +897,45 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
     return out
 
 
-def uncapturable(scene, kind):
-    """What a captured frame of integrator `kind` on `scene` cannot hold
-    yet, or None: the loops that check a condition on the host (media
-    tracking, the SDF march, the light and bidirectional tracers; ROADMAP
-    item 21)."""
-    if kind in _VOL_TYPES or scene.media.n_media > 0:
-        return "the volumetric tracer (its tracking loops check on the host)"
-    if kind in ("ptracer", "bdpt"):
-        return f"{kind} (its loops check on the host)"
-    if scene.sdf is not None:
-        return "a scene with an SDF (its march checks on the host)"
-    return None
+TRACERS = ("ptracer", "bdpt")
 
 
-def check_capturable(scene, kind):
-    """Raise NotImplementedError for what a captured frame cannot hold
-    yet (uncapturable)."""
-    what = uncapturable(scene, kind)
-    if what is not None:
-        raise NotImplementedError(f"a captured frame of {what} is ROADMAP item 21; use "
-                                  "the eager entry point (render, render_sharded, "
-                                  "loss_and_grad_sharded)")
+def tracer(kind):
+    """The module of a light tracer (`kind` in TRACERS), with its `plan`
+    (host facts) and `body` (device work): render/ptracer.py or
+    render/bdpt.py (imported here: bdpt imports this module)."""
+    if kind == "ptracer":
+        from mitsuba_customization_tpu_torch.render import ptracer
+
+        return ptracer
+    from mitsuba_customization_tpu_torch.render import bdpt
+
+    return bdpt
 
 
 def render_jit(scene, spp=None, seed=0, integrator=None, max_depth=None):
     """`render` as one captured frame, the JAX package's render_jit (its
-    arguments, in its order; no ad_mode, no return_stats).
+    arguments, in its order; no ad_mode, no return_stats), for every
+    integrator.
 
-    The frame is planned on the host (plan_rows, rows_inputs) and its
-    passes and develop are the body, device work only, with the seed in a
-    buffer of the frame (render/frame_graph.py). On the card the body is
-    captured once into a CUDA graph for each (scene, its config and
-    tensors, spp, integrator, depth) and replayed, the seed written into
-    its buffer first; a capture that fails raises. On the CPU the body
-    runs as it is. The image is render's bit for bit (a splat filter's
-    atomic adds on the card aside), and a fresh tensor at every call.
-
-    The path tracer's integrators (path, prb, prb_basic, direct, moment,
-    depth, aov*) are captured, on every intersector. Those whose loops
-    check a condition on the host raise NotImplementedError (ROADMAP item
-    21): volpath, volpathmis, prbvolpath and any scene with media,
-    ptracer, bdpt, and scenes with an SDF."""
+    The frame is planned on the host (plan_rows and rows_inputs, or a
+    light tracer's plan) and its body is device work only: the passes and
+    develop (rows_body), or the tracer's body, with the seed in a buffer
+    of the frame (render/frame_graph.py). The loops that run to a
+    condition per lane are kernels that check nothing on the host (the
+    media's tracking T1 / T2, the SDF march S1, the BVH walks B1 / B2). On
+    the card the body is captured once into a CUDA graph for each (scene,
+    its config and tensors, spp, integrator, depth) and replayed, the seed
+    written into its buffer first; a capture that fails raises. On the
+    CPU the body runs as it is. The image is render's bit for bit (a
+    splat's atomic adds on the card aside: a splat filter, the light
+    tracers' camera connections), and a fresh tensor at every call."""
     kind = _integrator_kind(scene, integrator)
-    check_capturable(scene, kind)
     cfg = scene.config
-    plan = plan_rows(scene, int(spp or cfg.spp), kind, max_depth, 0, cfg.height)
+    spp = int(spp or cfg.spp)
+    if kind in TRACERS:
+        return captured_tracer(scene, tracer(kind).plan(scene, spp, max_depth), seed)
+    plan = plan_rows(scene, spp, kind, max_depth, 0, cfg.height)
     return captured_rows(scene, plan, seed, True)
 
 
@@ -959,3 +953,11 @@ def captured_rows(scene, plan, seed, whole_image):
         return {"body": body, "keep": inputs}
 
     return frame_graph.frame((plan, whole_image), scene, make)(seed)
+
+
+def captured_tracer(scene, plan, seed):
+    """A light tracer's image of `plan` (its TracerPlan) at `seed` as a
+    captured frame."""
+    body = tracer(plan.kind).body
+    return frame_graph.frame(plan, scene, lambda: {
+        "body": lambda seed_t: body(scene, plan, seed_t)[0], "keep": None})(seed)

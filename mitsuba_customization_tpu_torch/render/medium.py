@@ -20,17 +20,14 @@ is done (a lane is done at the latest after step MAX_TRACKING_STEPS, the
 257th update); under ad_mode its fixed AD_TRACKING_STEPS-step scan cuts
 the lanes that are not done by then, which keep their partial distance
 and weight and pass through: part of its gradient estimator, kept here.
-The port runs each loop on the lanes that need it (those in a
-heterogeneous medium) and, every CHECK_EVERY steps, reads on the host
-whether any lane is still going (one sync) and goes on with those lanes
-only. The results are the JAX package's.
-
-Detached and attached as in the JAX package: sampled distances,
-majorants and selection pdfs are detached; the extinction in numerators
-and in the ratio-tracking factors stays attached. A density grid that
-requires grad is read through `_GridGather`, whose backward adds into one
-grid-sized buffer per read (counted in GRID_BUFFERS): one read (the eight
-corners of every lane) per tracking step.
+Outside ad_mode the loops are the kernels T1 (`delta_track`) and T2
+(`ratio_track`, csrc/medium_track.cu), one thread a lane running its own
+loop to its own end; their plain versions (`delta_track_plain`,
+`ratio_track_plain`) run the loop in torch on the lanes in a
+heterogeneous medium, reading on the host every CHECK_EVERY steps whether
+any lane is still going (one sync) and going on with those lanes only. In
+ad_mode the loops are the JAX package's masked scan in torch over all
+lanes, with no host read (`_scan`). The results are the JAX package's.
 """
 
 from __future__ import annotations
@@ -43,6 +40,7 @@ import torch
 from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.core.qmc import MASK32, as_u32, hash_combine
 from mitsuba_customization_tpu_torch.core.sampler import _uniform_from_bits
+from mitsuba_customization_tpu_torch.ops import build as kbuild
 
 HOMOGENEOUS = 0
 HETEROGENEOUS = 1
@@ -51,10 +49,16 @@ MAX_TRACKING_STEPS = 256
 AD_TRACKING_STEPS = 48
 CHECK_EVERY = 8
 
-# Since the counts were last set to 0: one (kind, lanes, steps, host
-# checks) entry per tracking loop run (chip_smoke and the frame profile
-# read them), and the grid-sized gradient buffers made by backward passes.
-LOOPS = []
+SOURCE = "mitsuba_customization_tpu_torch/csrc/medium_track.cu"
+# T1 / T2 launches (a replay of a captured frame launches without calling
+# the wrappers: count those in its trace)
+LAUNCHES = {"delta": 0, "ratio": 0}
+# None, or a list to which each tracking loop appends (kind, lanes, each
+# lane's steps (lanes,) int32 on the lanes' device, host checks): set it
+# to [] to record (chip_smoke and the frame profile do), and read the
+# steps after the frame. The grid-sized gradient buffers made by backward
+# passes since the count was last set to 0.
+LOOPS = None
 GRID_BUFFERS = 0
 
 
@@ -150,10 +154,12 @@ def _lerp(a, b, t):
     return a * (1.0 - t) + b * t
 
 
-def _density_at(grid, look, p):
-    """Trilinear density at world points p (N, 3) of lanes bound by
-    `look` (_lookup); 1 for homogeneous lanes, 0 outside a grid."""
-    w2g, slot, dims, het = look
+def _corners(grid, look, p):
+    """The flat indices into `grid` of the eight corners (z, y, x bits) of
+    each lane's cell at world points p (N, 3) of lanes bound by `look`
+    (_lookup), in one (N * 8,) tensor; the fractions (N, 3) in the cell;
+    and whether p lies inside the grid's unit cube (N,)."""
+    w2g, slot, dims, _ = look
     g = (w2g[..., 0] * p[..., 0:1] + w2g[..., 1] * p[..., 1:2]
          + w2g[..., 2] * p[..., 2:3]) + w2g[..., 3]
     dims_f = dims.to(torch.float32)
@@ -166,11 +172,17 @@ def _density_at(grid, look, p):
     zs = torch.stack([i0[:, 0], i1[:, 0]], -1)
     ys = torch.stack([i0[:, 1], i1[:, 1]], -1)
     xs = torch.stack([i0[:, 2], i1[:, 2]], -1)
-    # the eight corners (z, y, x bits) of each lane, in one gather
     flat_i = (((slot[:, None, None, None] * gd + zs[:, :, None, None]) * gh
                + ys[:, None, :, None]) * gw + xs[:, None, None, :])
+    return flat_i.reshape(-1), t, ((g >= 0.0) & (g <= 1.0)).all(-1)
+
+
+def _density_at(grid, look, p):
+    """Trilinear density at world points p (N, 3) of lanes bound by
+    `look` (_lookup); 1 for homogeneous lanes, 0 outside a grid."""
+    het = look[3]
+    idx, t, inside = _corners(grid, look, p)
     flat = grid.reshape(-1)
-    idx = flat_i.reshape(-1)
     if flat.requires_grad and torch.is_grad_enabled():
         vals = _GridGather.apply(flat, idx)
     else:
@@ -182,7 +194,6 @@ def _density_at(grid, look, p):
     c10 = _lerp(c[:, 1, 0, 0], c[:, 1, 0, 1], tx)
     c11 = _lerp(c[:, 1, 1, 0], c[:, 1, 1, 1], tx)
     dens = _lerp(_lerp(c00, c01, ty), _lerp(c10, c11, ty), tz)
-    inside = ((g >= 0.0) & (g <= 1.0)).all(-1)
     return torch.where(het & inside, dens, torch.where(het, 0.0, 1.0))
 
 
@@ -222,17 +233,23 @@ def _free_step(u):
     return -torch.log1p(-torch.clamp(u, 0.0, 1.0 - 1e-7))
 
 
-def _tracking(kind, body, consts, carry, n_steps):
+def _channel_mean(x):
+    """The mean of x's three channels, ((x0 + x1) + x2) / 3: a sum order
+    and a true division that T1 writes out the same (torch's CUDA mean(-1)
+    takes another order and multiplies by a rounded 1/3)."""
+    return (x[:, 0] + x[:, 1] + x[:, 2]) / x.new_full((), 3.0)
+
+
+def _tracking(body, consts, carry, n_steps):
     """Run body(step, consts, carry) -> carry for n_steps steps over lanes
     whose carry[-1] (done) is False; done lanes are frozen by the body.
     Every CHECK_EVERY steps the lanes still going are read on the host
     (one sync); the loop ends when none is, and goes on with those lanes
-    only. Returns the final carry over all lanes."""
+    only. Returns (the final carry over all lanes, host checks)."""
     full = list(carry)
     idx = None  # the lanes of `cur`: all of them at first
     cur_c, cur = consts, tuple(carry)
     step = checks = 0
-    n = carry[0].shape[0]
     while step < n_steps:
         for s in range(step, min(step + CHECK_EVERY, n_steps)):
             cur = body(s, cur_c, cur)
@@ -250,8 +267,7 @@ def _tracking(kind, body, consts, carry, n_steps):
         idx = live
         cur_c = _gather_consts(consts, idx)
         cur = tuple(f.index_select(0, idx) for f in full)
-    LOOPS.append((kind, n, step, checks))
-    return tuple(full)
+    return tuple(full), checks
 
 
 def _gather_consts(consts, idx):
@@ -263,6 +279,233 @@ def _scatter(n, idx, sub, fill):
     (out of place: differentiable in sub)."""
     base = torch.full((n,) + sub.shape[1:], fill, dtype=sub.dtype, device=sub.device)
     return base.index_copy(0, idx, sub)
+
+
+def _record(kind, steps, checks):
+    """Append a tracking loop to LOOPS when it records: (kind, lanes,
+    each lane's steps, host checks)."""
+    if LOOPS is not None:
+        LOOPS.append((kind, steps.shape[0], steps, checks))
+
+
+# --------------------------------------------------------------------------
+# The tracking loops: T1 (delta), T2 (ratio) and their plain versions
+# --------------------------------------------------------------------------
+
+
+def _delta_body(grid, dim_base):
+    """Weighted delta tracking's step over lanes with consts (o, d, t_max,
+    sigma_t rows, majorant, key, *lookup) and state (t, w, scat, steps,
+    done): dt_body of the JAX package."""
+    def body(step, c, state):
+        o, d, tmax, sg, mj, ky, *look = c
+        t, w, scat, steps, done = state
+        u1 = _draw_key(ky, dim_base + 2 + step * 2)
+        u2 = _draw_key(ky, dim_base + 3 + step * 2)
+        t_new = t + _free_step(u1) / mj
+        passed = t_new >= tmax
+        sig_p = sg * _density_at(grid, look, o + t_new[:, None] * d)[:, None]
+        mean_sig = _channel_mean(sig_p)
+        p_real = torch.clamp(mean_sig / mj, 0.0, 1.0).detach()
+        real = u2 < p_real
+        w_real = m.safe_div(sig_p, mean_sig.detach()[:, None])
+        w_null = m.safe_div(mj[:, None] - sig_p, (mj * (1.0 - p_real)).detach()[:, None])
+        upd = ~done
+        moved = upd & ~passed
+        t = torch.where(upd, torch.where(passed, tmax, t_new), t)
+        w = torch.where(moved[:, None], w * torch.where(real[:, None], w_real, w_null), w)
+        scat = scat | (moved & real)
+        if steps is not None:
+            steps = steps + upd.to(steps.dtype)
+        done = done | passed | scat | (step >= MAX_TRACKING_STEPS)
+        return t, w, scat, steps, done
+
+    return body
+
+
+def _ratio_body(grid, dim_base):
+    """Ratio tracking's step over lanes with consts (o, d, dist, sigma_t
+    rows, majorant, key, *lookup) and state (t, w, steps, done): rt_body
+    of the JAX package."""
+    def body(step, c, state):
+        o, d, dmax, sg, mj, ky, *look = c
+        t, w, steps, done = state
+        t_new = t + _free_step(_draw_key(ky, dim_base + step)) / mj
+        passed = t_new >= dmax
+        sig_p = sg * _density_at(grid, look, o + t_new[:, None] * d)[:, None]
+        upd = ~done & ~passed
+        w = torch.where(upd[:, None],
+                        w * torch.clamp(1.0 - sig_p / mj[:, None], 0.0, 1.0), w)
+        t = torch.where(done, t, t_new)
+        if steps is not None:
+            steps = steps + (~done).to(steps.dtype)
+        done = done | passed | (step >= MAX_TRACKING_STEPS)
+        return t, w, steps, done
+
+    return body
+
+
+def _consts(table, mid, ray_o, ray_d, t_max, key):
+    """A loop's per-lane inputs (o, d, t_max, sigma_t rows, detached
+    majorant, key, *lookup) and the lanes that track (in a heterogeneous
+    medium)."""
+    safe = mid.clamp(min=0)
+    look = _lookup(table, safe)
+    need = (mid >= 0) & look[3]
+    maj = torch.clamp(table.majorant[safe], min=1e-20).detach()
+    return (ray_o, ray_d, t_max, _rows(table.sigma_t, safe), maj, key) + look, need
+
+
+def _init(n, dev, delta):
+    """The loops' initial state but done: t 0, weight 1 (no scatter), 0
+    steps."""
+    state = (torch.zeros(n, device=dev), torch.ones((n, 3), device=dev))
+    if delta:
+        state += (torch.zeros(n, dtype=torch.bool, device=dev),)
+    return state + (torch.zeros(n, dtype=torch.int32, device=dev),)
+
+
+def _plain(kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
+    """The plain version of T1 / T2: the loop on the lanes in a
+    heterogeneous medium, a host check every CHECK_EVERY steps (the lanes
+    still going go on), the results scattered back; full state per lane."""
+    n, dev = ray_o.shape[0], ray_o.device
+    delta = kind == "delta"
+    consts, need = _consts(table, mid, ray_o, ray_d, t_max, key)
+    need = need.nonzero().squeeze(1)
+    out = _init(n, dev, delta)
+    checks = 0
+    if need.numel():
+        k = need.shape[0]
+        body = (_delta_body if delta else _ratio_body)(table.grid, dim_base)
+        init = _init(k, dev, delta) + (torch.zeros(k, dtype=torch.bool, device=dev),)
+        sub, checks = _tracking(body, _gather_consts(consts, need), init,
+                                MAX_TRACKING_STEPS + 1)
+        fills = (0.0, 1.0, False, 0) if delta else (0.0, 1.0, 0)
+        out = tuple(_scatter(n, need, x, f) for x, f in zip(sub[:-1], fills))
+    _record(kind, out[-1], checks)
+    return out
+
+
+def delta_track_plain(table, mid, ray_o, ray_d, t_max, key, dim_base):
+    """T1's plain version (delta_track's arguments and results)."""
+    return _plain("delta", table, mid, ray_o, ray_d, t_max, key, dim_base)
+
+
+def ratio_track_plain(table, mid, ray_o, ray_d, dist, key, dim_base):
+    """T2's plain version (ratio_track's arguments and results)."""
+    _, w, steps = _plain("ratio", table, mid, ray_o, ray_d, dist, key, dim_base)
+    return w, steps
+
+
+def _check_grad(table, *tensors):
+    """The tracking loops are not differentiable outside ad_mode (the JAX
+    package's while_loop is not reverse-differentiable): raise where an
+    input requires grad under grad mode, as sdf.march does."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (table.sigma_t, table.grid, *tensors)):
+        raise RuntimeError("the tracking loops have no gradient outside ad_mode (as the JAX "
+                           "package's while_loop); render with ad_mode=True (render_ad) or "
+                           "under torch.no_grad()")
+
+
+def _check_cuda(table, mid, ray_o, ray_d, t_max, key, what):
+    n = ray_o.shape[0]
+    if (ray_o.shape != (n, 3) or ray_d.shape != (n, 3) or t_max.shape != (n,)
+            or mid.shape != (n,) or key.shape != (n,)):
+        raise ValueError(f"{what}: o, d must be (N, 3) and t_max, mid, key (N,)")
+    floats = (ray_o, ray_d, t_max, table.sigma_t, table.majorant, table.world_to_grid,
+              table.grid)
+    ints = (mid, key, table.m_type, table.grid_slot, table.grid_dims)
+    if (any(t.dtype != torch.float32 for t in floats)
+            or any(t.dtype != torch.int64 for t in ints)):
+        raise ValueError(f"{what}: rays, t_max and the table's values must be float32, mid, "
+                         "key and the table's indices int64")
+    if table.grid.dim() != 4:
+        raise ValueError(f"{what}: the grid stack must be (Kg, D, H, W)")
+    for t in floats + ints:
+        if not t.is_cuda or t.device != ray_o.device:
+            raise ValueError(f"{what}: rays and the medium table must be on one GPU")
+
+
+def _launch(kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
+    """Launch T1 (kind "delta") or T2 ("ratio") over all lanes."""
+    what = f"medium {kind} tracking"
+    _check_cuda(table, mid, ray_o, ray_d, t_max, key, what)
+    n, dev = ray_o.shape[0], ray_o.device
+    p = kbuild.ptr
+    args = [p(x.contiguous()) for x in (ray_o, ray_d, t_max, mid, key)]
+    grid = table.grid.contiguous()
+    tabs = [p(x.contiguous()) for x in (table.m_type, table.sigma_t, table.majorant,
+                                         table.world_to_grid, table.grid_slot,
+                                         table.grid_dims, grid)]
+    w = torch.empty((n, 3), device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = kbuild.library()
+    common = (*args, int(dim_base) & MASK32, n, *tabs, *grid.shape[1:])
+    if kind == "delta":
+        t = torch.empty(n, device=dev)
+        scat = torch.empty(n, dtype=torch.bool, device=dev)
+        err = lib.mct_delta_track(*common, p(t), p(w), p(scat), p(steps), kbuild.stream_of(ray_o))
+        out = (t, w, scat, steps)
+    else:
+        err = lib.mct_ratio_track(*common, p(w), p(steps), kbuild.stream_of(ray_o))
+        out = (w, steps)
+    kbuild.check(err, what)
+    LAUNCHES[kind] += 1
+    _record(kind, steps, 0)
+    return out
+
+
+def delta_track(table, mid, ray_o, ray_d, t_max, key, dim_base):
+    """Weighted delta tracking of every lane in a heterogeneous medium (mid
+    (N,) each lane's medium, -1 vacuum; key (N,) int64 hash_combine(seed,
+    lane); dim_base a Python int): (t (N,), weight (N, 3), scattered (N,)
+    bool, steps (N,) int32 the updates each lane made). A lane outside a
+    heterogeneous medium gets t 0, weight 1, no scatter, 0 steps. CPU
+    tensors run delta_track_plain; CUDA tensors launch T1. Not
+    differentiable (raises where an input requires grad under grad
+    mode): ad_mode runs the fixed-length scan (sample_interaction)."""
+    _check_grad(table, ray_o, ray_d, t_max)
+    if not ray_o.is_cuda:
+        return delta_track_plain(table, mid, ray_o, ray_d, t_max, key, dim_base)
+    return _launch("delta", table, mid, ray_o, ray_d, t_max, key, dim_base)
+
+
+def ratio_track(table, mid, ray_o, ray_d, dist, key, dim_base):
+    """Ratio tracking's transmittance (N, 3) over [0, dist] (finite) of
+    every lane in a heterogeneous medium, and each lane's steps (N,)
+    int32; 1 and 0 for the other lanes. CPU tensors run
+    ratio_track_plain; CUDA tensors launch T2. Not differentiable, as
+    delta_track."""
+    _check_grad(table, ray_o, ray_d, dist)
+    if not ray_o.is_cuda:
+        return ratio_track_plain(table, mid, ray_o, ray_d, dist, key, dim_base)
+    return _launch("ratio", table, mid, ray_o, ray_d, dist, key, dim_base)
+
+
+def _scan(kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
+    """ad_mode's tracking: the JAX package's fixed AD_TRACKING_STEPS-step
+    masked scan over all lanes (the lanes outside a heterogeneous medium
+    done from the start, done lanes frozen), in torch ops with no host
+    check, differentiable in the extinction and the grid (_GridGather).
+    The lanes not tracked read a majorant of 1, so that their values,
+    which the caller drops, stay finite (a NaN there would reach the
+    gradients through the masks). Returns the final state but done."""
+    n, dev = ray_o.shape[0], ray_o.device
+    delta = kind == "delta"
+    consts, need = _consts(table, mid, ray_o, ray_d, t_max, key)
+    consts = consts[:4] + (torch.where(need, consts[4], 1.0),) + consts[5:]
+    body = (_delta_body if delta else _ratio_body)(table.grid, dim_base)
+    state = _init(n, dev, delta)
+    if LOOPS is None:
+        state = state[:-1] + (None,)
+    state += (~need,)
+    for step in range(AD_TRACKING_STEPS):
+        state = body(step, consts, state)
+    if LOOPS is not None:
+        _record(kind, state[-2], 0)
+    return state[:-1]
 
 
 # --------------------------------------------------------------------------
@@ -289,9 +532,9 @@ def sample_interaction(table: MediumTable, mid, ray_o, ray_d, t_max, seed, lane,
                        ad_mode=False):
     """Sample a free-flight distance for lanes inside a medium (mitsuba3's
     estimators: homogeneous analytic with channel MIS, heterogeneous
-    weighted delta tracking). Vacuum lanes (mid < 0) pass with weight 1.
-    seed: Python int; lane: int64 (N,) uint32 lane ids; dim_base: Python
-    int."""
+    weighted delta tracking: T1, or in ad_mode the masked scan). Vacuum
+    lanes (mid < 0) pass with weight 1. seed: a Python int or a 0-d int64
+    tensor; lane: int64 (N,) uint32 lane ids; dim_base: Python int."""
     n, dev = ray_o.shape[0], ray_o.device
     if table.n_media == 0:
         zero = torch.zeros(n, device=dev)
@@ -323,45 +566,15 @@ def sample_interaction(table: MediumTable, mid, ray_o, ray_d, t_max, seed, lane,
     em_hom = torch.where(scat_hom[:, None], base_hom * (1.0 - alb) * le, 0.0)
 
     # ---- heterogeneous: weighted delta tracking ----
-    t_het = torch.zeros(n, device=dev)
-    w_het = torch.ones((n, 3), device=dev)
-    scat_het = torch.zeros(n, dtype=torch.bool, device=dev)
-    need = (in_medium & is_het).nonzero().squeeze(1) if table.has_het else None
-    if need is not None and need.numel():
-        maj = torch.clamp(table.majorant[safe], min=1e-20).detach()
-        consts = _gather_consts((ray_o, ray_d, t_max, sig, maj, key)
-                                + _lookup(table, safe), need)
-
-        def dt_body(step, c, state):
-            o, d, tmax, sg, mj, ky, *look = c
-            t, w, scat, done = state
-            u1 = _draw_key(ky, dim_base + 2 + step * 2)
-            u2 = _draw_key(ky, dim_base + 3 + step * 2)
-            t_new = t + _free_step(u1) / mj
-            passed = t_new >= tmax
-            sig_p = sg * _density_at(table.grid, look, o + t_new[:, None] * d)[:, None]
-            mean_sig = sig_p.mean(-1)
-            p_real = torch.clamp(mean_sig / mj, 0.0, 1.0).detach()
-            real = u2 < p_real
-            w_real = m.safe_div(sig_p, mean_sig.detach()[:, None])
-            w_null = m.safe_div(mj[:, None] - sig_p, (mj * (1.0 - p_real)).detach()[:, None])
-            upd = ~done
-            moved = upd & ~passed
-            t = torch.where(upd, torch.where(passed, tmax, t_new), t)
-            w = torch.where(moved[:, None], w * torch.where(real[:, None], w_real, w_null), w)
-            scat = scat | (moved & real)
-            done = done | passed | scat | (step >= MAX_TRACKING_STEPS)
-            return t, w, scat, done
-
-        k = need.shape[0]
-        init = (torch.zeros(k, device=dev), torch.ones((k, 3), device=dev),
-                torch.zeros(k, dtype=torch.bool, device=dev),
-                torch.zeros(k, dtype=torch.bool, device=dev))
-        steps = AD_TRACKING_STEPS if ad_mode else MAX_TRACKING_STEPS + 1
-        t_s, w_s, scat_s, _ = _tracking("delta", dt_body, consts, init, steps)
-        t_het = _scatter(n, need, t_s, 0.0)
-        w_het = _scatter(n, need, w_s, 1.0)
-        scat_het = _scatter(n, need, scat_s, False)
+    if not table.has_het:
+        t_het = torch.zeros(n, device=dev)
+        w_het = torch.ones((n, 3), device=dev)
+        scat_het = torch.zeros(n, dtype=torch.bool, device=dev)
+    elif ad_mode:
+        t_het, w_het, scat_het, _ = _scan("delta", table, mid, ray_o, ray_d, t_max, key,
+                                          dim_base)
+    else:
+        t_het, w_het, scat_het, _ = delta_track(table, mid, ray_o, ray_d, t_max, key, dim_base)
     em_het = torch.where(scat_het[:, None], w_het * (1.0 - alb) * le, 0.0)
     w_het = torch.where(scat_het[:, None], w_het * alb, w_het)
 
@@ -382,8 +595,8 @@ def transmittance(table: MediumTable, mid, ray_o, ray_d, dist, seed, lane, dim_b
                   ad_mode=False):
     """(N, 3) transmittance through medium `mid` over [0, dist]: 1 for
     vacuum lanes, exp(-sigma_t d) for homogeneous ones, ratio tracking
-    (the majorant detached, the (1 - sigma / majorant) factors attached)
-    for heterogeneous ones."""
+    (T2, or in ad_mode the masked scan: the majorant detached, the (1 -
+    sigma / majorant) factors attached) for heterogeneous ones."""
     n, dev = ray_o.shape[0], ray_o.device
     if table.n_media == 0:
         return torch.ones((n, 3), device=dev)
@@ -394,32 +607,13 @@ def transmittance(table: MediumTable, mid, ray_o, ray_d, dist, seed, lane, dim_b
     d_fin = torch.where(torch.isfinite(dist), dist, 1e7)
     tr_hom = torch.exp(-sig * d_fin[:, None])
 
-    tr_het = torch.ones((n, 3), device=dev)
-    need = (in_medium & is_het).nonzero().squeeze(1) if table.has_het else None
-    if need is not None and need.numel():
-        maj = torch.clamp(table.majorant[safe], min=1e-20).detach()
-        consts = _gather_consts((ray_o, ray_d, d_fin, sig, maj,
-                                 hash_combine(seed & MASK32, lane)) + _lookup(table, safe), need)
-
-        def rt_body(step, c, state):
-            o, d, dmax, sg, mj, ky, *look = c
-            t, w, done = state
-            t_new = t + _free_step(_draw_key(ky, dim_base + step)) / mj
-            passed = t_new >= dmax
-            sig_p = sg * _density_at(table.grid, look, o + t_new[:, None] * d)[:, None]
-            upd = ~done & ~passed
-            w = torch.where(upd[:, None],
-                            w * torch.clamp(1.0 - sig_p / mj[:, None], 0.0, 1.0), w)
-            t = torch.where(done, t, t_new)
-            done = done | passed | (step >= MAX_TRACKING_STEPS)
-            return t, w, done
-
-        k = need.shape[0]
-        init = (torch.zeros(k, device=dev), torch.ones((k, 3), device=dev),
-                torch.zeros(k, dtype=torch.bool, device=dev))
-        steps = AD_TRACKING_STEPS if ad_mode else MAX_TRACKING_STEPS + 1
-        _, w_s, _ = _tracking("ratio", rt_body, consts, init, steps)
-        tr_het = _scatter(n, need, w_s, 1.0)
+    key = hash_combine(seed & MASK32, lane)
+    if not table.has_het:
+        tr_het = torch.ones((n, 3), device=dev)
+    elif ad_mode:
+        _, tr_het, _ = _scan("ratio", table, mid, ray_o, ray_d, d_fin, key, dim_base)
+    else:
+        tr_het, _ = ratio_track(table, mid, ray_o, ray_d, d_fin, key, dim_base)
     tr = torch.where(is_het[:, None], tr_het, tr_hom)
     return torch.where(in_medium[:, None], tr, 1.0)
 

@@ -18,11 +18,17 @@ corrections for shading normals or refraction. Its sampler is
 `independent` with seed `seed ^ 0x9E3779B9`, one lane a light path; a
 frame of more than MAX_WAVEFRONT paths renders in passes whose seeds
 advance by 0x85EBCA6B.
+
+A frame is a plan (`plan`: the host facts, the sensor check and the
+passes) and a body (`body`: device work only, the seed a Python int or a
+0-d int64 tensor), so a captured frame (render/integrator.render_jit)
+records the body as it is; `render_ptracer` runs the two.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +55,9 @@ _LIGHT_SEED = 0x9E3779B9
 # a ptracer scene)
 SUPPORTED_EMITTERS = (em_mod.AREA, em_mod.POINT, em_mod.SPOT)
 _PASS_STRIDE = 0x85EBCA6B
+# rows splat at a time (splat_rows): film.splat's nine-offset temporaries
+# take about 440 bytes a row, so a chunk holds about 0.9 GB of them
+SPLAT_CHUNK = 1 << 21
 
 
 def _camera_frame(sensor):
@@ -217,13 +226,25 @@ def trace_light_paths(scene, n_paths, spp, seed, max_depth, rr_depth):
     return torch.cat(values), torch.cat(films), n_rays + n_paths
 
 
-def splat_nonzero(values, film_xy, h, w, filter_type):
-    """film.splat's image of the rows of `values` that are not all zero:
-    the others add nothing (most camera connections of a light path fail),
-    so the image is the splat of every row."""
-    keep = (values != 0.0).any(-1).nonzero().squeeze(1)
-    return film_mod.splat(values.index_select(0, keep), film_xy.index_select(0, keep), h, w,
-                          filter_type)[0]
+def splat_rows(values, film_xy, h, w, filter_type):
+    """film.splat's image of every row of `values` (most camera
+    connections of a light path fail, and their rows are zero: they add
+    nothing). A zero row's film position, which a failed connection
+    computes from garbage, moves first to the centre of a pixel of its own
+    (row r to pixel r mod (H W)): its filter weights are then finite (a
+    NaN weight times 0 would be NaN), and the zero rows' atomic adds on
+    the card spread over the film instead of meeting at one pixel. The
+    rows go SPLAT_CHUNK at a time, each chunk's image added to the sum,
+    which bounds the temporaries whatever the number of rows."""
+    img = values.new_zeros((h, w, values.shape[-1]))
+    for s in range(0, values.shape[0], SPLAT_CHUNK):
+        v, p = values[s:s + SPLAT_CHUNK], film_xy[s:s + SPLAT_CHUNK]
+        keep = (v != 0.0).any(-1)
+        r = torch.arange(s, s + v.shape[0], device=v.device) % (h * w)
+        spread = torch.stack([r % w, r // w], -1).to(p.dtype) + 0.5
+        xy = torch.where(keep[:, None], p, spread)
+        img = img + film_mod.splat(v, xy, h, w, filter_type)[0]
+    return img
 
 
 def _passes(total):
@@ -237,27 +258,53 @@ def _passes(total):
     return n_pass
 
 
-def render_ptracer(scene, spp=None, seed=0, max_depth=None, return_stats=False):
-    """A ptracer frame: H * W * spp light paths splatted with the film's
-    filter and divided by spp. return_stats adds {"rays_traced": ...}."""
+class TracerPlan(NamedTuple):
+    """The host facts of a ptracer or bdpt frame: the integrator, spp, the
+    path depth, the passes and (bdpt) the sensor's types. Hashable: a
+    captured frame's key holds it."""
+
+    kind: str
+    spp: int
+    max_depth: int
+    n_pass: int
+    present: frozenset = frozenset()
+
+
+def plan(scene, spp=None, max_depth=None):
+    """render_ptracer's TracerPlan: the sensor check, spp and depth (None:
+    the scene's) and the passes."""
     cfg = scene.config
     check_sensor(scene.sensor, "ptracer",
                  "integrator 'ptracer' does not support the 'batch' sensor: "
                  "light-path camera connections need a single camera")
-    spp = spp or cfg.spp
-    max_depth = max_depth or cfg.max_depth
+    spp = int(spp or cfg.spp)
+    return TracerPlan("ptracer", spp, int(max_depth or cfg.max_depth),
+                      _passes(cfg.height * cfg.width * spp))
+
+
+def body(scene, plan, seed):
+    """A planned ptracer frame: H * W * spp light paths splatted with the
+    film's filter and divided by spp. Device work only. Returns (image,
+    rays traced, a 0-d int64 tensor)."""
+    cfg = scene.config
     h, w = cfg.height, cfg.width
-    total = h * w * spp
-    n_pass = _passes(total)
+    n_chunk = h * w * plan.spp // plan.n_pass
     img = torch.zeros((h, w, 3), device=scene.device)
-    rays = 0.0
-    for p in range(n_pass):
-        vals, xy, n_rays = trace_light_paths(scene, total // n_pass, spp,
-                                             (seed + p * _PASS_STRIDE) & MASK32, max_depth,
-                                             cfg.rr_depth)
-        img = img + splat_nonzero(vals, xy, h, w, film_mod.FILTER_NAMES[cfg.rfilter])
-        rays += float(n_rays)
-    out = img / float(spp)
+    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for p in range(plan.n_pass):
+        vals, xy, n_rays = trace_light_paths(scene, n_chunk, plan.spp,
+                                             (seed + p * _PASS_STRIDE) & MASK32,
+                                             plan.max_depth, cfg.rr_depth)
+        img = img + splat_rows(vals, xy, h, w, film_mod.FILTER_NAMES[cfg.rfilter])
+        rays = rays + n_rays
+    return img / float(plan.spp), rays
+
+
+def render_ptracer(scene, spp=None, seed=0, max_depth=None, return_stats=False):
+    """A ptracer frame: H * W * spp light paths splatted with the film's
+    filter and divided by spp (`plan`, then `body`). return_stats adds
+    {"rays_traced": ...}."""
+    out, rays = body(scene, plan(scene, spp, max_depth), seed)
     if return_stats:
-        return out, {"rays_traced": rays}
+        return out, {"rays_traced": float(rays)}
     return out

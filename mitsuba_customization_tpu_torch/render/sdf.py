@@ -8,10 +8,16 @@ MAX_STEPS steps). The grid is its own acceleration structure: it does not
 join the prim soup or the cluster set. Trilinear samples read the grid by
 flat index (`index_select`).
 
-The JAX package's loop stops once no lane is active. Here the march
-checks that every CHECK_EVERY steps (a host sync each): a lane that is
-no longer active does not change, so the result is the same as checking
-every step, with an eighth of the syncs.
+The JAX package's loop stops once no lane is active. Here the march is
+the kernel S1 (`march`, csrc/sdf_march.cu): one thread a lane marches its
+own lane while it is active, at most MAX_STEPS steps, with no read back
+to the host, so a captured frame holds it. Its plain version
+(`march_plain`) runs the lock-step loop in torch and checks every
+CHECK_EVERY steps whether any lane is active (a host sync each): a lane
+that is no longer active does not change, so both give the JAX package's
+t and hit flag. The march is not differentiable: as `jax.grad` through
+the JAX package's while_loop does, it raises where an input requires
+grad under grad mode (medium.py's tracking loops follow the same rule).
 """
 
 from __future__ import annotations
@@ -23,16 +29,22 @@ import torch
 
 from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.core.frame import Frame
+from mitsuba_customization_tpu_torch.ops import build as kbuild
 from mitsuba_customization_tpu_torch.render.records import Ray, SurfaceInteraction
 
 MAX_STEPS = 128
 HIT_EPS = 1e-4
 CHECK_EVERY = 8
 
-# marches (intersect calls) and their steps since the counts were last
-# set to 0 (chip_smoke and the frame profile read them)
-MARCHES = 0
-STEPS = 0
+SOURCE = "mitsuba_customization_tpu_torch/csrc/sdf_march.cu"
+# S1 launches (a replay of a captured frame launches without calling the
+# wrapper: count those in its trace)
+LAUNCHES = 0
+# None, or a list to which each march appends each lane's steps ((N,)
+# int32 on the lanes' device) and its host checks: set it to [] to record
+# (chip_smoke and the frame profile do), and read the steps after the
+# frame
+MARCHES = None
 
 
 class SDFGrid(NamedTuple):
@@ -69,18 +81,27 @@ def make(values, to_world=None, mat_id=0, shape_id=0, *, device):
     )
 
 
+def cell(sdf: SDFGrid, p_local):
+    """The flat index of each local position's cell corner (x0, y0, z0) in
+    the x-major grid, and its fractions (fx, fy, fz), clamped to the grid
+    support."""
+    nx, ny, nz = sdf.values.shape
+
+    def axis(a, n):  # the cell and fraction along axis a of n nodes
+        u = p_local[..., a] * float(n - 1)
+        i0 = torch.clamp(torch.floor(u).to(torch.int64), 0, n - 2)
+        return i0, torch.clamp(u - i0, 0.0, 1.0)
+
+    (x0, fx), (y0, fy), (z0, fz) = axis(0, nx), axis(1, ny), axis(2, nz)
+    return (x0 * ny + y0) * nz + z0, fx, fy, fz
+
+
 def sample(sdf: SDFGrid, p_local):
     """Trilinear SDF value at local positions (..., 3), clamped to the grid
     support; distances in local units."""
-    nx, ny, nz = sdf.values.shape
-    dims = torch.tensor([nx, ny, nz], dtype=torch.float32, device=p_local.device)
-    u = p_local * (dims - 1.0)
-    hi = torch.tensor([nx - 2, ny - 2, nz - 2], device=p_local.device)
-    i0 = torch.minimum(torch.clamp(torch.floor(u).to(torch.int64), min=0), hi)
-    f = torch.clamp(u - i0, 0.0, 1.0)
-    base = (i0[..., 0] * ny + i0[..., 1]) * nz + i0[..., 2]
+    _, ny, nz = sdf.values.shape
+    base, fx, fy, fz = cell(sdf, p_local)
     flat = sdf.values.reshape(-1)
-    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
 
     def at(dx, dy, dz):
         idx = base + ((dx * ny + dy) * nz + dz)
@@ -109,9 +130,84 @@ def normal(sdf: SDFGrid, p_local):
     return m.normalize(g_world + 1e-20)
 
 
+def march_plain(sdf: SDFGrid, o_l, d_l, t_start, t_end, d_norm, active):
+    """S1's plain version: the lock-step sphere trace in torch, a host
+    check every CHECK_EVERY steps. Returns (t (N,), hit (N,) bool, steps
+    (N,) int32 each lane's active steps)."""
+    with torch.no_grad():
+        t, hit = t_start, torch.zeros_like(active)
+        steps = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+        done = checks = 0
+        while done < MAX_STEPS:
+            if done % CHECK_EVERY == 0:
+                checks += 1
+                if not bool(active.any()):
+                    break
+            dist = sample(sdf, o_l + t[..., None] * d_l)
+            is_hit = active & (dist < HIT_EPS)
+            # conservative march: local distance -> world t through |d_l|
+            step = torch.clamp(dist, min=HIT_EPS) / d_norm
+            steps = steps + active.to(torch.int32)
+            t = torch.where(active & ~is_hit, t + step, t)
+            active = active & ~is_hit & (t <= t_end)
+            hit = hit | is_hit
+            done += 1
+    if MARCHES is not None:
+        MARCHES.append((steps, checks))
+    return t, hit, steps
+
+
+def _check_cuda(sdf, tensors):
+    n = tensors[0].shape[0]
+    if (tensors[0].shape != (n, 3) or tensors[1].shape != (n, 3)
+            or any(t.shape != (n,) for t in tensors[2:])):
+        raise ValueError("sdf march: o, d must be (N, 3) and t_start, t_end, d_norm, active "
+                         "(N,)")
+    if (sdf.values.dim() != 3 or min(sdf.values.shape) < 2 or sdf.values.dtype != torch.float32
+            or any(t.dtype != torch.float32 for t in tensors[:5])
+            or tensors[5].dtype != torch.bool):
+        raise ValueError("sdf march: a float32 grid of at least 2 nodes an axis, float32 rays "
+                         "and a bool active flag")
+    for t in (sdf.values, *tensors):
+        if not t.is_cuda or t.device != tensors[0].device:
+            raise ValueError("sdf march: rays and grid must be on one GPU")
+
+
+def march(sdf: SDFGrid, o_l, d_l, t_start, t_end, d_norm, active):
+    """The sphere trace of each lane through the grid (its ray o_l, d_l in
+    the local frame, from t_start, active while t <= t_end; d_norm the
+    local units per world t; active the lanes that enter the unit cube
+    before maxt): (t (N,), hit (N,) bool, steps (N,) int32). CPU tensors
+    run march_plain; CUDA tensors launch S1. Not differentiable: raises
+    where the grid or a ray input requires grad under grad mode."""
+    global LAUNCHES
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (sdf.values, o_l, d_l, t_start, t_end, d_norm)):
+        raise RuntimeError("the SDF march has no gradient (as the JAX package's while_loop); "
+                           "march rays and a grid that do not require grad, or run under "
+                           "torch.no_grad()")
+    if not o_l.is_cuda:
+        return march_plain(sdf, o_l, d_l, t_start, t_end, d_norm, active)
+    args = tuple(x.contiguous() for x in (o_l, d_l, t_start, t_end, d_norm, active))
+    _check_cuda(sdf, args)
+    n, dev = o_l.shape[0], o_l.device
+    values = sdf.values.contiguous()
+    t = torch.empty(n, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    p = kbuild.ptr
+    err = kbuild.library().mct_sdf_march(*map(p, args), n, p(values), *values.shape, p(t),
+                                         p(hit), p(steps), kbuild.stream_of(o_l))
+    kbuild.check(err, "sdf march")
+    LAUNCHES += 1
+    if MARCHES is not None:
+        MARCHES.append((steps, 0))
+    return t, hit, steps
+
+
 def intersect(sdf: SDFGrid, ray: Ray):
-    """Sphere-trace the nearest hit. Returns (t_world, hit, p_local)."""
-    global MARCHES, STEPS
+    """Sphere-trace the nearest hit (`march`). Returns (t_world, hit,
+    p_local)."""
     rot = sdf.to_local[:3, :3]
     o_l = ray.o @ rot.T + sdf.to_local[:3, 3]
     d_l = ray.d @ rot.T  # not normalised: t stays in world units
@@ -126,22 +222,7 @@ def intersect(sdf: SDFGrid, ray: Ray):
     t = torch.clamp(near, min=0.0) + 1e-5
     t_end = torch.minimum(far, ray.maxt)
     d_norm = torch.clamp(m.norm(d_l), min=1e-12)  # local units per world t
-    active = enters & (t < ray.maxt)
-    hit = torch.zeros_like(active)
-    steps = 0
-    while steps < MAX_STEPS:
-        if steps % CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        dist = sample(sdf, o_l + t[..., None] * d_l)
-        is_hit = active & (dist < HIT_EPS)
-        # conservative march: local distance -> world t through |d_l|
-        step = torch.clamp(dist, min=HIT_EPS) / d_norm
-        t = torch.where(active & ~is_hit, t + step, t)
-        active = active & ~is_hit & (t <= t_end)
-        hit = hit | is_hit
-        steps += 1
-    MARCHES += 1
-    STEPS += steps
+    t, hit, _ = march(sdf, o_l, d_l, t, t_end, d_norm, enters & (t < ray.maxt))
     p_local = o_l + t[..., None] * d_l
     return torch.where(hit, t, float("inf")), hit, p_local
 

@@ -113,6 +113,9 @@ GROUPS = (
     ("cluster_shadow", "K4 cluster_shadow (CUDA)"),
     ("bvh_closest", "B1 bvh_closest (CUDA)"),
     ("bvh_any", "B2 bvh_any (CUDA)"),
+    ("medium_delta_track", "T1 medium_delta_track (CUDA)"),
+    ("medium_ratio_track", "T2 medium_ratio_track (CUDA)"),
+    ("sdf_march", "S1 sdf_march (CUDA)"),
     ("sort", "torch sort"),
     ("index", "torch gather/scatter"),
     ("gather", "torch gather/scatter"),
@@ -467,8 +470,10 @@ def main():
     k1.LAUNCHES = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = cl.LAUNCHES["shadow"] = 0
     bvh.LAUNCHES["closest"] = bvh.LAUNCHES["any"] = 0
-    sdf.MARCHES = sdf.STEPS = 0
-    medium.LOOPS.clear()
+    sdf.LAUNCHES = 0
+    sdf.MARCHES = []
+    medium.LAUNCHES["delta"] = medium.LAUNCHES["ratio"] = 0
+    medium.LOOPS = []
     medium.GRID_BUFFERS = 0
     spans = {"film.splat": [], "sdf.intersect": [], "medium.sample_interaction": [],
              "medium.transmittance": []}
@@ -490,6 +495,7 @@ def main():
           f"launches K1 {k1.LAUNCHES} K2 {k2.LAUNCHES} "
           f"K3 {cl.LAUNCHES['closest']} K4 {cl.LAUNCHES['shadow']} "
           f"B1 {bvh.LAUNCHES['closest']} B2 {bvh.LAUNCHES['any']} "
+          f"T1 {medium.LAUNCHES['delta']} T2 {medium.LAUNCHES['ratio']} S1 {sdf.LAUNCHES} "
           f"K1-bwd {k1.LAUNCHES_BWD}")
     by_group = collections.Counter()
     by_name = collections.Counter()
@@ -505,17 +511,19 @@ def main():
     for name, evs in spans.items():
         if evs:
             ms = sum(a.elapsed_time(b) for a, b in evs)
-            extra = (f", {sdf.STEPS} steps in all (a host check every {sdf.CHECK_EVERY})"
+            extra = (f", {sum(int(st.max()) for st, _ in sdf.MARCHES)} lock-step steps, "
+                     f"{sum(int(st.sum()) for st, _ in sdf.MARCHES)} lane steps, "
+                     f"{sum(c for _, c in sdf.MARCHES)} host checks"
                      if name == "sdf.intersect" else "")
             print(f"  {name}: {len(evs)} calls{extra}, {ms:.2f} ms between their first and "
                   f"last kernels (CUDA events, profiler on)")
     if medium.LOOPS:
-        steps = sum(x[2] for x in medium.LOOPS)
+        steps = sum(int(x[2].max()) for x in medium.LOOPS)
         checks = sum(x[3] for x in medium.LOOPS)
-        print(f"  tracking loops: {len(medium.LOOPS)}, {steps} steps, {checks} host checks "
-              f"(one every {medium.CHECK_EVERY} steps): " + "; ".join(
-                  f"{kind} {lanes} lanes {n} steps {c} checks"
-                  for kind, lanes, n, c in medium.LOOPS))
+        print(f"  tracking loops: {len(medium.LOOPS)}, {steps} steps of the slowest lanes, "
+              f"{checks} host checks: " + "; ".join(
+                  f"{kind} {int((n > 0).sum())} of {lanes} lanes, {int(n.max())} steps at most, "
+                  f"{int(n.sum())} in all, {c} checks" for kind, lanes, n, c in medium.LOOPS))
     if args.ad:
         shapes = [list(params["bsdf.tabulated.table"].shape)]
         if "medium.density" in params:

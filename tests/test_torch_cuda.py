@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K4 and K1's backward) against their plain
-PyTorch versions, on a GPU.
+"""The port's CUDA kernels (K1-K4, K1's backward, B1 / B2, T1 / T2 and S1)
+against their plain PyTorch versions, and the captured frames and steps
+against the eager ones, on a GPU.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips without one. This file imports
 no JAX, so on a machine without it run it past tests/conftest.py:
@@ -1177,9 +1178,11 @@ def test_splat_gpu_matches_cpu(dev, name):
 
 
 def test_sdf_intersect_gpu_matches_cpu(dev):
-    """sdf.intersect of 65,536 rays at a 128^3 SDF sphere: hit flags equal
-    on >= 99.9 % of lanes, t within atol 1e-5 where both hit on >= 99.9 %
-    of them (a lane may stop one HIT_EPS step apart)."""
+    """sdf.intersect of 65,536 rays at a 128^3 SDF sphere: on the card S1
+    marches (one launch); hit flags equal to the CPU's on >= 99.9 % of
+    lanes, t within atol 1e-5 where both hit on >= 99.9 % of them (a lane
+    may stop one HIT_EPS step apart: the two devices rotate the rays into
+    the grid with matrix products that round apart)."""
     from mitsuba_customization_tpu_torch.render import sdf
 
     rng = np.random.default_rng(0)
@@ -1192,8 +1195,10 @@ def test_sdf_intersect_gpu_matches_cpu(dev):
     out = []
     for where in ("cpu", dev):
         g = sdf.make(sdf.sphere_sdf(n=128), tw, device=where)
+        before = sdf.LAUNCHES
         out.append([x.cpu() for x in sdf.intersect(g, Ray.make(torch.tensor(o, device=where),
                                                                torch.tensor(d, device=where)))])
+        assert sdf.LAUNCHES == before + (where == dev)
     (tc, hc, _), (tg, hg, _) = out
     assert 0.2 < float(hc.float().mean()) < 0.9
     assert float((hc == hg).float().mean()) >= 0.999
@@ -1270,6 +1275,123 @@ def test_tracking_draws_and_steps_gpu_equal_cpu(dev):
     torch.testing.assert_close(t1[agree], t0[agree], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(w1[agree], w0[agree], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(tr1, tr0, rtol=1e-4, atol=1e-6)
+
+
+def _tracking_inputs(dev, dense, n=1 << 17, seed=7):
+    """A table of a homogeneous and a heterogeneous medium (a seeded 24^3
+    grid; `dense`: extinction 40-50 and most of the grid at 0.05, so many
+    lanes take more than 48 steps, some all 257) on the card, and seeded
+    rays in either medium or in vacuum, with segment ends up to 3 (8 when
+    dense), 1e7 on every 97th lane; keys hash_combine(5, lane)."""
+    from mitsuba_customization_tpu_torch.core.qmc import hash_combine
+    from mitsuba_customization_tpu_torch.render import medium
+
+    rng = np.random.default_rng(seed)
+    grid = rng.random((24, 24, 24)).astype(np.float32)
+    if dense:
+        grid = np.where(grid > 0.9, grid, 0.05).astype(np.float32)
+    rows = [dict(type="homogeneous", sigma_t=[0.5, 1.0, 2.0], albedo=[0.8] * 3, phase_type=0,
+                 phase_g=0.0),
+            dict(type="heterogeneous", sigma_t=[40.0, 45.0, 50.0] if dense else [2.0, 3.0, 4.0],
+                 albedo=[0.9, 0.8, 0.7], phase_type=1, phase_g=0.5, density=grid,
+                 to_world=np.diag([2.0, 2.0, 2.0, 1.0]))]
+    table = medium.build_table(rows, [0, 1], 2, device=dev)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = rng.uniform(0.1, 8.0 if dense else 3.0, n).astype(np.float32)
+    t_max[::97] = 1e7
+    args = [torch.as_tensor(x, device=dev) for x in (
+        rng.integers(-1, 2, n), rng.uniform(0.0, 2.0, (n, 3)).astype(np.float32), d, t_max)]
+    key = hash_combine(5, torch.arange(n, dtype=torch.int64, device=dev))
+    return table, args, key
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["thin", "dense"])
+def test_t1_t2_kernels_match_plain(dev, dense):
+    """T1 (delta tracking) and T2 (ratio tracking) against their plain
+    versions on the card, on 131,072 lanes: each lane's steps and scatter
+    flag equal, t, the weights and the transmittance bit for bit (both
+    round every step alike and take log1pf from the CUDA math library);
+    one launch each; lanes outside the heterogeneous medium untouched."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, dense)
+    before = dict(medium.LAUNCHES)
+    got = medium.delta_track(table, mid, o, d, t_max, key, 8)
+    want = medium.delta_track_plain(table, mid, o, d, t_max, key, 8)
+    got_r = medium.ratio_track(table, mid, o, d, t_max, key, 2056)
+    want_r = medium.ratio_track_plain(table, mid, o, d, t_max, key, 2056)
+    torch.cuda.synchronize()
+    assert medium.LAUNCHES == {"delta": before["delta"] + 1, "ratio": before["ratio"] + 1}
+    for name, a, b in zip(("t", "w", "scat", "steps", "tr", "tr_steps"), got + got_r,
+                          want + want_r):
+        assert torch.equal(a, b), (name, int((a != b).reshape(a.shape[0], -1).any(-1).sum()))
+    tracked = mid == 1
+    steps = got[3]
+    assert bool((steps[~tracked] == 0).all()) and bool((steps[tracked] > 0).all())
+    # a lane whose segment ends at 1e7 makes all 257 updates; of the
+    # others, some make more than 48 only in the dense medium
+    assert int(steps.max()) == medium.MAX_TRACKING_STEPS + 1
+    finite = tracked & (t_max < 1e6)
+    assert (int(steps[finite].max()) > medium.AD_TRACKING_STEPS) == dense
+    assert 0.05 < float(got[2][tracked].float().mean()) < 0.95
+
+
+def test_tracking_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """A table on another device than the rays, or int32 medium ids, raise
+    ValueError; an input that requires grad under grad mode raises
+    RuntimeError (the loops have no gradient outside ad_mode)."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, False, n=1024)
+    cpu_table = medium.MediumTable(*(x.cpu() if torch.is_tensor(x) else x for x in table))
+    with pytest.raises(ValueError):
+        medium.delta_track(cpu_table, mid, o, d, t_max, key, 0)
+    with pytest.raises(ValueError):
+        medium.ratio_track(table, mid.to(torch.int32), o, d, t_max, key, 0)
+    with pytest.raises(RuntimeError):
+        medium.delta_track(table, mid, o.requires_grad_(True), d, t_max, key, 0)
+
+
+def test_s1_kernel_matches_plain(dev):
+    """S1 against march_plain on the card on 131,072 rays through a seeded
+    48x51x43 grid of small distances (most lanes march tens of steps, some
+    128) and a 128^3 sphere: t, hit and each lane's steps bit for bit; one
+    launch each."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    rng = np.random.default_rng(3)
+    n = 1 << 17
+    tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    tw[:3, 3] = -1.0
+    o = (rng.normal(size=(n, 3)) * 0.2 + [0.0, 0.0, -3.0]).astype(np.float32)
+    d = (rng.normal(size=(n, 3)) * 0.5 - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ray = Ray.make(torch.tensor(o, device=dev), torch.tensor(d, device=dev))
+    grids = (rng.normal(size=(48, 51, 43)).astype(np.float32) * 0.05 + 0.02,
+             sdf.sphere_sdf(n=128))
+    for values in grids:
+        g = sdf.make(values, tw, device=dev)
+        seen = []
+        march = sdf.march
+
+        def keep(*args):
+            seen.append(args)
+            return march(*args)
+
+        sdf.march = keep
+        try:
+            sdf.intersect(g, ray)
+        finally:
+            sdf.march = march
+        before = sdf.LAUNCHES
+        got = sdf.march(*seen[0])
+        want = sdf.march_plain(*seen[0])
+        torch.cuda.synchronize()
+        assert sdf.LAUNCHES == before + 1
+        for name, a, b in zip(("t", "hit", "steps"), got, want):
+            assert torch.equal(a, b), (name, int((a != b).sum()))
+        assert int(got[2].max()) >= 16 and 0.2 < float(got[1].float().mean())
 
 
 def _kernel_counts():
@@ -1563,10 +1685,11 @@ def test_bvh_frame_gpu_matches_cpu(dev):
 
 
 def _all_counts():
-    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.render import bvh, medium, sdf
 
     return (k1.LAUNCHES, k2.LAUNCHES, cl.LAUNCHES["closest"], cl.LAUNCHES["shadow"],
-            bvh.LAUNCHES["closest"], bvh.LAUNCHES["any"])
+            bvh.LAUNCHES["closest"], bvh.LAUNCHES["any"], medium.LAUNCHES["delta"],
+            medium.LAUNCHES["ratio"], sdf.LAUNCHES)
 
 
 def _launched(fn):
@@ -1576,9 +1699,11 @@ def _launched(fn):
     return out, [a - b for a, b in zip(_all_counts(), before)]
 
 
-# K1-K4, B1 and B2 by the names a trace gives them, in _all_counts' order
+# K1-K4, B1, B2, T1, T2 and S1 by the names a trace gives them, in
+# _all_counts' order
 _TRACE_NAMES = ("merl_eval_kernel", "cond_sample_kernel", "cluster_closest_kernel",
-                "cluster_shadow_kernel", "bvh_closest_kernel", "bvh_any_kernel")
+                "cluster_shadow_kernel", "bvh_closest_kernel", "bvh_any_kernel",
+                "medium_delta_track_kernel", "medium_ratio_track_kernel", "sdf_march_kernel")
 
 
 def _traced(fn):
@@ -1660,6 +1785,98 @@ def test_render_jit_reads_an_in_place_geometry_edit_on_the_bvh(dev, monkeypatch)
     got, jit_traced = _traced(lambda: render_jit(scene, 4, 1))
     assert torch.equal(got, mt.render(scene, 4, 1))
     assert jit_traced[4] > 0 and jit_traced[5] > 0
+    frame_graph.clear()
+
+
+def _looped_scene(name, dev):
+    """(scene on the card, spp, the _all_counts entries that must launch)
+    of a frame whose loops run to a condition per lane: the volpath scene
+    with a 32^3 grid (T1 / T2, K1-K4), an SDF sphere (S1), the matpreview
+    scene under ptracer without its sky and under bdpt (64x64, depth 4)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import (
+        matpreview_dict,
+        sdf_sphere_dict,
+        sphere_sdf,
+        volpath_dict,
+    )
+
+    if name == "volpath":
+        return mt.load_dict(volpath_dict(64, 4, 4, grid_res=32, n_sub=3), dev), 4, (0, 2, 3, 6, 7)
+    if name == "sdf":
+        tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+        tw[:3, 3] = -1.0
+        d = sdf_sphere_dict({"type": "sdfgrid", "grid": sphere_sdf(n=64), "to_world": tw,
+                             "bsdf": {"type": "diffuse"}}, 64, 4)
+        return mt.load_dict(d, dev), 4, (8,)
+    d = matpreview_dict(64, 4, 4, n_sub=3)
+    d["integrator"] = {"type": name, "max_depth": 4}
+    if name == "ptracer":
+        del d["sky"]
+    return mt.load_dict(d, dev), 4, (0, 2, 3)
+
+
+@pytest.mark.parametrize("name", ["volpath", "sdf", "ptracer", "bdpt"])
+def test_render_jit_replays_the_looped_frames(dev, name):
+    """render_jit of the kinds whose loops run to a condition per lane
+    (T1 / T2, S1 and the light tracers' bodies, which read nothing back to
+    the host) against render at two seeds: volpath and the SDF frame bit
+    for bit; ptracer and bdpt, whose camera connections splat with atomic
+    adds, in per-channel means within three times the largest difference
+    of four renders at the seed (1e-6 relative at least), every pixel
+    within 1e-3 relative. A replay launches each kernel as often as render
+    (both traces, and render's wrappers), those of the path > 0."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import frame_graph
+    from mitsuba_customization_tpu_torch.render.integrator import render_jit
+
+    scene, spp, need = _looped_scene(name, dev)
+    exact = name in ("volpath", "sdf")
+    frame_graph.clear()
+    for seed in (1, 2):
+        got = render_jit(scene, spp, seed)
+        wants = [mt.render(scene, spp, seed) for _ in range(1 if exact else 4)]
+        if exact:
+            assert torch.equal(got, wants[0]), seed
+            continue
+        means = [w.double().mean((0, 1)) for w in wants]
+        spread = max(float((a - b).abs().max()) for i, a in enumerate(means)
+                     for b in means[:i])
+        limit = max(3 * spread, 1e-6 * float(means[0].abs().max()))
+        assert float((got.double().mean((0, 1)) - means[0]).abs().max()) <= limit, seed
+        torch.testing.assert_close(got, wants[0], rtol=1e-3, atol=1e-6)
+    plans = frame_graph.PLANS
+    got, jit_traced = _traced(lambda: render_jit(scene, spp, 3))
+    (want, counts), traced = _traced(lambda: _launched(lambda: mt.render(scene, spp, 3)))
+    assert frame_graph.PLANS == plans and bool(torch.isfinite(got).all())
+    assert jit_traced == traced == counts and all(counts[i] > 0 for i in need), (
+        jit_traced, traced, counts)
+    frame_graph.clear()
+
+
+def test_captured_volpath_ad_step_against_the_eager_step(dev):
+    """grad_render of the volpath scene (64x64, 4 spp, depth 4, a 32^3
+    grid) on the table and the four medium keys, captured (ad_mode's
+    48-step masked tracking scan in the graph) against the eager step at
+    two seeds: the loss equal bit for bit (the box filter), each gradient
+    within three times the spread of SPREAD_STEPS eager steps."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad, frame_graph
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import volpath_dict
+
+    scene = mt.load_dict(volpath_dict(64, 4, 4, grid_res=32, n_sub=3), dev)
+    full = traverse(scene)
+    params = {k: full[k] for k in ("bsdf.tabulated.table", "medium.sigma_t", "medium.albedo",
+                                   "medium.phase_g", "medium.density")}
+    target = torch.zeros((64, 64, 3), device=dev)
+    frame_graph.clear()
+    for seed in (1, 2):
+        got = ad.grad_render(scene, params, target, 4, seed)
+        eager = _eager_steps(ad, scene, params, target, 4, seed)
+        assert torch.equal(got[0], eager[0][0]), seed
+        _assert_within_spread(got[1], [e[1] for e in eager])
+    assert frame_graph.latest().graph is not None
     frame_graph.clear()
 
 

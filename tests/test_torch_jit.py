@@ -4,8 +4,10 @@ where the frame's plan and body run with no graph.
 
 - render_jit equals render bit for bit on the flagship, the matpreview
   scene with its probed schedule, the camera scene (thin lens,
-  multijitter, gaussian splat) and a mesh scene on the BVH (past a lowered
-  clusters.MAX_PRIMS);
+  multijitter, gaussian splat), a mesh scene on the BVH (past a lowered
+  clusters.MAX_PRIMS), and the kinds whose loops run to a condition per
+  lane: volpath with a density grid (T1 / T2), a medium under the path
+  integrator, an SDF scene (S1), ptracer and bdpt;
 - it agrees with the JAX package's render_jit on the same dicts: image
   means within 1 % and the per-pixel Z-test of
   tests/reference_renderer.ztest_images (both draw the same uniforms);
@@ -14,14 +16,13 @@ where the frame's plan and body run with no graph.
   the int seed's, for all five samplers;
 - render_sharded_jit on 2 gloo ranks equals render_sharded, and on one
   rank render_jit (box and gaussian);
-- the body passes a capture-safety guard: under a TorchDispatchMode no
-  operator that reads a tensor back to the host or makes one from host
-  data runs (the kernels' plain versions excepted: on the card the
-  kernels run in their place);
+- the body (a light tracer's too) passes a capture-safety guard: under a
+  TorchDispatchMode no operator that reads a tensor back to the host or
+  makes one from host data runs (the kernels' plain versions excepted,
+  T1 / T2 / S1's among them: on the card the kernels run in their
+  place);
 - the frame cache: a changed scene.config or a replaced tensor plans a new
-  frame, an in-place edit of values does not (and is read);
-- what cannot be captured yet raises NotImplementedError naming its
-  ROADMAP item.
+  frame, an in-place edit of values does not (and is read).
 
 Inputs are made from a seed (numpy, the scene dicts); one torch thread.
 The gloo ranks are subprocesses of this file (`__main__`), which import
@@ -47,7 +48,7 @@ from mitsuba_customization_tpu_torch.core import sampler as tsampler
 from mitsuba_customization_tpu_torch.ops import clusters as tcl
 from mitsuba_customization_tpu_torch.ops import marginal_sorted, merl_sorted
 from mitsuba_customization_tpu_torch.parallel import mesh as pm
-from mitsuba_customization_tpu_torch.render import bvh, frame_graph
+from mitsuba_customization_tpu_torch.render import bvh, frame_graph, medium, sdf
 from mitsuba_customization_tpu_torch.render import integrator as tint
 from reference_renderer import ztest_images
 from test_torch_kernels import one_torch_thread  # noqa: F401
@@ -94,6 +95,22 @@ def _scene(name, monkeypatch=None):
         from chip_smoke import emitters_dict
 
         return mt.load_dict(emitters_dict(16, 2, 3), "cpu"), 2
+    if name == "volpath":  # a fog ball and a smoke cube of an 8^3 grid
+        return mt.load_dict(scenes.volpath_dict(16, 2, 3, grid_res=8, n_sub=2), "cpu"), 2
+    if name == "media":  # a homogeneous fog under the path integrator
+        d = scenes.fog_dict(1.0, 0.5, res=8, spp=2)
+        d["integrator"] = {"type": "path", "max_depth": 3}
+        return mt.load_dict(d, "cpu"), 2
+    if name == "sdf":
+        tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+        tw[:3, 3] = -1.0
+        return mt.load_dict(scenes.sdf_sphere_dict(
+            {"type": "sdfgrid", "grid": scenes.sphere_sdf(n=16), "to_world": tw,
+             "bsdf": {"type": "diffuse"}}, 8, 2), "cpu"), 2
+    if name == "ptracer":
+        return mt.load_dict(scenes.ptracer_box_dict("ptracer", 2, 3, 12), "cpu"), 2
+    if name == "bdpt":
+        return mt.load_dict(scenes.bdpt_spheres_dict("bdpt", 2, 3, 12), "cpu"), 2
     d["integrator"] = {"type": name, "max_depth": 3}  # an integrator's name
     return mt.load_dict(d, "cpu"), 4
 
@@ -103,18 +120,23 @@ def root_on_path(monkeypatch):
     monkeypatch.syspath_prepend(ROOT)
 
 
-FRAMES = ["flagship", "matpreview_probed", "camera", "bvh"]
+# the loops that run to a condition per lane: T1 / T2 (volpath, media),
+# S1 (sdf), the light tracers' bodies (ptracer, bdpt)
+LOOPED = ["volpath", "media", "sdf", "ptracer", "bdpt"]
+FRAMES = ["flagship", "matpreview_probed", "camera", "bvh"] + LOOPED
 
 
 @pytest.mark.parametrize("name", FRAMES)
 def test_render_jit_equals_render(name, monkeypatch):
-    """The same plan and passes as render, a seed tensor in place of the
-    int: bit for bit, at two seeds, each call a new tensor."""
+    """The same plan and passes as render (or the same light tracer's
+    plan and body), a seed tensor in place of the int: bit for bit, at
+    two seeds, each call a new tensor, the image not blank."""
     scene, spp = _scene(name, monkeypatch)
     for seed in (0, 7):
         want = tint.render(scene, spp, seed)
         got = tint.render_jit(scene, spp, seed)
         assert torch.equal(got, want), seed
+        assert bool((got > 0).any())
     assert tint.render_jit(scene, spp, 7) is not got
 
 
@@ -272,22 +294,38 @@ GUARDED = FRAMES + ["stratified", "sobol", "orthogonal", "batch", "materials", "
                     "emitters", "direct", "depth", "aov_normals", "aov_uv", "moment"]
 
 
+# each kernel's plain version, which a guarded body calls outside the guard
+PLAINS = ((merl_sorted, ("eval_trilinear_plain",)),
+          (marginal_sorted, ("cond_sample_pdf_plain",)),
+          (tcl, ("intersect_plain", "occluded_plain")),
+          (bvh, ("intersect_plain", "occluded_plain")),
+          (medium, ("delta_track_plain", "ratio_track_plain")),
+          (sdf, ("march_plain",)))
+
+
 @pytest.mark.parametrize("name", GUARDED)
 def test_body_is_capture_safe(name, monkeypatch, root_on_path):
-    """render_jit's body (rows_body and develop on the plan's inputs, the
-    seed a 0-d tensor) runs no host operator: nothing of _HOST_OPS, no
-    bool-mask index, no Tensor.tolist / item / numpy, no torch.as_tensor
-    or from_numpy. The kernels' plain versions (K1, K2, K3 / K4, B1 / B2)
-    run outside the guard: on the card the kernels launch in their
-    place."""
+    """render_jit's body (rows_body and develop on the plan's inputs, or a
+    light tracer's body on its plan, the seed a 0-d tensor) runs no host
+    operator: nothing of _HOST_OPS, no bool-mask index, no Tensor.tolist
+    / item / numpy, no torch.as_tensor or from_numpy. The kernels' plain
+    versions (K1, K2, K3 / K4, B1 / B2, T1 / T2, S1) run outside the
+    guard: on the card the kernels launch in their place."""
     scene, spp = _scene(name, monkeypatch)
-    plan = tint.plan_rows(scene, spp, None, None, 0, scene.config.height)
-    inputs = tint.rows_inputs(scene, plan)
+    kind = tint._integrator_kind(scene, None)
+    if kind in tint.TRACERS:
+        plan = tint.tracer(kind).plan(scene, spp)
+
+        def body(seed):
+            return tint.tracer(kind).body(scene, plan, seed)[0]
+    else:
+        plan = tint.plan_rows(scene, spp, None, None, 0, scene.config.height)
+        inputs = tint.rows_inputs(scene, plan)
+
+        def body(seed):
+            return tint.develop(scene.config, tint.rows_body(scene, plan, inputs, seed, False)[0])
     frame_graph.bvh_packs(scene)
-    for mod, fns in ((merl_sorted, ("eval_trilinear_plain",)),
-                     (marginal_sorted, ("cond_sample_pdf_plain",)),
-                     (tcl, ("intersect_plain", "occluded_plain")),
-                     (bvh, ("intersect_plain", "occluded_plain"))):
+    for mod, fns in PLAINS:
         for fn in fns:
             monkeypatch.setattr(mod, fn, _outside_the_guard(getattr(mod, fn)))
     guard = _Guard()
@@ -305,7 +343,7 @@ def test_body_is_capture_safe(name, monkeypatch, root_on_path):
         monkeypatch.setattr(obj, fn, recorded(fn, getattr(obj, fn)))
     seed = torch.zeros((), dtype=torch.int64)
     with torch.no_grad(), guard:
-        img = tint.develop(scene.config, tint.rows_body(scene, plan, inputs, seed, False)[0])
+        img = body(seed)
     assert guard.found == [], sorted(set(guard.found))
     assert torch.isfinite(img).all()
 
@@ -380,30 +418,6 @@ def test_the_frame_cache_keeps_at_most_cache_size_frames():
     assert frame_graph.latest().graph is None  # the CPU runs the body as it is
     frame_graph.clear()
     assert frame_graph.latest() is None
-
-
-@pytest.mark.parametrize("what", ["volpath", "media", "ptracer", "bdpt", "sdf"])
-def test_what_cannot_be_captured_raises(what):
-    """The integrators whose loops check a condition on the host raise
-    NotImplementedError naming ROADMAP item 21, from render_jit and
-    render_sharded_jit alike."""
-    if what == "media":
-        d = scenes.fog_dict(1.0, 0.5, res=8, spp=1)
-        d["integrator"] = {"type": "path", "max_depth": 3}
-    elif what == "sdf":
-        tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
-        tw[:3, 3] = -1.0
-        d = scenes.sdf_sphere_dict({"type": "sdfgrid", "grid": scenes.sphere_sdf(n=16),
-                                    "to_world": tw, "bsdf": {"type": "diffuse"}}, 8, 1)
-    else:
-        d = scenes.flagship_dict(8, 1, 2)
-    scene = mt.load_dict(d, "cpu")
-    integrator = what if what in ("volpath", "ptracer", "bdpt") else None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        tint.render_jit(scene, 1, 0, integrator)
-    if integrator is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-            pm.render_sharded_jit(scene, None, 1, 0)
 
 
 if __name__ == "__main__":

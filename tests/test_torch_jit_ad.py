@@ -4,8 +4,10 @@ the step's plan and body run with no graph.
 
 - grad_render (the captured step) equals the eager step bit for bit on
   the flagship, the matpreview scene with its probed schedule, the camera
-  scene (thin lens, multijitter, gaussian splat), the blend scene and a
-  mesh scene on the BVH, at two seeds;
+  scene (thin lens, multijitter, gaussian splat), the blend scene, a mesh
+  scene on the BVH, the volpath scene with a density grid (the four
+  medium keys: the 48-step masked tracking scan), a homogeneous medium
+  under the path integrator and an SDF scene (S1's march), at two seeds;
 - _loss_and_grad agrees with the JAX package's jitted _loss_and_grad
   within test_torch_ad.py::test_frame_gradients_match_jax's tolerances;
 - the step's body, forward and backward, passes the capture-safety guard
@@ -17,10 +19,7 @@ the step's plan and body run with no graph.
 - loss_and_grad_sharded_jit on 2 gloo ranks equals loss_and_grad_sharded
   (box and gaussian), and on one rank grad_render (the JAX package's
   tests/test_parallel.py::test_sharded_grads_match_single and
-  ::test_sharded_grads_gaussian_matches_single, mirrored);
-- the kinds a captured frame cannot hold yet (ROADMAP item 21) take the
-  eager step in grad_render and raise NotImplementedError in
-  loss_and_grad_sharded_jit.
+  ::test_sharded_grads_gaussian_matches_single, mirrored).
 
 Inputs are made from a seed (numpy, the scene dicts); one torch thread.
 The gloo ranks are subprocesses of this file (`__main__`), which import
@@ -47,12 +46,16 @@ ROOT = os.path.dirname(HERE)
 TABLE = "bsdf.tabulated.table"
 ALPHA = "bsdf.roughconductor.alpha_u"
 
+MEDIUM_KEYS = ("medium.sigma_t", "medium.albedo", "medium.phase_g", "medium.density")
 # the parameters each test scene differentiates
 KEYS = {"flagship": (TABLE, ALPHA, "emitter.radiance"),
         "matpreview_probed": (TABLE, ALPHA),
         "camera": (TABLE,),
         "blend": (TABLE,),
-        "bvh": (TABLE, ALPHA)}
+        "bvh": (TABLE, ALPHA),
+        "volpath": MEDIUM_KEYS,
+        "media": ("medium.sigma_t", "medium.albedo"),
+        "sdf": ("emitter.radiance",)}
 
 
 def _params(scene, keys):
@@ -155,14 +158,12 @@ def test_step_body_is_capture_safe(name, jit_scene, monkeypatch):
     torch.autograd.grad), runs no host operator under
     test_torch_jit._Guard: nothing of its _HOST_OPS, no bool-mask index,
     no Tensor.tolist / item / numpy, no torch.as_tensor or from_numpy. The
-    kernels' plain versions (K1, K1's backward, K2, K3 / K4, B1 / B2) run
-    outside the guard: on the card the kernels launch in their place. The
-    guard sees the backward's operators."""
-    from test_torch_jit import _Guard, _outside_the_guard
+    kernels' plain versions (K1, K1's backward, K2, K3 / K4, B1 / B2, S1)
+    run outside the guard: on the card the kernels launch in their place.
+    The guard sees the backward's operators."""
+    from test_torch_jit import PLAINS, _Guard, _outside_the_guard
 
-    from mitsuba_customization_tpu_torch.ops import clusters as tcl
-    from mitsuba_customization_tpu_torch.ops import marginal_sorted, merl_sorted
-    from mitsuba_customization_tpu_torch.render import bvh
+    from mitsuba_customization_tpu_torch.ops import merl_sorted
 
     if name == "env_image":
         scene, spp = _envmap_scene()
@@ -173,10 +174,7 @@ def test_step_body_is_capture_safe(name, jit_scene, monkeypatch):
     ad.grad_render(scene, _params(scene, keys), _target(scene), spp, 0)  # plans the step
     step = frame_graph.latest()
     assert step.grad and len(step.inputs) == 1 + len(keys)
-    for mod, fns in ((merl_sorted, ("eval_trilinear_plain", "eval_trilinear_bwd_plain")),
-                     (marginal_sorted, ("cond_sample_pdf_plain",)),
-                     (tcl, ("intersect_plain", "occluded_plain")),
-                     (bvh, ("intersect_plain", "occluded_plain"))):
+    for mod, fns in PLAINS + ((merl_sorted, ("eval_trilinear_bwd_plain",)),):
         for fn in fns:
             monkeypatch.setattr(mod, fn, _outside_the_guard(getattr(mod, fn)))
 
@@ -338,39 +336,6 @@ def test_loss_and_grad_sharded_jit_equals_loss_and_grad_sharded(tmp_path, rfilte
                                               outs[0][f"jit{seed}_{what}"])
     assert outs[0]["jit0_loss"] != outs[0]["jit3_loss"]
     assert (outs[0][f"jit0_{TABLE}"] != 0).any()
-
-
-@pytest.mark.parametrize("what", ["volpath", "media", "sdf"])
-def test_the_item_21_kinds_take_the_eager_step(what):
-    """grad_render of a scene whose loops check on the host (volpath, a
-    medium under the path tracer, an SDF) is the eager step, bit for bit,
-    and plans no captured step; loss_and_grad_sharded_jit of it raises
-    NotImplementedError naming ROADMAP item 21."""
-    if what == "media":
-        d = scenes.fog_dict(1.0, 0.5, res=8, spp=2)
-        d["integrator"] = {"type": "path", "max_depth": 3}
-        keys = ("emitter.radiance",)
-    elif what == "sdf":
-        tw = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
-        tw[:3, 3] = -1.0
-        d = scenes.sdf_sphere_dict({"type": "sdfgrid", "grid": scenes.sphere_sdf(n=16),
-                                    "to_world": tw, "bsdf": {"type": "diffuse"}}, 8, 2)
-        keys = ("emitter.radiance",)
-    else:
-        d = scenes.flagship_dict(8, 2, 2)
-        d["integrator"] = {"type": "volpath", "max_depth": 2}
-        keys = (TABLE, ALPHA)
-    scene = mt.load_dict(d, "cpu")
-    params, target = _params(scene, keys), _target(scene)
-    plans = frame_graph.PLANS
-    got = ad.grad_render(scene, params, target, 2, 1)
-    _assert_steps_equal(got, ad._eager_loss_and_grad(scene, params, target, 2, 1))
-    assert frame_graph.PLANS == plans
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        pm.loss_and_grad_sharded_jit(scene, params, target, None, 2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        ad._loss_and_grad(scene, params, 2, 1, target)
-    assert frame_graph.PLANS == plans
 
 
 if __name__ == "__main__":
