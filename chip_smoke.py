@@ -161,15 +161,22 @@ Phases, one printed line each; any failure raises (non-zero exit):
      version (flags and steps on >= 99.9 % of lanes, values within rtol
      1e-4, atol 1e-6 where they agree, the lanes not bit-equal printed)
      and timed beside its bound (each lane's ray read once, the grid
-     cells the lookups read, operations from the kernel's step counts);
-     card against CPU means at 64x64; the JAX tests' Beer-Lambert and
-     emissive-medium expectations on the card;
+     cells the lookups read, operations from the kernel's step counts),
+     and at ad_mode's 48 steps against medium._scan, bit for bit on every
+     lane; T1-bwd / T2-bwd on the T1 / T2 call of the most lane steps
+     (2,097,152 lanes, seeded cotangents) against track_bwd_plain and
+     autograd through _scan (every gradient within relative L2 1e-4),
+     timed beside the plain version, its bound (the replayed steps' bytes
+     and operations, the atomic adds' bytes) and an index_add_ of the
+     same grid updates; card against CPU means at 64x64; the JAX tests'
+     Beer-Lambert and emissive-medium expectations on the card;
  27. one eager AD step (ad._eager_loss_and_grad, the captured step's
      eager counterpart) of the volpath scene at 256x256, 4 spp, depth 6 on
      the table stack and medium.sigma_t, albedo, phase_g and density:
-     seconds, peak memory, K1-bwd launches, one table-gradient buffer, the
-     tracking scan's steps with no host check and the grid-sized buffers
-     (one a tracking step of the backward's replay); at 64x64 card
+     seconds, peak memory, K1-bwd, T1 / T2 and T1-bwd / T2-bwd launched,
+     one table-gradient buffer and one grid-sized gradient buffer, the
+     tracking loops' steps with no host check; one step at 512x512, 8
+     spp, depth 6 (its peak memory); at 64x64 card
      against CPU losses within 2 % and each
      gradient at cosine >= 0.98; the homogeneous extinction's gradient
      against a central difference on the JAX test's absorbing fog ball
@@ -241,22 +248,23 @@ Phases, one printed line each; any failure raises (non-zero exit):
      spp, depth JIT_CUT_DEPTH (4), probed schedule) through render_jit,
      its means within 2 % of render's (a gaussian splat adds atomically:
      not bit-equal); the orthogonal and camera frames run at that depth,
-     and the blend and volpath AD steps of phase 34 at depth
+     and the blend AD step of phase 34 at depth
      JIT_STEP_DEPTH (3), to keep the script inside its time limit;
  34. the captured AD steps (render/ad._loss_and_grad behind grad_render:
      one CUDA graph of the forward, the checkpointed bounces' replay and
      K1-bwd, replayed with the seed, parameters and target copied into its
      buffers) of phase 13's matpreview setup (on the clusters, and switched
      to the BVH: B1 / B2), the blend (at depth 3), image and camera AD
-     scenes of phases 19, 22 and 23, phase 27's volpath step at depth 3
-     (ad_mode's 48-step tracking scan in the graph) and phase 24's SDF
+     scenes of phases 19, 22 and 23, phase 27's volpath step (T1 / T2 at
+     48 steps and T1-bwd / T2-bwd in the graph) and phase 24's SDF
      scene at 256x256, depth 6 (S1 in the forward and the replay): each
      replay against JIT_TURNS (5) eager
      steps at one seed (the loss equal bit for bit under the box filter,
      within three times the eager losses' largest difference under the
      camera's gaussian splat; each gradient's relative L2 error within
      three times their largest); a
-     replay's launches of K1-K4, B1 / B2, T1 / T2, S1 and K1-bwd, counted by name in
+     replay's launches of K1-K4, B1 / B2, T1 / T2, S1, K1-bwd and T1-bwd /
+     T2-bwd, counted by name in
      its trace, equal to a traced eager step's and the wrappers' counts in
      one (those of the path > 0); the first call's and the capture's
      seconds, the graph's nodes and the device memory the step keeps; the
@@ -298,7 +306,12 @@ carry phases 26's and 24's numbers: `ms`, `plain_ms` (one run of the
 plain version, host checks and all), `bound_ms` and `max_abs_err` of the
 recorded call of the most lane steps, `frame_ms` / `frame_bound_ms`
 summed over the frame's recorded calls, launches of the volpath (T1, T2)
-and SDF (S1) frames and of the replays. B1 (bvh_closest) and B2 (bvh_any), which replace the JAX package's XLA
+and SDF (S1) frames and of the replays. T1-bwd / T2-bwd
+(medium_delta_track_bwd, medium_ratio_track_bwd), which replace the XLA
+VJP of the JAX scan, carry phase 26's numbers (`ms`, `plain_ms`,
+`bound_ms`, `library_ms`: an index_add_ of the same grid updates, the
+scatter part only) and the launches of phase 27's AD step and of the
+replays of phase 34. B1 (bvh_closest) and B2 (bvh_any), which replace the JAX package's XLA
 while_loop walks (no Pallas kernel), carry phase 32's numbers: `ms`,
 `plain_ms` (one run of the plain walk) and `bound_ms` of the camera
 wavefront's call (B1) and its NEE rays (B2), `frame_ms` summed over the
@@ -1415,6 +1428,8 @@ def _reset_counts():
     bvh.LAUNCHES["any"] = 0
     medium.LAUNCHES["delta"] = 0
     medium.LAUNCHES["ratio"] = 0
+    medium.LAUNCHES_BWD["delta"] = 0
+    medium.LAUNCHES_BWD["ratio"] = 0
     sdf.LAUNCHES = 0
     medium.LOOPS = sdf.MARCHES = None  # the loops' steps: recorded where a phase asks
     medium.GRID_BUFFERS = 0
@@ -1424,6 +1439,12 @@ def _loop_launches():
     from mitsuba_customization_tpu_torch.render import medium, sdf
 
     return {"T1": medium.LAUNCHES["delta"], "T2": medium.LAUNCHES["ratio"], "S1": sdf.LAUNCHES}
+
+
+def _track_bwd_launches():
+    from mitsuba_customization_tpu_torch.render import medium
+
+    return {"T1-bwd": medium.LAUNCHES_BWD["delta"], "T2-bwd": medium.LAUNCHES_BWD["ratio"]}
 
 
 def _record_loops():
@@ -2275,6 +2296,14 @@ T1_STEP_OPS, T2_STEP_OPS, S1_STEP_OPS = 150, 130, 60
 # segment end and key (T1 / T2: 12) or t_end and d_norm (S1: 8); each grid
 # cell some lane's lookup read (4), once
 LOOP_OUT_BYTES = {"T1": 21, "T2": 16, "S1": 9}
+# T1-bwd / T2-bwd: a replayed step's operations are the forward step's;
+# the reverse sweep's a step: the factor again, its cotangent and the
+# extinction's and density's gradients (~25), the eight corner weights
+# and their atomic adds (~24), the trilinear gradient in the point (~45)
+T_BWD_SWEEP_OPS = 95
+# T1-bwd / T2-bwd against track_bwd_plain and autograd through _scan on
+# the card: each gradient within this relative L2 error (atomic order)
+TRACK_BWD_RTOL = 1e-4
 # the standing gate (ROADMAP §3) for a loop against its plain version on
 # the card: flags and steps equal on >= LOOP_AGREE of lanes, values within
 # LOOP_RTOL / LOOP_ATOL where they agree (tests/test_torch_cuda.py holds
@@ -2386,6 +2415,146 @@ def check_march(args):
     return got, err, differ, int(seen.sum())
 
 
+def check_tracking_ad(kind, args):
+    """T1 (kind "T1") or T2 at ad_mode's AD_TRACKING_STEPS steps on one
+    call's args against medium._scan (no grad) on the card: t, weight,
+    flag and steps bit for bit on every lane (a lane cut at 48 steps keeps
+    its partial t and weight in both). Returns the lanes not bit-equal (0,
+    or it raises)."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    name = "delta" if kind == "T1" else "ratio"
+    loops, medium.LOOPS = medium.LOOPS, None
+    try:
+        got = medium._launch(name, *args, medium.AD_TRACKING_STEPS)
+        medium.LOOPS = []
+        with torch.no_grad():
+            want = medium._scan(name, *args)
+    finally:
+        medium.LOOPS = loops
+    if kind == "T2":
+        want = want[1:]
+    n = got[0].shape[0]
+    differ = torch.zeros(n, dtype=torch.bool, device=got[0].device)
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ |= (a != b).reshape(n, -1).any(-1)
+    torch.cuda.synchronize()
+    if int(differ.sum()):
+        raise AssertionError(f"{kind} at {medium.AD_TRACKING_STEPS} steps: {int(differ.sum())} "
+                             "lanes not bit-equal to _scan")
+    return 0
+
+
+def _track_bwd_grads(kind, args, g_w, g_t, fn):
+    """fn's (track_bwd's or track_bwd_plain's) gradients of T1 / T2's call
+    `args` for cotangents g_w, g_t: [sigma_t, grid, ray_o, ray_d, t_max]."""
+    out = torch.zeros_like(args[0].grid)
+    g_s, g_o, g_d, g_tm = fn("delta" if kind == "T1" else "ratio", *args, g_w, g_t,
+                             grid_out=out, need_rays=True, need_t_max=True)
+    return [g_s, out, g_o, g_d, g_tm]
+
+
+def _track_bwd_autograd(kind, args, g_w, g_t):
+    """The same gradients by torch.autograd through medium._scan."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    table, mid, o, d, tm, key, base = args
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (table.sigma_t, table.grid, o, d, tm)]
+    out = medium._scan("delta" if kind == "T1" else "ratio",
+                       table._replace(sigma_t=leaves[0], grid=leaves[1]), mid, *leaves[2:],
+                       key, base)
+    loss = (g_w * out[1]).sum() + ((g_t * out[0]).sum() if kind == "T1" else 0.0)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+
+
+def _rel_or_zero(got, want):
+    """Relative L2 error, or where `want` is 0 the norm of `got`."""
+    norm = float(want.double().norm())
+    return rel_l2(got, want) if norm > 0 else float(got.double().norm())
+
+
+def phase_tracking_bwd(kind, args):
+    """T1-bwd (kind "T1") or T2-bwd on the call `args` of T1 / T2 (phase
+    26's recorded call of the most lane steps: the volpath frame's 2,097,152
+    lanes) with seeded cotangents (the weight's, and T1's t's): every
+    gradient (sigma_t, the grid, ray_o, ray_d, t_max) within TRACK_BWD_RTOL
+    relative L2 error of track_bwd_plain's and of autograd's through
+    medium._scan (48 masked steps over every lane). Timed: the kernel into
+    one buffer (CUDA events, median of 5), the plain version once, and the
+    yardstick: one index_add_ of the same grid updates (the plain version's
+    nonzero (index, addend) pairs: the scatter part only). Bound: each
+    lane's mid, and the outputs (ray and t_max gradients) of every lane; a
+    tracked lane's ray, t_max, key and cotangents; each grid cell the
+    replay reads, once, and each atomic add's 4 bytes; operations the
+    replayed steps' (T1_STEP_OPS / T2_STEP_OPS) and the sweep's
+    (T_BWD_SWEEP_OPS) over the moved steps. Returns (its line's stats)."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    name = "delta" if kind == "T1" else "ratio"
+    table, mid, o = args[0], args[1], args[2]
+    n, dev = o.shape[0], o.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g_w = torch.rand((n, 3), generator=gen, device=dev)
+    g_t = torch.rand(n, generator=gen, device=dev) if kind == "T1" else None
+    got = _track_bwd_grads(kind, args, g_w, g_t, medium.track_bwd)
+    pairs, seen = [], torch.zeros(table.grid.numel(), dtype=torch.bool, device=dev)
+
+    def mark_scatter(out, idx, add):
+        keep = add != 0
+        pairs.append((idx[keep], add[keep]))
+
+    def mark_read(grid, look, p):
+        seen[medium._corners(grid, look, p)[0]] = True
+
+    with _marking(medium, "_scatter_grid", mark_scatter), \
+            _marking(medium, "_density_at", mark_read):
+        plain = _track_bwd_grads(kind, args, g_w, g_t, medium.track_bwd_plain)
+    auto = _track_bwd_autograd(kind, args, g_w, g_t)
+    torch.cuda.synchronize()
+    names = ("sigma_t", "grid", "ray_o", "ray_d", "t_max")
+    err_plain = {k: _rel_or_zero(a, b) for k, a, b in zip(names, got, plain)}
+    err_auto = {k: _rel_or_zero(a, b) for k, a, b in zip(names, got, auto)}
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    if not finite or max(list(err_plain.values()) + list(err_auto.values())) > TRACK_BWD_RTOL:
+        raise AssertionError(f"{kind}-bwd: finite {finite}, relative L2 error against the plain "
+                             f"version {err_plain}, against autograd through _scan {err_auto} "
+                             f"(limit {TRACK_BWD_RTOL})")
+    idx = torch.cat([i for i, _ in pairs])
+    add = torch.cat([a for _, a in pairs])
+    buf = torch.zeros_like(table.grid)
+
+    def kernel():
+        return medium.track_bwd(name, *args, g_w, g_t, grid_out=buf, need_rays=True,
+                                need_t_max=True)
+
+    ms = _time_ms(kernel)
+    plain_ms = _once_ms(lambda: medium.track_bwd_plain(name, *args, g_w, g_t, grid_out=buf,
+                                                        need_rays=True, need_t_max=True))
+    library_ms = _time_ms(lambda: buf.view(-1).index_add_(0, idx, add))
+    steps = medium._launch(name, *args, medium.AD_TRACKING_STEPS)[-1]
+    live = int((steps > 0).sum())
+    lane_steps = int(steps.sum())
+    cells = int(seen.sum())
+    per_lane = 8 + 24 + (4 if kind == "T1" else 0)
+    tracked = 24 + 4 + 8 + 12 + (4 if kind == "T1" else 0)
+    nbytes = n * per_lane + live * tracked + cells * 4 + idx.numel() * 4
+    step_ops = (T1_STEP_OPS if kind == "T1" else T2_STEP_OPS) + T_BWD_SWEEP_OPS
+    bound_ms, bound_by = _bound(nbytes, lane_steps * step_ops)
+    print(f"{kind}-bwd {n} lanes, {live} tracked, {lane_steps} replayed steps (at most "
+          f"{medium.AD_TRACKING_STEPS}), {cells} grid cells read, {idx.numel()} grid updates: "
+          f"relative L2 error against the plain version {err_plain}, against autograd through "
+          f"_scan {err_auto} (limit {TRACK_BWD_RTOL}); {ms:.4f} ms (bound {bound_ms:.5f}, "
+          f"{bound_by}; plain {plain_ms:.2f}; index_add_ of the grid updates {library_ms:.4f})")
+    return dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, plain)),
+                rel_l2_plain=err_plain, rel_l2_autograd=err_auto, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, lanes=n, live=live,
+                steps=lane_steps, grid_updates=idx.numel())
+
+
 def _loop_call(kind, args):
     """Check one recorded T1 / T2 / S1 call and time it: (its line, its
     stats)."""
@@ -2406,10 +2575,13 @@ def _loop_call(kind, args):
     ms, plain_ms = _time_ms(fn), _once_ms(plain)
     bound_ms, bound_by = loop_bound(kind, lanes, steps, cells, lane_in)
     live = int((steps > 0).sum())
+    ad = "" if kind == "S1" else (f"; at {medium.AD_TRACKING_STEPS} steps "
+                                  f"{check_tracking_ad(kind, args)} lanes not bit-equal to _scan")
     line = (f"{kind} {steps.shape[0]} lanes, {live} {'active' if kind == 'S1' else 'tracked'}, "
             f"steps max {int(steps.max())} mean {float(steps.sum()) / max(live, 1):.1f} "
             f"({int(steps.sum())} in all), {cells} grid cells read, {differ} lanes not "
-            f"bit-equal, {ms:.4f} ms (bound {bound_ms:.5f}, {bound_by}; plain {plain_ms:.2f})")
+            f"bit-equal, {ms:.4f} ms (bound {bound_ms:.5f}, {bound_by}; plain {plain_ms:.2f})"
+            f"{ad}")
     return line, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, lanes=steps.shape[0], live=live,
                       steps=int(steps.sum()), max_steps=int(steps.max()),
@@ -2431,7 +2603,7 @@ def phase_loop_calls(rec, label):
             if i < len(calls):
                 line, st = _loop_call(kind, calls[i])
                 if kind not in first or st["steps"] > first[kind]["steps"]:
-                    first[kind] = st
+                    first[kind] = dict(st, call=i)
                 total[kind][0] += st["ms"]
                 total[kind][1] += st["bound_ms"]
                 parts.append(line)
@@ -2502,9 +2674,13 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
     checked against its plain version and timed (K3 twice a bounce: the
     shadow ray's first boundary), and every T1 / T2 call of one more
     (phase_loop_calls); card against CPU means at 64x64; the JAX tests'
-    analytic media expectations on the card. Returns (launches (T1 and T2
-    too), frame sums, the slowest lanes' steps, host checks, T1 / T2's
-    first calls' stats, their frame sums, the scene)."""
+    analytic media expectations on the card. Each T1 / T2 call is also
+    held at ad_mode's 48 steps to medium._scan bit for bit
+    (check_tracking_ad), and T1-bwd / T2-bwd are checked and timed on the
+    T1 / T2 call of the most lane steps (phase_tracking_bwd). Returns
+    (launches (T1 and T2 too), frame sums, the slowest lanes' steps, host
+    checks, T1 / T2's first calls' stats, their frame sums, T1-bwd /
+    T2-bwd's stats, the scene)."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import medium
     from mitsuba_customization_tpu_torch.scenes import volpath_dict
@@ -2548,24 +2724,27 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
         raise AssertionError(f"recorded T1 / T2 calls {[len(v) for v in rec.values()]} != "
                              f"{loops}")
     t_first, t_frame = phase_loop_calls(rec, "tracking, bounce")
+    t_bwd = {k + "-bwd": phase_tracking_bwd(k, rec[k][t_first[k]["call"]]) for k in ("T1", "T2")}
     del rec
     _gpu_cpu_means(f"volpath {cmp_res}x{cmp_res} 4spp depth 4",
                    volpath_dict(cmp_res, 4, 4, 64, VOLPATH_SEED), dev)
     _volpath_expectations(dev)
-    return dict(launches, **loops), frame, steps, checks, t_first, t_frame, scene
+    return dict(launches, **loops), frame, steps, checks, t_first, t_frame, t_bwd, scene
 
 
 def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_res=64):
     """Phase 27: one eager AD step (ad._eager_loss_and_grad, the captured
     step's eager counterpart; MSE against a zero image) of the
     volpath scene at res x res, spp, depth on the table stack and the four
-    medium keys: one warm-up, one timed step (seconds, peak memory, K1-bwd
-    launches, table- and grid-sized gradient buffers, the tracking scan's
-    steps with no host check, each gradient finite and nonzero); at
-    cmp_res x cmp_res (64x64), 4 spp, depth 3 card against CPU losses within AD_LOSS_RTOL
-    and each gradient at cosine >= AD_TABLE_COS; the homogeneous extinction's
-    AD gradient against a central difference on the JAX test's absorbing
-    fog ball. Returns (the step's launches, its grid-sized buffers, (its
+    medium keys: one warm-up, one timed step (seconds, peak memory, K1-bwd,
+    T1 / T2 and T1-bwd / T2-bwd launches, all > 0, one table-sized and one
+    grid-sized gradient buffer, the tracking loops' steps with no host
+    check, each gradient finite and nonzero); one step at 512x512, 8 spp
+    (_volpath_ad_big: its peak memory); at cmp_res x cmp_res (64x64), 4
+    spp, depth 3 card against CPU losses within AD_LOSS_RTOL and each
+    gradient at cosine >= AD_TABLE_COS; the homogeneous extinction's AD
+    gradient against a central difference on the JAX test's absorbing fog
+    ball. Returns (the step's launches, its grid-sized buffers, (its
     scene, its parameters))."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
@@ -2586,7 +2765,8 @@ def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_re
     loss, grads = ad._eager_loss_and_grad(scene, params, target, spp, 2)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    launches = dict(_launch_counts(), **{"K1-bwd": k1.LAUNCHES_BWD}, **_loop_launches(),
+                    **_track_bwd_launches())
     buffers, grid_buffers = k1.GRAD_BUFFERS, medium.GRID_BUFFERS
     lines, steps, _, checks = _tracking_summary(medium.LOOPS)
     medium.LOOPS = None
@@ -2596,20 +2776,22 @@ def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_re
           f"{secs:.3f} s, loss {float(loss):.6e}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, table-gradient buffers "
           f"{buffers}, grid-sized gradient buffers {grid_buffers} ({grid_mb:.0f} MiB each, one "
-          f"a tracking step of the backward's replay), tracking loops {len(lines)} (the "
-          f"{medium.AD_TRACKING_STEPS}-step masked scan over every lane: {steps} steps of the "
-          f"slowest lanes, {checks} host checks, forward and replay); nonzero shares {nonzero}; "
-          f"launches {launches}; sigma_t gradient {grads['medium.sigma_t'].tolist()}, phase_g "
+          f"a backward pass: T1-bwd / T2-bwd add into it), tracking loops {len(lines)} (T1 / T2 "
+          f"at {medium.AD_TRACKING_STEPS} steps: {steps} steps of the slowest lanes, {checks} "
+          f"host checks, forward and replay); nonzero shares {nonzero}; launches {launches}; "
+          f"sigma_t gradient {grads['medium.sigma_t'].tolist()}, phase_g "
           f"{grads['medium.phase_g'].tolist()}")
     finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
                                                 for g in grads.values())
-    if (not finite or buffers != 1 or grid_buffers <= 0 or launches["K1-bwd"] <= 0
-            or min(nonzero.values()) <= 0 or checks):
+    tracking = min(launches[k] for k in ("T1", "T2", "T1-bwd", "T2-bwd"))
+    if (not finite or buffers != 1 or grid_buffers != 1 or launches["K1-bwd"] <= 0
+            or tracking <= 0 or min(nonzero.values()) <= 0 or checks):
         raise AssertionError(f"volpath AD step: finite {finite}, buffers {buffers}, grid "
                              f"buffers {grid_buffers}, launches {launches}, nonzero {nonzero}, "
                              f"host checks {checks}")
     ad_scene = (scene, params)
     del scene, grads, params
+    _volpath_ad_big(dev, keys, grid_res)
 
     d = volpath_dict(cmp_res, 4, 3, 64, VOLPATH_SEED)
     out = {}
@@ -2629,6 +2811,34 @@ def phase_volpath_ad(dev, res=256, spp=4, depth=6, grid_res=VOLPATH_GRID, cmp_re
         raise AssertionError("GPU and CPU volpath gradients disagree")
     _sigma_fd(dev)
     return launches, grid_buffers, ad_scene
+
+
+def _volpath_ad_big(dev, keys, grid_res, res=512, spp=8, depth=6):
+    """One eager volpath AD step at res x res, spp (2,097,152 lanes, one
+    pass), depth 6, not warmed up: its seconds and peak memory (one line;
+    loss and gradients finite)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import ad, medium
+    from mitsuba_customization_tpu_torch.render.params import traverse
+    from mitsuba_customization_tpu_torch.scenes import volpath_dict
+
+    scene = mt.load_dict(volpath_dict(res, spp, depth, grid_res, VOLPATH_SEED), dev)
+    params = {k: traverse(scene)[k] for k in keys}
+    target = torch.zeros((res, res, 3), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    medium.GRID_BUFFERS = 0
+    t0 = time.perf_counter()
+    loss, grads = ad._eager_loss_and_grad(scene, params, target, spp, 2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in grads.values())
+    print(f"volpath AD step {res}x{res} {spp}spp depth {depth}: {secs:.3f} s (first call), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, grid-sized gradient "
+          f"buffers {medium.GRID_BUFFERS}, loss {float(loss):.6e}, finite {finite}")
+    if not finite:
+        raise AssertionError("the 512x512 volpath AD step is not finite")
 
 
 def _sigma_fd(dev, spp=256):
@@ -3474,7 +3684,9 @@ def phase_jit(dev, card, flagship, matpreview, big_shapes, looped, res=512, spp=
 
 
 # phase 34: the captured AD steps (render/ad._loss_and_grad behind grad_render)
-AD_TRACE_NAMES = dict(TRACE_NAMES, **{"K1-bwd": "merl_eval_bwd_kernel"})
+AD_TRACE_NAMES = dict(TRACE_NAMES, **{"K1-bwd": "merl_eval_bwd_kernel",
+                                       "T1-bwd": "medium_delta_track_bwd_kernel",
+                                       "T2-bwd": "medium_ratio_track_bwd_kernel"})
 # floor of a gradient's tolerance against the eager step: float32 rounding
 STEP_GRAD_FLOOR = 1e-6
 
@@ -3482,7 +3694,7 @@ STEP_GRAD_FLOOR = 1e-6
 def _ad_launches():
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
-    return dict(_all_launches(), **{"K1-bwd": k1.LAUNCHES_BWD})
+    return dict(_all_launches(), **{"K1-bwd": k1.LAUNCHES_BWD}, **_track_bwd_launches())
 
 
 def _spread_check(got, eager):
@@ -3626,7 +3838,7 @@ def phase_jit_ad(dev, card, steps):
     13's matpreview setup, on the clusters and switched to the BVH (B1 /
     B2 in the forward and the backward's replay), the blend (main cuts it
     to JIT_STEP_DEPTH), image and camera scenes of phases 19, 22 and 23,
-    phase 27's volpath scene (at JIT_STEP_DEPTH) and phase 24's SDF scene
+    phase 27's volpath scene (depth 6) and phase 24's SDF scene
     at 256x256, depth 6; those marked sharded
     also through loss_and_grad_sharded_jit on a process group of one rank
     over NCCL (the box filter's one graph, the gaussian's split step).
@@ -3766,7 +3978,7 @@ def main():
     lap("24 shapes")
     phase_variants(dev)
     lap("25 sensors, samplers, filters")
-    (vol_launches, vol_frame, vol_steps, vol_checks, t_stats, t_frame,
+    (vol_launches, vol_frame, vol_steps, vol_checks, t_stats, t_frame, t_bwd,
      vol_scene) = phase_volpath(dev)
     lap("26 volpath")
     vol_ad_launches, vol_grid_buffers, vol_ad = phase_volpath_ad(dev)
@@ -3801,7 +4013,6 @@ def main():
     ad_bvh = dataclasses.replace(ad_scene, config=dataclasses.replace(ad_scene.config,
                                                                       intersector="bvh"))
     mp_need, bvh_need = ("K1", "K2", "K3", "K4", "K1-bwd"), ("K1", "K2", "B1", "B2", "K1-bwd")
-    vol_ad = (_at_depth(vol_ad[0], JIT_STEP_DEPTH), vol_ad[1])
     blend_ad = (_at_depth(blend_ad[0], JIT_STEP_DEPTH), blend_ad[1])
     jit_ad = phase_jit_ad(dev, card, {
         "matpreview": (ad_scene, ad_params, 4, mp_need, True),
@@ -3809,7 +4020,7 @@ def main():
         "blend": (*blend_ad, 4, ("K1", "K3", "K4", "K1-bwd"), False),
         "image": (*image_ad, 4, mp_need, False),
         "camera": (*cam_ad, 4, mp_need, True),
-        "volpath": (*vol_ad, 4, mp_need, False),
+        "volpath": (*vol_ad, 4, mp_need + ("T1", "T2", "T1-bwd", "T2-bwd"), False),
         "sdf": (sdf_ad, {AD_KEYS[0]: mt.traverse(sdf_ad)[AD_KEYS[0]]}, 4,
                 ("K1", "K3", "K4", "S1", "K1-bwd"), False)})
     del setup, ad_scene, ad_bvh, blend_ad, image_ad, cam_ad, vol_ad, sdf_ad
@@ -3920,6 +4131,23 @@ def main():
             launches_by_phase={where: launches,
                                **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
                                **{"grad_jit_" + f: jit_ad[f]["launches"][key] for f in jit_ad}}))
+    # T1-bwd / T2-bwd (the tracking's backward by replay), which replace the
+    # XLA VJP of the JAX package's 48-step scan: phase 26's check on the
+    # T1 / T2 call of the most lane steps, the launches of phase 27's AD
+    # step (the main path's run) and of phase 34's replays
+    for name, key, body in (("medium_delta_track_bwd", "T1-bwd", "dt_body :293"),
+                            ("medium_ratio_track_bwd", "T2-bwd", "rt_body :386")):
+        stats = t_bwd[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=medium_mod.SOURCE,
+            replaces="mitsuba_customization_tpu/render/medium.py:55 (_tracking_loop's lax.scan "
+                     f"over {body} in ad_mode, its XLA VJP; no Pallas kernel)",
+            launches=vol_ad_launches[key], **stats, share=stats["bound_ms"] / stats["ms"],
+            library_note="index_add_ of the plain version's nonzero grid updates: the "
+                         "scatter part only, no replay",
+            launches_by_phase={"volpath_ad_step": vol_ad_launches[key],
+                               **{"grad_jit_" + f: jit_ad[f]["launches"][key]
+                                  for f in jit_ad}}))
     print("captured frames: " + json.dumps({f: {k: v for k, v in jit[f].items()
                                                    if k != "launches"} for f in jit}))
     print("captured AD steps: " + json.dumps({f: {k: v for k, v in jit_ad[f].items()

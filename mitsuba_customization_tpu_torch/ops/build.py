@@ -53,10 +53,12 @@ _SIGNATURES = {
                            _P, _P],
     "mct_bvh_closest": [_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _P, _P],
     "mct_bvh_any": [_P, _P, _P, _I64, _P, _I, _P, _I, _I, _P, _P],
-    "mct_delta_track": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P, _P, _P, _P, _P, _P, _I64,
+    "mct_delta_track": [_P, _P, _P, _P, _P, _U32, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
                         _I64, _I64, _P, _P, _P, _P, _P],
-    "mct_ratio_track": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P, _P, _P, _P, _P, _P, _I64,
+    "mct_ratio_track": [_P, _P, _P, _P, _P, _U32, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
                         _I64, _I64, _P, _P, _P],
+    "mct_track_bwd": [_I, _P, _P, _P, _P, _P, _U32, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "mct_sdf_march": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P],
 }
 

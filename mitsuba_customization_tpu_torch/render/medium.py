@@ -27,7 +27,13 @@ loop to its own end; their plain versions (`delta_track_plain`,
 heterogeneous medium, reading on the host every CHECK_EVERY steps whether
 any lane is still going (one sync) and going on with those lanes only. In
 ad_mode the loops are the JAX package's masked scan in torch over all
-lanes, with no host read (`_scan`). The results are the JAX package's.
+lanes, with no host read: T1 / T2 at AD_TRACKING_STEPS steps forward and
+their backward kernels T1-bwd / T2-bwd (`track_bwd`), which replay each
+lane's steps from its key, through one autograd Function (`_Track`); on
+CPU tensors the forward is `_scan`'s values and the backward its plain
+version `track_bwd_plain`. The density grid's gradient of every tracking
+call of a backward pass goes into one grid-sized buffer (the table's
+`grid_sink`, made by params.update). The results are the JAX package's.
 """
 
 from __future__ import annotations
@@ -48,16 +54,20 @@ HETEROGENEOUS = 1
 MAX_TRACKING_STEPS = 256
 AD_TRACKING_STEPS = 48
 CHECK_EVERY = 8
+# T1-bwd / T2-bwd sum sigma_t's gradient in shared memory: media at most
+MAX_BWD_MEDIA = 4096
 
 SOURCE = "mitsuba_customization_tpu_torch/csrc/medium_track.cu"
-# T1 / T2 launches (a replay of a captured frame launches without calling
-# the wrappers: count those in its trace)
+# T1 / T2 launches and T1-bwd / T2-bwd launches (a replay of a captured
+# frame launches without calling the wrappers: count those in its trace)
 LAUNCHES = {"delta": 0, "ratio": 0}
+LAUNCHES_BWD = {"delta": 0, "ratio": 0}
 # None, or a list to which each tracking loop appends (kind, lanes, each
 # lane's steps (lanes,) int32 on the lanes' device, host checks): set it
 # to [] to record (chip_smoke and the frame profile do), and read the
 # steps after the frame. The grid-sized gradient buffers made by backward
-# passes since the count was last set to 0.
+# passes since the count was last set to 0 (one a backward pass through
+# the table's grid_sink).
 LOOPS = None
 GRID_BUFFERS = 0
 
@@ -74,7 +84,9 @@ class MediumTable(NamedTuple):
     majorant (K,) of the channel-mean extinction; shape_interior (S,)
     int64; emission (K, 3) radiance of emissive media; phase_S (K, 6)
     SGGX matrices, None without an SGGX phase; has_het: a heterogeneous
-    medium exists (a host fact).
+    medium exists (a host fact); grid_sink: where the grid requires grad
+    under grad mode, the merl_sorted.GradSink through which it enters
+    autograd once (params.update), else None.
     """
 
     m_type: torch.Tensor
@@ -91,6 +103,7 @@ class MediumTable(NamedTuple):
     emission: torch.Tensor
     phase_S: torch.Tensor = None
     has_het: bool = False
+    grid_sink: object = None
 
     @property
     def n_media(self):
@@ -293,10 +306,12 @@ def _record(kind, steps, checks):
 # --------------------------------------------------------------------------
 
 
-def _delta_body(grid, dim_base):
+def _delta_body(grid, dim_base, keep=None):
     """Weighted delta tracking's step over lanes with consts (o, d, t_max,
     sigma_t rows, majorant, key, *lookup) and state (t, w, scat, steps,
-    done): dt_body of the JAX package."""
+    done): dt_body of the JAX package. `keep`: None, or a list to which
+    each step appends (t_new, density, moved, real, passed here, the
+    weight before the step) for the replay backward."""
     def body(step, c, state):
         o, d, tmax, sg, mj, ky, *look = c
         t, w, scat, steps, done = state
@@ -304,7 +319,8 @@ def _delta_body(grid, dim_base):
         u2 = _draw_key(ky, dim_base + 3 + step * 2)
         t_new = t + _free_step(u1) / mj
         passed = t_new >= tmax
-        sig_p = sg * _density_at(grid, look, o + t_new[:, None] * d)[:, None]
+        dens = _density_at(grid, look, o + t_new[:, None] * d)
+        sig_p = sg * dens[:, None]
         mean_sig = _channel_mean(sig_p)
         p_real = torch.clamp(mean_sig / mj, 0.0, 1.0).detach()
         real = u2 < p_real
@@ -312,6 +328,8 @@ def _delta_body(grid, dim_base):
         w_null = m.safe_div(mj[:, None] - sig_p, (mj * (1.0 - p_real)).detach()[:, None])
         upd = ~done
         moved = upd & ~passed
+        if keep is not None:
+            keep.append((t_new, dens, moved, real, upd & passed, w))
         t = torch.where(upd, torch.where(passed, tmax, t_new), t)
         w = torch.where(moved[:, None], w * torch.where(real[:, None], w_real, w_null), w)
         scat = scat | (moved & real)
@@ -323,17 +341,20 @@ def _delta_body(grid, dim_base):
     return body
 
 
-def _ratio_body(grid, dim_base):
+def _ratio_body(grid, dim_base, keep=None):
     """Ratio tracking's step over lanes with consts (o, d, dist, sigma_t
     rows, majorant, key, *lookup) and state (t, w, steps, done): rt_body
-    of the JAX package."""
+    of the JAX package. `keep` as _delta_body's (real and passed False)."""
     def body(step, c, state):
         o, d, dmax, sg, mj, ky, *look = c
         t, w, steps, done = state
         t_new = t + _free_step(_draw_key(ky, dim_base + step)) / mj
         passed = t_new >= dmax
-        sig_p = sg * _density_at(grid, look, o + t_new[:, None] * d)[:, None]
+        dens = _density_at(grid, look, o + t_new[:, None] * d)
+        sig_p = sg * dens[:, None]
         upd = ~done & ~passed
+        if keep is not None:
+            keep.append((t_new, dens, upd, torch.zeros_like(upd), torch.zeros_like(upd), w))
         w = torch.where(upd[:, None],
                         w * torch.clamp(1.0 - sig_p / mj[:, None], 0.0, 1.0), w)
         t = torch.where(done, t, t_new)
@@ -428,21 +449,29 @@ def _check_cuda(table, mid, ray_o, ray_d, t_max, key, what):
             raise ValueError(f"{what}: rays and the medium table must be on one GPU")
 
 
-def _launch(kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
-    """Launch T1 (kind "delta") or T2 ("ratio") over all lanes."""
+def _table_ptrs(table):
+    """The table's tensors as T1 / T2 and their backward read them."""
+    p = kbuild.ptr
+    grid = table.grid.contiguous()
+    return [p(x.contiguous()) for x in (table.m_type, table.sigma_t, table.majorant,
+                                         table.world_to_grid, table.grid_slot,
+                                         table.grid_dims)] + [p(grid)], grid
+
+
+def _launch(kind, table, mid, ray_o, ray_d, t_max, key, dim_base,
+            n_steps=MAX_TRACKING_STEPS + 1):
+    """Launch T1 (kind "delta") or T2 ("ratio") over all lanes, each
+    tracked lane running at most n_steps updates."""
     what = f"medium {kind} tracking"
     _check_cuda(table, mid, ray_o, ray_d, t_max, key, what)
     n, dev = ray_o.shape[0], ray_o.device
     p = kbuild.ptr
     args = [p(x.contiguous()) for x in (ray_o, ray_d, t_max, mid, key)]
-    grid = table.grid.contiguous()
-    tabs = [p(x.contiguous()) for x in (table.m_type, table.sigma_t, table.majorant,
-                                         table.world_to_grid, table.grid_slot,
-                                         table.grid_dims, grid)]
+    tabs, grid = _table_ptrs(table)
     w = torch.empty((n, 3), device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     lib = kbuild.library()
-    common = (*args, int(dim_base) & MASK32, n, *tabs, *grid.shape[1:])
+    common = (*args, int(dim_base) & MASK32, n, int(n_steps), *tabs, *grid.shape[1:])
     if kind == "delta":
         t = torch.empty(n, device=dev)
         scat = torch.empty(n, dtype=torch.bool, device=dev)
@@ -509,6 +538,228 @@ def _scan(kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
 
 
 # --------------------------------------------------------------------------
+# ad_mode's tracking: T1 / T2 forward, T1-bwd / T2-bwd backward
+# --------------------------------------------------------------------------
+
+
+def new_grid_grad(grid):
+    """A zeroed float32 gradient of the grid stack's shape (counted in
+    GRID_BUFFERS)."""
+    global GRID_BUFFERS
+    GRID_BUFFERS += 1
+    return torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+
+
+def _scatter_grid(grid_out, idx, add):
+    """grid_out's flat view += add at idx (one index_add_)."""
+    grid_out.view(-1).index_add_(0, idx, add)
+
+
+def _density_bwd(grid, look, p, g_dens, grid_out, need_p):
+    """The backward of _density_at(grid, look, p) for heterogeneous lanes:
+    g_dens (N,) spread over each lane's eight corners with the lerp weights
+    into grid_out (the stack's shape, or None), and where need_p the
+    gradient (N, 3) in p (zero outside the unit cube, the clamp and the
+    floor passing none), else None."""
+    idx, t, inside = _corners(grid, look, p)
+    g = torch.where(inside, g_dens, 0.0)
+    tz, ty, tx = t[:, 0], t[:, 1], t[:, 2]
+    g_a, g_b = g * (1.0 - tz), g * tz
+    g_zy = torch.stack([g_a * (1.0 - ty), g_a * ty, g_b * (1.0 - ty), g_b * ty], -1)
+    if grid_out is not None:
+        corner = torch.stack([g_zy * (1.0 - tx[:, None]), g_zy * tx[:, None]], -1)
+        _scatter_grid(grid_out, idx, corner.reshape(-1))
+    if not need_p:
+        return None
+    c = grid.reshape(-1).index_select(0, idx).reshape(-1, 4, 2)
+    row = _lerp(c[:, :, 0], c[:, :, 1], tx[:, None])
+    g_t = torch.stack([g * (_lerp(row[:, 2], row[:, 3], ty) - _lerp(row[:, 0], row[:, 1], ty)),
+                       g_a * (row[:, 1] - row[:, 0]) + g_b * (row[:, 3] - row[:, 2]),
+                       (g_zy * (c[:, :, 1] - c[:, :, 0])).sum(-1)], -1)
+    w2g, _, dims, _ = look
+    g_g = g_t * (dims.to(torch.float32) - 1.0)
+    return (g_g[:, :, None] * w2g[:, :, :3]).sum(1)
+
+
+def track_bwd_plain(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t=None, *,
+                    grid_out=None, need_rays=False, need_t_max=False):
+    """T1-bwd / T2-bwd's plain version: the reverse-mode gradient of _scan's
+    weight (delta: and t) with cotangents g_w (N, 3) and g_t (N,) or None.
+    It replays the AD_TRACKING_STEPS masked steps over all lanes (the same
+    draws, flights, points, densities and real / passed decisions, which
+    depend only on detached values), keeps each step's weight before it,
+    and sweeps the steps in reverse, as autograd does through _scan:
+    w_real = sig_p / mean and w_null = (maj - sig_p) / (maj (1 - p_real))
+    (zero where the detached denominator is 0), or the ratio factor
+    clamp(1 - sig_p / maj, 0, 1). Returns (sigma_t's gradient (K, 3), the
+    gradients in ray_o and ray_d (N, 3) where need_rays else None, t_max's
+    (N,) where need_t_max: g_t on delta's passed lanes, else None); the
+    grid's gradient is added into grid_out (the stack's shape) where it is
+    given. No host read."""
+    delta = kind == "delta"
+    n, dev = ray_o.shape[0], ray_o.device
+    with torch.no_grad():
+        consts, need = _consts(table, mid, ray_o, ray_d, t_max, key)
+        consts = consts[:4] + (torch.where(need, consts[4], 1.0),) + consts[5:]
+        keep = []
+        body = (_delta_body if delta else _ratio_body)(table.grid, dim_base, keep)
+        state = _init(n, dev, delta)[:-1] + (None, ~need)
+        for step in range(AD_TRACKING_STEPS):
+            state = body(step, consts, state)
+        o, d, _, sg, mj, _, *look = consts
+        g = g_w
+        g_sig = torch.zeros_like(sg)
+        g_p = torch.zeros((n, 3), device=dev) if need_rays else None
+        g_d = torch.zeros((n, 3), device=dev) if need_rays else None
+        passed_any = torch.zeros(n, dtype=torch.bool, device=dev)
+        for t_new, dens, moved, real, passed, w_prev in reversed(keep):
+            passed_any |= passed
+            sig_p = sg * dens[:, None]
+            g_f = g * w_prev
+            if delta:
+                mean = _channel_mean(sig_p)
+                den = mj * (1.0 - torch.clamp(mean / mj, 0.0, 1.0))
+                f = torch.where(real[:, None], m.safe_div(sig_p, mean[:, None]),
+                                m.safe_div(mj[:, None] - sig_p, den[:, None]))
+                g_s = torch.where(real[:, None], m.safe_div(g_f, mean[:, None]),
+                                  -m.safe_div(g_f, den[:, None]))
+            else:
+                x = 1.0 - sig_p / mj[:, None]
+                f = torch.clamp(x, 0.0, 1.0)
+                g_s = torch.where((x >= 0.0) & (x <= 1.0), -g_f, 0.0) / mj[:, None]
+            g_s = torch.where(moved[:, None], g_s, 0.0)
+            g = torch.where(moved[:, None], g * f, g)
+            g_sig = g_sig + dens[:, None] * g_s
+            if grid_out is not None or need_rays:
+                g_pt = _density_bwd(table.grid, look, o + t_new[:, None] * d,
+                                    (sg * g_s).sum(-1), grid_out, need_rays)
+                if need_rays:
+                    g_p = g_p + g_pt
+                    g_d = g_d + g_pt * t_new[:, None]
+        safe = mid.clamp(min=0)
+        g_sigma = torch.zeros_like(table.sigma_t).index_add_(
+            0, safe, torch.where(need[:, None], g_sig, 0.0))
+        g_tmax = None
+        if need_t_max:
+            g_tmax = (torch.where(passed_any, g_t, 0.0) if delta and g_t is not None
+                      else torch.zeros(n, device=dev))
+    return g_sigma, g_p, g_d, g_tmax
+
+
+def _launch_bwd(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t, grid_out,
+                need_rays, need_t_max):
+    """Launch T1-bwd (kind "delta") or T2-bwd: track_bwd_plain's results."""
+    what = f"medium {kind} tracking backward"
+    _check_cuda(table, mid, ray_o, ray_d, t_max, key, what)
+    n, dev = ray_o.shape[0], ray_o.device
+    k = table.sigma_t.shape[0]
+    if n >= 2 ** 31 or k > MAX_BWD_MEDIA:
+        raise ValueError(f"{what}: at most 2^31 - 1 lanes and {MAX_BWD_MEDIA} media")
+    if (g_w.shape != (n, 3) or g_w.dtype != torch.float32 or not g_w.is_cuda
+            or (g_t is not None and (g_t.shape != (n,) or g_t.dtype != torch.float32))
+            or (grid_out is not None and (grid_out.shape != table.grid.shape
+                                          or not grid_out.is_contiguous()))):
+        raise ValueError(f"{what}: cotangents (N, 3) / (N,) float32 on the rays' GPU and a "
+                         "contiguous grid-shaped output")
+    p = kbuild.ptr
+    tabs, grid = _table_ptrs(table)
+    g_sigma = torch.zeros((k, 3), device=dev)
+    g_o = torch.zeros((n, 3), device=dev) if need_rays else None
+    g_d = torch.zeros((n, 3), device=dev) if need_rays else None
+    g_tmax = torch.zeros(n, device=dev) if need_t_max else None
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    lanes = torch.empty(n, dtype=torch.int32, device=dev)
+
+    def opt(x):
+        return p(x) if x is not None else None
+
+    err = kbuild.library().mct_track_bwd(
+        int(kind == "delta"), *[p(x.contiguous()) for x in (ray_o, ray_d, t_max, mid, key)],
+        int(dim_base) & MASK32, n, AD_TRACKING_STEPS, k, *tabs, *grid.shape[1:],
+        p(g_w.contiguous()), opt(None if g_t is None else g_t.contiguous()), p(work), p(lanes),
+        p(g_sigma), opt(grid_out), opt(g_o), opt(g_d), opt(g_tmax), kbuild.stream_of(ray_o))
+    kbuild.check(err, what)
+    LAUNCHES_BWD[kind] += 1
+    return g_sigma, g_o, g_d, g_tmax
+
+
+def track_bwd(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t=None, *,
+              grid_out=None, need_rays=False, need_t_max=False):
+    """The backward of ad_mode's tracking (track_bwd_plain's arguments and
+    results): CPU tensors run track_bwd_plain, CUDA tensors launch T1-bwd
+    (kind "delta") or T2-bwd ("ratio")."""
+    if not ray_o.is_cuda:
+        return track_bwd_plain(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t,
+                               grid_out=grid_out, need_rays=need_rays, need_t_max=need_t_max)
+    return _launch_bwd(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t,
+                       grid_out, need_rays, need_t_max)
+
+
+class _Track(torch.autograd.Function):
+    """ad_mode's tracking loop (kind "delta" -> t, weight, scattered; "ratio"
+    -> the transmittance) at AD_TRACKING_STEPS steps, differentiable in
+    sigma_t, the grid (`source`: the grid sink's token, whose buffer `buf`
+    every backward of a pass adds into, or the grid itself with buf None,
+    or None), ray_o, ray_d and t_max. CUDA tensors run T1 / T2 and T1-bwd /
+    T2-bwd; CPU tensors _scan's values and track_bwd_plain."""
+
+    @staticmethod
+    def forward(ctx, sigma_t, source, ray_o, ray_d, t_max, kind, table, mid, key, dim_base,
+                buf):
+        if ray_o.is_cuda:
+            out = _launch(kind, table, mid, ray_o, ray_d, t_max, key, dim_base,
+                          AD_TRACKING_STEPS)[:-1]
+        else:
+            out = _scan(kind, table, mid, ray_o, ray_d, t_max, key, dim_base)
+            out = out[:3] if kind == "delta" else out[1:2]
+        ctx.kind, ctx.table, ctx.dim_base, ctx.buf = kind, table, dim_base, buf
+        ctx.save_for_backward(mid, ray_o, ray_d, t_max, key)
+        if kind == "delta":
+            ctx.mark_non_differentiable(out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mid, ray_o, ray_d, t_max, key = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        table = ctx.table
+        g_w = grads[1] if ctx.kind == "delta" else grads[0]
+        g_t = grads[0] if ctx.kind == "delta" else None
+        if g_w is None:
+            g_w = torch.zeros_like(ray_o)
+        grid_out = None
+        if need[1]:
+            if ctx.buf is None:
+                grid_out = new_grid_grad(table.grid)
+            else:
+                if ctx.buf.grad is None:
+                    ctx.buf.grad = new_grid_grad(table.grid)
+                grid_out = ctx.buf.grad
+        g_sigma, g_o, g_d, g_tmax = track_bwd(
+            ctx.kind, table, mid, ray_o, ray_d, t_max, key, ctx.dim_base, g_w, g_t,
+            grid_out=grid_out, need_rays=need[2] or need[3], need_t_max=need[4])
+        g_source = None
+        if need[1]:
+            g_source = grid_out if ctx.buf is None else g_w.new_zeros(())
+        return (g_sigma if need[0] else None, g_source, g_o if need[2] else None,
+                g_d if need[3] else None, g_tmax) + (None,) * 6
+
+
+def _track(kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
+    """ad_mode's tracking through _Track: (t, weight, scattered) for kind
+    "delta", (weight,) for "ratio", as _scan's."""
+    sink, buf = table.grid_sink, None
+    if sink is not None:
+        source, buf = sink.token, sink.buf
+    else:
+        source = table.grid if table.grid.requires_grad else None
+    plain = table._replace(sigma_t=table.sigma_t.detach(), grid=table.grid.detach(),
+                           grid_sink=None)
+    return _Track.apply(table.sigma_t, source, ray_o, ray_d, t_max, kind, plain, mid, key,
+                        dim_base, buf)
+
+
+# --------------------------------------------------------------------------
 # Distance sampling
 # --------------------------------------------------------------------------
 
@@ -571,8 +822,8 @@ def sample_interaction(table: MediumTable, mid, ray_o, ray_d, t_max, seed, lane,
         w_het = torch.ones((n, 3), device=dev)
         scat_het = torch.zeros(n, dtype=torch.bool, device=dev)
     elif ad_mode:
-        t_het, w_het, scat_het, _ = _scan("delta", table, mid, ray_o, ray_d, t_max, key,
-                                          dim_base)
+        t_het, w_het, scat_het = _track("delta", table, mid, ray_o, ray_d, t_max, key,
+                                        dim_base)
     else:
         t_het, w_het, scat_het, _ = delta_track(table, mid, ray_o, ray_d, t_max, key, dim_base)
     em_het = torch.where(scat_het[:, None], w_het * (1.0 - alb) * le, 0.0)
@@ -611,7 +862,7 @@ def transmittance(table: MediumTable, mid, ray_o, ray_d, dist, seed, lane, dim_b
     if not table.has_het:
         tr_het = torch.ones((n, 3), device=dev)
     elif ad_mode:
-        _, tr_het, _ = _scan("ratio", table, mid, ray_o, ray_d, d_fin, key, dim_base)
+        (tr_het,) = _track("ratio", table, mid, ray_o, ray_d, d_fin, key, dim_base)
     else:
         tr_het, _ = ratio_track(table, mid, ray_o, ray_d, d_fin, key, dim_base)
     tr = torch.where(is_het[:, None], tr_het, tr_hom)

@@ -69,6 +69,7 @@ from mitsuba_customization_tpu_torch.models.thindielectric import (
     ThinDielectricParams,
 )
 from mitsuba_customization_tpu_torch.ops import clusters as cl_mod
+from mitsuba_customization_tpu_torch.ops import merl_sorted
 from mitsuba_customization_tpu_torch.render import bvh as bvh_mod
 from mitsuba_customization_tpu_torch.render import emitters as em_mod
 from mitsuba_customization_tpu_torch.core.sampler import SAMPLERS
@@ -139,7 +140,10 @@ def update(scene, params):
     envmap image gets its sampling distribution rebuilt from the image
     itself, as the JAX package's update does: its gradient then also
     reaches the image through the NEE directions it samples. New medium
-    parameters get the majorants recomputed (medium.recompute_majorant)."""
+    parameters get the majorants recomputed (medium.recompute_majorant)
+    and, where the density grid requires grad, its GradSink: the backward
+    of every tracking call of the render adds into one grid-sized
+    buffer."""
     unknown = set(params) - set(traverse(scene))
     if unknown:
         raise KeyError(f"not parameters of this scene: {sorted(unknown)}")
@@ -164,7 +168,8 @@ def update(scene, params):
     new = {field: params[key] for key, field in MEDIUM_KEYS.items() if key in params}
     if new:
         media = media._replace(**new)
-        media = media._replace(majorant=medium_mod.recompute_majorant(media))
+        media = media._replace(majorant=medium_mod.recompute_majorant(media),
+                               grid_sink=merl_sorted.grad_sink(media.grid))
     return dataclasses.replace(
         scene, bsdfs=scene.bsdfs._replace(stacks=stacks), emitters=emitters, media=media
     )

@@ -1337,6 +1337,64 @@ def test_t1_t2_kernels_match_plain(dev, dense):
     assert 0.05 < float(got[2][tracked].float().mean()) < 0.95
 
 
+@pytest.mark.parametrize("dense", [False, True], ids=["thin", "dense"])
+def test_t1_t2_at_ad_steps_match_the_scan(dev, dense, monkeypatch):
+    """T1 / T2 at ad_mode's 48 steps (medium._launch) against
+    medium._scan on the card, bit for bit on every lane: a lane not done
+    after 48 steps keeps its partial t and weight in both."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    monkeypatch.setattr(medium, "LOOPS", [])
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, dense)
+    for kind, base in (("delta", 8), ("ratio", 2056)):
+        args = (table, mid, o, d, t_max, key, base)
+        got = medium._launch(kind, *args, medium.AD_TRACKING_STEPS)
+        want = medium._scan(kind, *args)
+        want = want if kind == "delta" else want[1:]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (kind, int((a != b).reshape(a.shape[0], -1).any(-1).sum()))
+        assert int(got[-1].max()) == medium.AD_TRACKING_STEPS
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["thin", "dense"])
+def test_t1_t2_bwd_match_plain_and_autograd(dev, dense):
+    """T1-bwd / T2-bwd (medium.track_bwd on CUDA tensors) against
+    track_bwd_plain and autograd through medium._scan on the card, with
+    seeded cotangents: the gradients in sigma_t, the grid, ray_o, ray_d
+    and t_max within 1e-4 relative L2 error (the atomic adds' order); one
+    launch each."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, dense)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = o.shape[0]
+    g_w = torch.rand((n, 3), generator=gen, device=dev)
+    g_t = torch.rand(n, generator=gen, device=dev)
+    for kind, base in (("delta", 8), ("ratio", 2056)):
+        gt = g_t if kind == "delta" else None
+        args = (table, mid, o, d, t_max, key, base)
+        out = []
+        for fn in (medium.track_bwd, medium.track_bwd_plain):
+            grid = torch.zeros_like(table.grid)
+            before = medium.LAUNCHES_BWD[kind]
+            g = fn(kind, *args, g_w, gt, grid_out=grid, need_rays=True, need_t_max=True)
+            out.append((g[0], grid) + g[1:])
+        assert medium.LAUNCHES_BWD[kind] == before  # the plain version launches nothing
+        leaves = [x.clone().requires_grad_(True) for x in (table.sigma_t, table.grid, o, d, t_max)]
+        st = medium._scan(kind, table._replace(sigma_t=leaves[0], grid=leaves[1]), mid,
+                          *leaves[2:], key, base)
+        loss = (g_w * st[1]).sum() + ((g_t * st[0]).sum() if kind == "delta" else 0.0)
+        auto = torch.autograd.grad(loss, leaves, allow_unused=True)
+        auto = [torch.zeros_like(x) if a is None else a for x, a in zip(leaves, auto)]
+        for want in (out[1], auto):
+            for a, b in zip(out[0], want):
+                assert bool(torch.isfinite(a).all())
+                if float(b.norm()) == 0:
+                    assert float(a.norm()) == 0, kind
+                else:
+                    assert float((a - b).double().norm() / b.double().norm()) <= 1e-4, kind
+
+
 def test_tracking_wrappers_reject_what_the_kernels_do_not_take(dev):
     """A table on another device than the rays, or int32 medium ids, raise
     ValueError; an input that requires grad under grad mode raises
@@ -1430,7 +1488,8 @@ def test_volpath_ad_step_gpu_matches_cpu(dev):
     """The volpath scene's gradient (16x16, 4 spp, depth 3, a 16^3 grid) on
     the table and the four medium keys, on the card and on the CPU:
     losses within 2 %, gradient cosines >= 0.98; K1's backward launched,
-    grid-sized buffers made."""
+    one grid-sized gradient buffer a backward pass (T1-bwd / T2-bwd add
+    into it)."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import ad, medium
     from mitsuba_customization_tpu_torch.render.params import traverse
@@ -1446,8 +1505,8 @@ def test_volpath_ad_step_gpu_matches_cpu(dev):
         bwd, medium.GRID_BUFFERS = k1.LAUNCHES_BWD, 0
         loss, grads = ad.grad_render(scene, {k: full[k] for k in keys},
                                      torch.zeros((16, 16, 3), device=where), spp=4)
-        if where == dev:
-            assert k1.LAUNCHES_BWD > bwd and medium.GRID_BUFFERS > 0
+        if where == dev:  # the captured step's warm-up and capture: a backward pass each
+            assert k1.LAUNCHES_BWD > bwd and medium.GRID_BUFFERS == 2
         out[str(where)] = (float(loss), {k: g.cpu().flatten().double() for k, g in grads.items()})
     (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
     assert abs(lg - lc) <= 0.02 * abs(lc)
@@ -1856,8 +1915,8 @@ def test_render_jit_replays_the_looped_frames(dev, name):
 
 def test_captured_volpath_ad_step_against_the_eager_step(dev):
     """grad_render of the volpath scene (64x64, 4 spp, depth 4, a 32^3
-    grid) on the table and the four medium keys, captured (ad_mode's
-    48-step masked tracking scan in the graph) against the eager step at
+    grid) on the table and the four medium keys, captured (T1 / T2 at
+    ad_mode's 48 steps and T1-bwd / T2-bwd in the graph) against the eager step at
     two seeds: the loss equal bit for bit (the box filter), each gradient
     within three times the spread of SPREAD_STEPS eager steps."""
     import mitsuba_customization_tpu_torch as mt

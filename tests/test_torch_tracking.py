@@ -1,7 +1,7 @@
 """The port's per-lane loops that once checked on the host, against the
 JAX package's, on the CPU: T1 / T2's plain versions (render/medium.
 delta_track_plain, ratio_track_plain) against the JAX while_loops of
-sample_interaction and transmittance, ad_mode's masked 48-step scan
+sample_interaction and transmittance, ad_mode's 48-step tracking
 against the JAX scan (values and gradients), S1's plain version
 (render/sdf.march_plain) against the JAX sphere trace on the same local
 rays, the loops' refusal of a gradient, and the light tracers' splat of
@@ -108,8 +108,9 @@ def test_tracking_plain_versions_match_jax_primal(dense):
 
 
 def test_ad_mode_scan_matches_jax_with_gradients():
-    """ad_mode's 48-step masked scan over all lanes (render/medium._scan
-    through sample_interaction and transmittance) against the JAX scan in
+    """ad_mode's 48-step tracking over all lanes (render/medium._Track
+    through sample_interaction and transmittance: _scan's values, the
+    gradients by track_bwd_plain) against the JAX scan in
     ad_mode on the dense medium (lanes cut at 48 steps among them): the
     values as in the primal test, and the gradients of a fixed weighted
     sum of the weights, the emission and the transmittance (over the lanes
