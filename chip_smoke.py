@@ -310,11 +310,18 @@ and SDF (S1) frames and of the replays. T1-bwd / T2-bwd
 (medium_delta_track_bwd, medium_ratio_track_bwd), which replace the XLA
 VJP of the JAX scan, carry phase 26's numbers (`ms`, `plain_ms`,
 `bound_ms`, `library_ms`: an index_add_ of the same grid updates, the
-scatter part only) and the launches of phase 27's AD step and of the
-replays of phase 34. B1 (bvh_closest) and B2 (bvh_any), which replace the JAX package's XLA
-while_loop walks (no Pallas kernel), carry phase 32's numbers: `ms`,
-`plain_ms` (one run of the plain walk) and `bound_ms` of the camera
-wavefront's call (B1) and its NEE rays (B2), `frame_ms` summed over the
+scatter part only; `call_device_ms`, every device operation of the
+call; `ad_step_shape`: the same on every 8th lane, the volpath AD step's
+262,144) and the launches of phase 27's AD step and of the replays of
+phase 34. Every kernel's entry carries `device_ms` beside `ms`: the
+profiler's device time of the kernel alone (mean of 5 runs), where `ms`
+(CUDA events) holds its wrapper's host time too; T1, T2 and S1 also
+`frame_device_ms`, summed over the frame's recorded calls (null where
+a trace held no such kernel: not measured). B1 (bvh_closest) and B2
+(bvh_any), which replace the JAX package's XLA while_loop walks (no
+Pallas kernel), carry phase 32's numbers: `ms`, `plain_ms` (one run
+of the plain walk) and `bound_ms` of the camera wavefront's call (B1)
+and its NEE rays (B2), `frame_ms` summed over the
 recorded calls on all lanes, and `checked_frame_ms` /
 `checked_frame_bound_ms` / `frame_share` over their checked lanes; a
 bound counts each lane's maxt and outputs, o and d of live lanes, each
@@ -670,7 +677,8 @@ def phase_k1(table, dev):
           f"(rtol {K1_RTOL}, atol {K1_ATOL}); kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by,
+                device_ms=_device_ms(lambda: k1.eval_trilinear(table, *lanes), "merl_eval_kernel"))
 
 
 def phase_k2(cdf_cond, dev):
@@ -700,7 +708,9 @@ def phase_k2(cdf_cond, dev):
           f"max abs err {err:.3e} (rtol {K2_RTOL}, atol {K2_ATOL}); kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, lanes_not_bit_equal=differ)
+                bound_by=bound_by, lanes_not_bit_equal=differ,
+                device_ms=_device_ms(lambda: k2.cond_sample_pdf(cdf_cond, *args, valid),
+                                     "cond_sample_kernel"))
 
 
 def camera_wavefront(scene, spp, seed=0):
@@ -802,7 +812,8 @@ def phase_k3(scene, ray):
           f"{prim_agree:.6f}, u/v/fields equal on agreeing prims; kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     stats = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by)
+                 bound_by=bound_by,
+                 device_ms=_device_ms(lambda: cl.intersect(cs, r), "cluster_closest_kernel"))
     return stats, out + (r,)
 
 
@@ -850,7 +861,8 @@ def phase_k4(scene, hits):
           f"lane; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by,
+                device_ms=_device_ms(lambda: cl.occluded(cs, rs), "cluster_shadow_kernel"))
 
 
 def record_calls(fn, targets):
@@ -1053,15 +1065,35 @@ def _device_ms(fn, name, reps=5):
     """Device time (ms) of the kernels whose name holds `name` in one fn(),
     the mean of `reps` runs under torch.profiler after a warm-up: the
     kernel alone, without the wrapper's host time that CUDA events around
-    fn() hold."""
+    fn() hold; None where no such kernel is in the trace. The trace is
+    taken and read as _profiled takes and reads it. Late in this script
+    a trace sometimes holds no device event at all (kernels of every
+    name: an open fault of the measurement, PERF.md q7), so up to three
+    traces are taken; where none holds the kernel, the device events'
+    names are printed."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name) / 1e3 / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = set()
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        found = [e.duration_ns() for e in kernels if name in e.name()]
+        if found:
+            return sum(found) / 1e6 / reps
+        names |= {e.name()[:80] for e in kernels}
+    print(f"device time: no kernel named {name!r} in three traces (device events: "
+          f"{sorted(names)})")
+    return None
+
+
+def _ms_or(x):
+    """A time for a line: ms to 4 places, or 'not measured'."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def phase_k1_bwd(table, stack, dev, n=1 << 21):
@@ -1116,7 +1148,7 @@ def phase_k1_bwd(table, stack, dev, n=1 << 21):
           f"{id_err:.3e} (limit {K1_BWD_ID_RTOL}), relative L2 error against plain "
           f"{l2:.3e} (limit {K1_BWD_L2_RTOL}), max abs err {err:.3e}; with K1's output: "
           f"kernel {times['ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); into a given "
-          f"buffer {times['ms_into']:.3f} ms (kernel device time {times['device_ms']:.3f} "
+          f"buffer {times['ms_into']:.3f} ms (kernel device time {_ms_or(times['device_ms'])} "
           f"ms), bound {into_bound:.4f} ms; reading the bins {times['ms_reading_bins']:.3f} ms; "
           f"plain {times['plain_ms']:.3f} ms; index_add_ of the {idx.numel()} updates "
           f"{library_ms:.3f} ms")
@@ -1208,16 +1240,17 @@ def phase_ad_step(setup):
         live = sum(int(m.sum()) for m in (args[5], args[7]) if m is not None)
         print(f"AD K1-bwd call {i}: {args[2].shape[0]} lanes x 2 halves, {live} live, "
               f"{ms:.4f} ms into the buffer (bound {bound:.4f}); kernel device time "
-              f"{device:.4f} ms; identity error {id_err:.2e}, relative L2 error "
+              f"{_ms_or(device)} ms; identity error {id_err:.2e}, relative L2 error "
               f"against plain {l2:.2e}")
         total["ms"] += ms
         total["bound"] += bound
-        total["device"] += device
+        total["device"] = (None if total["device"] is None or device is None
+                           else total["device"] + device)
     zero_ms = _time_ms(lambda: torch.zeros(table.shape, device=dev))
     zero_bound = _nbytes(table) / HBM_BYTES_PER_S * 1e3
     l2 = rel_l2(step["grads"][AD_KEYS[0]], summed)
     print(f"AD step K1-bwd: {len(rec)} calls into one buffer {total['ms']:.4f} ms "
-          f"(bound {total['bound']:.4f}; kernel device time {total['device']:.4f} ms), "
+          f"(bound {total['bound']:.4f}; kernel device time {_ms_or(total['device'])} ms), "
           f"its zeroing {zero_ms:.4f} ms (bound {zero_bound:.4f}): {total['ms'] + zero_ms:.4f} "
           f"ms (bound {total['bound'] + zero_bound:.4f}); the step's table gradient "
           f"against the sum of the calls' own gradients: relative L2 error {l2:.2e} "
@@ -2194,7 +2227,8 @@ def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
     checks = sum(c for _, c in marches)
     print(f"shapes with SDF: {sdf_scene.geometry.p0.shape[0]} prims and a "
           f"{tuple(sdf_scene.sdf.values.shape)} grid ({sdf_scene.sdf.values.numel() * 4 / 1e6:.1f}"
-          f" MB); the timed frame marched {len(marches)} times ({s1} S1 launches): the slowest "
+          f" MB, S1's corner layout {sdf_scene.sdf.corners.numel() * 4 / 1e6:.1f} MB more); the "
+          f"timed frame marched {len(marches)} times ({s1} S1 launches): the slowest "
           f"lanes {sum(int(st.max()) for st, _ in marches)} steps in all (at most "
           f"{sdf.MAX_STEPS} a march), every lane {sum(int(st.sum()) for st, _ in marches)}; "
           f"{checks} host checks")
@@ -2532,6 +2566,8 @@ def phase_tracking_bwd(kind, args):
                                 need_t_max=True)
 
     ms = _time_ms(kernel)
+    device_ms = _device_ms(kernel, AD_TRACE_NAMES[kind + "-bwd"])
+    call_device_ms = _device_ms(kernel, "")
     plain_ms = _once_ms(lambda: medium.track_bwd_plain(name, *args, g_w, g_t, grid_out=buf,
                                                         need_rays=True, need_t_max=True))
     library_ms = _time_ms(lambda: buf.view(-1).index_add_(0, idx, add))
@@ -2547,12 +2583,22 @@ def phase_tracking_bwd(kind, args):
     print(f"{kind}-bwd {n} lanes, {live} tracked, {lane_steps} replayed steps (at most "
           f"{medium.AD_TRACKING_STEPS}), {cells} grid cells read, {idx.numel()} grid updates: "
           f"relative L2 error against the plain version {err_plain}, against autograd through "
-          f"_scan {err_auto} (limit {TRACK_BWD_RTOL}); {ms:.4f} ms (bound {bound_ms:.5f}, "
-          f"{bound_by}; plain {plain_ms:.2f}; index_add_ of the grid updates {library_ms:.4f})")
+          f"_scan {err_auto} (limit {TRACK_BWD_RTOL}); {ms:.4f} ms (device: kernel "
+          f"{_ms_or(device_ms)}, every device operation of the call "
+          f"{_ms_or(call_device_ms)}; bound "
+          f"{bound_ms:.5f}, {bound_by}; plain {plain_ms:.2f}; index_add_ of the grid updates "
+          f"{library_ms:.4f})")
     return dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, plain)),
-                rel_l2_plain=err_plain, rel_l2_autograd=err_auto, ms=ms, plain_ms=plain_ms,
+                rel_l2_plain=err_plain, rel_l2_autograd=err_auto, ms=ms, device_ms=device_ms,
+                call_device_ms=call_device_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, lanes=n, live=live,
                 steps=lane_steps, grid_updates=idx.numel())
+
+
+def _every(args, k):
+    """A T1 / T2 call's arguments on every k-th lane (the table and
+    dim_base kept)."""
+    return (args[0],) + tuple(x[::k].contiguous() for x in args[1:-1]) + (args[-1],)
 
 
 def _loop_call(kind, args):
@@ -2573,6 +2619,7 @@ def _loop_call(kind, args):
         lanes, lane_in = 8, 36
     steps = got[-1]
     ms, plain_ms = _time_ms(fn), _once_ms(plain)
+    device_ms = _device_ms(fn, TRACE_NAMES[kind])
     bound_ms, bound_by = loop_bound(kind, lanes, steps, cells, lane_in)
     live = int((steps > 0).sum())
     ad = "" if kind == "S1" else (f"; at {medium.AD_TRACKING_STEPS} steps "
@@ -2580,10 +2627,11 @@ def _loop_call(kind, args):
     line = (f"{kind} {steps.shape[0]} lanes, {live} {'active' if kind == 'S1' else 'tracked'}, "
             f"steps max {int(steps.max())} mean {float(steps.sum()) / max(live, 1):.1f} "
             f"({int(steps.sum())} in all), {cells} grid cells read, {differ} lanes not "
-            f"bit-equal, {ms:.4f} ms (bound {bound_ms:.5f}, {bound_by}; plain {plain_ms:.2f})"
-            f"{ad}")
-    return line, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, lanes=steps.shape[0], live=live,
+            f"bit-equal, {ms:.4f} ms (device {_ms_or(device_ms)}; bound {bound_ms:.5f}, "
+            f"{bound_by}; "
+            f"plain {plain_ms:.2f}){ad}")
+    return line, dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, lanes=steps.shape[0], live=live,
                       steps=int(steps.sum()), max_steps=int(steps.max()),
                       lanes_not_bit_equal=differ)
 
@@ -2594,9 +2642,9 @@ def phase_loop_calls(rec, label):
     one line per group (a bounce's T1 and T2, or one S1 march). Returns
     ({kernel: the stats of its call of the most lane steps (the camera
     bounce's rays start in vacuum: the volpath frame's first tracking call
-    tracks no lane)}, {kernel: (frame ms, frame bound ms)} summed over the
-    calls)."""
-    first, total = {}, {k: [0.0, 0.0] for k in rec}
+    tracks no lane)}, {kernel: (frame ms, frame bound ms, frame device ms)}
+    summed over the calls)."""
+    first, total = {}, {k: [0.0, 0.0, 0.0] for k in rec}
     for i in range(max(len(v) for v in rec.values())):
         parts = []
         for kind, calls in rec.items():
@@ -2606,10 +2654,14 @@ def phase_loop_calls(rec, label):
                     first[kind] = dict(st, call=i)
                 total[kind][0] += st["ms"]
                 total[kind][1] += st["bound_ms"]
+                # the frame's device sum: None once a call's is not measured
+                total[kind][2] = (None if total[kind][2] is None or st["device_ms"] is None
+                                  else total[kind][2] + st["device_ms"])
                 parts.append(line)
         print(f"{label} {i}: " + "; ".join(parts))
     print(f"{label} sums over the recorded calls: " + ", ".join(
-        f"{k} {ms:.4f} ms (bound {bound:.5f})" for k, (ms, bound) in total.items()))
+        f"{k} {ms:.4f} ms (device {_ms_or(dev)}; bound {bound:.5f})"
+        for k, (ms, bound, dev) in total.items()))
     return first, {k: tuple(v) for k, v in total.items()}
 
 
@@ -2677,7 +2729,8 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
     analytic media expectations on the card. Each T1 / T2 call is also
     held at ad_mode's 48 steps to medium._scan bit for bit
     (check_tracking_ad), and T1-bwd / T2-bwd are checked and timed on the
-    T1 / T2 call of the most lane steps (phase_tracking_bwd). Returns
+    T1 / T2 call of the most lane steps (phase_tracking_bwd), and again on
+    its every 8th lane (262,144 lanes: the volpath AD step's shape). Returns
     (launches (T1 and T2 too), frame sums, the slowest lanes' steps, host
     checks, T1 / T2's first calls' stats, their frame sums, T1-bwd /
     T2-bwd's stats, the scene)."""
@@ -2724,7 +2777,12 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
         raise AssertionError(f"recorded T1 / T2 calls {[len(v) for v in rec.values()]} != "
                              f"{loops}")
     t_first, t_frame = phase_loop_calls(rec, "tracking, bounce")
-    t_bwd = {k + "-bwd": phase_tracking_bwd(k, rec[k][t_first[k]["call"]]) for k in ("T1", "T2")}
+    t_bwd = {}
+    for k in ("T1", "T2"):
+        args = rec[k][t_first[k]["call"]]
+        t_bwd[k + "-bwd"] = phase_tracking_bwd(k, args)
+        # the volpath AD step's shape (256x256, 4 spp): every 8th lane
+        t_bwd[k + "-bwd"]["ad_step_shape"] = phase_tracking_bwd(k, _every(args, 8))
     del rec
     _gpu_cpu_means(f"volpath {cmp_res}x{cmp_res} 4spp depth 4",
                    volpath_dict(cmp_res, 4, 4, 64, VOLPATH_SEED), dev)
@@ -3327,7 +3385,9 @@ def phase_b1_b2(scene, ray):
           f"{int(work.nodes.sum())} of {tree.n_nodes}; kernel {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     b1 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, lanes=n, lanes_not_bit_equal=differ)
+              bound_by=bound_by, lanes=n, lanes_not_bit_equal=differ,
+              device_ms=_device_ms(lambda: bvh.intersect(tree, scene.geometry, r, cyl),
+                                   "bvh_closest_kernel"))
 
     shadow = nee_shadow_rays(scene, geo.compute_interaction(scene.geometry, r, t, prim, u, v,
                                                             cyl))
@@ -3347,7 +3407,8 @@ def phase_b1_b2(scene, ray):
           "memory (the tree's top in shared memory with persistent blocks was measured and "
           "dropped: PERF.md §6)")
     b2 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, lanes=n)
+              bound_by=bound_by, lanes=n,
+              device_ms=_device_ms(lambda: bvh.occluded(tree, g, shadow, cyl), "bvh_any_kernel"))
     return b1, b2
 
 
@@ -4128,6 +4189,7 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces, launches=launches,
             **stats, share=stats["bound_ms"] / stats["ms"], library_ms=None,
             frame_ms=sums[0], frame_bound_ms=sums[1], frame_share=sums[1] / sums[0],
+            frame_device_ms=sums[2],
             launches_by_phase={where: launches,
                                **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
                                **{"grad_jit_" + f: jit_ad[f]["launches"][key] for f in jit_ad}}))

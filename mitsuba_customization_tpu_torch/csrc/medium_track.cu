@@ -49,11 +49,25 @@
 // this one and the parent's kernel on the volpath frame's calls and were
 // slower (PERF.md): the list strided over persistent blocks, the
 // list fetched a lane at a time by persistent warps (Aila and Laine's
-// while-while), and a block's tile listed in shared memory. The backward,
-// whose work a lane is larger, lists its lanes (medium_track_list_kernel:
-// a warp ballot and one atomic a warp) and runs persistent blocks whose
-// warps fetch 32 of them at a time; its counters are zeroed by the wrapper
-// on the stream (a node of a captured graph).
+// while-while), and a block's tile listed in shared memory.
+//
+// T1-bwd is one launch, a thread a lane over every lane, as T1: a lane
+// outside a heterogeneous medium writes zero ray and t_max gradients, so
+// the wrapper zeroes only sigma_t's (K, 3) gradient. An AD step calls it
+// on 262,144 lanes, about a tenth of them tracked for 1.4-1.7 steps (9
+// at most), where the fixed cost of a call outweighs the work: the
+// parent's T1-bwd listed the tracked lanes first (a list kernel, a
+// counter and persistent blocks whose warps fetched 32 listed lanes at a
+// time) behind five zeroing launches, seven device operations a call;
+// this design takes two. Timed in turns and dropped (PERF.md §6):
+// float2 / float4 atomics for the grid's x pairs (no faster: the adds are
+// spread over a grid larger than the L2), the first 8 steps kept in
+// registers with a lane of more steps replaying from its key (more
+// registers, slower), 256-thread persistent blocks striding over the
+// lanes, and fewer registers forced by launch bounds (spills). T2-bwd
+// keeps the listed schedule (medium_track_list_kernel: a warp ballot and
+// one atomic a warp; its counters zeroed by the wrapper on the stream, a
+// node of a captured graph).
 //
 // The backward, given each lane's cotangent gw (n, 3) of the weight (and
 // gt (n,) of T1's t), replays the lane's steps from its key with the same
@@ -439,7 +453,7 @@ __device__ void backward_lane(const Table& tb, const Rays& r, const Grads& g, in
     ln.t = tn;
     if (real) break;
   }
-  if (kDelta && g.t_max != nullptr && passed) g.t_max[lane] = g.gt[lane];
+  if (kDelta && g.t_max != nullptr) g.t_max[lane] = passed ? g.gt[lane] : 0.f;
   float cw[3] = {g.gw[3 * lane], g.gw[3 * lane + 1], g.gw[3 * lane + 2]};
   float go[3] = {0.f, 0.f, 0.f}, gd[3] = {0.f, 0.f, 0.f};
   const bool rays = g.o != nullptr;
@@ -539,9 +553,49 @@ __device__ void backward_lane(const Table& tb, const Rays& r, const Grads& g, in
   }
 }
 
-// T1-bwd / T2-bwd over the listed lanes: persistent blocks, each warp
-// fetching 32 lanes at a time from work[1]; sigma_t's gradient summed in
-// shared memory (3 K floats) and added once a block.
+// A lane's sigma_t gradient acc added into the block's sums in shared
+// memory (3 K floats), which the block adds once into global memory.
+__device__ __forceinline__ void add_sigma(float* s_sig, int64_t mid, const float acc[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    if (acc[c] != 0.f) atomicAdd(s_sig + 3 * mid + c, acc[c]);
+}
+
+__device__ __forceinline__ void flush_sigma(const Grads& g, const float* s_sig, int k_media) {
+  if (g.sigma_t != nullptr)
+    for (int i = threadIdx.x; i < 3 * k_media; i += kThreads)
+      if (s_sig[i] != 0.f) atomicAdd(g.sigma_t + i, s_sig[i]);
+}
+
+// T1-bwd: a thread a lane over every lane, no list and no counter. A lane
+// outside a heterogeneous medium writes zero ray and t_max gradients, so
+// that the wrapper zeroes none of them.
+template <bool kDelta>
+__device__ void track_bwd_all(const Table& tb, const Rays& r, const Grads& g, int k_media) {
+  extern __shared__ float s_sig[];
+  for (int i = threadIdx.x; i < 3 * k_media; i += kThreads) s_sig[i] = 0.f;
+  __syncthreads();
+  const int64_t lane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (lane < r.n) {
+    const int64_t mid = r.mid[lane];
+    if (tracks(tb, mid)) {
+      float acc[3] = {0.f, 0.f, 0.f};
+      backward_lane<kDelta>(tb, r, g, lane, acc);
+      if (g.sigma_t != nullptr) add_sigma(s_sig, mid, acc);
+    } else {
+      if (g.o != nullptr) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) g.o[3 * lane + q] = g.d[3 * lane + q] = 0.f;
+      }
+      if (kDelta && g.t_max != nullptr) g.t_max[lane] = 0.f;
+    }
+  }
+  __syncthreads();
+  flush_sigma(g, s_sig, k_media);
+}
+
+// T2-bwd over the listed lanes: persistent blocks, each warp fetching 32
+// lanes at a time from work[1].
 template <bool kDelta>
 __device__ void track_bwd(const Table& tb, const Rays& r, const Grads& g, int k_media,
                           int32_t* __restrict__ work, const int32_t* __restrict__ list) {
@@ -560,18 +614,11 @@ __device__ void track_bwd(const Table& tb, const Rays& r, const Grads& g, int k_
       const int64_t lane = list[i];
       float acc[3] = {0.f, 0.f, 0.f};
       backward_lane<kDelta>(tb, r, g, lane, acc);
-      if (g.sigma_t != nullptr) {
-        const int64_t mid = r.mid[lane];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          if (acc[c] != 0.f) atomicAdd(s_sig + 3 * mid + c, acc[c]);
-      }
+      if (g.sigma_t != nullptr) add_sigma(s_sig, r.mid[lane], acc);
     }
   }
   __syncthreads();
-  if (g.sigma_t != nullptr)
-    for (int i = threadIdx.x; i < 3 * k_media; i += kThreads)
-      if (s_sig[i] != 0.f) atomicAdd(g.sigma_t + i, s_sig[i]);
+  flush_sigma(g, s_sig, k_media);
 }
 
 // The kernels by the names a profiler trace gives them.
@@ -579,8 +626,8 @@ __device__ void track_bwd(const Table& tb, const Rays& r, const Grads& g, int k_
   __global__ void __launch_bounds__(kThreads) name(__VA_ARGS__) { body; }
 MCT_KERNEL(medium_delta_track_kernel, track_all<true>(tb, r, out), Table tb, Rays r, Out out)
 MCT_KERNEL(medium_ratio_track_kernel, track_all<false>(tb, r, out), Table tb, Rays r, Out out)
-MCT_KERNEL(medium_delta_track_bwd_kernel, track_bwd<true>(tb, r, g, k_media, work, list),
-           Table tb, Rays r, Grads g, int k_media, int32_t* work, const int32_t* list)
+MCT_KERNEL(medium_delta_track_bwd_kernel, track_bwd_all<true>(tb, r, g, k_media), Table tb,
+           Rays r, Grads g, int k_media)
 MCT_KERNEL(medium_ratio_track_bwd_kernel, track_bwd<false>(tb, r, g, k_media, work, list),
            Table tb, Rays r, Grads g, int k_media, int32_t* work, const int32_t* list)
 #undef MCT_KERNEL
@@ -679,11 +726,12 @@ extern "C" int mct_ratio_track(const float* o, const float* d, const float* dist
 // T1-bwd (delta 1) / T2-bwd (delta 0) over the lanes of a call of the
 // forward at n_steps (at most 48) with the same inputs; k_media: K. gw:
 // (n, 3) f32 the weight's (transmittance's) cotangent; gt: (n,) f32 T1's
-// t's cotangent or null. work: 2 i32, zeroed; list: (n,) i32 scratch.
-// g_sigma: (K, 3)
-// f32, zeroed, added into; g_grid: the grid stack's shape, added into, or
-// null; g_o, g_d: (n, 3) f32 zeroed or null (both or neither); g_t_max:
-// (n,) f32 zeroed or null (T1 only: gt on the lanes that passed).
+// t's cotangent or null. work: 2 i32, zeroed, and list: (n,) i32 scratch,
+// for T2-bwd's list (T1-bwd: null). g_sigma: (K, 3) f32, zeroed, added
+// into; g_grid: the grid stack's shape, added into, or null; g_o, g_d:
+// (n, 3) f32 or null (both or neither) and g_t_max: (n,) f32 or null
+// (T1 only: gt on the lanes that passed, else 0): T1-bwd writes them on
+// every lane, T2-bwd adds into zeroed ones.
 extern "C" int mct_track_bwd(int delta, const float* o, const float* d, const float* t_max,
                              const int64_t* mid, const int64_t* key, uint32_t dim_base,
                              int64_t n, int n_steps, int k_media, const int64_t* m_type,
@@ -694,15 +742,18 @@ extern "C" int mct_track_bwd(int delta, const float* o, const float* d, const fl
                              int32_t* work, int32_t* list, float* g_sigma, float* g_grid,
                              float* g_o, float* g_d, float* g_t_max, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (n_steps > kBwdSteps || (delta && g_t_max != nullptr && g_t == nullptr))
+  if (n_steps > kBwdSteps || (delta && g_t_max != nullptr && g_t == nullptr) ||
+      (!delta && (work == nullptr || list == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Table tb = make_table(m_type, sigma_t, majorant, world_to_grid, grid_slot, grid_dims,
                               grid, gd, gh, gw);
   const Rays r{o, d, t_max, mid, key, dim_base, n, n_steps};
-  cudaError_t err = launch(medium_track_list_kernel, false, n, 0, stream, tb, mid, n, work, list);
-  if (err != cudaSuccess) return (int)err;
   const Grads g{g_w, g_t, g_sigma, g_grid, g_o, g_d, delta ? g_t_max : nullptr};
   const size_t smem = (size_t)3 * k_media * sizeof(float);
-  return (int)launch(delta ? medium_delta_track_bwd_kernel : medium_ratio_track_bwd_kernel, true,
-                     n, smem, stream, tb, r, g, k_media, work, (const int32_t*)list);
+  if (delta)
+    return (int)launch(medium_delta_track_bwd_kernel, false, n, smem, stream, tb, r, g, k_media);
+  cudaError_t err = launch(medium_track_list_kernel, false, n, 0, stream, tb, mid, n, work, list);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch(medium_ratio_track_bwd_kernel, true, n, smem, stream, tb, r, g, k_media,
+                     work, (const int32_t*)list);
 }

@@ -18,13 +18,31 @@
 // stops; else t += max(dist, HIT_EPS) / |d|, and the lane stays active
 // while t <= t_end. Numerics follow the plain version (sdf.march_plain)
 // as torch runs it on the card: every product, sum and quotient rounds on
-// its own (__fmul_rn, __fadd_rn, __fdiv_rn), and clamps pass NaN on.
+// its own (__fmul_rn, __fadd_rn, __fdiv_rn), and clamps pass NaN on. The
+// cell index is 32-bit (the wrapper bounds the grid): a float that does
+// not fit, or NaN, converts to a value the clamps take to the same cell
+// as the plain version's int64 conversion.
 //
-// What bounds it on the H100: the grid reads, eight dependent corner
-// loads a step at a point that depends on the last step's t, lanes of a
-// warp marching different distances. The design is the simplest that is
-// right: a plain grid of 128-thread blocks, the corners through the
-// read-only cache (a 128^3 grid is 8 MB, well inside the 50 MB L2).
+// What bounds it (PERF.md §6; H100 80GB HBM3 at 700 W): each lane's chain of
+// dependent steps, since a step's point depends on the last step's t. A
+// frame's marches take 0.012-0.057 ms of device time each (the kernel
+// before this layout: 0.023-0.087); the small ones (a few thousand
+// active lanes) sit at the floor of their longest lane, up to 128 steps
+// of ~0.1-0.2 us, and the large ones (up to 741,288 active lanes,
+// 5-9 steps a lane on average) at the rate the warps issue steps. The
+// corners come from `corners`, a copy of the grid with four values a node
+// (sdf.corner_layout: v[x,y,z], v[x,y,z+1], v[x,y+1,z], v[x,y+1,z+1]),
+// so that a step reads its eight corners as two float4 loads, one a node
+// (x0, y0, z0) and one a node (x0 + 1, y0, z0), instead of eight scalar
+// loads from four lines: 4x the grid's memory (33.6 MB at 128^3), inside
+// the 50 MB L2. Timed in turns against the parent's kernel and dropped:
+// per-thread refill (persistent warps claiming 128 lanes at a time and
+// queueing the active ones, so that a thread takes a new lane when its
+// own ends; twice as slow: most lanes end within a few steps, and the
+// refill's ballots, queue and scattered loads cost more than the idle
+// lanes it fills), eight corners a cell (8x the memory, no faster),
+// scalar loads from the grid with 32-bit cells (slower on the large
+// marches), and fewer registers forced by launch bounds (slower).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,34 +62,33 @@ __device__ __forceinline__ float lerp(float a, float b, float f) {
 }
 
 struct Grid {
-  const float* v;  // (nx, ny, nz), x-major
-  int64_t n[3];
+  const float4* corners;  // (nx, ny, nz) float4, sdf.corner_layout
+  int n[3];
 };
 
+// one axis of sdf.cell: the cell's lower node and the fraction f
+__device__ __forceinline__ int cell_axis(float p, int n, float& f) {
+  const float u = __fmul_rn(p, __fsub_rn((float)n, 1.f));
+  int lo = __float2int_rd(u);
+  lo = lo < 0 ? 0 : lo;
+  lo = lo < n - 2 ? lo : n - 2;
+  f = clamp(__fsub_rn(u, (float)lo), 0.f, 1.f);
+  return lo;
+}
+
 // sdf.sample at local point p
-__device__ float sample(const Grid& g, float px, float py, float pz) {
-  const float p[3] = {px, py, pz};
-  int64_t i0[3];
-  float f[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float u = __fmul_rn(p[a], __fsub_rn((float)g.n[a], 1.f));
-    int64_t lo = (int64_t)floorf(u);
-    lo = lo < 0 ? 0 : lo;
-    lo = lo < g.n[a] - 2 ? lo : g.n[a] - 2;
-    i0[a] = lo;
-    f[a] = clamp(__fsub_rn(u, (float)lo), 0.f, 1.f);
-  }
-  const int64_t ny = g.n[1], nz = g.n[2];
-  const float* base = g.v + (i0[0] * ny + i0[1]) * nz + i0[2];
-  auto at = [&](int dx, int dy, int dz) { return __ldg(base + (dx * ny + dy) * nz + dz); };
-  const float c00 = lerp(at(0, 0, 0), at(0, 0, 1), f[2]);
-  const float c01 = lerp(at(0, 1, 0), at(0, 1, 1), f[2]);
-  const float c10 = lerp(at(1, 0, 0), at(1, 0, 1), f[2]);
-  const float c11 = lerp(at(1, 1, 0), at(1, 1, 1), f[2]);
-  const float c0 = lerp(c00, c01, f[1]);
-  const float c1 = lerp(c10, c11, f[1]);
-  return lerp(c0, c1, f[0]);
+__device__ __forceinline__ float sample(const Grid& g, float px, float py, float pz) {
+  float fx, fy, fz;
+  const int x0 = cell_axis(px, g.n[0], fx), y0 = cell_axis(py, g.n[1], fy),
+            z0 = cell_axis(pz, g.n[2], fz);
+  const int node = (x0 * g.n[1] + y0) * g.n[2] + z0;
+  const float4 a = __ldg(g.corners + node);                    // x0: 00, 01, 10, 11 in (y, z)
+  const float4 b = __ldg(g.corners + node + g.n[1] * g.n[2]);  // x0 + 1
+  const float c00 = lerp(a.x, a.y, fz);
+  const float c01 = lerp(a.z, a.w, fz);
+  const float c10 = lerp(b.x, b.y, fz);
+  const float c11 = lerp(b.z, b.w, fz);
+  return lerp(lerp(c00, c01, fy), lerp(c10, c11, fy), fx);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -114,17 +131,21 @@ unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads
 
 // o, d: (n, 3) f32 the rays in the grid's local frame (d not normalised);
 // t_start, t_end, d_norm: (n,) f32; active0: (n,) u8 the lanes that enter
-// the unit cube before maxt; values: (nx, ny, nz) f32, each of nx, ny, nz
-// >= 2. out_t: (n,) f32 the lane's t after the march; out_hit: (n,) u8;
-// out_steps: (n,) i32 the steps the lane was active.
+// the unit cube before maxt; corners: (nx, ny, nz, 4) f32, 16-byte
+// aligned, sdf.corner_layout of the grid's values, each of nx, ny, nz >=
+// 2 and nx ny nz < 2^29. out_t: (n,) f32 the lane's t after the march;
+// out_hit: (n,) u8; out_steps: (n,) i32 the steps the lane was active.
 extern "C" int mct_sdf_march(const float* o, const float* d, const float* t_start,
                              const float* t_end, const float* d_norm, const uint8_t* active0,
-                             int64_t n, const float* values, int64_t nx, int64_t ny,
+                             int64_t n, const float* corners, int64_t nx, int64_t ny,
                              int64_t nz, float* out_t, uint8_t* out_hit, int32_t* out_steps,
                              cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  if (nx < 2 || ny < 2 || nz < 2 || nx * ny * nz >= (int64_t)1 << 29 ||
+      ((uintptr_t)corners & 15u) != 0u)
+    return (int)cudaErrorInvalidValue;
   sdf_march_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      o, d, t_start, t_end, d_norm, active0, n, Grid{values, {nx, ny, nz}}, out_t, out_hit,
-      out_steps);
+      o, d, t_start, t_end, d_norm, active0, n,
+      Grid{(const float4*)corners, {(int)nx, (int)ny, (int)nz}}, out_t, out_hit, out_steps);
   return (int)cudaGetLastError();
 }

@@ -307,9 +307,11 @@ def scene_from_numpy(arrays, config, device):
         for f in sensor_mod.Sensor._fields if "sensor." + f in a})
     sdf = None
     if "sdf.values" in a:
-        sdf = sdf_mod.SDFGrid(**{
-            f: get("sdf." + f, torch.int64 if f in ("mat_id", "shape_id") else torch.float32)
-            for f in sdf_mod.SDFGrid._fields})
+        # the JAX tree's fields; the corner layout is derived from its values
+        fields = {f: get("sdf." + f, torch.int64 if f in ("mat_id", "shape_id")
+                         else torch.float32)
+                  for f in sdf_mod.SDFGrid._fields if f != "corners"}
+        sdf = sdf_mod.SDFGrid(**fields, corners=sdf_mod.corner_layout(fields["values"]))
     ints = ("m_type", "phase_type", "grid_slot", "grid_dims", "shape_interior")
     media = medium_mod.MediumTable(**{
         f: get("media." + f, torch.int64 if f in ints else torch.float32)

@@ -15,7 +15,9 @@ to the host, so a captured frame holds it. Its plain version
 (`march_plain`) runs the lock-step loop in torch and checks every
 CHECK_EVERY steps whether any lane is active (a host sync each): a lane
 that is no longer active does not change, so both give the JAX package's
-t and hit flag. The march is not differentiable: as `jax.grad` through
+t and hit flag. S1 reads the grid's corner layout (`corner_layout`, four
+values a node, SDFGrid.corners), which `make` and params build beside
+the values when a grid is made. The march is not differentiable: as `jax.grad` through
 the JAX package's while_loop does, it raises where an input requires
 grad under grad mode (medium.py's tracking loops follow the same rule).
 """
@@ -51,7 +53,8 @@ class SDFGrid(NamedTuple):
     """One SDF grid shape: values (Nx, Ny, Nz) f32 signed distances at the
     grid nodes over the local unit cube (x-major); to_world, to_local (4,
     4); scale () the smallest axis scale of to_world; mat_id, shape_id ()
-    int64."""
+    int64; corners (Nx, Ny, Nz, 4) f32 corner_layout(values), which S1
+    reads (derived: the JAX package's grid has no such field)."""
 
     values: torch.Tensor
     to_world: torch.Tensor
@@ -59,6 +62,32 @@ class SDFGrid(NamedTuple):
     scale: torch.Tensor
     mat_id: torch.Tensor
     shape_id: torch.Tensor
+    corners: torch.Tensor
+
+
+def corner_layout(values):
+    """S1's copy of a grid (Nx, Ny, Nz): (Nx, Ny, Nz, 4) f32 holding at each
+    node (x, y, z) the values at (x, y, z), (x, y, z + 1), (x, y + 1, z) and
+    (x, y + 1, z + 1), the last node of an axis standing in for the one past
+    it (a cell's lower node is at most N - 2 on each axis, so those are
+    never read). A cell's eight corners are then the four at its lower node
+    and the four a step along x (cell_corners). 4x the grid's memory."""
+    v = values.detach()
+    v = torch.cat([v, v[:, :, -1:]], 2)
+    v = torch.cat([v, v[:, -1:, :]], 1)
+    return torch.stack([v[:, :-1, :-1], v[:, :-1, 1:], v[:, 1:, :-1], v[:, 1:, 1:]],
+                       -1).contiguous()
+
+
+def cell_corners(corners, x0, y0, z0):
+    """The eight corner values of the cells with lower node (x0, y0, z0),
+    read from a corner layout as S1 reads them (flat float4 index (x0 Ny +
+    y0) Nz + z0 and that plus Ny Nz): (..., 8) in (dx, dy, dz) order 000,
+    001, 010, 011, 100, 101, 110, 111."""
+    _, ny, nz, _ = corners.shape
+    flat = corners.reshape(-1, 4)
+    node = (x0 * ny + y0) * nz + z0
+    return torch.cat([flat[node], flat[node + ny * nz]], -1)
 
 
 def make(values, to_world=None, mat_id=0, shape_id=0, *, device):
@@ -71,13 +100,15 @@ def make(values, to_world=None, mat_id=0, shape_id=0, *, device):
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    grid = dev(np.asarray(values, np.float32))
     return SDFGrid(
-        values=dev(np.asarray(values, np.float32)),
+        values=grid,
         to_world=dev(tw),
         to_local=dev(tl),
         scale=dev(np.float32(axis_scale.min())),
         mat_id=dev(int(mat_id), torch.int64),
         shape_id=dev(int(shape_id), torch.int64),
+        corners=corner_layout(grid),
     )
 
 
@@ -164,11 +195,16 @@ def _check_cuda(sdf, tensors):
         raise ValueError("sdf march: o, d must be (N, 3) and t_start, t_end, d_norm, active "
                          "(N,)")
     if (sdf.values.dim() != 3 or min(sdf.values.shape) < 2 or sdf.values.dtype != torch.float32
+            or sdf.values.numel() >= 1 << 29
+            or sdf.corners.shape != sdf.values.shape + (4,)
+            or sdf.corners.dtype != torch.float32 or not sdf.corners.is_contiguous()
+            or sdf.corners.data_ptr() % 16
             or any(t.dtype != torch.float32 for t in tensors[:5])
             or tensors[5].dtype != torch.bool):
-        raise ValueError("sdf march: a float32 grid of at least 2 nodes an axis, float32 rays "
-                         "and a bool active flag")
-    for t in (sdf.values, *tensors):
+        raise ValueError("sdf march: a float32 grid of 2 to 2^29 nodes with at least 2 an axis "
+                         "and its contiguous, 16-byte aligned corner layout, float32 rays and a "
+                         "bool active flag")
+    for t in (sdf.values, sdf.corners, *tensors):
         if not t.is_cuda or t.device != tensors[0].device:
             raise ValueError("sdf march: rays and grid must be on one GPU")
 
@@ -191,13 +227,12 @@ def march(sdf: SDFGrid, o_l, d_l, t_start, t_end, d_norm, active):
     args = tuple(x.contiguous() for x in (o_l, d_l, t_start, t_end, d_norm, active))
     _check_cuda(sdf, args)
     n, dev = o_l.shape[0], o_l.device
-    values = sdf.values.contiguous()
     t = torch.empty(n, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     p = kbuild.ptr
-    err = kbuild.library().mct_sdf_march(*map(p, args), n, p(values), *values.shape, p(t),
-                                         p(hit), p(steps), kbuild.stream_of(o_l))
+    err = kbuild.library().mct_sdf_march(*map(p, args), n, p(sdf.corners), *sdf.values.shape,
+                                         p(t), p(hit), p(steps), kbuild.stream_of(o_l))
     kbuild.check(err, "sdf march")
     LAUNCHES += 1
     if MARCHES is not None:

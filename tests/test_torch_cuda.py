@@ -1395,6 +1395,126 @@ def test_t1_t2_bwd_match_plain_and_autograd(dev, dense):
                     assert float((a - b).double().norm() / b.double().norm()) <= 1e-4, kind
 
 
+def _bwd_against_plain(kind, table, args, g_w, g_t, grid=None, summed=False):
+    """medium.track_bwd (one launch) against track_bwd_plain on the card:
+    every gradient within 1e-4 relative L2 (zero where the plain one is),
+    finite. `grid`: the grid-gradient buffer to add into (zeroed here).
+    `summed`: the grid's gradient instead held, entry by entry, to the
+    float64 sum of the plain version's addends within 1e-4 of the sum of
+    their magnitudes (a float32 sum of many addends of both signs, in any
+    order, is that close to the exact one), the kernel's and the plain
+    version's alike. Returns the kernel's gradients."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    out, pairs = [], []
+    scatter = medium._scatter_grid
+
+    def keep(grid_out, idx, add):
+        pairs.append((idx, add))
+        return scatter(grid_out, idx, add)
+
+    for fn in (medium.track_bwd, medium.track_bwd_plain):
+        buf = torch.zeros_like(table.grid) if grid is None or fn is not medium.track_bwd \
+            else grid.zero_()
+        before = medium.LAUNCHES_BWD[kind]
+        medium._scatter_grid = keep
+        try:
+            g = fn(kind, table, *args, g_w, g_t, grid_out=buf, need_rays=True, need_t_max=True)
+        finally:
+            medium._scatter_grid = scatter
+        if fn is medium.track_bwd:
+            assert medium.LAUNCHES_BWD[kind] == before + 1
+        out.append((g[0], buf.clone()) + g[1:])
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*out)):
+        assert bool(torch.isfinite(a).all())
+        if i == 1 and summed:
+            idx = torch.cat([x for x, _ in pairs])
+            add = torch.cat([y for _, y in pairs]).double()
+            exact = torch.zeros(b.numel(), dtype=torch.float64, device=b.device)
+            scale = torch.zeros_like(exact)
+            exact.index_add_(0, idx, add)
+            scale.index_add_(0, idx, add.abs())
+            for x in (a, b):
+                assert bool(((x.reshape(-1).double() - exact).abs() <= 1e-4 * scale).all())
+        elif float(b.norm()) == 0:
+            assert float(a.norm()) == 0, kind
+        else:
+            assert float((a - b).double().norm() / b.double().norm()) <= 1e-4, kind
+    return out[0]
+
+
+@pytest.mark.parametrize("where", ["none", "all"])
+def test_t1_bwd_no_lane_or_every_lane_tracked(dev, where):
+    """T1-bwd / T2-bwd where no lane is tracked (vacuum and the homogeneous
+    medium: every gradient zero, the ray and t_max gradients written as
+    zeros on every lane) and where every lane is (the heterogeneous
+    medium), against track_bwd_plain."""
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, False, n=20_000)
+    mid = torch.full_like(mid, 1) if where == "all" else mid.clamp(max=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g_w = torch.rand((mid.shape[0], 3), generator=gen, device=dev)
+    g_t = torch.rand(mid.shape[0], generator=gen, device=dev)
+    for kind, base, gt in (("delta", 8, g_t), ("ratio", 2056, None)):
+        got = _bwd_against_plain(kind, table, (mid, o, d, t_max, key, base), g_w, gt)
+        if where == "none":
+            assert all(float(x.abs().sum()) == 0 for x in got)
+
+
+def test_t1_bwd_lanes_at_48_steps(dev):
+    """In the dense medium many lanes replay all 48 of ad_mode's steps
+    (a replay longer than any window of kept steps): T1-bwd / T2-bwd
+    against track_bwd_plain."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, True, n=30_000)
+    steps = medium._launch("delta", table, mid, o, d, t_max, key, 8,
+                           medium.AD_TRACKING_STEPS)[-1]
+    assert int((steps == medium.AD_TRACKING_STEPS).sum()) > 100
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g_w = torch.rand((mid.shape[0], 3), generator=gen, device=dev)
+    g_t = torch.rand(mid.shape[0], generator=gen, device=dev)
+    _bwd_against_plain("delta", table, (mid, o, d, t_max, key, 8), g_w, g_t)
+    _bwd_against_plain("ratio", table, (mid, o, d, t_max, key, 2056), g_w, None)
+
+
+def test_t1_bwd_every_lane_in_one_cell(dev):
+    """Every lane starts at one point of the dense medium's grid with a
+    short segment, so each replayed step's eight corners are nearly all
+    the same cells: the atomic adds contend. Each of those grid entries
+    sums some 65,536 addends of both signs (real and null collisions), so
+    the grid's gradient is held to the float64 sum of the plain version's
+    addends (_bwd_against_plain's `summed`); the other gradients to
+    track_bwd_plain."""
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, True, n=1 << 16)
+    n = mid.shape[0]
+    mid = torch.ones_like(mid)
+    o = torch.full_like(o, 0.0) + torch.tensor([0.29, 0.375, 0.46], device=dev)
+    d = torch.nn.functional.normalize(torch.ones_like(d), dim=-1)
+    t_max = torch.full_like(t_max, 0.04)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g_w = torch.rand((n, 3), generator=gen, device=dev)
+    g_t = torch.rand(n, generator=gen, device=dev)
+    got = _bwd_against_plain("delta", table, (mid, o, d, t_max, key, 8), g_w, g_t, summed=True)
+    assert int((got[1] != 0).sum()) <= 64
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_t1_bwd_grid_buffer_at_every_alignment(dev, offset):
+    """The grid's gradient added into a buffer that starts `offset` floats
+    into an allocation (its x pairs at every 4-, 8- and 16-byte
+    alignment): against track_bwd_plain."""
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, False, n=40_000)
+    gen = torch.Generator(device=dev).manual_seed(7 + offset)
+    n = mid.shape[0]
+    g_w = torch.rand((n, 3), generator=gen, device=dev)
+    g_t = torch.rand(n, generator=gen, device=dev)
+    numel = table.grid.numel()
+    buf = torch.zeros(numel + 4, device=dev)[offset:offset + numel].view(table.grid.shape)
+    assert buf.data_ptr() % 16 == 4 * offset
+    _bwd_against_plain("delta", table, (mid, o, d, t_max, key, 8), g_w, g_t, grid=buf)
+
+
 def test_tracking_wrappers_reject_what_the_kernels_do_not_take(dev):
     """A table on another device than the rays, or int32 medium ids, raise
     ValueError; an input that requires grad under grad mode raises
@@ -1450,6 +1570,110 @@ def test_s1_kernel_matches_plain(dev):
         for name, a, b in zip(("t", "hit", "steps"), got, want):
             assert torch.equal(a, b), (name, int((a != b).sum()))
         assert int(got[2].max()) >= 16 and 0.2 < float(got[1].float().mean())
+
+
+def _march_inputs(dev, values, n, seed, inside=0.7, grazing=False):
+    """march's arguments for n seeded rays in the local frame of an SDF
+    grid `values` (numpy): origins outside the unit cube aimed through it
+    (or, `grazing`, tangent to the sphere of sphere_sdf's defaults), each
+    clipped to the cube as sdf.intersect clips it; a share `inside` of the
+    lanes active."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    rng = np.random.default_rng(seed)
+    if grazing:
+        # tangent to the 0.35 sphere at 0.5: start on a tangent plane point
+        # and run along the plane, so the distance stays near HIT_EPS
+        u = rng.normal(size=(n, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        w = rng.normal(size=(n, 3))
+        w -= (w * u).sum(-1, keepdims=True) * u
+        w /= np.linalg.norm(w, axis=-1, keepdims=True)
+        touch = 0.5 + 0.35 * (1.0 + 2e-4) * u
+        o = touch - 0.6 * w
+        d = w
+    else:
+        o = rng.uniform(-0.5, 1.5, (n, 3))
+        d = rng.uniform(0.2, 0.8, (n, 3)) - o
+    g = sdf.make(values, device=dev)
+    o_l = torch.tensor(o, dtype=torch.float32, device=dev)
+    d_l = torch.tensor(d, dtype=torch.float32, device=dev)
+    inv = 1.0 / torch.where(d_l.abs() < 1e-12, 1e-12, d_l)
+    t0, t1 = (0.0 - o_l) * inv, (1.0 - o_l) * inv
+    near, far = torch.minimum(t0, t1).amax(-1), torch.maximum(t0, t1).amin(-1)
+    active = (near <= far) & (far > 0.0)
+    active &= torch.tensor(rng.random(n) < inside, device=dev)
+    t = torch.clamp(near, min=0.0) + 1e-5
+    d_norm = torch.clamp(d_l.norm(dim=-1), min=1e-12)
+    return g, (o_l, d_l, t, far, d_norm, active)
+
+
+def _march_equal(g, args):
+    """S1 against march_plain on the same arguments: hit and steps equal, t
+    bit for bit (NaN where the plain version's is); returns S1's output."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    before = sdf.LAUNCHES
+    got = sdf.march(g, *args)
+    want = sdf.march_plain(g, *args)
+    torch.cuda.synchronize()
+    assert sdf.LAUNCHES == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    nan = torch.isnan(want[0])
+    assert torch.equal(torch.isnan(got[0]), nan)
+    assert torch.equal(got[0][~nan].view(torch.int32), want[0][~nan].view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("shape", [(37, 50, 64), (2, 2, 2), (5, 3, 9)])
+def test_s1_odd_grids_match_plain(dev, shape):
+    """S1 bit for bit with march_plain on grids whose sides are odd or
+    minimal (every cell at the border of the grid), on 50,001 lanes (not
+    a multiple of a block)."""
+    rng = np.random.default_rng(sum(shape))
+    values = (rng.normal(size=shape) * 0.1 + 0.05).astype(np.float32)
+    g, args = _march_inputs(dev, values, 50_001, seed=len(shape))
+    got = _march_equal(g, args)
+    assert int(got[2].max()) > 1
+
+
+def test_s1_grazing_rays_reach_the_step_cap(dev):
+    """Rays tangent to a 128^3 sphere SDF march to MAX_STEPS, bit for bit
+    with march_plain."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    g, args = _march_inputs(dev, sdf.sphere_sdf(n=128), 4096, seed=5, inside=1.0, grazing=True)
+    got = _march_equal(g, args)
+    assert int((got[2] == sdf.MAX_STEPS).sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1 << 15])
+def test_s1_inactive_lanes_and_sizes(dev, n):
+    """No lane active: t_start back, no hit, 0 steps; and lane counts
+    around a block's, every lane active where it enters the cube."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    g, args = _march_inputs(dev, sdf.sphere_sdf(n=33), n, seed=n, inside=1.0)
+    _march_equal(g, args)
+    off = args[:5] + (torch.zeros_like(args[5]),)
+    got = _march_equal(g, off)
+    assert torch.equal(got[0], args[2]) and not bool(got[1].any()) and not bool(got[2].any())
+
+
+def test_s1_nan_passes_the_clamps(dev):
+    """NaN in the grid and in the rays passes S1's clamps as it passes
+    torch's: a NaN distance or t ends the lane with t NaN, as in
+    march_plain."""
+    from mitsuba_customization_tpu_torch.render import sdf
+
+    values = sdf.sphere_sdf(n=24)
+    values[10:14, 10:14, :] = np.nan
+    g, args = _march_inputs(dev, values, 20_000, seed=9, inside=1.0)
+    o, d = args[0].clone(), args[1].clone()
+    o[::7, 0] = float("nan")
+    d[3::11, 1] = float("nan")
+    got = _march_equal(g, (o, d) + args[2:])
+    assert bool(torch.isnan(got[0]).any())
 
 
 def _kernel_counts():

@@ -190,6 +190,29 @@ def test_tracking_records_only_when_asked(monkeypatch):
     assert int(steps.max()) > 0 and tsdf.MARCHES[0][1] > 0
 
 
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 5, 7), (9, 4, 11)])
+def test_corner_layout_holds_every_node(shape):
+    """S1's corner layout (sdf.corner_layout) read as the kernel reads it
+    (sdf.cell_corners: the float4 at node (x0 Ny + y0) Nz + z0 and the one
+    Ny Nz further) gives values[x0 + dx, y0 + dy, z0 + dz] for every corner
+    of every cell of small odd grids, which reads every node."""
+    rng = np.random.default_rng(sum(shape))
+    values = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+    corners = tsdf.corner_layout(values)
+    assert corners.shape == shape + (4,) and corners.is_contiguous()
+    x0, y0, z0 = torch.meshgrid(*(torch.arange(n - 1) for n in shape), indexing="ij")
+    got = tsdf.cell_corners(corners, x0, y0, z0)
+    seen = torch.zeros(shape, dtype=torch.bool)
+    for c in range(8):
+        dx, dy, dz = c >> 2, (c >> 1) & 1, c & 1
+        assert torch.equal(got[..., c], values[x0 + dx, y0 + dy, z0 + dz]), c
+        seen[x0 + dx, y0 + dy, z0 + dz] = True
+    assert bool(seen.all())
+    # the grid a scene holds carries its layout
+    g = tsdf.make(values.numpy(), device="cpu")
+    assert torch.equal(g.corners, corners)
+
+
 def test_march_has_no_gradient():
     """sdf.march (S1 or its plain version) raises where the grid or a ray
     input requires grad under grad mode, as the tracking loops and
