@@ -311,13 +311,15 @@ and SDF (S1) frames and of the replays. T1-bwd / T2-bwd
 VJP of the JAX scan, carry phase 26's numbers (`ms`, `plain_ms`,
 `bound_ms`, `library_ms`: an index_add_ of the same grid updates, the
 scatter part only; `call_device_ms`, every device operation of the
-call; `ad_step_shape`: the same on every 8th lane, the volpath AD step's
-262,144) and the launches of phase 27's AD step and of the replays of
+call, and `device_ops`, their count in one call's trace; `ad_step_shape`:
+the same on every 8th lane, the volpath AD step's 262,144) and the
+launches of phase 27's AD step and of the replays of
 phase 34. Every kernel's entry carries `device_ms` beside `ms`: the
-profiler's device time of the kernel alone (mean of 5 runs), where `ms`
-(CUDA events) holds its wrapper's host time too; T1, T2 and S1 also
-`frame_device_ms`, summed over the frame's recorded calls (null where
-a trace held no such kernel: not measured). B1 (bvh_closest) and B2
+profiler's device time of the kernel alone (mean of 5 runs, traced in a
+child process handed the same call: _device_trace), where `ms` (CUDA
+events) holds its wrapper's host time too; T1, T2 and S1 also
+`frame_device_ms`, summed over the frame's recorded calls (a trace that
+holds no such kernel fails the phase). B1 (bvh_closest) and B2
 (bvh_any), which replace the JAX package's XLA while_loop walks (no
 Pallas kernel), carry phase 32's numbers: `ms`, `plain_ms` (one run
 of the plain walk) and `bound_ms` of the camera wavefront's call (B1)
@@ -678,7 +680,7 @@ def phase_k1(table, dev):
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by,
-                device_ms=_device_ms(lambda: k1.eval_trilinear(table, *lanes), "merl_eval_kernel"))
+                device_ms=_device_ms("merl_eval_kernel", k1.eval_trilinear, table, *lanes))
 
 
 def phase_k2(cdf_cond, dev):
@@ -709,8 +711,8 @@ def phase_k2(cdf_cond, dev):
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, lanes_not_bit_equal=differ,
-                device_ms=_device_ms(lambda: k2.cond_sample_pdf(cdf_cond, *args, valid),
-                                     "cond_sample_kernel"))
+                device_ms=_device_ms("cond_sample_kernel", k2.cond_sample_pdf, cdf_cond, *args,
+                                     valid))
 
 
 def camera_wavefront(scene, spp, seed=0):
@@ -813,7 +815,7 @@ def phase_k3(scene, ray):
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     stats = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by,
-                 device_ms=_device_ms(lambda: cl.intersect(cs, r), "cluster_closest_kernel"))
+                 device_ms=_device_ms("cluster_closest_kernel", cl.intersect, cs, r))
     return stats, out + (r,)
 
 
@@ -862,7 +864,7 @@ def phase_k4(scene, hits):
           f"{bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by,
-                device_ms=_device_ms(lambda: cl.occluded(cs, rs), "cluster_shadow_kernel"))
+                device_ms=_device_ms("cluster_shadow_kernel", cl.occluded, cs, rs))
 
 
 def record_calls(fn, targets):
@@ -1061,39 +1063,115 @@ def check_k1_bwd(table, g, *lanes, value=None):
     return id_err, l2
 
 
-def _device_ms(fn, name, reps=5):
-    """Device time (ms) of the kernels whose name holds `name` in one fn(),
-    the mean of `reps` runs under torch.profiler after a warm-up: the
-    kernel alone, without the wrapper's host time that CUDA events around
-    fn() hold; None where no such kernel is in the trace. The trace is
-    taken and read as _profiled takes and reads it. Late in this script
-    a trace sometimes holds no device event at all (kernels of every
-    name: an open fault of the measurement, PERF.md q7), so up to three
-    traces are taken; where none holds the kernel, the device events'
-    names are printed."""
-    fn()
-    torch.cuda.synchronize()
+# host time asleep on each side of a traced burst, inside the trace (s):
+# the profiler keeps only the device events stamped inside its capture
+# window, and the card's timestamps land up to a few ms off the host's
+# clock, so a burst of a few short kernels traced edge to edge could lose
+# every one of them (PERF.md q7; scripts/profiler_window_probe.py: 20 ms
+# held the kernels of each of 1,472 traces, 36 of which came back empty
+# without it)
+TRACE_PAD_S = 0.05
+
+
+def _device_events(fn):
+    """fn() and a synchronize under torch.profiler, the host asleep
+    TRACE_PAD_S before and after them inside the trace: (the trace's device
+    events as the profiler recorded them (kineto_results), not parsed into
+    a tree of torch's FunctionEvents, which takes tens of seconds for an
+    eager AD step's ~100,000 kernels and their host operators; the wall s
+    of fn() and the synchronize)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    names = set()
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(TRACE_PAD_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(TRACE_PAD_S)
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA], wall
+
+
+def _timer_child(requests, answers):
+    """The device timer's child process: for each request (fn, args,
+    kwargs, reps), fn(*args, **kwargs) once, then `reps` times in one
+    trace (_device_events); answers the trace's device events as (name,
+    ns) pairs, or the error's text. None ends it."""
+    while (req := requests.get()) is not None:
+        fn, args, kwargs, reps = req
+        try:
+            fn(*args, **kwargs)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA]
-        found = [e.duration_ns() for e in kernels if name in e.name()]
-        if found:
-            return sum(found) / 1e6 / reps
-        names |= {e.name()[:80] for e in kernels}
-    print(f"device time: no kernel named {name!r} in three traces (device events: "
-          f"{sorted(names)})")
-    return None
+            kernels = _device_events(lambda: [fn(*args, **kwargs) for _ in range(reps)])[0]
+            answers.put([(e.name(), e.duration_ns()) for e in kernels])
+        except Exception as e:  # the parent raises it
+            answers.put(f"{type(e).__name__}: {e}")
+        del req, fn, args, kwargs
+        torch.cuda.empty_cache()
 
 
-def _ms_or(x):
-    """A time for a line: ms to 4 places, or 'not measured'."""
-    return "not measured" if x is None else f"{x:.4f}"
+_TIMER = []  # the device timer's child process and its two queues, once started
+
+
+def _device_trace(reps, fn, *args, **kwargs):
+    """The device events (name, ns) of `reps` calls fn(*args, **kwargs) in
+    one trace, taken in a child process handed the call (the port's
+    function and its arguments, CUDA tensors shared through CUDA IPC),
+    started at the phase's first read and ended by lap(). Once the first
+    AD step is captured into a CUDA graph, every other trace holds no
+    device event in this process and in any process whose profiler had
+    started before, but not in one started after (PERF.md q7;
+    scripts/profiler_window_probe.py --smoke). The child's failure
+    raises."""
+    if not _TIMER:
+        ctx = torch.multiprocessing.get_context("spawn")
+        requests, answers = ctx.Queue(), ctx.Queue()
+        child = ctx.Process(target=_timer_child, args=(requests, answers), daemon=True)
+        child.start()
+        _TIMER.extend((child, requests, answers))
+    child, requests, answers = _TIMER
+    torch.cuda.synchronize()
+    requests.put((fn, args, kwargs, reps))
+    got = answers.get(timeout=600)
+    torch.cuda.ipc_collect()
+    if isinstance(got, str):
+        raise AssertionError(f"device time in the timer's process: {got}")
+    return got
+
+
+def _stop_timer():
+    """End the device timer's child process, if it was started."""
+    if _TIMER:
+        child, requests, _ = _TIMER
+        requests.put(None)
+        child.join(timeout=60)
+        _TIMER.clear()
+
+
+def _per_call_ms(events, reps):
+    """{kernel name: device ms a call} from a trace of `reps` calls: each
+    kernel's mean launch times its launches a call. A trace can lose
+    single launches (PERF.md q7: K4 4 of 5, every time), so a sum over
+    the trace divided by `reps` would read low."""
+    launches = {}
+    for name, ns in events:
+        launches.setdefault(name, []).append(ns)
+    return {name: sum(v) / len(v) * max(round(len(v) / reps), 1) / 1e6
+            for name, v in launches.items()}
+
+
+def _device_ms(name, fn, *args, reps=5, **kwargs):
+    """Device time (ms) of the kernels whose name holds `name` in one call
+    fn(*args, **kwargs), from `reps` calls in one trace after a warm-up
+    (_device_trace, _per_call_ms): the kernel alone, without the wrapper's
+    host time that CUDA events around the call hold. A trace without
+    such a kernel raises, naming the device events it holds."""
+    events = _device_trace(reps, fn, *args, **kwargs)
+    found = [ms for n, ms in _per_call_ms(events, reps).items() if name in n]
+    if not found:
+        raise AssertionError(f"device time: no kernel named {name!r} in the trace (device "
+                             f"events: {sorted({n[:80] for n, _ in events})})")
+    return sum(found)
 
 
 def phase_k1_bwd(table, stack, dev, n=1 << 21):
@@ -1133,7 +1211,8 @@ def phase_k1_bwd(table, stack, dev, n=1 << 21):
         return k1.eval_trilinear_bwd(table, g, *lanes, value=value, out=buf)
 
     times = dict(ms=_time_ms(call), ms_into=_time_ms(into),
-                 device_ms=_device_ms(into, "merl_eval_bwd"),
+                 device_ms=_device_ms("merl_eval_bwd", k1.eval_trilinear_bwd, table, g, *lanes,
+                                      value=value, out=buf),
                  ms_reading_bins=_time_ms(lambda: k1.eval_trilinear_bwd(table, g, *lanes)),
                  plain_ms=_time_ms(lambda: k1.eval_trilinear_bwd_plain(
                      table, g, *joined, value=value)))
@@ -1148,7 +1227,7 @@ def phase_k1_bwd(table, stack, dev, n=1 << 21):
           f"{id_err:.3e} (limit {K1_BWD_ID_RTOL}), relative L2 error against plain "
           f"{l2:.3e} (limit {K1_BWD_L2_RTOL}), max abs err {err:.3e}; with K1's output: "
           f"kernel {times['ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); into a given "
-          f"buffer {times['ms_into']:.3f} ms (kernel device time {_ms_or(times['device_ms'])} "
+          f"buffer {times['ms_into']:.3f} ms (kernel device time {times['device_ms']:.4f} "
           f"ms), bound {into_bound:.4f} ms; reading the bins {times['ms_reading_bins']:.3f} ms; "
           f"plain {times['plain_ms']:.3f} ms; index_add_ of the {idx.numel()} updates "
           f"{library_ms:.3f} ms")
@@ -1235,22 +1314,22 @@ def phase_ad_step(setup):
             return k1.eval_trilinear_bwd(*args, value=value, out=buf)
 
         ms = _time_ms(into)
-        device = _device_ms(into, "merl_eval_bwd")
+        device = _device_ms("merl_eval_bwd", k1.eval_trilinear_bwd, *args, value=value,
+                            out=buf)
         bound = k1_bwd_bound(*args, value=value, out=buf)[0]
         live = sum(int(m.sum()) for m in (args[5], args[7]) if m is not None)
         print(f"AD K1-bwd call {i}: {args[2].shape[0]} lanes x 2 halves, {live} live, "
               f"{ms:.4f} ms into the buffer (bound {bound:.4f}); kernel device time "
-              f"{_ms_or(device)} ms; identity error {id_err:.2e}, relative L2 error "
+              f"{device:.4f} ms; identity error {id_err:.2e}, relative L2 error "
               f"against plain {l2:.2e}")
         total["ms"] += ms
         total["bound"] += bound
-        total["device"] = (None if total["device"] is None or device is None
-                           else total["device"] + device)
+        total["device"] += device
     zero_ms = _time_ms(lambda: torch.zeros(table.shape, device=dev))
     zero_bound = _nbytes(table) / HBM_BYTES_PER_S * 1e3
     l2 = rel_l2(step["grads"][AD_KEYS[0]], summed)
     print(f"AD step K1-bwd: {len(rec)} calls into one buffer {total['ms']:.4f} ms "
-          f"(bound {total['bound']:.4f}; kernel device time {_ms_or(total['device'])} ms), "
+          f"(bound {total['bound']:.4f}; kernel device time {total['device']:.4f} ms), "
           f"its zeroing {zero_ms:.4f} ms (bound {zero_bound:.4f}): {total['ms'] + zero_ms:.4f} "
           f"ms (bound {total['bound'] + zero_bound:.4f}); the step's table gradient "
           f"against the sum of the calls' own gradients: relative L2 error {l2:.2e} "
@@ -2520,8 +2599,9 @@ def phase_tracking_bwd(kind, args):
     medium._scan (48 masked steps over every lane). Timed: the kernel into
     one buffer (CUDA events, median of 5), the plain version once, and the
     yardstick: one index_add_ of the same grid updates (the plain version's
-    nonzero (index, addend) pairs: the scatter part only). Bound: each
-    lane's mid, and the outputs (ray and t_max gradients) of every lane; a
+    nonzero (index, addend) pairs: the scatter part only); the device
+    operations of one call counted in a trace. Bound: each lane's mid, and
+    the outputs (ray and t_max gradients) of every lane; a
     tracked lane's ray, t_max, key and cotangents; each grid cell the
     replay reads, once, and each atomic add's 4 bytes; operations the
     replayed steps' (T1_STEP_OPS / T2_STEP_OPS) and the sweep's
@@ -2561,13 +2641,12 @@ def phase_tracking_bwd(kind, args):
     add = torch.cat([a for _, a in pairs])
     buf = torch.zeros_like(table.grid)
 
-    def kernel():
-        return medium.track_bwd(name, *args, g_w, g_t, grid_out=buf, need_rays=True,
-                                need_t_max=True)
-
-    ms = _time_ms(kernel)
-    device_ms = _device_ms(kernel, AD_TRACE_NAMES[kind + "-bwd"])
-    call_device_ms = _device_ms(kernel, "")
+    call = (medium.track_bwd, name, *args, g_w, g_t)
+    outs = dict(grid_out=buf, need_rays=True, need_t_max=True)
+    ms = _time_ms(lambda: medium.track_bwd(*call[1:], **outs))
+    device_ms = _device_ms(AD_TRACE_NAMES[kind + "-bwd"], *call, **outs)
+    call_device_ms = _device_ms("", *call, **outs)
+    ops = [n for n, _ in _device_trace(1, *call, **outs)]
     plain_ms = _once_ms(lambda: medium.track_bwd_plain(name, *args, g_w, g_t, grid_out=buf,
                                                         need_rays=True, need_t_max=True))
     library_ms = _time_ms(lambda: buf.view(-1).index_add_(0, idx, add))
@@ -2575,7 +2654,7 @@ def phase_tracking_bwd(kind, args):
     live = int((steps > 0).sum())
     lane_steps = int(steps.sum())
     cells = int(seen.sum())
-    per_lane = 8 + 24 + (4 if kind == "T1" else 0)
+    per_lane = 8 + 24 + 4
     tracked = 24 + 4 + 8 + 12 + (4 if kind == "T1" else 0)
     nbytes = n * per_lane + live * tracked + cells * 4 + idx.numel() * 4
     step_ops = (T1_STEP_OPS if kind == "T1" else T2_STEP_OPS) + T_BWD_SWEEP_OPS
@@ -2584,13 +2663,14 @@ def phase_tracking_bwd(kind, args):
           f"{medium.AD_TRACKING_STEPS}), {cells} grid cells read, {idx.numel()} grid updates: "
           f"relative L2 error against the plain version {err_plain}, against autograd through "
           f"_scan {err_auto} (limit {TRACK_BWD_RTOL}); {ms:.4f} ms (device: kernel "
-          f"{_ms_or(device_ms)}, every device operation of the call "
-          f"{_ms_or(call_device_ms)}; bound "
+          f"{device_ms:.4f}, every device operation of the call "
+          f"{call_device_ms:.4f}; {len(ops)} device operations a call: "
+          f"{[x[:48] for x in ops]}; bound "
           f"{bound_ms:.5f}, {bound_by}; plain {plain_ms:.2f}; index_add_ of the grid updates "
           f"{library_ms:.4f})")
     return dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, plain)),
                 rel_l2_plain=err_plain, rel_l2_autograd=err_auto, ms=ms, device_ms=device_ms,
-                call_device_ms=call_device_ms, plain_ms=plain_ms,
+                call_device_ms=call_device_ms, device_ops=len(ops), plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, lanes=n, live=live,
                 steps=lane_steps, grid_updates=idx.numel())
 
@@ -2608,18 +2688,16 @@ def _loop_call(kind, args):
 
     if kind == "S1":
         got, err, differ, cells = check_march(args)
-        fn, plain = (lambda: sdf.march(*args)), (lambda: sdf.march_plain(*args))
+        kernel, plain = sdf.march, sdf.march_plain
         lanes, lane_in = 5, 32
     else:
         got, err, differ, cells = check_tracking(kind, args)
-        fn = ((lambda: medium.delta_track(*args)) if kind == "T1"
-              else (lambda: medium.ratio_track(*args)))
-        plain = ((lambda: medium.delta_track_plain(*args)) if kind == "T1"
-                 else (lambda: medium.ratio_track_plain(*args)))
+        kernel, plain = ((medium.delta_track, medium.delta_track_plain) if kind == "T1"
+                         else (medium.ratio_track, medium.ratio_track_plain))
         lanes, lane_in = 8, 36
     steps = got[-1]
-    ms, plain_ms = _time_ms(fn), _once_ms(plain)
-    device_ms = _device_ms(fn, TRACE_NAMES[kind])
+    ms, plain_ms = _time_ms(lambda: kernel(*args)), _once_ms(lambda: plain(*args))
+    device_ms = _device_ms(TRACE_NAMES[kind], kernel, *args)
     bound_ms, bound_by = loop_bound(kind, lanes, steps, cells, lane_in)
     live = int((steps > 0).sum())
     ad = "" if kind == "S1" else (f"; at {medium.AD_TRACKING_STEPS} steps "
@@ -2627,7 +2705,7 @@ def _loop_call(kind, args):
     line = (f"{kind} {steps.shape[0]} lanes, {live} {'active' if kind == 'S1' else 'tracked'}, "
             f"steps max {int(steps.max())} mean {float(steps.sum()) / max(live, 1):.1f} "
             f"({int(steps.sum())} in all), {cells} grid cells read, {differ} lanes not "
-            f"bit-equal, {ms:.4f} ms (device {_ms_or(device_ms)}; bound {bound_ms:.5f}, "
+            f"bit-equal, {ms:.4f} ms (device {device_ms:.4f}; bound {bound_ms:.5f}, "
             f"{bound_by}; "
             f"plain {plain_ms:.2f}){ad}")
     return line, dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
@@ -2654,13 +2732,11 @@ def phase_loop_calls(rec, label):
                     first[kind] = dict(st, call=i)
                 total[kind][0] += st["ms"]
                 total[kind][1] += st["bound_ms"]
-                # the frame's device sum: None once a call's is not measured
-                total[kind][2] = (None if total[kind][2] is None or st["device_ms"] is None
-                                  else total[kind][2] + st["device_ms"])
+                total[kind][2] += st["device_ms"]
                 parts.append(line)
         print(f"{label} {i}: " + "; ".join(parts))
     print(f"{label} sums over the recorded calls: " + ", ".join(
-        f"{k} {ms:.4f} ms (device {_ms_or(dev)}; bound {bound:.5f})"
+        f"{k} {ms:.4f} ms (device {dev:.4f}; bound {bound:.5f})"
         for k, (ms, bound, dev) in total.items()))
     return first, {k: tuple(v) for k, v in total.items()}
 
@@ -3386,8 +3462,8 @@ def phase_b1_b2(scene, ray):
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     b1 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, lanes=n, lanes_not_bit_equal=differ,
-              device_ms=_device_ms(lambda: bvh.intersect(tree, scene.geometry, r, cyl),
-                                   "bvh_closest_kernel"))
+              device_ms=_device_ms("bvh_closest_kernel", bvh.intersect, tree, scene.geometry, r,
+                                   cyl))
 
     shadow = nee_shadow_rays(scene, geo.compute_interaction(scene.geometry, r, t, prim, u, v,
                                                             cyl))
@@ -3408,7 +3484,7 @@ def phase_b1_b2(scene, ray):
           "dropped: PERF.md §6)")
     b2 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, lanes=n,
-              device_ms=_device_ms(lambda: bvh.occluded(tree, g, shadow, cyl), "bvh_any_kernel"))
+              device_ms=_device_ms("bvh_any_kernel", bvh.occluded, tree, g, shadow, cyl))
     return b1, b2
 
 
@@ -3568,21 +3644,11 @@ TRACE_NAMES = {"K1": "merl_eval_kernel", "K2": "cond_sample_kernel",
 
 
 def _profiled(fn, names=TRACE_NAMES):
-    """One fn() under torch.profiler: (wall s, device s, kernels traced,
-    busy share = device over wall, {kernel of `names`: launches of it in
-    the trace}); device and busy None where the trace holds no kernel.
-    The trace's device events are read as the profiler recorded them
-    (kineto_results), not parsed into a tree of torch's FunctionEvents,
-    which takes tens of seconds for an eager AD step's ~100,000 kernels
-    and their host operators."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    """One fn() under torch.profiler (_device_events): (wall s, device s,
+    kernels traced, busy share = device over wall, {kernel of `names`:
+    launches of it in the trace}); device and busy None where the trace
+    holds no kernel."""
+    kernels, wall = _device_events(fn)
     dev_s = sum(e.duration_ns() for e in kernels) / 1e9 if kernels else None
     traced = {k: sum(name in e.name() for e in kernels) for k, name in names.items()}
     return wall, dev_s, len(kernels), None if dev_s is None else dev_s / wall, traced
@@ -3930,7 +3996,9 @@ _LAP = [T_START]
 
 def lap(label):
     """Print and keep the wall seconds since the previous lap (the first:
-    since the script started) under `label`."""
+    since the script started) under `label`; end the device timer's
+    process (the next phase's reads start their own)."""
+    _stop_timer()
     torch.cuda.synchronize()
     now = time.perf_counter()
     PHASE_SECONDS[label] = round(now - _LAP[0], 1)

@@ -16,7 +16,7 @@
 // AD_TRACKING_STEPS = 48 in ad_mode, where a lane not done by then keeps
 // its partial t and weight, as the scan does. Nothing is read back to the
 // host, so a captured frame or AD step holds each loop as one launch (the
-// backward as two).
+// backward as one, behind the zeroing of sigma_t's gradient).
 //
 // Step `s` of a lane draws u = _uniform_from_bits(hash_combine(key, dim))
 // (core/qmc.py's lowbias32 hash on uint32) at dim = dim_base + 2 + 2 s
@@ -51,23 +51,27 @@
 // list fetched a lane at a time by persistent warps (Aila and Laine's
 // while-while), and a block's tile listed in shared memory.
 //
-// T1-bwd is one launch, a thread a lane over every lane, as T1: a lane
-// outside a heterogeneous medium writes zero ray and t_max gradients, so
-// the wrapper zeroes only sigma_t's (K, 3) gradient. An AD step calls it
-// on 262,144 lanes, about a tenth of them tracked for 1.4-1.7 steps (9
-// at most), where the fixed cost of a call outweighs the work: the
-// parent's T1-bwd listed the tracked lanes first (a list kernel, a
-// counter and persistent blocks whose warps fetched 32 listed lanes at a
-// time) behind five zeroing launches, seven device operations a call;
-// this design takes two. Timed in turns and dropped (PERF.md §6):
-// float2 / float4 atomics for the grid's x pairs (no faster: the adds are
-// spread over a grid larger than the L2), the first 8 steps kept in
-// registers with a lane of more steps replaying from its key (more
-// registers, slower), 256-thread persistent blocks striding over the
-// lanes, and fewer registers forced by launch bounds (spills). T2-bwd
-// keeps the listed schedule (medium_track_list_kernel: a warp ballot and
-// one atomic a warp; its counters zeroed by the wrapper on the stream, a
-// node of a captured graph).
+// T1-bwd and T2-bwd are one launch each, a thread a lane over every lane,
+// as T1 / T2: a lane outside a heterogeneous medium writes zero ray and
+// t_max gradients, and a tracked lane writes its own (T2's t_max gradient
+// is 0 on every lane: ratio tracking's passed test carries none), so the
+// wrapper zeroes only sigma_t's (K, 3) gradient. An AD step calls each on
+// 262,144 lanes, at most a tenth of them tracked, for 1.4-1.7 steps a
+// lane (T1) or 2.1-2.5 (T2), where the fixed cost of a call outweighs the
+// work: the earlier schedule of
+// both listed the tracked lanes first (a list kernel, a counter and
+// persistent blocks whose warps fetched 32 listed lanes at a time) behind
+// zeroing launches, about seven device operations a call; this design
+// takes two. Timed in turns and dropped (PERF.md §6,
+// PERF_APPENDIX.md): float2 / float4 atomics for the grid's x pairs (no
+// faster: the adds are spread over a grid larger than the L2), the first
+// 8 steps kept in registers with a lane of more steps replaying from its
+// key (more registers, slower), 256-thread persistent blocks striding over
+// the lanes, fewer registers forced by launch bounds (spills), and for
+// T2-bwd two floats kept a step (flight, density) with the weight before
+// each step rebuilt in the sweep (slower: the rebuild is quadratic in a
+// lane's steps, and the three floats a step it saves sit in local memory
+// that a lane of one or two steps barely touches).
 //
 // The backward, given each lane's cotangent gw (n, 3) of the weight (and
 // gt (n,) of T1's t), replays the lane's steps from its key with the same
@@ -96,7 +100,6 @@ constexpr int kBwdSteps = 48;                  // medium.AD_TRACKING_STEPS
 constexpr int64_t kHeterogeneous = 1;          // medium.HETEROGENEOUS
 constexpr float kUMax = (float)(1.0 - 1e-7);   // _free_step's clamp
 constexpr float kMajMin = 1e-20f;              // the majorant's floor
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
   x ^= x >> 16;
@@ -371,22 +374,6 @@ __device__ __forceinline__ void write_initial(const Out& out, int64_t lane) {
   out.write(lane, 0.f, one, false, 0);
 }
 
-// List the tracked lanes into `list` (work[0] counts them: one atomic a
-// warp).
-__global__ void __launch_bounds__(kThreads)
-    medium_track_list_kernel(Table tb, const int64_t* __restrict__ mid, int64_t n,
-                             int32_t* __restrict__ work, int32_t* __restrict__ list) {
-  const int64_t lane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const bool tracked = lane < n && tracks(tb, mid[lane]);
-  const unsigned mask = __ballot_sync(kFull, tracked);
-  if (mask == 0u) return;
-  const int me = threadIdx.x & 31, leader = __ffs(mask) - 1;
-  int base = 0;
-  if (me == leader) base = atomicAdd(work, __popc(mask));
-  base = __shfl_sync(kFull, base, leader);
-  if (tracked) list[base + __popc(mask & ((1u << me) - 1u))] = (int32_t)lane;
-}
-
 // T1 / T2: a thread a lane over every lane.
 template <bool kDelta>
 __device__ void track_all(const Table& tb, const Rays& r, const Out& out) {
@@ -453,7 +440,7 @@ __device__ void backward_lane(const Table& tb, const Rays& r, const Grads& g, in
     ln.t = tn;
     if (real) break;
   }
-  if (kDelta && g.t_max != nullptr) g.t_max[lane] = passed ? g.gt[lane] : 0.f;
+  if (g.t_max != nullptr) g.t_max[lane] = kDelta && passed ? g.gt[lane] : 0.f;
   float cw[3] = {g.gw[3 * lane], g.gw[3 * lane + 1], g.gw[3 * lane + 2]};
   float go[3] = {0.f, 0.f, 0.f}, gd[3] = {0.f, 0.f, 0.f};
   const bool rays = g.o != nullptr;
@@ -567,9 +554,9 @@ __device__ __forceinline__ void flush_sigma(const Grads& g, const float* s_sig, 
       if (s_sig[i] != 0.f) atomicAdd(g.sigma_t + i, s_sig[i]);
 }
 
-// T1-bwd: a thread a lane over every lane, no list and no counter. A lane
-// outside a heterogeneous medium writes zero ray and t_max gradients, so
-// that the wrapper zeroes none of them.
+// T1-bwd / T2-bwd: a thread a lane over every lane, no list and no
+// counter. A lane outside a heterogeneous medium writes zero ray and t_max
+// gradients, so that the wrapper zeroes none of them.
 template <bool kDelta>
 __device__ void track_bwd_all(const Table& tb, const Rays& r, const Grads& g, int k_media) {
   extern __shared__ float s_sig[];
@@ -587,34 +574,7 @@ __device__ void track_bwd_all(const Table& tb, const Rays& r, const Grads& g, in
 #pragma unroll
         for (int q = 0; q < 3; ++q) g.o[3 * lane + q] = g.d[3 * lane + q] = 0.f;
       }
-      if (kDelta && g.t_max != nullptr) g.t_max[lane] = 0.f;
-    }
-  }
-  __syncthreads();
-  flush_sigma(g, s_sig, k_media);
-}
-
-// T2-bwd over the listed lanes: persistent blocks, each warp fetching 32
-// lanes at a time from work[1].
-template <bool kDelta>
-__device__ void track_bwd(const Table& tb, const Rays& r, const Grads& g, int k_media,
-                          int32_t* __restrict__ work, const int32_t* __restrict__ list) {
-  extern __shared__ float s_sig[];
-  for (int i = threadIdx.x; i < 3 * k_media; i += kThreads) s_sig[i] = 0.f;
-  __syncthreads();
-  const int total = work[0];
-  const int me = threadIdx.x & 31;
-  while (true) {
-    int base = 0;
-    if (me == 0) base = atomicAdd(work + 1, 32);
-    base = __shfl_sync(kFull, base, 0);
-    if (base >= total) break;
-    const int i = base + me;
-    if (i < total) {
-      const int64_t lane = list[i];
-      float acc[3] = {0.f, 0.f, 0.f};
-      backward_lane<kDelta>(tb, r, g, lane, acc);
-      if (g.sigma_t != nullptr) add_sigma(s_sig, r.mid[lane], acc);
+      if (g.t_max != nullptr) g.t_max[lane] = 0.f;
     }
   }
   __syncthreads();
@@ -628,33 +588,11 @@ MCT_KERNEL(medium_delta_track_kernel, track_all<true>(tb, r, out), Table tb, Ray
 MCT_KERNEL(medium_ratio_track_kernel, track_all<false>(tb, r, out), Table tb, Rays r, Out out)
 MCT_KERNEL(medium_delta_track_bwd_kernel, track_bwd_all<true>(tb, r, g, k_media), Table tb,
            Rays r, Grads g, int k_media)
-MCT_KERNEL(medium_ratio_track_bwd_kernel, track_bwd<false>(tb, r, g, k_media, work, list),
-           Table tb, Rays r, Grads g, int k_media, int32_t* work, const int32_t* list)
+MCT_KERNEL(medium_ratio_track_bwd_kernel, track_bwd_all<false>(tb, r, g, k_media), Table tb,
+           Rays r, Grads g, int k_media)
 #undef MCT_KERNEL
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
-// Persistent blocks: as many as the card holds at once of `kernel` with
-// `smem` bytes of shared memory, asked once for each on the first call,
-// which runs before any capture.
-unsigned resident_blocks(const void* kernel, size_t smem) {
-  struct Entry {
-    const void* kernel;
-    size_t smem;
-    unsigned blocks;
-  };
-  static Entry cache[32];
-  static int used = 0;
-  for (int i = 0; i < used; ++i)
-    if (cache[i].kernel == kernel && cache[i].smem == smem) return cache[i].blocks;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  const unsigned blocks = (unsigned)((sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1));
-  if (used < 32) cache[used++] = Entry{kernel, smem, blocks};
-  return blocks;
-}
 
 Table make_table(const int64_t* m_type, const float* sigma_t, const float* majorant,
                  const float* world_to_grid, const int64_t* grid_slot,
@@ -664,20 +602,17 @@ Table make_table(const int64_t* m_type, const float* sigma_t, const float* major
                gd, gh, gw};
 }
 
-// Launch `kernel` on persistent blocks, or on a block a 128 lanes.
+// Launch `kernel` on a block a 128 lanes.
 template <typename K, typename... A>
-cudaError_t launch(K kernel, bool persistent, int64_t n, size_t smem, cudaStream_t stream,
-                   A... args) {
-  const unsigned blocks =
-      persistent ? resident_blocks((const void*)kernel, smem) : blocks_for(n);
-  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+cudaError_t launch(K kernel, int64_t n, size_t smem, cudaStream_t stream, A... args) {
+  kernel<<<blocks_for(n), kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 int track(bool delta, const Rays& r, const Table& tb, const Out& out, cudaStream_t stream) {
   if (r.n <= 0) return (int)cudaGetLastError();
-  return (int)launch(delta ? medium_delta_track_kernel : medium_ratio_track_kernel, false, r.n, 0,
-                     stream, tb, r, out);
+  return (int)launch(delta ? medium_delta_track_kernel : medium_ratio_track_kernel, r.n, 0, stream,
+                     tb, r, out);
 }
 
 }  // namespace
@@ -726,12 +661,10 @@ extern "C" int mct_ratio_track(const float* o, const float* d, const float* dist
 // T1-bwd (delta 1) / T2-bwd (delta 0) over the lanes of a call of the
 // forward at n_steps (at most 48) with the same inputs; k_media: K. gw:
 // (n, 3) f32 the weight's (transmittance's) cotangent; gt: (n,) f32 T1's
-// t's cotangent or null. work: 2 i32, zeroed, and list: (n,) i32 scratch,
-// for T2-bwd's list (T1-bwd: null). g_sigma: (K, 3) f32, zeroed, added
-// into; g_grid: the grid stack's shape, added into, or null; g_o, g_d:
-// (n, 3) f32 or null (both or neither) and g_t_max: (n,) f32 or null
-// (T1 only: gt on the lanes that passed, else 0): T1-bwd writes them on
-// every lane, T2-bwd adds into zeroed ones.
+// t's cotangent or null. g_sigma: (K, 3) f32, zeroed, added into; g_grid:
+// the grid stack's shape, added into, or null; g_o, g_d: (n, 3) f32 or
+// null (both or neither) and g_t_max: (n,) f32 or null (T1: gt on the
+// lanes that passed, else 0; T2: 0), written on every lane.
 extern "C" int mct_track_bwd(int delta, const float* o, const float* d, const float* t_max,
                              const int64_t* mid, const int64_t* key, uint32_t dim_base,
                              int64_t n, int n_steps, int k_media, const int64_t* m_type,
@@ -739,21 +672,16 @@ extern "C" int mct_track_bwd(int delta, const float* o, const float* d, const fl
                              const float* world_to_grid, const int64_t* grid_slot,
                              const int64_t* grid_dims, const float* grid, int64_t gd,
                              int64_t gh, int64_t gw, const float* g_w, const float* g_t,
-                             int32_t* work, int32_t* list, float* g_sigma, float* g_grid,
-                             float* g_o, float* g_d, float* g_t_max, cudaStream_t stream) {
+                             float* g_sigma, float* g_grid, float* g_o, float* g_d,
+                             float* g_t_max, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (n_steps > kBwdSteps || (delta && g_t_max != nullptr && g_t == nullptr) ||
-      (!delta && (work == nullptr || list == nullptr)))
+  if (n_steps > kBwdSteps || (delta && g_t_max != nullptr && g_t == nullptr))
     return (int)cudaErrorInvalidValue;
   const Table tb = make_table(m_type, sigma_t, majorant, world_to_grid, grid_slot, grid_dims,
                               grid, gd, gh, gw);
   const Rays r{o, d, t_max, mid, key, dim_base, n, n_steps};
-  const Grads g{g_w, g_t, g_sigma, g_grid, g_o, g_d, delta ? g_t_max : nullptr};
+  const Grads g{g_w, g_t, g_sigma, g_grid, g_o, g_d, g_t_max};
   const size_t smem = (size_t)3 * k_media * sizeof(float);
-  if (delta)
-    return (int)launch(medium_delta_track_bwd_kernel, false, n, smem, stream, tb, r, g, k_media);
-  cudaError_t err = launch(medium_track_list_kernel, false, n, 0, stream, tb, mid, n, work, list);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch(medium_ratio_track_bwd_kernel, true, n, smem, stream, tb, r, g, k_media,
-                     work, (const int32_t*)list);
+  return (int)launch(delta ? medium_delta_track_bwd_kernel : medium_ratio_track_bwd_kernel, n,
+                     smem, stream, tb, r, g, k_media);
 }

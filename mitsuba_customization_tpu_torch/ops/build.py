@@ -58,7 +58,7 @@ _SIGNATURES = {
     "mct_ratio_track": [_P, _P, _P, _P, _P, _U32, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
                         _I64, _I64, _P, _P, _P],
     "mct_track_bwd": [_I, _P, _P, _P, _P, _P, _U32, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                      _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     "mct_sdf_march": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P],
 }
 

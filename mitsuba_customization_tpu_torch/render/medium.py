@@ -648,9 +648,9 @@ def track_bwd_plain(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g
 
 def _launch_bwd(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t, grid_out,
                 need_rays, need_t_max):
-    """Launch T1-bwd (kind "delta"; one launch over every lane, which
-    writes the ray and t_max gradients on every lane) or T2-bwd (a list of
-    the tracked lanes, from zeroed outputs): track_bwd_plain's results."""
+    """Launch T1-bwd (kind "delta") or T2-bwd ("ratio"): one launch over
+    every lane, which writes the ray and t_max gradients on every lane,
+    behind the zeroing of sigma_t's: track_bwd_plain's results."""
     what = f"medium {kind} tracking backward"
     _check_cuda(table, mid, ray_o, ray_d, t_max, key, what)
     n, dev = ray_o.shape[0], ray_o.device
@@ -665,24 +665,19 @@ def _launch_bwd(kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t, 
                          "contiguous grid-shaped output")
     p = kbuild.ptr
     tabs, grid = _table_ptrs(table)
-    delta = kind == "delta"
-    out = torch.empty if delta else torch.zeros
     g_sigma = torch.zeros((k, 3), device=dev)
-    g_o = out((n, 3), device=dev) if need_rays else None
-    g_d = out((n, 3), device=dev) if need_rays else None
-    g_tmax = out(n, device=dev) if need_t_max else None
-    work = None if delta else torch.zeros(2, dtype=torch.int32, device=dev)
-    lanes = None if delta else torch.empty(n, dtype=torch.int32, device=dev)
+    g_o = torch.empty((n, 3), device=dev) if need_rays else None
+    g_d = torch.empty((n, 3), device=dev) if need_rays else None
+    g_tmax = torch.empty(n, device=dev) if need_t_max else None
 
     def opt(x):
         return p(x) if x is not None else None
 
     err = kbuild.library().mct_track_bwd(
-        int(delta), *[p(x.contiguous()) for x in (ray_o, ray_d, t_max, mid, key)],
+        int(kind == "delta"), *[p(x.contiguous()) for x in (ray_o, ray_d, t_max, mid, key)],
         int(dim_base) & MASK32, n, AD_TRACKING_STEPS, k, *tabs, *grid.shape[1:],
-        p(g_w.contiguous()), opt(None if g_t is None else g_t.contiguous()), opt(work),
-        opt(lanes), p(g_sigma), opt(grid_out), opt(g_o), opt(g_d), opt(g_tmax),
-        kbuild.stream_of(ray_o))
+        p(g_w.contiguous()), opt(None if g_t is None else g_t.contiguous()), p(g_sigma),
+        opt(grid_out), opt(g_o), opt(g_d), opt(g_tmax), kbuild.stream_of(ray_o))
     kbuild.check(err, what)
     LAUNCHES_BWD[kind] += 1
     return g_sigma, g_o, g_d, g_tmax

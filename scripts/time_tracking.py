@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""T1 / T2, T1-bwd and S1 in turns against a parent tree's kernels on the
-calls their frames and AD steps make (one CUDA GPU).
+"""T1 / T2, T1-bwd, T2-bwd and S1 in turns against a parent tree's
+kernels on the calls their frames and AD steps make (one CUDA GPU).
 
     python3 scripts/time_tracking.py --parent build/parent [--rounds 4]
-        [--kernels t1t2 t1bwd s1] [--out build/time_tracking.json]
+        [--kernels t1t2 t1bwd t2bwd s1] [--out build/time_tracking.json]
 
 The parent is a commit unpacked into the ignored build/ (`mkdir -p
 build/parent && git archive HEAD | tar -x -C build/parent`); its kernels
 are built by its own ops/build.py from its sources and called through its
-C interface, as its wrappers call them. Each section records the calls'
-arguments from one run of this tree, holds this tree's outputs to the
-parent's on every call, then runs every call in turn for --rounds rounds,
-the order of the variants reversed every other round:
+C interface (with or without T2-bwd's list), as its wrappers call them.
+Each section records the calls' arguments from one run of this tree,
+holds this tree's outputs to the parent's on every call, then runs every
+call in turn for --rounds rounds, the order of the variants reversed
+every other round:
 
 - t1t2: T1 / T2 on the 512x512, 8 spp, depth 8 volpath frame
   (scenes.volpath_dict, chip_smoke's phase 26), held bit for bit at the
@@ -24,8 +25,12 @@ the order of the variants reversed every other round:
   seeded cotangents), and T2-bwd on the step's 5 calls beside them (a
   control), held within chip_smoke.TRACK_BWD_RTOL (relative L2) on every
   gradient. Printed per call: the profiler device time of the call's
-  device operations split into the backward kernel, the list kernel and
-  the rest (the wrapper's zeroing), and the tracked lanes' steps.
+  device operations split into the backward kernel, the list kernel (a
+  parent whose backward lists the tracked lanes) and the rest (the
+  wrapper's zeroing), and the tracked lanes' steps.
+- t2bwd: the same with T2-bwd the subject: its 5 calls in the AD step and
+  the frame's busiest T2 call (2,097,152 lanes, phase 26's seeded
+  cotangent), T1-bwd's 6 calls in the step beside them (the control).
 - s1: S1 on the 15 marches of the 512x512, 8 spp shapes + SDF frame
   (phase 24, a 128^3 grid) and the 22 of its 256x256, 4 spp, depth 6 AD
   step (phase 34's SDF step, eager), held bit for bit (t, hit, steps).
@@ -106,17 +111,25 @@ def parent_launch(pb, kind, table, mid, ray_o, ray_d, t_max, key, dim_base):
 def parent_track_bwd(pb, kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g_w, g_t, *,
                      grid_out, need_rays, need_t_max):
     """The parent's T1-bwd / T2-bwd through its C interface, as its
-    medium._launch_bwd calls it (zeroed outputs and counter, a list)."""
+    medium._launch_bwd calls it: sigma_t's gradient zeroed, the ray and
+    t_max gradients left to the kernel, which writes every lane; except
+    where the parent's mct_track_bwd takes a counter and a list (two more
+    pointers): its T2-bwd runs over the listed lanes, adding into zeroed
+    outputs behind a zeroed 2-int counter."""
     n, dev = ray_o.shape[0], ray_o.device
     p = pb.ptr
     k = table.sigma_t.shape[0]
     tabs, grid = _table_args(pb, table)
+    listed = len(pb._SIGNATURES["mct_track_bwd"]) == 30
+    zeroed = listed and kind == "ratio"
+    out = torch.zeros if zeroed else torch.empty
     g_sigma = torch.zeros((k, 3), device=dev)
-    g_o = torch.zeros((n, 3), device=dev) if need_rays else None
-    g_d = torch.zeros((n, 3), device=dev) if need_rays else None
-    g_tmax = torch.zeros(n, device=dev) if need_t_max else None
-    work = torch.zeros(2, dtype=torch.int32, device=dev)
-    lanes = torch.empty(n, dtype=torch.int32, device=dev)
+    g_o = out((n, 3), device=dev) if need_rays else None
+    g_d = out((n, 3), device=dev) if need_rays else None
+    g_tmax = out(n, device=dev) if need_t_max else None
+    # the counter and the list: a listed parent's T2-bwd takes both, its T1-bwd nulls
+    scratch = [torch.zeros(2, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev)] if zeroed else [None] * 2
 
     def opt(x):
         return p(x) if x is not None else None
@@ -124,7 +137,8 @@ def parent_track_bwd(pb, kind, table, mid, ray_o, ray_d, t_max, key, dim_base, g
     pb.check(pb.library().mct_track_bwd(
         int(kind == "delta"), *[p(x.contiguous()) for x in (ray_o, ray_d, t_max, mid, key)],
         int(dim_base) & MASK32, n, medium.AD_TRACKING_STEPS, k, *tabs, *grid.shape[1:],
-        p(g_w.contiguous()), opt(None if g_t is None else g_t.contiguous()), p(work), p(lanes),
+        p(g_w.contiguous()), opt(None if g_t is None else g_t.contiguous()),
+        *map(opt, scratch if listed else []),
         p(g_sigma), opt(grid_out), opt(g_o), opt(g_d), opt(g_tmax), pb.stream_of(ray_o)),
         "parent track bwd")
     return g_sigma, g_o, g_d, g_tmax
@@ -145,19 +159,13 @@ def parent_march(pb, g, o, d, t_start, t_end, d_norm, active):
 
 
 def device_split(fn, reps=3):
-    """{device operation name: device ms a call} of fn() under
-    torch.profiler (the mean of `reps` runs after a warm-up)."""
+    """{device operation name: device ms a call} of fn(): `reps` runs in
+    one trace (chip_smoke._device_events, chip_smoke._per_call_ms) after a
+    warm-up."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
-            out[e.name] = out.get(e.name, 0.0) + e.device_time / 1e3 / reps
-    return out
+    events = chip_smoke._device_events(lambda: [fn() for _ in range(reps)])[0]
+    return chip_smoke._per_call_ms([(e.name(), e.duration_ns()) for e in events], reps)
 
 
 def in_turns(variants, calls, rounds, split):
@@ -235,7 +243,8 @@ def t1t2_section(a, pb):
                                       for kind, args in calls if kind == k))
     busiest = {k: calls[max((i for i, c in enumerate(calls) if c[0] == k),
                             key=lambda i: tracked[i])] for k in ("delta", "ratio")}
-    device = {v: {name: chip_smoke._device_ms(lambda: fns[v](*busiest[k]), "medium_")
+    device = {v: {name: sum(ms for op, ms in device_split(lambda: fns[v](*busiest[k]),
+                                                          reps=5).items() if "medium_" in op)
                   for k, name in (("delta", "T1"), ("ratio", "T2"))} for v in fns}
     print("t1t2 busiest call's kernels, profiler device ms: " + json.dumps(device))
     med = {}
@@ -286,8 +295,10 @@ def _bwd_split(names):
     return parts
 
 
-def t1bwd_section(a, pb):
-    """T1-bwd on the volpath AD step's calls and on the 2M-lane call."""
+def _ad_step_bwd_calls():
+    """The volpath AD step's recorded backward calls (phase 27's eager
+    step, their recorded cotangents): {"delta": [T1-bwd calls], "ratio":
+    [T2-bwd calls]}."""
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.render import ad
     from mitsuba_customization_tpu_torch.render.params import traverse
@@ -303,24 +314,45 @@ def t1bwd_section(a, pb):
     rec = chip_smoke.record_calls(
         lambda: ad._eager_loss_and_grad(scene, params, target, spp, 2),
         {"bwd": (medium, "track_bwd", _keep_bwd_call)})
-    calls = ([c for c in rec["bwd"] if c[0][0] == "delta"]
-             + [c for c in rec["bwd"] if c[0][0] == "ratio"])
-    n_delta = sum(c[0][0] == "delta" for c in calls)
-    del rec
-    # the 2,097,152-lane call: phase 26's busiest T1 call, its seeded cotangents
+    return {kind: [c for c in rec["bwd"] if c[0][0] == kind] for kind in ("delta", "ratio")}
+
+
+def _frame_bwd_call(kind):
+    """Phase 26's 2,097,152-lane call: the 512x512 volpath frame's T1 /
+    T2 call of the most lane steps, as a backward call with its seeded
+    cotangents (the weight's, and T1's t's)."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.scenes import volpath_dict
+
     res, spp, depth = VOLPATH_FRAME
     big = mt.load_dict(volpath_dict(res, spp, depth, chip_smoke.VOLPATH_GRID,
                                     chip_smoke.VOLPATH_SEED), DEV)
     mt.render(big, spp=spp, seed=1)
+    fn = medium.delta_track if kind == "delta" else medium.ratio_track
+    name = "delta_track" if kind == "delta" else "ratio_track"
     rec = chip_smoke.record_calls(lambda: mt.render(big, spp=spp, seed=1), {
-        "T1": (medium, "delta_track", lambda args, kw: chip_smoke._keep_args(args))})
-    busiest = max(rec["T1"], key=lambda args: int(medium.delta_track(*args)[-1].sum()))
+        "loop": (medium, name, lambda args, kw: chip_smoke._keep_args(args))})
+    busiest = max(rec["loop"], key=lambda args: int(fn(*args)[-1].sum()))
     del rec, big
     n = busiest[2].shape[0]
     gen = torch.Generator(device=DEV).manual_seed(17)
     g_w = torch.rand((n, 3), generator=gen, device=DEV)
-    g_t = torch.rand(n, generator=gen, device=DEV)
-    calls.append((("delta", *busiest, g_w, g_t), True, True, torch.zeros_like(busiest[0].grid)))
+    g_t = torch.rand(n, generator=gen, device=DEV) if kind == "delta" else None
+    return ((kind, *busiest, g_w, g_t), True, True, torch.zeros_like(busiest[0].grid))
+
+
+def bwd_section(a, pb, subject):
+    """T1-bwd (subject "delta") or T2-bwd ("ratio") on the volpath AD
+    step's calls and on the 2M-lane call, the other kernel's AD step calls
+    beside them (a control)."""
+    label = "t1bwd" if subject == "delta" else "t2bwd"
+    other = "ratio" if subject == "delta" else "delta"
+    step = _ad_step_bwd_calls()
+    calls = step[subject] + step[other]
+    n_subject = len(step[subject])
+    del step
+    calls.append(_frame_bwd_call(subject))
+    n = calls[-1][0][3].shape[0]
     fns = _bwd_fns(pb)
     names = ("sigma_t", "grid", "ray_o", "ray_d", "t_max")
     info = []
@@ -334,7 +366,7 @@ def t1bwd_section(a, pb):
                    if x is not None}
             if max(err.values()) > chip_smoke.TRACK_BWD_RTOL or not all(
                     bool(torch.isfinite(x).all()) for x in got if x is not None):
-                raise AssertionError(f"T1-bwd {v} call {i}: relative L2 against the parent "
+                raise AssertionError(f"{label} {v} call {i}: relative L2 against the parent "
                                      f"{err}")
         steps = medium._launch(c[0][0], *c[0][1:8], medium.AD_TRACKING_STEPS)[-1]
         live = steps[steps > 0]
@@ -344,13 +376,16 @@ def t1bwd_section(a, pb):
                          max_steps=int(live.max()) if live.numel() else 0,
                          hist=torch.bincount(live.long()).tolist() if live.numel() else [],
                          rel_l2_parent=err, need_rays=c[1], need_t_max=c[2]))
-        print(f"t1bwd call {i}: {info[-1]}")
-    print(f"t1bwd: {n_delta} T1-bwd and {len(calls) - 1 - n_delta} T2-bwd calls in the AD "
-          f"step, and the {n}-lane T1-bwd call; within {chip_smoke.TRACK_BWD_RTOL} of the parent")
+        print(f"{label} call {i}: {info[-1]}")
+    kinds = {"delta": "T1-bwd", "ratio": "T2-bwd"}
+    print(f"{label}: {n_subject} {kinds[subject]} and {len(calls) - 1 - n_subject} "
+          f"{kinds[other]} calls in the AD step, and the {n}-lane {kinds[subject]} call; "
+          f"within {chip_smoke.TRACK_BWD_RTOL} of the parent")
     times = in_turns(fns, calls, a.rounds, _bwd_split)
-    res = summarise("t1bwd", times, ("total", "kernel", "list", "rest"),
-                    {"ad_step": list(range(n_delta)),
-                     "ad_step_t2": list(range(n_delta, len(calls) - 1)),
+    control = "ad_step_t2" if subject == "delta" else "ad_step_t1"
+    res = summarise(label, times, ("total", "kernel", "list", "rest"),
+                    {"ad_step": list(range(n_subject)),
+                     control: list(range(n_subject, len(calls) - 1)),
                      "big": [len(calls) - 1]})
     return {"calls": info, "device_ms": res}
 
@@ -432,8 +467,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--kernels", nargs="+", default=["t1t2", "t1bwd", "s1"],
-                    choices=["t1t2", "t1bwd", "s1"])
+    ap.add_argument("--kernels", nargs="+", default=["t1t2", "t1bwd", "t2bwd", "s1"],
+                    choices=["t1t2", "t1bwd", "t2bwd", "s1"])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "time_tracking.json"))
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -443,7 +478,8 @@ def main():
     print(f"card: {card}")
     pb = parent_library(a.parent)
     out = {"card": card, "rounds": a.rounds}
-    sections = {"t1t2": t1t2_section, "t1bwd": t1bwd_section, "s1": s1_section}
+    sections = {"t1t2": t1t2_section, "t1bwd": lambda a, pb: bwd_section(a, pb, "delta"),
+                "t2bwd": lambda a, pb: bwd_section(a, pb, "ratio"), "s1": s1_section}
     for k in a.kernels:
         out[k] = sections[k](a, pb)
         torch.cuda.empty_cache()

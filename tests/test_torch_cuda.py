@@ -1478,14 +1478,18 @@ def test_t1_bwd_lanes_at_48_steps(dev):
     _bwd_against_plain("ratio", table, (mid, o, d, t_max, key, 2056), g_w, None)
 
 
-def test_t1_bwd_every_lane_in_one_cell(dev):
+_BWD_KINDS = [("delta", 8), ("ratio", 2056)]
+
+
+@pytest.mark.parametrize("kind,base", _BWD_KINDS, ids=["t1", "t2"])
+def test_t1_bwd_every_lane_in_one_cell(dev, kind, base):
     """Every lane starts at one point of the dense medium's grid with a
     short segment, so each replayed step's eight corners are nearly all
     the same cells: the atomic adds contend. Each of those grid entries
-    sums some 65,536 addends of both signs (real and null collisions), so
-    the grid's gradient is held to the float64 sum of the plain version's
-    addends (_bwd_against_plain's `summed`); the other gradients to
-    track_bwd_plain."""
+    sums some 65,536 addends (T1: of both signs, real and null
+    collisions), so the grid's gradient is held to the float64 sum of the
+    plain version's addends (_bwd_against_plain's `summed`); the other
+    gradients to track_bwd_plain. T1-bwd and T2-bwd."""
     table, (mid, o, d, t_max), key = _tracking_inputs(dev, True, n=1 << 16)
     n = mid.shape[0]
     mid = torch.ones_like(mid)
@@ -1494,25 +1498,61 @@ def test_t1_bwd_every_lane_in_one_cell(dev):
     t_max = torch.full_like(t_max, 0.04)
     gen = torch.Generator(device=dev).manual_seed(6)
     g_w = torch.rand((n, 3), generator=gen, device=dev)
-    g_t = torch.rand(n, generator=gen, device=dev)
-    got = _bwd_against_plain("delta", table, (mid, o, d, t_max, key, 8), g_w, g_t, summed=True)
+    g_t = torch.rand(n, generator=gen, device=dev) if kind == "delta" else None
+    got = _bwd_against_plain(kind, table, (mid, o, d, t_max, key, base), g_w, g_t, summed=True)
     assert int((got[1] != 0).sum()) <= 64
 
 
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
-def test_t1_bwd_grid_buffer_at_every_alignment(dev, offset):
+@pytest.mark.parametrize("kind,base", _BWD_KINDS, ids=["t1", "t2"])
+def test_t1_bwd_grid_buffer_at_every_alignment(dev, kind, base, offset):
     """The grid's gradient added into a buffer that starts `offset` floats
     into an allocation (its x pairs at every 4-, 8- and 16-byte
-    alignment): against track_bwd_plain."""
+    alignment): T1-bwd and T2-bwd against track_bwd_plain."""
     table, (mid, o, d, t_max), key = _tracking_inputs(dev, False, n=40_000)
     gen = torch.Generator(device=dev).manual_seed(7 + offset)
     n = mid.shape[0]
     g_w = torch.rand((n, 3), generator=gen, device=dev)
-    g_t = torch.rand(n, generator=gen, device=dev)
+    g_t = torch.rand(n, generator=gen, device=dev) if kind == "delta" else None
     numel = table.grid.numel()
     buf = torch.zeros(numel + 4, device=dev)[offset:offset + numel].view(table.grid.shape)
     assert buf.data_ptr() % 16 == 4 * offset
-    _bwd_against_plain("delta", table, (mid, o, d, t_max, key, 8), g_w, g_t, grid=buf)
+    _bwd_against_plain(kind, table, (mid, o, d, t_max, key, base), g_w, g_t, grid=buf)
+
+
+def test_t2_bwd_writes_every_lane(dev):
+    """T2-bwd's ray and t_max gradients come from torch.empty: the kernel
+    writes them on every lane. Blocks of their sizes are filled with NaN
+    and freed into the caching allocator first, so the outputs land on
+    them; then lanes outside the heterogeneous medium read exactly 0, the
+    t_max gradient is 0 on every lane (ratio tracking's passed test
+    carries none), and the tracked lanes' ray gradients are finite and
+    within 1e-4 relative L2 of track_bwd_plain's."""
+    from mitsuba_customization_tpu_torch.render import medium
+
+    table, (mid, o, d, t_max), key = _tracking_inputs(dev, False, n=1 << 18)
+    n = mid.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    g_w = torch.rand((n, 3), generator=gen, device=dev)
+    args = (table, mid, o, d, t_max, key, 2056)
+    want = medium.track_bwd_plain("ratio", *args, g_w, need_rays=True, need_t_max=True)
+    torch.cuda.synchronize()
+    junk = [torch.full(shape, float("nan"), device=dev) for shape in ((n, 3), (n, 3), (n,))]
+    freed = {x.data_ptr() for x in junk}
+    del junk
+    before = medium.LAUNCHES_BWD["ratio"]
+    got = medium.track_bwd("ratio", *args, g_w, need_rays=True, need_t_max=True)
+    torch.cuda.synchronize()
+    assert medium.LAUNCHES_BWD["ratio"] == before + 1
+    assert {x.data_ptr() for x in got[1:]} <= freed
+    tracked = mid == 1
+    assert 0 < int(tracked.sum()) < n
+    assert bool((got[3] == 0).all())
+    for a, b in zip(got[1:3], want[1:3]):
+        assert bool((a[~tracked] == 0).all())
+        assert bool(torch.isfinite(a[tracked]).all())
+        assert float((a - b).double().norm() / b.double().norm()) <= 1e-4
+    assert float((got[0] - want[0]).double().norm() / want[0].double().norm()) <= 1e-4
 
 
 def test_tracking_wrappers_reject_what_the_kernels_do_not_take(dev):
