@@ -3661,19 +3661,11 @@ def _frame_seconds(fn):
     return time.perf_counter() - t0
 
 
-def _graph_nodes(graph):
-    """The nodes of a captured graph (kept by CUDAGraph(keep_graph=True))
-    from libcuda's cuGraphGetNodes; None where it cannot say."""
-    import ctypes
-
-    try:
-        raw = graph.raw_cuda_graph()
-        cuda = ctypes.CDLL("libcuda.so.1")
-    except (AttributeError, RuntimeError, OSError):
-        return None
-    count = ctypes.c_size_t(0)
-    err = cuda.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(count))
-    return int(count.value) if err == 0 else None
+def _graph_nodes(frame):
+    """The node counts of a frame's captured graphs, the forward's first:
+    frame_graph.Frame.tables, read from libcuda at the capture; None where
+    nothing was captured."""
+    return None if frame.tables is None else [t.nodes for t in frame.tables]
 
 
 def phase_jit_frame(what, scene, spp, need, card, exact=True):
@@ -3701,7 +3693,7 @@ def phase_jit_frame(what, scene, spp, need, card, exact=True):
     torch.cuda.empty_cache()
     frame_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
     frame = fg.latest()
-    nodes = _graph_nodes(frame.graph)
+    nodes = frame.nodes
     got = {s: render_jit(scene, spp, s) for s in (2, 1)}
     _reset_counts()
     want = {2: mt.render(scene, spp, 2)}
@@ -3875,7 +3867,7 @@ def phase_jit_step(what, scene, params, spp, need, card, mesh=None):
     torch.cuda.empty_cache()
     step_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
     step = fg.latest()
-    nodes = _graph_nodes(step.graph)
+    nodes = step.nodes
     replay_s, eager_s, eager = [], [], []
     for _ in range(JIT_TURNS):
         t0 = time.perf_counter()
@@ -3936,8 +3928,7 @@ def phase_jit_step(what, scene, params, spp, need, card, mesh=None):
         fg.clear()
         sh_first = _frame_seconds(
             lambda: pm.loss_and_grad_sharded_jit(scene, params, target, mesh, spp, 1))
-        sh_nodes = [_graph_nodes(g) for g in (fg.latest().graph, fg.latest().bwd_graph)
-                    if g is not None]
+        sh_nodes = _graph_nodes(fg.latest())
         t0 = time.perf_counter()
         sh = pm.loss_and_grad_sharded_jit(scene, params, target, mesh, spp, 2)
         torch.cuda.synchronize()

@@ -47,6 +47,7 @@ from mitsuba_customization_tpu_torch.render.integrator import (
     rows_body,
     rows_inputs,
 )
+from mitsuba_customization_tpu_torch.utils import log
 
 AXIS = "shards"
 
@@ -250,12 +251,14 @@ def render_sharded_jit(scene, mesh=None, spp=None, seed=0):
     on the card and replayed (run as they are on the CPU); the halo
     exchange of a splat filter and the gathering all_gather stay outside,
     as eager collectives. The image is render_sharded's bit for bit (a
-    splat's atomic adds on the card aside)."""
-    ranks, shard = _layout(mesh)
-    cfg = scene.config
-    plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
-    out = captured_rows(scene, plan, seed, False)
-    return _gather(_develop_slab(cfg, out, ranks, shard), mesh)
+    splat's atomic adds on the card aside). Host spans as render_jit's."""
+    with log.span("frame.call"):
+        ranks, shard = _layout(mesh)
+        cfg = scene.config
+        with log.span("frame.plan"):
+            plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
+        out = captured_rows(scene, plan, seed, False)
+        return _gather(_develop_slab(cfg, out, ranks, shard), mesh)
 
 
 def loss_and_grad_sharded(scene, params, target, mesh=None, spp=None, seed=0):
@@ -274,20 +277,25 @@ def loss_and_grad_sharded(scene, params, target, mesh=None, spp=None, seed=0):
     spp = spp or cfg.spp
     leaves = {k: v if v.requires_grad else v.detach().requires_grad_(True)
               for k, v in params.items()}
-    slab = _slab(params_mod.update(scene, leaves), spp, seed, ranks, shard, True)
-    rows = slab.shape[0]
-    ref = target[shard * rows:(shard + 1) * rows]
-    loss = torch.sum((slab - ref) ** 2) / target.numel()
+    with log.span("update"):
+        scene_p = params_mod.update(scene, leaves)
+    with log.span("forward"):
+        slab = _slab(scene_p, spp, seed, ranks, shard, True)
+        rows = slab.shape[0]
+        ref = target[shard * rows:(shard + 1) * rows]
+        loss = torch.sum((slab - ref) ** 2) / target.numel()
     grads = dict(zip(leaves, gradients(loss, list(leaves.values()))))
     return _all_reduce(loss.detach(), grads)
 
 
 def _all_reduce(loss, grads):
-    """Sum the loss and every gradient over the ranks, in place."""
-    if dist.is_initialized():
-        for t in (loss, *grads.values()):
-            dist.all_reduce(t)
-    return loss, grads
+    """Sum the loss and every gradient over the ranks, in place (the span
+    allreduce: the collectives' enqueue)."""
+    with log.span("allreduce"):
+        if dist.is_initialized():
+            for t in (loss, *grads.values()):
+                dist.all_reduce(t)
+        return loss, grads
 
 
 def _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard):
@@ -303,8 +311,11 @@ def _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard):
         leaves = frame_graph.buffers(params.values(), requires_grad=True)
 
         def body(seed_t, *leaves):
-            scene_p = params_mod.update(scene, dict(zip(keys, leaves)))
-            return _joined(rows_body(scene_p, plan, inputs, seed_t, True)[0])
+            with log.span("update"):
+                scene_p = params_mod.update(scene, dict(zip(keys, leaves)))
+            with log.span("forward"):
+                out, counters = rows_body(scene_p, plan, inputs, seed_t, True)
+                return _joined(out), counters
 
         return {"body": body, "keep": inputs, "inputs": leaves, "grad": True,
                 "backward": lambda both, g: gradients(both, leaves, g)}
@@ -330,20 +341,23 @@ def loss_and_grad_sharded_jit(scene, params, target, mesh, spp, seed):
     exchange, the division and the slab loss eager between them). The loss
     and gradient all-reduce run eager after the replay. Equal to
     loss_and_grad_sharded on the CPU (up to K1-bwd's and a splat's atomic
-    adds on the card); on the CPU the bodies run as they are."""
-    ranks, shard = _layout(mesh)
-    cfg = scene.config
-    plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
-    ref = target[shard * plan.n_rows:(shard + 1) * plan.n_rows]
-    n = target.numel()
-    if plan.box:
-        loss, grads = captured_step(
-            ("slab_step", plan, tuple(ranks)), scene, params, seed, ref,
-            rows_loss(scene, plan, lambda out, r: torch.sum(
-                (_develop_slab(scene.config, out, ranks, shard) - r) ** 2) / n))
-    else:
-        loss, grads = _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard)
-    return _all_reduce(loss, grads)
+    adds on the card); on the CPU the bodies run as they are. Host spans
+    as grad_render's, and allreduce."""
+    with log.span("frame.call"):
+        ranks, shard = _layout(mesh)
+        cfg = scene.config
+        with log.span("frame.plan"):
+            plan = _slab_plan(scene, int(spp or cfg.spp), ranks, shard)
+        ref = target[shard * plan.n_rows:(shard + 1) * plan.n_rows]
+        n = target.numel()
+        if plan.box:
+            loss, grads = captured_step(
+                ("slab_step", plan, tuple(ranks)), scene, params, seed, ref,
+                rows_loss(scene, plan, lambda out, r: torch.sum(
+                    (_develop_slab(scene.config, out, ranks, shard) - r) ** 2) / n))
+        else:
+            loss, grads = _split_slab_step(scene, plan, params, seed, ref, n, ranks, shard)
+        return _all_reduce(loss, grads)
 
 
 def initialize_distributed(coordinator=None, num_processes=None, process_id=None, *,

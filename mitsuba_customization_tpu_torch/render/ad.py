@@ -25,7 +25,9 @@ integrator: on the card one CUDA graph of the forward and the backward
 parameter keys and shapes and target shape, and replayed with the seed,
 the parameters and the target copied into its buffers. `params.update`
 runs inside it, so the table's sampling CDFs are rebuilt and its GradSink
-made in the step, as in the JAX jit.
+made in the step, as in the JAX jit. A step's phases are spans (update,
+forward, backward; utils/log.py), in the captured and the eager step
+alike; `Optimizer.step` is the span optimizer.
 """
 
 from __future__ import annotations
@@ -44,21 +46,26 @@ from mitsuba_customization_tpu_torch.render.integrator import (
     rows_inputs,
     tracer,
 )
+from mitsuba_customization_tpu_torch.utils import log
 
 
 def render_ad(scene, params, spp=None, seed=0, max_depth=None):
     """The image as a differentiable function of the parameter dict
     (keys of params.traverse): gradients reach `params`' tensors."""
-    scene_p = params_mod.update(scene, params)
+    with log.span("update"):
+        scene_p = params_mod.update(scene, params)
     return render(scene_p, spp=spp, seed=seed, max_depth=max_depth,
                   ad_mode=True)
 
 
 def gradients(out, leaves, g=None):
     """torch.autograd.grad of `out` (cotangent g) with respect to the
-    tensors `leaves`; zeros for a leaf `out` does not depend on."""
-    grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
-    return tuple(torch.zeros_like(v) if gr is None else gr for v, gr in zip(leaves, grads))
+    tensors `leaves`; zeros for a leaf `out` does not depend on. The span
+    backward, which the checkpoint's recompute on autograd's device thread
+    nests under."""
+    with log.span("backward", shared=True):
+        grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+        return tuple(torch.zeros_like(v) if gr is None else gr for v, gr in zip(leaves, grads))
 
 
 def _eager_loss_and_grad(scene, params, target, spp, seed):
@@ -67,8 +74,11 @@ def _eager_loss_and_grad(scene, params, target, spp, seed):
     calls take and chip_smoke times beside its replay."""
     leaves = {k: v if v.requires_grad else v.detach().requires_grad_(True)
               for k, v in params.items()}
-    img = render_ad(scene, leaves, spp=spp, seed=seed)
-    loss = torch.mean((img - target) ** 2)
+    with log.span("update"):
+        scene_p = params_mod.update(scene, leaves)
+    with log.span("forward"):
+        img = render(scene_p, spp=spp, seed=seed, ad_mode=True)
+        loss = torch.mean((img - target) ** 2)
     return loss.detach(), dict(zip(leaves, gradients(loss, list(leaves.values()))))
 
 
@@ -78,7 +88,8 @@ def captured_step(key, scene, params, seed, target, make_loss):
     target buffer, the caller's values copied in at each call; on the card
     the update, the forward, the loss and torch.autograd.grad are one CUDA
     graph. make_loss() -> (what the loss reads besides the scene, kept
-    with the step; loss(scene_p, seed_t, target_t)), called when the step
+    with the step; loss(scene_p, seed_t, target_t) -> (the loss, its bounce
+    counters or None: Frame.counters)), called when the step
     is planned. The step is kept per `key` (which holds the plan), each
     parameter's key, shape, type and device, and the target's shape and
     type (and the scene's part)."""
@@ -90,8 +101,11 @@ def captured_step(key, scene, params, seed, target, make_loss):
                    + frame_graph.buffers(params.values(), requires_grad=True))
 
         def body(seed_t, target_t, *leaves):
-            loss = loss_of(params_mod.update(scene, dict(zip(keys, leaves))), seed_t, target_t)
-            return (loss.detach(),) + gradients(loss, leaves)
+            with log.span("update"):
+                scene_p = params_mod.update(scene, dict(zip(keys, leaves)))
+            with log.span("forward"):
+                loss, counters = loss_of(scene_p, seed_t, target_t)
+            return (loss.detach(),) + gradients(loss, leaves), counters
 
         return {"body": body, "keep": keep, "inputs": statics, "grad": True}
 
@@ -107,8 +121,11 @@ def rows_loss(scene, plan, loss_of):
     and kept with the step."""
     def make():
         inputs = rows_inputs(scene, plan)
-        return inputs, lambda scene_p, seed_t, target_t: loss_of(
-            rows_body(scene_p, plan, inputs, seed_t, True)[0], target_t)
+        def loss(scene_p, seed_t, target_t):
+            out, counters = rows_body(scene_p, plan, inputs, seed_t, True)
+            return loss_of(out, target_t), counters
+
+        return inputs, loss
 
     return make
 
@@ -123,15 +140,16 @@ def _loss_and_grad(scene, params, spp, seed, target):
     cfg = scene.config
     spp = int(spp or cfg.spp)
     kind = _integrator_kind(scene, None)
+    with log.span("frame.plan"):
+        plan = (tracer(kind).plan(scene, spp) if kind in TRACERS
+                else plan_rows(scene, spp, None, None, 0, cfg.height))
     if kind in TRACERS:
         mod = tracer(kind)
-        plan = mod.plan(scene, spp)
 
         def make_loss():
-            return None, lambda scene_p, seed_t, target_t: torch.mean(
-                (mod.body(scene_p, plan, seed_t)[0] - target_t) ** 2)
+            return None, lambda scene_p, seed_t, target_t: (torch.mean(
+                (mod.body(scene_p, plan, seed_t)[0] - target_t) ** 2), None)
     else:
-        plan = plan_rows(scene, spp, None, None, 0, cfg.height)
         make_loss = rows_loss(scene, plan,
                               lambda out, t: torch.mean((develop(cfg, out) - t) ** 2))
     return captured_step(("loss_and_grad", plan), scene, params, seed, target, make_loss)
@@ -141,8 +159,9 @@ def grad_render(scene, params, target, spp=16, seed=0):
     """One evaluation of the MSE between render_ad(scene, params) and
     `target` (H, W, 3): returns (loss, {key: gradient}); a parameter the
     image does not depend on gets zeros. Runs _loss_and_grad, the
-    captured step, for every integrator and scene."""
-    return _loss_and_grad(scene, params, spp, seed, target)
+    captured step, for every integrator and scene (the span frame.call)."""
+    with log.span("frame.call"):
+        return _loss_and_grad(scene, params, spp, seed, target)
 
 
 class Optimizer:
@@ -171,15 +190,16 @@ class Optimizer:
 
     def step(self, grads):
         """One optimiser step with the gradients {key: tensor}; returns the
-        parameter dict."""
-        for k, p in self.params.items():
-            p.grad = grads[k]
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            for k in self.clip_nonneg & set(self.params):
-                self.params[k].clamp_(min=0.0)
-        return self.params
+        parameter dict (the span optimizer)."""
+        with log.span("optimizer"):
+            for k, p in self.params.items():
+                p.grad = grads[k]
+            self.opt.step()
+            self.opt.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for k in self.clip_nonneg & set(self.params):
+                    self.params[k].clamp_(min=0.0)
+            return self.params
 
 
 def optimize(scene, target, param_keys, n_steps=50, lr=0.02, spp=16, seed0=0,

@@ -50,7 +50,18 @@ first out), each with its graph's memory pool.
 The kernel wrappers count their launches when they are called: the
 warm-up's launches and the capture's recorded ones count, a replay calls
 no wrapper and counts nothing. A replay's launches are read from its
-trace (chip_smoke.py phases 33 and 34).
+trace (chip_smoke.py phases 33 and 34), and put down to the spans of the
+body by the frame's GraphTables (utils/log.py): at its capture each graph
+keeps its node count (`nodes`) and which nodes each span of the body
+recorded; its kernel nodes' names are read from the graph when first
+asked for, or as the frame is dropped where a profiler has run. A frame
+keeps its body's bounce counters (`counters`: lanes run, live lanes,
+shadow rays a bounce), which every replay rewrites. A call's host work is in spans: frame.key (the
+cache lookup), frame.inputs (the seed and the input copies), frame.capture
+(a first call on the card), frame.replay (the graph, or the body on the
+CPU) and frame.outputs (the copies returned); Statistics counts
+frame.captures, frame.replays (on the CPU: body runs) and
+frame.evictions (frames dropped by the cache or replaced).
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import torch
 
 from mitsuba_customization_tpu_torch.core.qmc import MASK32
 from mitsuba_customization_tpu_torch.render import bvh
+from mitsuba_customization_tpu_torch.utils import log
 
 CACHE_SIZE = 4
 _FRAMES: OrderedDict = OrderedDict()
@@ -147,19 +159,28 @@ def _clone(out):
 class Frame:
     """A planned frame or step: its body, what the body reads besides the
     scene (held), the seed buffer and the static `inputs` a call copies its
-    tensors into (body(seed, *inputs) -> out), whether it runs with grad
-    enabled, and for a split step its `backward` (backward(out, g) -> the
-    gradients, g the loss's gradient with respect to out). On the card:
-    the captured graph (its cudaGraph_t kept) with its static output, the
-    backward's graph and its static g, and the capture's seconds (None on
-    the CPU)."""
+    tensors into (body(seed, *inputs) -> (out, counters)), whether it runs
+    with grad enabled, and for a split step its `backward` (backward(out,
+    g) -> the gradients, g the loss's gradient with respect to out). On
+    the card: the captured graph (its cudaGraph_t kept) with its static
+    output, the backward's graph and its static g, the capture's seconds
+    and each graph's GraphTable (`tables`, the forward's first; None on
+    the CPU, or where libcuda could not count the nodes). `counters`: the
+    body's bounce counters (integrator.rows_body's; None for a body that
+    keeps none), of the capture, which replays rewrite, or on the CPU of
+    the last call."""
 
     def __init__(self, scene, body, keep, inputs=(), grad=False, backward=None):
         self.scene, self.body, self.keep = scene, body, keep
         self.inputs, self.grad, self.backward_body = tuple(inputs), grad, backward
         self.seed = torch.zeros((), dtype=torch.int64, device=scene.device)
-        self.graph = self.out = self.capture_s = None
+        self.graph = self.out = self.capture_s = self.tables = self.counters = None
         self.bwd_graph = self.g = self.bwd_out = None
+
+    @property
+    def nodes(self):
+        """The forward graph's nodes (None: nothing captured)."""
+        return None if self.tables is None else self.tables[0].nodes
 
     def _mode(self):
         return torch.enable_grad() if self.grad else torch.no_grad()
@@ -174,7 +195,7 @@ class Frame:
         # thread and the checkpoint's hooks, by a whole backward), none of
         # which a capture may do
         with torch.cuda.stream(side), self._mode():
-            out = self.body(*args)
+            out = self.body(*args)[0]
             if self.backward_body is not None:
                 self.backward_body(out, torch.ones_like(out))
         del out
@@ -182,35 +203,56 @@ class Frame:
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with self._mode(), torch.cuda.graph(graph):
-            out = self.body(*args)
+        with self._mode(), torch.cuda.graph(graph), log.capture() as cap:
+            out, counters = self.body(*args)
         graph.instantiate()
+        bwd_cap = None
         if self.backward_body is not None:
             self.g = torch.zeros_like(out)
             bwd = torch.cuda.CUDAGraph(keep_graph=True)
-            with self._mode(), torch.cuda.graph(bwd, pool=graph.pool()):
+            with self._mode(), torch.cuda.graph(bwd, pool=graph.pool()), log.capture() as bwd_cap:
                 self.bwd_out = self.backward_body(out, self.g)
             bwd.instantiate()
             self.bwd_graph = bwd
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
-        self.graph, self.out = graph, out
+        self.graph, self.out, self.counters = graph, out, counters
+        log.Statistics.get().add("frame.captures")
+        tables = [cap.table("forward", graph, counters)]
+        if bwd_cap is not None:
+            tables.append(bwd_cap.table("backward", bwd))
+        self.tables = None if None in tables else tables
+
+    def release(self):
+        """Before the frame is dropped: where a profiler has run in this
+        process (spans kept records), read its tables' kernel names from
+        the graphs while they live, for a reader of the trace."""
+        if log.RECORDS:
+            for table in self.tables or ():
+                table.resolve()
 
     def __call__(self, seed, *values):
         """The frame at `seed` with `values` copied into its inputs: a fresh
         tensor, or tuple of tensors (for a split step its forward's output,
         detached, whose gradient `backward` takes next)."""
-        self.seed.fill_(int(seed) & MASK32)
-        with torch.no_grad():
-            for buf, v in zip(self.inputs, values, strict=True):
-                buf.copy_(v)
+        with log.span("frame.inputs"):
+            self.seed.fill_(int(seed) & MASK32)
+            with torch.no_grad():
+                for buf, v in zip(self.inputs, values, strict=True):
+                    buf.copy_(v)
+        stats = log.Statistics.get()
         if self.seed.is_cuda:
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            return _clone(self.out)
-        with self._mode():
-            out = self.body(self.seed, *self.inputs)
+                with log.span("frame.capture"):
+                    self._capture()
+            with log.span("frame.replay"):
+                self.graph.replay()
+            stats.add("frame.replays")
+            with log.span("frame.outputs"):
+                return _clone(self.out)
+        with log.span("frame.replay"), self._mode():
+            out, self.counters = self.body(self.seed, *self.inputs)
+        stats.add("frame.replays")
         if self.backward_body is None:
             return out
         self.out = out
@@ -221,12 +263,14 @@ class Frame:
         loss's gradient with respect to that call's output."""
         if self.bwd_graph is None:
             out, self.out = self.out, None
-            with self._mode():
+            with log.span("frame.replay"), self._mode():
                 return self.backward_body(out, g)
-        with torch.no_grad():
+        with log.span("frame.inputs"), torch.no_grad():
             self.g.copy_(g)
-        self.bwd_graph.replay()
-        return _clone(self.bwd_out)
+        with log.span("frame.replay"):
+            self.bwd_graph.replay()
+        with log.span("frame.outputs"):
+            return _clone(self.bwd_out)
 
 
 def frame(key, scene, make):
@@ -235,22 +279,27 @@ def frame(key, scene, make):
     body reads besides the scene, and for a step "inputs", "grad",
     "backward"}) on a miss."""
     global PLANS
-    packs = bvh_packs(scene)
-    key = (key, scene_key(scene, packs))
-    hit = _FRAMES.get(key)
+    with log.span("frame.key"):
+        packs = bvh_packs(scene)
+        key = (key, scene_key(scene, packs))
+        hit = _FRAMES.get(key)
+        if hit is not None:
+            _FRAMES.move_to_end(key)
     if hit is not None:
-        _FRAMES.move_to_end(key)
         return hit
+    stats = log.Statistics.get()
     # the frame this one replaces (same plan, same scene, older state)
     for old in [k for k, f in _FRAMES.items() if k[0] == key[0] and f.scene is scene]:
-        del _FRAMES[old]
+        _FRAMES.pop(old).release()
+        stats.add("frame.evictions")
     kw = make()
     kw["keep"] = (kw["keep"], packs)
     hit = Frame(scene, **kw)
     PLANS += 1
     _FRAMES[key] = hit
     while len(_FRAMES) > CACHE_SIZE:
-        _FRAMES.popitem(last=False)
+        _FRAMES.popitem(last=False)[1].release()
+        stats.add("frame.evictions")
     return hit
 
 
@@ -261,4 +310,6 @@ def latest():
 
 def clear():
     """Drop every kept frame (and with them their graphs' memory)."""
+    for f in _FRAMES.values():
+        f.release()
     _FRAMES.clear()

@@ -46,6 +46,7 @@ from mitsuba_customization_tpu_torch.render import medium as medium_mod
 from mitsuba_customization_tpu_torch.render.records import Ray
 from mitsuba_customization_tpu_torch.render.scene import INTEGRATOR_TYPES
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
+from mitsuba_customization_tpu_torch.utils import log
 
 CAMERA_DIMS = 4  # 0-1 pixel jitter, 2-3 aperture
 BOUNCE_DIMS = 8  # 0-1 bsdf 2d, 2 bsdf lobe select, 3 RR, 4-6 NEE
@@ -90,25 +91,29 @@ def mis_weight(pdf_a, pdf_b):
 def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
             ad_mode=False):
     """Bounce b of the path tracer over the lanes of `state` = (ray, thr,
-    L, active, prev_pdf, prev_delta). Returns (state, rays traced).
-    Sampled directions, pdfs, MIS weights and the roulette probability are
+    L, active, prev_pdf, prev_delta). Returns (state, (live lanes, shadow
+    rays or None)), 0-d tensors of the bounce's own sums. Sampled
+    directions, pdfs, MIS weights and the roulette probability are
     detached, as the JAX package stop-grads them; in ad_mode the non-delta
-    throughput weight is the detached estimator's (bsdf.bounce_shade)."""
+    throughput weight is the detached estimator's (bsdf.bounce_shade).
+    The stages are spans: intersect, emitter, shadow, bsdf."""
     ray, thr, L, active, prev_pdf, prev_delta = state
     has_emitters = scene.emitters.n_emitters > 0
     do_nee = has_emitters and scene.config.nee
     # with no transmissive kernel present an NEE sample below the shading
     # horizon has f = 0, so its shadow ray is skipped
     refl_only = not (set(scene.bsdfs.present_kernels) & bsdf_mod.TRANSMISSIVE_KERNELS)
+    log.stage("intersect")
     smp = sampler.with_dim(CAMERA_DIMS + b * BOUNCE_DIMS)
     # dead lanes trace with maxt = 0: the cluster kernels return at once
     si = scene.ray_intersect(
         Ray(o=ray.o, d=ray.d, maxt=torch.where(active, ray.maxt, 0.0))
     )
     si = apply_normal_maps(scene.bsdfs, si)
-    n_rays = active.sum()
+    live = active.sum()
 
     # ---- emitter hits / escaped rays (MIS against the previous NEE) ----
+    log.stage("emitter")
     if has_emitters:
         show = b > 0 or not hide_emitters
         hit_rad = em_mod.eval_hit(scene.emitters, si)
@@ -126,14 +131,16 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     # final bounce: NEE (b + 2 <= max_depth) and the continuation
     # (b + 1 < max_depth) are both dead, so skip the shading tail
     if b == max_depth - 1:
-        return (ray, thr, L, torch.zeros_like(active), prev_pdf, prev_delta), n_rays
+        return (ray, thr, L, torch.zeros_like(active), prev_pdf, prev_delta), (live, None)
 
     # ---- NEE direction + fused per-bounce BSDF work ----
+    log.stage("bsdf")
     smp_nee = smp.with_dim(CAMERA_DIMS + b * BOUNCE_DIMS + _OFF_NEE)
     u2 = smp.next_2d()
     u_lobe = smp.next_1d()
-    nee_vis = None
+    nee_vis = shadow_n = None
     if do_nee:
+        log.stage("emitter")
         u3 = torch.stack(
             [smp_nee.next_1d(), smp_nee.next_1d(), smp_nee.next_1d()], -1
         )
@@ -144,29 +151,33 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
             nee_ok = nee_ok & (m.cos_theta(wo_local) > 0.0)
         # shadow ray before shading: occluded lanes skip the tabulated
         # NEE eval (visibility does not depend on f)
+        log.stage("shadow")
         shadow = geo.spawn_ray(si, ds.d)
         maxt = torch.where(
             torch.isinf(ds.dist), _SHADOW_INF, ds.dist * (1.0 - 1e-3)
         )
         maxt = torch.where(nee_ok, maxt, 0.0)
         occ = scene.ray_test(Ray(o=shadow.o, d=shadow.d, maxt=maxt))
-        n_rays = n_rays + nee_ok.sum()
+        shadow_n = nee_ok.sum()
         nee_vis = nee_ok & ~occ
     else:
         wo_local = si.wi
 
+    log.stage("bsdf")
     f_nee, bsdf_pdf_nee, wo, bsdf_pdf, weight, is_delta = bsdf_mod.bounce_shade(
         scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe, texcoords(scene, si),
         need_attached=ad_mode, has_nee=do_nee, active=active, nee_mask=nee_vis,
     )
 
     if do_nee:
+        log.stage("emitter")
         w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_nee))
         contrib = (thr * f_nee * ds.radiance
                    * m.safe_div(w_nee, ds.pdf).detach()[..., None])
         L = L + torch.where(nee_vis[..., None], contrib, 0.0)
 
     # ---- BSDF-sampled continuation ----
+    log.stage("bsdf")
     wo = wo.detach()
     bsdf_pdf = bsdf_pdf.detach()
     thr = thr * torch.where(active[..., None], weight, 1.0)
@@ -186,21 +197,26 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         survive = u_rr < q
         thr = torch.where(survive[..., None], thr / q[..., None], thr)
         active = active & survive
-    return (ray, thr, L, active, bsdf_pdf, is_delta), n_rays
+    return (ray, thr, L, active, bsdf_pdf, is_delta), (live, shadow_n)
 
 
 def _bounce_step(ad_mode, body=_bounce):
-    """The bounce body a runner calls: `body` itself, or in ad_mode body
-    under a non-reentrant checkpoint. The backward then runs the bounce
-    forward again (path replay: the stateless sampler draws the same
-    numbers, the detached intersections find the same hits), so the graph
-    of only one bounce is held at a time. The bounce's inputs are kept for
-    that replay: a runner must not write them in place later."""
+    """The bounce body a runner calls: `body` in a span "bounce<b>", or in
+    ad_mode that under a non-reentrant checkpoint. The backward then runs
+    the bounce forward again (path replay: the stateless sampler draws the
+    same numbers, the detached intersections find the same hits), so the
+    graph of only one bounce is held at a time; the replay's spans nest
+    under "backward". The bounce's inputs are kept for that replay: a
+    runner must not write them in place later."""
+    def spanned(scene, state, sampler, b, *args, **kwargs):
+        with log.span(f"bounce{b}"):
+            return body(scene, state, sampler, b, *args, **kwargs)
+
     if not ad_mode:
-        return body
+        return spanned
 
     def step(*args):
-        return checkpoint(body, *args, ad_mode=True, use_reentrant=False,
+        return checkpoint(spanned, *args, ad_mode=True, use_reentrant=False,
                           preserve_rng_state=False)
 
     return step
@@ -214,8 +230,9 @@ def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
     either (it skips the first bounce's sort in that package's MERL
     kernel, which the port's K1 does not have). compact_caps: a
     wavefront-compaction fraction schedule (None = off, see
-    _run_bounces_compact). Returns (L (N, 3), {"rays_per_bounce":
-    (max_depth,) float64 tensor}).
+    _run_bounces_compact). Returns (L (N, 3), {"bounces": [(lanes run,
+    live lanes, shadow rays or None), ...]}): each bounce's counters, the
+    lanes a host fact of the plan, the others 0-d tensors (_bounce).
 
     Differentiable in the scene's parameters (MERL tables, BSDF fields,
     emitter radiance) with the detached estimator of the reference's `prb`
@@ -229,28 +246,25 @@ def trace_paths(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
     """
     n = ray0.o.shape[0]
     dev = ray0.o.device
-    state = (
-        ray0,
-        torch.ones((n, 3), device=dev),
-        torch.zeros((n, 3), device=dev),
-        torch.ones(n, dtype=torch.bool, device=dev),
-        torch.zeros(n, device=dev),
-        torch.ones(n, dtype=torch.bool, device=dev),
-    )
-    if compact_caps is not None:
-        L, rays_pb = _run_bounces_compact(
-            scene, state, sampler, max_depth, rr_depth, hide_emitters,
-            compact_caps, ad_mode,
+    with log.span("camera"):
+        state = (
+            ray0,
+            torch.ones((n, 3), device=dev),
+            torch.zeros((n, 3), device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
         )
-    else:
-        step = _bounce_step(ad_mode)
-        rays_pb = []
-        for b in range(max_depth):
-            state, n_rays = step(scene, state, sampler, b, max_depth, rr_depth,
-                                 hide_emitters)
-            rays_pb.append(n_rays)
-        L = state[2]
-    return L, {"rays_per_bounce": torch.stack(rays_pb).to(torch.float64)}
+    if compact_caps is not None:
+        return _run_bounces_compact(scene, state, sampler, max_depth, rr_depth, hide_emitters,
+                                    compact_caps, ad_mode)
+    step = _bounce_step(ad_mode)
+    bounces = []
+    for b in range(max_depth):
+        state, (live, shadow) = step(scene, state, sampler, b, max_depth, rr_depth,
+                                     hide_emitters)
+        bounces.append((n, live, shadow))
+    return state[2], {"bounces": bounces}
 
 
 def _compact_caps(n, fracs, max_depth):
@@ -325,35 +339,39 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     permutation, and each bounce's sampler is the same class rebuilt on
     them (`with_lanes`), so every lane draws what it draws uncompacted. A
     final scatter by lane tag restores film order.
-    Returns (L (N, 3), per-bounce ray counts).
+    Returns (L (N, 3), {"bounces": ...}) as trace_paths, a bounce's lanes
+    run the lanes it ran on (its cap).
 
     The ray state lives in full-width tensors. The primal render updates
     them in place on the prefix. In ad_mode every update builds a new
     tensor by concatenation, as the JAX package does: the checkpointed
     bounce keeps views of its inputs for its replay, so no tensor it was
     given may change afterwards. maxt is not carried: after bounce
-    0 every spawned ray has maxt = inf.
+    0 every spawned ray has maxt = inf. The set-up, each bounce's
+    thinning, sort and gathers and its write-back, and the final scatter
+    are spans "compact".
     """
     ray, thr, L, active, prev_pdf, prev_delta = state
     n = ray.o.shape[0]
     dev = ray.o.device
     caps = _compact_caps(n, tuple(fracs), max_depth)
-    full = {
-        "o": ray.o.clone(), "d": ray.d.clone(), "maxt": ray.maxt.clone(),
-        "thr": thr, "L": L, "active": active, "pdf": prev_pdf,
-        "delta": prev_delta,
-        "tag": torch.arange(n, dtype=torch.int64, device=dev),
-    }
     smp_names = sampler.ARRAYS
-    for nm in smp_names:
-        full["smp." + nm] = torch.broadcast_to(getattr(sampler, nm), (n,)).clone()
     spatial = scene.config.intersector == "cluster" and scene.clusters is not None
-    if spatial:
-        root = scene.clusters.root
-        s_lo = root[0:3]
-        s_span = torch.clamp(root[3:6] - s_lo, min=1e-6)
+    with log.span("compact"):
+        full = {
+            "o": ray.o.clone(), "d": ray.d.clone(), "maxt": ray.maxt.clone(),
+            "thr": thr, "L": L, "active": active, "pdf": prev_pdf,
+            "delta": prev_delta,
+            "tag": torch.arange(n, dtype=torch.int64, device=dev),
+        }
+        for nm in smp_names:
+            full["smp." + nm] = torch.broadcast_to(getattr(sampler, nm), (n,)).clone()
+        if spatial:
+            root = scene.clusters.root
+            s_lo = root[0:3]
+            s_span = torch.clamp(root[3:6] - s_lo, min=1e-6)
     cur = n
-    rays_pb = []
+    bounces = []
     compacted = False
     step = _bounce_step(ad_mode)
 
@@ -372,57 +390,60 @@ def _run_bounces_compact(scene, state, sampler, max_depth, rr_depth,
     for b in range(max_depth):
         cap = caps[b]
         need_thin = cap < cur
-        if need_thin or (spatial and b >= 1):
-            compacted = True
-            act = full["active"][:cur]
-            if need_thin:
-                bits = hash_combine(
-                    hash_combine(as_u32(sampler.seed, act), as_u32(0xC09AC7, act)),
-                    as_u32(b, act),
-                )
-                survive, p = _systematic_survive(act, cap, _uniform_from_bits(bits))
-            else:
-                survive, p = act, 1.0
-            thr_p = torch.where(survive[..., None], full["thr"][:cur] / p,
-                                full["thr"][:cur])
-            if spatial:
-                skey = _spatial_key(full["o"][:cur], full["d"][:cur], s_lo, s_span)
-                key = torch.where(survive, skey, 1 << 25)
-            else:
-                iota = torch.arange(cur, device=dev)
-                key = torch.where(survive, iota, iota + cur)
-            perm = torch.sort(key).indices
-            for name in ("o", "d", "L", "pdf", "delta", "tag") + tuple(
-                    "smp." + nm for nm in smp_names):
-                put(name, full[name][:cur][perm], cur)
-            put("thr", thr_p[perm], cur)
-            put("active", survive[perm], cur)
-            put("maxt", float("inf"), cur)
-            if need_thin:
-                cur = cap
+        with log.span(f"bounce{b}"), log.span("compact"):
+            if need_thin or (spatial and b >= 1):
+                compacted = True
+                act = full["active"][:cur]
+                if need_thin:
+                    bits = hash_combine(
+                        hash_combine(as_u32(sampler.seed, act), as_u32(0xC09AC7, act)),
+                        as_u32(b, act),
+                    )
+                    survive, p = _systematic_survive(act, cap, _uniform_from_bits(bits))
+                else:
+                    survive, p = act, 1.0
+                thr_p = torch.where(survive[..., None], full["thr"][:cur] / p,
+                                    full["thr"][:cur])
+                if spatial:
+                    skey = _spatial_key(full["o"][:cur], full["d"][:cur], s_lo, s_span)
+                    key = torch.where(survive, skey, 1 << 25)
+                else:
+                    iota = torch.arange(cur, device=dev)
+                    key = torch.where(survive, iota, iota + cur)
+                perm = torch.sort(key).indices
+                for name in ("o", "d", "L", "pdf", "delta", "tag") + tuple(
+                        "smp." + nm for nm in smp_names):
+                    put(name, full[name][:cur][perm], cur)
+                put("thr", thr_p[perm], cur)
+                put("active", survive[perm], cur)
+                put("maxt", float("inf"), cur)
+                if need_thin:
+                    cur = cap
 
-        smp_b = sampler.with_lanes(**{nm: full["smp." + nm][:cur] for nm in smp_names})
-        state_b = (
-            Ray(o=full["o"][:cur], d=full["d"][:cur], maxt=full["maxt"][:cur]),
-            full["thr"][:cur], full["L"][:cur], full["active"][:cur],
-            full["pdf"][:cur], full["delta"][:cur],
-        )
-        (ray_b, thr_b, L_b, act_b, pdf_b, delta_b), n_rays = step(
+            smp_b = sampler.with_lanes(**{nm: full["smp." + nm][:cur] for nm in smp_names})
+            state_b = (
+                Ray(o=full["o"][:cur], d=full["d"][:cur], maxt=full["maxt"][:cur]),
+                full["thr"][:cur], full["L"][:cur], full["active"][:cur],
+                full["pdf"][:cur], full["delta"][:cur],
+            )
+        (ray_b, thr_b, L_b, act_b, pdf_b, delta_b), (live, shadow) = step(
             scene, state_b, smp_b, b, max_depth, rr_depth, hide_emitters
         )
-        for name, new in (("o", ray_b.o), ("d", ray_b.d), ("maxt", ray_b.maxt),
-                          ("thr", thr_b), ("L", L_b), ("active", act_b),
-                          ("pdf", pdf_b), ("delta", delta_b)):
-            put(name, new, cur)
-        rays_pb.append(n_rays)
+        bounces.append((cur, live, shadow))
+        with log.span(f"bounce{b}"), log.span("compact"):
+            for name, new in (("o", ray_b.o), ("d", ray_b.d), ("maxt", ray_b.maxt),
+                              ("thr", thr_b), ("L", L_b), ("active", act_b),
+                              ("pdf", pdf_b), ("delta", delta_b)):
+                put(name, new, cur)
 
-    L = full["L"]
-    if compacted:
-        # restore film (lane) order: tag is a permutation of [0, n)
-        L_out = torch.empty_like(L)
-        L_out[full["tag"]] = L
-        L = L_out
-    return L, rays_pb
+    with log.span("compact"):
+        L = full["L"]
+        if compacted:
+            # restore film (lane) order: tag is a permutation of [0, n)
+            L_out = torch.empty_like(L)
+            L_out[full["tag"]] = L
+            L = L_out
+    return L, {"bounces": bounces}
 
 
 def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
@@ -445,8 +466,10 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     values are read (live lanes, live NEE samples); the JAX package
     computes them for every lane in a medium, and a dead lane's ray, which
     meets no surface, then takes all MAX_TRACKING_STEPS + 1 null steps in
-    a heterogeneous medium."""
+    a heterogeneous medium. Rays traced and stages as _bounce's, with the
+    stage medium (tracking, phase sampling, transmittance)."""
     ray, thr, L, active, prev_pdf, prev_delta, mid = state
+    log.stage("intersect")
     media = scene.media
     has_emitters = scene.emitters.n_emitters > 0
     do_nee = has_emitters and scene.config.nee
@@ -459,11 +482,12 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         Ray(o=ray.o, d=ray.d, maxt=torch.where(active, ray.maxt, 0.0))
     )
     si = apply_normal_maps(scene.bsdfs, si)
-    n_rays = active.sum()
+    live = active.sum()
     t_surf = torch.where(si.valid, si.t, float("inf"))
 
     # ---- free flight through the current medium (live lanes only: a
     # dead lane's values are never read, and its ray meets no surface) ----
+    log.stage("medium")
     ms = medium_mod.sample_interaction(media, torch.where(active, mid, -1), ray.o, ray.d,
                                        t_surf, med_seed, lane, med_base, ad_mode=ad_mode)
     # emissive media: the collision estimator's emission at real events
@@ -485,6 +509,7 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     wi_world = -ray.d  # back along the ray (the phase convention)
 
     # ---- emitter hits / escaped rays, for lanes that reach the surface ----
+    log.stage("emitter")
     if has_emitters:
         hit_rad = em_mod.eval_hit(scene.emitters, si)
         hit_pdf = em_mod.pdf_hit_direction(scene.emitters, scene.geometry, si, ray.o)
@@ -504,14 +529,17 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
 
     # final bounce: NEE and the continuation are dead
     if b == max_depth - 1:
-        return (ray, thr, L, torch.zeros_like(active), prev_pdf, prev_delta, mid), n_rays
+        return ((ray, thr, L, torch.zeros_like(active), prev_pdf, prev_delta, mid),
+                (live, None))
 
     # ---- NEE direction; the shadow ray before shading ----
+    log.stage("bsdf")
     smp_nee = smp.with_dim(CAMERA_DIMS + b * BOUNCE_DIMS + _OFF_NEE)
     u2 = smp.next_2d()
     u_lobe = smp.next_1d()
-    nee_vis = None
+    nee_vis = shadow_n = None
     if do_nee:
+        log.stage("emitter")
         u3 = torch.stack(
             [smp_nee.next_1d(), smp_nee.next_1d(), smp_nee.next_1d()], -1
         )
@@ -519,6 +547,7 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         ds = em_mod.sample_direction(scene.emitters, scene.geometry, p_ref, u3)
         wo_local = si.to_local(ds.d)
         nee_ok = (med_event | real_surf) & (ds.pdf > 0.0) & (b + 2 <= max_depth)
+        log.stage("shadow")
         shadow_o = torch.where(med_event[..., None], p_med, geo.spawn_ray(si, ds.d).o)
         maxt = torch.where(torch.isinf(ds.dist), _SHADOW_INF, ds.dist * (1.0 - 1e-3))
         maxt = torch.where(nee_ok, maxt, 0.0)
@@ -527,26 +556,32 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     else:
         wo_local = si.wi
 
+    log.stage("bsdf")
     f_surf, pdf_surf, wo_b, bsdf_pdf, weight_b, is_delta_b = bsdf_mod.bounce_shade(
         scene.bsdfs, si.mat_id, si.wi, wo_local, u2, u_lobe, texcoords(scene, si),
         need_attached=ad_mode, has_nee=do_nee, active=real_surf, nee_mask=nee_vis,
     )
 
     if do_nee:
+        log.stage("medium")
         ph_val = phase_mod.eval(ph_type, ph_g, wi_world, ds.d, ph_S)
         f_scat = torch.where(med_event[..., None], ph_val[..., None], f_surf)
         pdf_scat = torch.where(med_event, ph_val, pdf_surf)
         if media.n_media:
             # the medium reaches to the first boundary along the shadow ray
             # (a null surface: anything else occluding failed the test)
+            log.stage("shadow")
             si_sh = scene.ray_intersect(shadow)
             tr_dist = torch.where(si_sh.valid, torch.minimum(si_sh.t, maxt), maxt)
+            log.stage("medium")
             tr = medium_mod.transmittance(media, torch.where(nee_ok, mid, -1), shadow_o, ds.d,
                                           tr_dist, med_seed, lane, med_base + _MED_SHADOW,
                                           ad_mode=ad_mode)
         else:
             tr = torch.ones_like(thr)
-        n_rays = n_rays + nee_ok.sum()
+        log.stage("shadow")
+        shadow_n = nee_ok.sum()
+        log.stage("emitter")
         w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_scat))
         # the transmittance stays attached in ad_mode: its ratio-tracking
         # factors carry the extinction's gradient
@@ -555,10 +590,12 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         L = L + torch.where(nee_vis[..., None], contrib, 0.0)
 
     # ---- continuation: phase sample | BSDF sample | null pass-through ----
+    log.stage("medium")
     wo_b = wo_b.detach()
     bsdf_pdf = bsdf_pdf.detach()
     wo_ph, ph_pdf = phase_mod.sample(ph_type, ph_g, wi_world, u2, ph_S)
     wo_ph, ph_pdf = wo_ph.detach(), ph_pdf.detach()
+    log.stage("bsdf")
     d_next = torch.where(med_event[..., None], wo_ph,
                          torch.where(null_surf[..., None], ray.d, si.to_world(wo_b)))
     o_next = torch.where(med_event[..., None], p_med, geo.spawn_ray(si, d_next).o)
@@ -589,14 +626,14 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         survive = u_rr < q
         thr = torch.where(survive[..., None], thr / q[..., None], thr)
         active = active & survive
-    return (ray, thr, L, active, prev_pdf, prev_delta, mid), n_rays
+    return (ray, thr, L, active, prev_pdf, prev_delta, mid), (live, shadow_n)
 
 
 def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
                   ad_mode=False):
     """Volumetric path tracer (mitsuba3 volpath): the path tracer with
-    participating media (_vol_bounce). Returns (L (N, 3), {"rays_per_bounce":
-    (max_depth,) float64}). As in the JAX package: every lane starts in
+    participating media (_vol_bounce). Returns (L (N, 3), {"bounces": ...})
+    as trace_paths. As in the JAX package: every lane starts in
     vacuum, leaving any boundary returns to vacuum (no nesting), the shadow
     ray integrates the lane's own medium only, and max_depth bounds every
     event, null crossings included. Gradients as trace_paths (ad_mode:
@@ -604,21 +641,23 @@ def trace_volpath(scene, ray0, sampler, max_depth, rr_depth, hide_emitters,
     medium.AD_TRACKING_STEPS steps)."""
     n = ray0.o.shape[0]
     dev = ray0.o.device
-    state = (
-        ray0,
-        torch.ones((n, 3), device=dev),
-        torch.zeros((n, 3), device=dev),
-        torch.ones(n, dtype=torch.bool, device=dev),
-        torch.zeros(n, device=dev),
-        torch.ones(n, dtype=torch.bool, device=dev),
-        torch.full((n,), -1, dtype=torch.int64, device=dev),
-    )
+    with log.span("camera"):
+        state = (
+            ray0,
+            torch.ones((n, 3), device=dev),
+            torch.zeros((n, 3), device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.full((n,), -1, dtype=torch.int64, device=dev),
+        )
     step = _bounce_step(ad_mode, _vol_bounce)
-    rays_pb = []
+    bounces = []
     for b in range(max_depth):
-        state, n_rays = step(scene, state, sampler, b, max_depth, rr_depth, hide_emitters)
-        rays_pb.append(n_rays)
-    return state[2], {"rays_per_bounce": torch.stack(rays_pb).to(torch.float64)}
+        state, (live, shadow) = step(scene, state, sampler, b, max_depth, rr_depth,
+                                     hide_emitters)
+        bounces.append((n, live, shadow))
+    return state[2], {"bounces": bounces}
 
 
 def _integrator_kind(scene, integrator):
@@ -648,7 +687,8 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
     sharding hook (the port's parallel/mesh.py renders a rank's rows
     through render_rows, in render's lane order, instead). Returns (L (N,
     C), film_xy (N, 2), stats): C = 3,
-    or 6 for `moment` ([L, L^2]). `spp` is the frame's total spp. The
+    or 6 for `moment` ([L, L^2]); stats {"rays_per_bounce": (bounces,)
+    float64, each bounce's live lanes and shadow rays}. `spp` is the frame's total spp. The
     arguments are the JAX package's, in its order; coherent0 changes
     nothing (see trace_paths).
 
@@ -671,8 +711,19 @@ def render_lanes(scene, spp, seed, integrator=None, max_depth=None, ad_mode=Fals
                              device=scene.device)
         pixel, sample_idx = lanes // spp, lanes % spp
     wh = torch.tensor([w, h], dtype=torch.float32, device=pixel.device)
-    return _trace_lanes(scene, spp, seed, kind, _depth(scene, kind, max_depth), ad_mode,
-                        pixel, sample_idx, sensor_mod.types_present(scene.sensor), wh)
+    L, film_xy, stats = _trace_lanes(scene, spp, seed, kind, _depth(scene, kind, max_depth),
+                                     ad_mode, pixel, sample_idx,
+                                     sensor_mod.types_present(scene.sensor), wh)
+    rays = [live if shadow is None else live + shadow for _, live, shadow in stats["bounces"]]
+    return L, film_xy, {"rays_per_bounce": torch.stack(
+        [torch.as_tensor(r, device=scene.device) for r in rays]).to(torch.float64)}
+
+
+def rays_traced(counters):
+    """The rays that bounce counters (rows_body's) count: every bounce's
+    live lanes and shadow rays, a float (it waits for the device)."""
+    return float(sum(live if shadow is None else live + shadow
+                     for _, live, shadow in counters))
 
 
 def _trace_lanes(scene, spp, seed, kind, max_depth, ad_mode, pixel, sample_idx, present,
@@ -681,20 +732,20 @@ def _trace_lanes(scene, spp, seed, kind, max_depth, ad_mode, pixel, sample_idx, 
     path depth, the sensor's types `present` and the film size `wh` as a
     (2,) float32 tensor on the lanes' device. Device work only (a seed
     tensor keeps the sampler off the host too), so a captured frame's body
-    runs it as it is."""
+    runs it as it is. The camera rays are the span "camera"."""
     cfg = scene.config
     h, w = cfg.height, cfg.width
-    smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
-
-    jitter = smp.next_2d()
-    # dims 2-3: the aperture, drawn only for a thin lens (each bounce
-    # repositions the sampler with with_dim, so no other draw moves)
-    aperture = smp.next_2d() if sensor_mod.THINLENS in present else None
-    px = (pixel % w).to(torch.float32)
-    py = (pixel // w).to(torch.float32)
-    film_xy = torch.stack([px, py], -1) + jitter
-    film_uv = film_xy / wh
-    ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h, present=present)
+    with log.span("camera"):
+        smp = make_sampler(cfg.sampler, seed, pixel, sample_idx, spp)
+        jitter = smp.next_2d()
+        # dims 2-3: the aperture, drawn only for a thin lens (each bounce
+        # repositions the sampler with with_dim, so no other draw moves)
+        aperture = smp.next_2d() if sensor_mod.THINLENS in present else None
+        px = (pixel % w).to(torch.float32)
+        py = (pixel // w).to(torch.float32)
+        film_xy = torch.stack([px, py], -1) + jitter
+        film_uv = film_xy / wh
+        ray0 = sensor_mod.sample_ray(scene.sensor, film_uv, aperture, w / h, present=present)
 
     if kind in ("depth", "aov", "aov_normals", "aov_position", "aov_uv"):
         si = scene.ray_intersect(ray0)
@@ -707,9 +758,8 @@ def _trace_lanes(scene, spp, seed, kind, max_depth, ad_mode, pixel, sample_idx, 
         else:  # the shading normal
             L = apply_normal_maps(scene.bsdfs, si).frame.n * 0.5 + 0.5
         L = torch.where(si.valid[..., None], L, 0.0)
-        rays = torch.full((1,), float(pixel.shape[0]), dtype=torch.float64,
-                          device=scene.device)
-        return L, film_xy, {"rays_per_bounce": rays}
+        n = pixel.shape[0]
+        return L, film_xy, {"bounces": [(n, n, None)]}  # the camera rays, all live
     if kind != "moment" and (kind in _VOL_TYPES or scene.media.n_media > 0):
         L, stats = trace_volpath(scene, ray0, smp, max_depth, cfg.rr_depth,
                                  cfg.hide_emitters, ad_mode=ad_mode)
@@ -804,42 +854,49 @@ def rows_inputs(scene, plan):
 def rows_body(scene, plan, inputs, seed, ad_mode):
     """The passes of a plan on its inputs: device work only, so a captured
     frame records it as it is (seed: a Python int, or a 0-d int64 tensor
-    on the scene's device). Returns render_rows' (out, rays traced)."""
+    on the scene's device). Returns render_rows' (out, counters). Spans:
+    camera (each pass's lanes and camera rays), bounce<b> (the bounces'
+    stages and compaction), film (splat or develop)."""
     cfg = scene.config
     h, w = cfg.height, cfg.width
     pixel0, sidx_local, wh = inputs
     rows, chunk, n_spp_pass = plan.rows, plan.chunk, plan.n_spp_pass
     slabs = [None] * plan.n_row_pass
     img = wsum = None
-    rays = torch.zeros((), dtype=torch.float64, device=scene.device)
+    counters = []
     for p in range(n_spp_pass * plan.n_row_pass):
         row_pass, spp_pass = p // n_spp_pass, p % n_spp_pass
-        L, film_xy, stats = _trace_lanes(
-            scene, plan.spp, seed, plan.kind, plan.max_depth, ad_mode,
-            pixel0 + row_pass * rows * w, sidx_local + spp_pass * chunk, plan.present, wh,
-        )
-        rays = rays + stats["rays_per_bounce"].sum()
-        if not plan.box:
-            part, wpart = film_mod.splat_slab(L, film_xy, plan.row0 - plan.halo,
-                                              plan.n_rows + 2 * plan.halo, h, w,
-                                              film_mod.FILTER_NAMES[cfg.rfilter])
-            img = part if img is None else img + part
-            wsum = wpart if wsum is None else wsum + wpart
-            continue
-        if plan.blocked:
-            slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
-        else:
-            slab = film_mod.develop_box(L, rows, w, chunk)
-        prev = slabs[row_pass]
-        slabs[row_pass] = slab if prev is None else prev + slab
-    return (torch.cat(slabs) / n_spp_pass if plan.box else (img, wsum)), rays
+        with log.span("camera"):
+            pixel = pixel0 + row_pass * rows * w
+            sample_idx = sidx_local + spp_pass * chunk
+        L, film_xy, stats = _trace_lanes(scene, plan.spp, seed, plan.kind, plan.max_depth,
+                                         ad_mode, pixel, sample_idx, plan.present, wh)
+        counters += stats["bounces"]
+        with log.span("film"):
+            if not plan.box:
+                part, wpart = film_mod.splat_slab(L, film_xy, plan.row0 - plan.halo,
+                                                  plan.n_rows + 2 * plan.halo, h, w,
+                                                  film_mod.FILTER_NAMES[cfg.rfilter])
+                img = part if img is None else img + part
+                wsum = wpart if wsum is None else wsum + wpart
+                continue
+            if plan.blocked:
+                slab = film_mod.develop_box_blocked(L, rows, w, chunk, _BLOCK)
+            else:
+                slab = film_mod.develop_box(L, rows, w, chunk)
+            prev = slabs[row_pass]
+            slabs[row_pass] = slab if prev is None else prev + slab
+    with log.span("film"):
+        return (torch.cat(slabs) / n_spp_pass if plan.box else (img, wsum)), counters
 
 
 def render_rows(scene, spp, seed, integrator, max_depth, ad_mode, row0, n_rows, halo=0):
     """The frame's rows [row0, row0 + n_rows) in (row slab, spp slice)
     passes of at most MAX_WAVEFRONT lanes, the pixels of a slab in 16x16
     blocks when it tiles evenly (row-major otherwise). Returns (out,
-    rays traced): under the box filter out is the rows' (n_rows, W, C)
+    counters): counters are every pass's bounces' (lanes run, live lanes,
+    shadow rays or None) in order (trace_paths; rays_traced sums them);
+    under the box filter out is the rows' (n_rows, W, C)
     image (each pixel's lanes averaged; the slabs summed out of place over
     the spp passes, which autograd keeps); under any other filter out is
     (img (n_rows + 2 halo, W, C), wsum (n_rows + 2 halo, W)), every pass's
@@ -854,12 +911,13 @@ def render_rows(scene, spp, seed, integrator, max_depth, ad_mode, row0, n_rows, 
 
 def develop(cfg, out):
     """render_rows' out over all rows -> the image: a splat divided by its
-    weights, times cfg.sensor_scale."""
-    if cfg.rfilter != "box":
-        out = out[0] / torch.clamp(out[1], min=1e-12)[..., None]
-    if cfg.sensor_scale != 1.0:
-        out = out * cfg.sensor_scale  # measurement sensors (W/m^2)
-    return out
+    weights, times cfg.sensor_scale (the span "film")."""
+    with log.span("film"):
+        if cfg.rfilter != "box":
+            out = out[0] / torch.clamp(out[1], min=1e-12)[..., None]
+        if cfg.sensor_scale != 1.0:
+            out = out * cfg.sensor_scale  # measurement sensors (W/m^2)
+        return out
 
 
 def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
@@ -890,10 +948,11 @@ def render(scene, spp=None, seed=0, integrator=None, max_depth=None,
         from mitsuba_customization_tpu_torch.render.bdpt import render_bdpt
 
         return render_bdpt(scene, spp, seed, max_depth, return_stats)
-    out, rays = render_rows(scene, spp, seed, integrator, max_depth, ad_mode, 0, cfg.height)
+    out, counters = render_rows(scene, spp, seed, integrator, max_depth, ad_mode, 0,
+                                cfg.height)
     out = develop(cfg, out)
     if return_stats:
-        return out, {"rays_traced": float(rays)}
+        return out, {"rays_traced": rays_traced(counters)}
     return out
 
 
@@ -929,14 +988,18 @@ def render_jit(scene, spp=None, seed=0, integrator=None, max_depth=None):
     written into its buffer first; a capture that fails raises. On the
     CPU the body runs as it is. The image is render's bit for bit (a
     splat's atomic adds on the card aside: a splat filter, the light
-    tracers' camera connections), and a fresh tensor at every call."""
-    kind = _integrator_kind(scene, integrator)
-    cfg = scene.config
-    spp = int(spp or cfg.spp)
-    if kind in TRACERS:
-        return captured_tracer(scene, tracer(kind).plan(scene, spp, max_depth), seed)
-    plan = plan_rows(scene, spp, kind, max_depth, 0, cfg.height)
-    return captured_rows(scene, plan, seed, True)
+    tracers' camera connections), and a fresh tensor at every call. Host
+    spans: frame.call, and inside it frame.plan and the frame's own."""
+    with log.span("frame.call"):
+        kind = _integrator_kind(scene, integrator)
+        cfg = scene.config
+        spp = int(spp or cfg.spp)
+        with log.span("frame.plan"):
+            plan = (tracer(kind).plan(scene, spp, max_depth) if kind in TRACERS
+                    else plan_rows(scene, spp, kind, max_depth, 0, cfg.height))
+        if kind in TRACERS:
+            return captured_tracer(scene, plan, seed)
+        return captured_rows(scene, plan, seed, True)
 
 
 def captured_rows(scene, plan, seed, whole_image):
@@ -947,8 +1010,8 @@ def captured_rows(scene, plan, seed, whole_image):
         inputs = rows_inputs(scene, plan)
 
         def body(seed_t):
-            out = rows_body(scene, plan, inputs, seed_t, False)[0]
-            return develop(scene.config, out) if whole_image else out
+            out, counters = rows_body(scene, plan, inputs, seed_t, False)
+            return (develop(scene.config, out) if whole_image else out), counters
 
         return {"body": body, "keep": inputs}
 
@@ -960,4 +1023,4 @@ def captured_tracer(scene, plan, seed):
     captured frame."""
     body = tracer(plan.kind).body
     return frame_graph.frame(plan, scene, lambda: {
-        "body": lambda seed_t: body(scene, plan, seed_t)[0], "keep": None})(seed)
+        "body": lambda seed_t: (body(scene, plan, seed_t)[0], None), "keep": None})(seed)

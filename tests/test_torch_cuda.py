@@ -2328,6 +2328,151 @@ def test_captured_ad_step_reads_an_in_place_parameter_change(dev):
     frame_graph.clear()
 
 
+def _libcuda_nodes(graph):
+    """A kept cudaGraph_t's node count from libcuda's cuGraphGetNodes
+    (chip_smoke's own count before frames kept theirs)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                               ctypes.byref(count))
+    assert err == 0
+    return int(count.value)
+
+
+def _replay_kernels(graph, pad_s=0.05):
+    """The kernels of one traced replay of `graph`, in start order (copies
+    and sets left out, as the benchmark's trace reads them). A trace tends
+    to drop the first launches after it starts (more once the process has
+    captured an AD step), so the graph replays twice in it, and the
+    kernels that started after the host's clock passed the second replay
+    (a trace's device stamps share the host's clock) are the second's."""
+    import time
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(pad_s)
+        graph.replay()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+        t_second = time.time_ns()
+        graph.replay()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    ev = [(e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA and e.start_ns() > t_second
+          and not e.name().startswith(("Memcpy", "Memset"))]
+    return [n for _, n in sorted(ev)]
+
+
+def _check_table(graph, table, stages, traced=False):
+    """A GraphTable against its graph: the node count libcuda gives, leaf
+    spans tiling [0, nodes), each hand-written kernel of `stages` ({trace
+    name: span name}) in that span only, and launched; if `traced`, kernel
+    names equal to a traced replay's one for one (CUDA's own kernels for
+    copy and set nodes, memcpy* / memset*, left out, at most one a copy
+    node; a trace may drop a launch, so the first of three traces that
+    drops none)."""
+    assert table.nodes == _libcuda_nodes(graph)
+    spans = table.spans
+    assert spans[0][1] == 0 and spans[-1][2] == table.nodes
+    assert all(a[2] == b[1] for a, b in zip(spans, spans[1:]))
+    names = [n for _, n in table.kernels]
+    for _ in range(3 if traced else 0):
+        replayed = _replay_kernels(graph)
+        own = [n for n in replayed if not n.startswith(("memcpy", "memset"))]
+        if own == names:
+            break
+    if traced:
+        assert own == names and len(replayed) - len(own) <= len(table.copies), (len(own),
+                                                                               len(names))
+    paths = table.kernel_paths()
+    for kernel, stage in stages.items():
+        where = {p for n, p in zip(names, paths) if kernel in n}
+        assert where and all(stage in p.split("/") for p in where), (kernel, where)
+
+
+def _in_a_child(check):
+    """Run this file's function `check` in a fresh Python process: a
+    profiler's trace of a captured graph's replay is sound in a process
+    that has not traced and captured many graphs before (in one that has,
+    traces drop launches)."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = f"import sys; sys.path.insert(0, {here!r}); import test_torch_cuda; test_torch_cuda.{check}()"
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=900, cwd=os.path.dirname(here))
+    assert r.returncode == 0, (r.stdout[-4000:], r.stderr[-4000:])
+
+
+def check_frame_tables_and_counters():
+    """test_frame_tables_and_counters_on_the_card's checks."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.render import frame_graph
+    from mitsuba_customization_tpu_torch.render.integrator import render_jit, render_rows
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict, probe_compact_schedule
+    from mitsuba_customization_tpu_torch.utils import log
+
+    scene, _ = probe_compact_schedule(mt.load_dict(matpreview_dict(64, 4, 6, n_sub=3), "cuda"))
+    render_jit(scene, 4, 1)
+    frame = frame_graph.latest()
+    assert frame.nodes == frame.tables[0].nodes and log.GRAPHS[-1] is frame.tables[0]
+    _check_table(frame.graph, frame.tables[0],
+                 {"cluster_closest_kernel": "intersect", "cluster_shadow_kernel": "shadow",
+                  "merl_eval_kernel": "bsdf", "cond_sample_kernel": "bsdf"}, traced=True)
+    render_jit(scene, 4, 7)
+    torch.cuda.synchronize()
+    got = [(n, int(a), None if s is None else int(s)) for n, a, s in frame.counters]
+    _, eager = render_rows(scene, 4, 7, None, None, False, 0, scene.config.height)
+    _, stats = mt.render(scene, 4, 7, return_stats=True)
+    want = [(n, int(a), None if s is None else int(s)) for n, a, s in eager]
+    assert got == want and frame.tables[0].counters is frame.counters
+    assert sum(a + (s or 0) for _, a, s in got) == stats["rays_traced"]
+
+
+def test_frame_tables_and_counters_on_the_card(dev):
+    """render_jit's frame keeps its graph's node count (libcuda's count of
+    the kept graph), span table and kernel names (a traced replay's, one
+    for one): K3 under intersect, K4 under shadow, K1 / K2 under bsdf;
+    its bounce counters after a replay equal an eager render's at the
+    same seed, and sum to its rays_traced. In a child process."""
+    _in_a_child("check_frame_tables_and_counters")
+
+
+def test_step_tables_on_the_card(dev):
+    """grad_render's step keeps its graph's table: libcuda's node count,
+    update, forward and backward tiling the nodes, K1-bwd under backward;
+    loss_and_grad_sharded_jit's split step (gaussian filter) keeps a table
+    a graph, the backward's all under backward. (Its replays' traces are
+    held to the tables by the benchmark's readers: a traced replay of an AD
+    step has crashed a test process.)"""
+    from mitsuba_customization_tpu_torch.parallel import mesh as pm
+    from mitsuba_customization_tpu_torch.render import ad, frame_graph
+
+    scene, params, target = _ad_step_scene(dev)
+    frame_graph.clear()
+    ad.grad_render(scene, params, target, 4, 1)
+    step = frame_graph.latest()
+    (table,) = step.tables
+    assert {p.split("/")[0] for p, _, _ in table.spans} == {"update", "forward", "backward"}
+    _check_table(step.graph, table, {"merl_eval_bwd_kernel": "backward"})
+    scene.config.rfilter = "gaussian"
+    frame_graph.clear()
+    pm.loss_and_grad_sharded_jit(scene, params, target, None, 4, 1)
+    split = frame_graph.latest()
+    fwd, bwd = split.tables
+    assert (fwd.kind, bwd.kind) == ("forward", "backward") and split.nodes == fwd.nodes
+    assert {p.split("/")[0] for p, _, _ in bwd.spans} == {"backward"}
+    _check_table(split.graph, fwd, {"merl_eval_kernel": "forward"})
+    _check_table(split.bwd_graph, bwd, {"merl_eval_bwd_kernel": "backward"})
+    frame_graph.clear()
+
+
 def test_loss_and_grad_sharded_jit_on_one_rank_equals_grad_render(dev):
     """loss_and_grad_sharded_jit without a process group (a world of one)
     on the card: the box filter's slab step (one graph) and the gaussian
