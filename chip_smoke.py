@@ -35,7 +35,17 @@ Phases, one printed line each; any failure raises (non-zero exit):
      recorded call is checked against its plain version (K3: hit/miss, t,
      prim, u, v and fields; K4: occlusion on every lane; K1, K2 as in
      phases 3-4) and timed, one line per bounce (lanes, live lanes, kernel
-     ms and bound ms of each kernel; K2's lanes not bit-equal);
+     ms and bound ms of each kernel; K2's lanes not bit-equal); then one
+     more render with a recording wrapper on models/bsdf.bounce_shade
+     keeps every call's inputs (phase_bsdf_stage): on each, every present
+     kernel must take the fused route (bsdf_shade_pre, K2, bsdf_shade_post,
+     K1: one launch of each new kernel), which is held to the plain route
+     (_bounce_shade_plain) on the same tensors (is_delta and each output's
+     zero pattern equal, values within BSDF_RTOL on all but BSDF_RARE of
+     the lanes, BSDF_REL_L1 summed) and timed against it, one line per
+     bounce (lanes, the two kernels' device ms and bound ms, both routes'
+     call ms and device ms and ops); the recorded calls must number the
+     frame's bsdf_shade_pre launches;
  11. the matpreview frame at 64x64, 4 spp, depth 4 with that schedule, on
      the card and on the CPU (plain kernels): per-channel means within 2 %;
  12. K1's backward (scatter-add of K1's cotangent into the table's
@@ -283,7 +293,15 @@ the recorded calls of phase 10, for K1's backward of phase 13 with the
 step's one buffer zeroing; K1's backward's `library_ms` is the index_add_
 yardstick of phase 12, the scatter part only, as its `library_note` says,
 to hold against its `ms_into`; the other kernels' null) and, last, the device
-JSON line. A kernel's bound is
+JSON line. bsdf_shade_pre / bsdf_shade_post (the BSDF stage) carry phase
+10's numbers: `ms` / `device_ms` the profiler's device time of the
+kernel on the first recorded call (bounce 0), `bound_ms` its logical
+bytes (bsdf_bytes) at 3.35 TB/s, `call_ms` / `plain_ms` the CUDA-event
+time of that call on the fused and the plain route, `call_device_ms` /
+`plain_device_ms` and `*_device_ops` their device time and operations,
+`frame_ms` / `frame_bound_ms` summed over the frame's calls; launches of
+the matpreview frame, of phase 13's AD step and of every later phase
+and replay (the blend scenes' must be 0: plain route). A kernel's bound is
 the larger of the bytes it must move (each input read once, each output
 written once) at 3.35 TB/s and the operations it must do at 67 TFLOP/s
 float32 (published H100 SXM peaks; the cluster kernels round every step
@@ -1020,6 +1038,176 @@ def phase_bounces(scene, rec, k1_per_bounce=1, hit_types=None, k3_per_bounce=1,
     return {k: tuple(v) for k, v in total.items()}
 
 
+# the BSDF stage's fused route (bsdf_shade_pre / post around K2 and K1)
+# against its plain route (models/bsdf._bounce_shade_plain) on the same
+# tensors (check_bsdf_stage; phase 10 and tests/test_torch_cuda_bsdf.py):
+# is_delta and each output's zero pattern equal, the values within
+# BSDF_RTOL on all but a BSDF_RARE share of lanes and within BSDF_REL_L1
+# summed over the plain sum. The kernels round as torch's CUDA ops do
+# (csrc/bsdf_shade.cu), so the routes agree bit for bit on every output but
+# the tabulated weight, which the fused route takes as f * (cos / pdf) and
+# the plain one as (f * cos) / pdf: an ulp or two (measured at 2,097,152
+# lanes on an H100: f_nee, pdf_nee, wo and pdf_s equal on every lane, the
+# weight on 58-90 %). The tolerances leave room for torch versions that
+# reduce or contract otherwise: a lane whose half vector moves across a
+# cell edge of the sampling grid takes the neighbouring cell's mass (a pdf
+# off by the cells' ratio), and a cosine-lobe direction near the horizon
+# loses digits to cancellation in z = sqrt(1 - x^2 - y^2); both were seen
+# on a few lanes in 10^5 while the kernels still summed in another order.
+BSDF_RTOL, BSDF_RARE, BSDF_REL_L1 = 1e-4, 1e-4, 1e-5
+BSDF_OUTPUTS = ("f_nee", "pdf_nee", "wo", "pdf_s", "weight", "is_delta")
+SH_TRACE_NAMES = {"SH-pre": "bsdf_shade_pre_kernel", "SH-post": "bsdf_shade_post_kernel"}
+
+
+def check_bsdf_stage(got, want):
+    """The fused route's six outputs `got` against the plain route's `want`
+    (BSDF_* above). Returns {output: (lanes past BSDF_RTOL, relative L1
+    gap, lanes not equal)}; raises where an output fails."""
+    out = {}
+    for name, g, w in zip(BSDF_OUTPUTS, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"BSDF stage: {name} is {tuple(g.shape)} {g.dtype}, the "
+                                 f"plain route's {tuple(w.shape)} {w.dtype}")
+        n = g.shape[0]
+        if name == "is_delta":
+            if not torch.equal(g, w):
+                raise AssertionError(f"BSDF stage: is_delta differs on {int((g != w).sum())} "
+                                     "lanes")
+            out[name] = (0, 0.0, 0)
+            continue
+        g, w = g.reshape(n, -1).double(), w.reshape(n, -1).double()
+        if not torch.equal((g == 0).all(-1), (w == 0).all(-1)):
+            raise AssertionError(f"BSDF stage: {name} is 0 on other lanes than the plain "
+                                 "route's")
+        if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
+            raise AssertionError(f"BSDF stage: {name} is not finite")
+        gap = (g - w).abs()
+        off = int((gap.amax(-1) > BSDF_RTOL * w.abs().amax(-1) + 1e-7).sum())
+        rel_l1 = float(gap.sum() / w.abs().sum().clamp(min=1e-30))
+        if off > BSDF_RARE * n or rel_l1 > BSDF_REL_L1:
+            raise AssertionError(f"BSDF stage: {name} off on {off} of {n} lanes (at most "
+                                 f"{BSDF_RARE * n:.0f}), relative L1 gap {rel_l1:.3e} (limit "
+                                 f"{BSDF_REL_L1})")
+        out[name] = (off, rel_l1, int((g != w).any(-1).sum()))
+    return out
+
+
+def bsdf_bytes(table, mat_id, active):
+    """Logical bytes of bsdf_shade_pre and bsdf_shade_post on a call: every
+    lane's id and masks (10 B) and outputs (45 B; with tabulated lanes
+    present 12 B more: K2's mask, the flags, K1's masks, the scales); a
+    live lane of a fused kernel's directions and samples (44 B); a
+    tabulated lane's K2 indices, K1 slot and state (92 B) out of pre and
+    into post with K2's outputs and the row (60 B), post's outputs (25 B);
+    every lane's flags into post (1 B). Tables and stacks, which stay in
+    L2, are not counted."""
+    from mitsuba_customization_tpu_torch.models import bsdf
+
+    n = mat_id.shape[0]
+    t = table.mat_type[mat_id]
+    act = torch.ones_like(t, dtype=torch.bool) if active is None else active
+    live = int((act & sum(t == k for k in bsdf.FUSED_KERNELS).bool()).sum())
+    tab = int((act & (t == bsdf.TABULATED)).sum())
+    pre = n * (10 + 45 + (12 if tab else 0)) + live * 44 + tab * 92
+    post = n * 1 + tab * (60 + 25)
+    return {"lanes": n, "live": live, "tabulated": tab, "pre_bytes": pre, "post_bytes": post,
+            "pre_bound_ms": pre / HBM_BYTES_PER_S * 1e3,
+            "post_bound_ms": post / HBM_BYTES_PER_S * 1e3}
+
+
+def _keep_shade(args, kwargs):
+    """A bounce_shade call: (its positional arguments, the table not
+    copied; its keyword arguments), every tensor copied."""
+    def keep(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    return args[:1] + tuple(keep(a) for a in args[1:]), {k: keep(v) for k, v in kwargs.items()}
+
+
+def phase_bsdf_stage(scene, spp, seed=1, reps=5):
+    """Phase 10's BSDF stage: one more render of `scene` with a recording
+    wrapper on models/bsdf.bounce_shade keeps every call's inputs; each
+    call, whose present kernels must all take the fused route, runs on
+    the fused route (bounce_shade: bsdf_shade_pre, K2, bsdf_shade_post,
+    K1; one launch of each new kernel) and on the plain route
+    (_bounce_shade_plain) on the same tensors, held together
+    (check_bsdf_stage), timed (CUDA events, a call of each route) and
+    traced (_device_trace: device ms of bsdf_shade_pre / post and of the
+    whole call of each route), one line per bounce, beside the kernels'
+    bound by bsdf_bytes. Returns ({"SH-pre" / "SH-post": the first
+    call's numbers}, {"SH-pre" / "SH-post": (frame ms, frame bound ms)}):
+    `ms` and `device_ms` are the profiler's device time of the kernel,
+    `call_ms` / `plain_ms` the CUDA-event time of the two routes' calls,
+    `call_device_ms` / `plain_device_ms` their device time."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.models import bsdf
+    from mitsuba_customization_tpu_torch.ops import bsdf_shade
+
+    rec = record_calls(lambda: mt.render(scene, spp=spp, seed=seed),
+                       {"SH": (bsdf, "bounce_shade", _keep_shade)})["SH"]
+    if not rec:
+        raise AssertionError("BSDF stage: the render made no bounce_shade call")
+    first, frame = None, {k: [0.0, 0.0] for k in SH_TRACE_NAMES}
+    for b, (args, kw) in enumerate(rec):
+        table, mat_id, wi = args[:3]
+        routes = bsdf.route(table.present_kernels, wi.device.type, table.blend_a is not None,
+                            torch.is_grad_enabled(), frozenset(), False)
+        if set(routes.values()) != {bsdf.FUSED}:
+            raise AssertionError(f"BSDF stage: bounce {b} routes {routes}")
+        before = dict(bsdf_shade.LAUNCHES)
+        got = bsdf.bounce_shade(*args, **kw)
+        want = bsdf._bounce_shade_plain(*args, **kw)
+        torch.cuda.synchronize()
+        launched = {k: bsdf_shade.LAUNCHES[k] - before[k] for k in before}
+        want_launched = {"pre": 1, "post": int(bsdf.TABULATED in table.present_kernels)}
+        if launched != want_launched:
+            raise AssertionError(f"BSDF stage: bounce {b} launched {launched}")
+        agree = check_bsdf_stage(got, want)
+        del got, want
+        work = bsdf_bytes(table, mat_id, kw.get("active"))
+        call_ms = _time_ms(lambda: bsdf.bounce_shade(*args, **kw))
+        plain_ms = _time_ms(lambda: bsdf._bounce_shade_plain(*args, **kw))
+        dev_ms, dev_ops = {}, {}
+        for route, fn in (("fused", bsdf.bounce_shade), ("plain", bsdf._bounce_shade_plain)):
+            events = _device_trace(reps, fn, *args, **kw)
+            dev_ops[route] = round(len(events) / reps)
+            dev_ms[route] = _per_call_ms(events, reps)
+        fused_dev = dev_ms["fused"]
+        ms = {k: sum(v for op, v in fused_dev.items() if name in op)
+              for k, name in SH_TRACE_NAMES.items()}
+        if ms["SH-pre"] <= 0 or (want_launched["post"] and ms["SH-post"] <= 0):
+            raise AssertionError(f"BSDF stage: bounce {b}'s trace holds no new kernel "
+                                 f"({sorted(fused_dev)[:20]})")
+        bound = {"SH-pre": work["pre_bound_ms"], "SH-post": work["post_bound_ms"]}
+        for k in SH_TRACE_NAMES:
+            frame[k][0] += ms[k]
+            frame[k][1] += bound[k]
+        if first is None:
+            first = {k: dict(ms=ms[k], device_ms=ms[k], bound_ms=bound[k], bound_by="bytes",
+                             bytes=work[k[3:] + "_bytes"], calls=len(rec), lanes=work["lanes"],
+                             live=work["live"], tabulated=work["tabulated"],
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             call_device_ms=sum(fused_dev.values()),
+                             call_device_ops=dev_ops["fused"],
+                             plain_device_ms=sum(dev_ms["plain"].values()),
+                             plain_device_ops=dev_ops["plain"],
+                             max_rel_l1=max(a[1] for a in agree.values()),
+                             lanes_off=max(a[0] for a in agree.values()))
+                     for k in SH_TRACE_NAMES}
+        print(f"BSDF stage bounce {b}: {work['lanes']} lanes, {work['live']} live on fused "
+              f"kernels, {work['tabulated']} tabulated; fused against plain: "
+              + ", ".join(f"{n} {a[0]} past rtol, rel L1 {a[1]:.2e}, {a[2]} not equal"
+                          for n, a in agree.items() if n != "is_delta")
+              + f", is_delta equal; pre {ms['SH-pre']:.4f} ms (bound {bound['SH-pre']:.4f}), "
+              f"post {ms['SH-post']:.4f} ms (bound {bound['SH-post']:.4f}); the call "
+              f"{call_ms:.4f} ms fused against {plain_ms:.4f} plain (CUDA events), device "
+              f"{sum(fused_dev.values()):.4f} ms in {dev_ops['fused']} device ops against "
+              f"{sum(dev_ms['plain'].values()):.4f} in {dev_ops['plain']}")
+    print("BSDF stage frame sums over the recorded calls: " + ", ".join(
+        f"{k} {v[0]:.4f} ms (bound {v[1]:.4f})" for k, v in frame.items()))
+    return first, {k: tuple(v) for k, v in frame.items()}
+
+
 def k1_bwd_identity_err(table, g, *lanes, value=None):
     """K1-backward against K1 by linearity: the relative error of
     <K1-bwd(g), d> = <g, K1(d)> on a seeded table d >= 0, over sum |g|
@@ -1515,15 +1703,18 @@ def phase_optimize(setup, steps=5):
 
 
 def _launch_counts():
+    from mitsuba_customization_tpu_torch.ops import bsdf_shade
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
     return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES,
-            "K3": cl.LAUNCHES["closest"], "K4": cl.LAUNCHES["shadow"]}
+            "K3": cl.LAUNCHES["closest"], "K4": cl.LAUNCHES["shadow"],
+            "SH-pre": bsdf_shade.LAUNCHES["pre"], "SH-post": bsdf_shade.LAUNCHES["post"]}
 
 
 def _reset_counts():
+    from mitsuba_customization_tpu_torch.ops import bsdf_shade
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
@@ -1536,6 +1727,8 @@ def _reset_counts():
     k2.LAUNCHES = 0
     cl.LAUNCHES["closest"] = 0
     cl.LAUNCHES["shadow"] = 0
+    bsdf_shade.LAUNCHES["pre"] = 0
+    bsdf_shade.LAUNCHES["post"] = 0
     bvh.LAUNCHES["closest"] = 0
     bvh.LAUNCHES["any"] = 0
     medium.LAUNCHES["delta"] = 0
@@ -1694,7 +1887,7 @@ def phase_materials(dev, res=512, spp=8, depth=8):
     scene, fracs = probe_compact_schedule(scene, spp=4)
     launches = _timed_frame("materials", scene, spp, ("K1", "K2", "K3", "K4"))
     rec = record_wavefronts(scene, spp, seed=1)
-    if {k: len(v) for k, v in rec.items()} != launches:
+    if {k: len(v) for k, v in rec.items()} != {k: launches[k] for k in rec}:
         raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
     frame = phase_bounces(scene, rec)
     del rec
@@ -1743,7 +1936,9 @@ def phase_blend(dev, res=256, spp=4, depth=6):
     print(f"blend frame: K1 launches {launches['K1']}, the JAX composition "
           f"{K1_PER_BLENDED_BOUNCE} a shading bounce x {depth - 1} = {want_k1}; "
           f"K2 launches {launches['K2']}")
-    if launches["K1"] != want_k1 or launches["K2"] != 0:
+    # a scene with blends takes the BSDF stage's plain route (models/bsdf.route)
+    if (launches["K1"] != want_k1 or launches["K2"] != 0 or launches["SH-pre"] != 0
+            or launches["SH-post"] != 0):
         raise AssertionError(f"blend frame launches {launches}")
     rec = record_wavefronts(scene, spp, seed=1)
     if any(len(args) > 5 and args[5] is not None for args in rec["K1"]):
@@ -1988,7 +2183,7 @@ def phase_image(dev, paths, res=512, spp=8, depth=8):
     scene, fracs = probe_compact_schedule(scene, spp=4)
     launches = _timed_frame("image", scene, spp, ("K1", "K2", "K3", "K4"))
     rec = record_wavefronts(scene, spp, seed=1)
-    if {k: len(v) for k, v in rec.items()} != launches:
+    if {k: len(v) for k, v in rec.items()} != {k: launches[k] for k in rec}:
         raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
     inf_rays = sum(int((r.maxt >= 1e29).sum()) for r in rec["K4"])
     print(f"image frame: {inf_rays} recorded shadow rays with maxt = _SHADOW_INF (envmap)")
@@ -2222,7 +2417,7 @@ def phase_camera(dev, res=512, spp=8, depth=8, ad_res=256, cmp_res=64):
     scene, fracs = probe_compact_schedule(scene, spp=4)
     launches = _timed_frame("camera", scene, spp, ("K1", "K2", "K3", "K4"))
     rec = record_wavefronts(scene, spp, seed=1)
-    if {k: len(v) for k, v in rec.items()} != launches:
+    if {k: len(v) for k, v in rec.items()} != {k: launches[k] for k in rec}:
         raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
     frame = phase_bounces(scene, rec)
     del rec, scene
@@ -2285,7 +2480,7 @@ def phase_shapes(dev, res=512, spp=8, depth=8, cmp_res=64, n_sub=SHAPES_N_SUB,
     scene, fracs = probe_compact_schedule(scene, spp=4)
     launches = _timed_frame("shapes", scene, spp, ("K1", "K2", "K3", "K4"))
     rec = record_wavefronts(scene, spp, seed=1)
-    if {k: len(v) for k, v in rec.items()} != launches:
+    if {k: len(v) for k, v in rec.items()} != {k: launches[k] for k in rec}:
         raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
     hit_types = {}
     frame = phase_bounces(scene, rec, hit_types=hit_types)
@@ -2842,7 +3037,7 @@ def phase_volpath(dev, res=512, spp=8, depth=8, grid_res=VOLPATH_GRID, cmp_res=6
         raise AssertionError(f"the volpath frame's tracking: launches {loops}, {checks} host "
                              "checks")
     rec = record_wavefronts(scene, spp, seed=1)
-    if {k: len(v) for k, v in rec.items()} != launches:
+    if {k: len(v) for k, v in rec.items()} != {k: launches[k] for k in rec}:
         raise AssertionError(f"recorded calls {[len(v) for v in rec.values()]} != {launches}")
     frame = phase_bounces(scene, rec, k3_per_bounce=2)
     del rec
@@ -3090,7 +3285,7 @@ def phase_light_tracers(dev, res=512, spp=8, depth=8, cmp_res=64):
         scene = mt.load_dict(light_dict(kind, res, spp, depth), dev)
         launches = _timed_frame(kind, scene, spp, need)
         rec = record_wavefronts(scene, spp, seed=1)
-        if {k: len(v) for k, v in rec.items()} != launches:
+        if {k: len(v) for k, v in rec.items()} != {k: launches[k] for k in rec}:
             raise AssertionError(f"{kind}: recorded calls {[len(v) for v in rec.values()]} "
                                  f"!= {launches}")
         frame = phase_bounces(scene, rec, hit_types={}, label=f"{kind} call group")
@@ -3640,7 +3835,7 @@ TRACE_NAMES = {"K1": "merl_eval_kernel", "K2": "cond_sample_kernel",
                "K3": "cluster_closest_kernel", "K4": "cluster_shadow_kernel",
                "B1": "bvh_closest_kernel", "B2": "bvh_any_kernel",
                "T1": "medium_delta_track_kernel", "T2": "medium_ratio_track_kernel",
-               "S1": "sdf_march_kernel"}
+               "S1": "sdf_march_kernel", **SH_TRACE_NAMES}
 
 
 def _profiled(fn, names=TRACE_NAMES):
@@ -4008,7 +4203,7 @@ def main():
 
     import mitsuba_customization_tpu_torch as mt
     from mitsuba_customization_tpu_torch.models import bsdf as bsdf_mod
-    from mitsuba_customization_tpu_torch.ops import build
+    from mitsuba_customization_tpu_torch.ops import bsdf_shade, build
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
@@ -4060,10 +4255,14 @@ def main():
     del hits
     rec = record_wavefronts(mp_scene, 8, seed=1)
     n_calls = {k: len(v) for k, v in rec.items()}
-    if n_calls != mp_launches:
+    if n_calls != {k: mp_launches[k] for k in n_calls}:
         raise AssertionError(f"recorded calls {n_calls} != launches {mp_launches}")
     frame = phase_bounces(mp_scene, rec)
     del rec
+    sh_stats, sh_frame = phase_bsdf_stage(mp_scene, 8)
+    if sh_stats["SH-pre"]["calls"] != mp_launches["SH-pre"]:
+        raise AssertionError(f"recorded bounce_shade calls {sh_stats['SH-pre']['calls']} != "
+                             f"launches {mp_launches}")
     phase_matpreview_cpu(dev, fracs)
     lap("7-11 matpreview")
 
@@ -4160,33 +4359,53 @@ def main():
              replaces="mitsuba_customization_tpu/ops/clusters.py:659",
              launches=mp_launches["K4"], **k4_stats),
     ]
+    # phases 17-32: launches of each render (or AD step), counted by the
+    # wrappers; phases 33-34: those of each captured frame's and AD step's
+    # replay, counted in its trace
+    phase_launches = {
+        "configs0": cfg0_launches, "materials": mat_launches, "blend": blend_launches,
+        "blend_ad_step": blend_ad_launches, "image": image_launches,
+        "emitters": emitter_launches, "image_ad_step": image_ad_launches,
+        "camera": cam_launches, "camera_ad_step": cam_ad_launches, "shapes": shapes_launches,
+        "shapes_sdf": sdf_launches, "volpath": vol_launches, "volpath_ad_step": vol_ad_launches,
+        "ptracer": pt_launches, "bdpt": bd_launches, "xml_cli": xml_launches,
+        "sharded": sh_launches, "sharded_ad_step": sh_ad_launches, "big_shapes": big_launches}
+
+    def by_phase(key):
+        return {**{p: launches[key] for p, launches in phase_launches.items()},
+                **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
+                **{"grad_jit_" + f: jit_ad[f]["launches"][key] for f in jit_ad}}
+
     for k, key in zip(kernels, ("K1", "K2", "K3", "K4")):
         k.update(share=k["bound_ms"] / k["ms"], frame_ms=frame[key][0],
                  frame_bound_ms=frame[key][1],
                  frame_share=frame[key][1] / frame[key][0], library_ms=None)
-        # phases 17-22: launches of each render (or AD step),
         # and the recorded calls' kernel ms and bound ms per frame
-        k.update(launches_by_phase={
-            "configs0": cfg0_launches[key], "materials": mat_launches[key],
-            "blend": blend_launches[key], "blend_ad_step": blend_ad_launches[key],
-            "image": image_launches[key], "emitters": emitter_launches[key],
-            "image_ad_step": image_ad_launches[key], "camera": cam_launches[key],
-            "camera_ad_step": cam_ad_launches[key], "shapes": shapes_launches[key],
-            "shapes_sdf": sdf_launches[key], "volpath": vol_launches[key],
-            "volpath_ad_step": vol_ad_launches[key], "ptracer": pt_launches[key],
-            "bdpt": bd_launches[key], "xml_cli": xml_launches[key],
-            "sharded": sh_launches[key], "sharded_ad_step": sh_ad_launches[key],
-            "big_shapes": big_launches[key],
-            **{"render_jit_" + f: jit[f]["launches"][key] for f in jit},
-            **{"grad_jit_" + f: jit_ad[f]["launches"][key] for f in jit_ad}},
-            materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
-            blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
-            image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
-            camera_frame_ms=cam_frame[key][0], camera_frame_bound_ms=cam_frame[key][1],
-            shapes_frame_ms=shapes_frame[key][0], shapes_frame_bound_ms=shapes_frame[key][1],
-            volpath_frame_ms=vol_frame[key][0], volpath_frame_bound_ms=vol_frame[key][1],
-            ptracer_frame_ms=pt_frame[key][0], ptracer_frame_bound_ms=pt_frame[key][1],
-            bdpt_frame_ms=bd_frame[key][0], bdpt_frame_bound_ms=bd_frame[key][1])
+        k.update(launches_by_phase=by_phase(key),
+                 materials_frame_ms=mat_frame[key][0], materials_frame_bound_ms=mat_frame[key][1],
+                 blend_frame_ms=blend_frame[key][0], blend_frame_bound_ms=blend_frame[key][1],
+                 image_frame_ms=image_frame[key][0], image_frame_bound_ms=image_frame[key][1],
+                 camera_frame_ms=cam_frame[key][0], camera_frame_bound_ms=cam_frame[key][1],
+                 shapes_frame_ms=shapes_frame[key][0], shapes_frame_bound_ms=shapes_frame[key][1],
+                 volpath_frame_ms=vol_frame[key][0], volpath_frame_bound_ms=vol_frame[key][1],
+                 ptracer_frame_ms=pt_frame[key][0], ptracer_frame_bound_ms=pt_frame[key][1],
+                 bdpt_frame_ms=bd_frame[key][0], bdpt_frame_bound_ms=bd_frame[key][1])
+    # bsdf_shade_pre / post (the BSDF stage around K2 and K1; no Pallas
+    # kernel: the JAX package leaves the stage to XLA): phase 10's first
+    # recorded bounce_shade call (bounce 0, 2,097,152 lanes) and the
+    # frame's recorded calls, launches of the matpreview frame, phase 13's
+    # AD step and every phase
+    for name, key in (("bsdf_shade_pre", "SH-pre"), ("bsdf_shade_post", "SH-post")):
+        stats = sh_stats[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=bsdf_shade.SOURCE,
+            replaces="none: mitsuba_customization_tpu/models/bsdf.py:327 (bounce_shade) and "
+                     "models/tabulated.py:604 (bounce_shade), XLA fusions, no Pallas kernel",
+            launches=mp_launches[key], **stats, share=stats["bound_ms"] / stats["ms"],
+            library_ms=None, frame_ms=sh_frame[key][0], frame_bound_ms=sh_frame[key][1],
+            frame_share=sh_frame[key][1] / sh_frame[key][0],
+            launches_by_phase=dict(matpreview=mp_launches[key], ad_step=ad_launches[key],
+                                   **by_phase(key))))
     # K1's backward: launches and in-frame times per AD step (phase 13)
     kernels.append(dict(
         name="merl_eval_bwd", route="cuda", source=k1.SOURCE_BWD,

@@ -20,6 +20,23 @@ then runs K1 with one half per call. The port passes each call the lanes
 that need it (live lanes; NEE lanes that are unoccluded; for a blend's
 second child and the balance weight, blend lanes only), which leaves the
 values of those lanes as the JAX package computes them.
+
+A path-tracer bounce's BSDF work is bounce_shade, whose lanes take one of
+three routes by kernel (route(), from what the call can observe; counted
+in log.Statistics as bsdf.<route>/<kernel>):
+- fused: CUDA lanes of the diffuse, rough-conductor (GGX, Beckmann) and
+  tabulated kernels, in a scene without blends. Two hand-written kernels
+  (ops/bsdf_shade, csrc/bsdf_shade.cu) around K2 and K1: bsdf_shade_pre
+  computes every output of the analytic lanes and the tabulated lanes'
+  work before K2, bsdf_shade_post their work between K2 and K1; the one
+  attached step is K1's f times a per-lane scale.
+- attached: under grad mode, the lanes of an analytic kernel whose
+  parameters require grad, with need_attached: the fused route's
+  direction and pdfs, f_nee and the weight from the kernel's plain eval.
+- plain: every other lane, every CPU call and every scene with blends:
+  _bounce_shade_plain, the masked run-all dispatch (for the tabulated
+  kernel its own bounce_shade: one K2 pass, one K1 pass over both
+  halves), the reference the fused route is held to.
 """
 
 from __future__ import annotations
@@ -44,6 +61,8 @@ from mitsuba_customization_tpu_torch.models import (
     textured_diffuse,
     thindielectric,
 )
+from mitsuba_customization_tpu_torch.ops import bsdf_shade
+from mitsuba_customization_tpu_torch.utils import log
 
 DIFFUSE = 0
 CONDUCTOR = 1
@@ -307,33 +326,169 @@ def eval_pdf(table: BSDFTable, mat_id, wi, wo, uv=None, *, active=None):
             pdf(table, mat_id, wi, wo, uv, active=active))
 
 
+# Kernels whose lanes the BSDF stage's CUDA kernels compute (ops/bsdf_shade).
+FUSED_KERNELS = frozenset([DIFFUSE, ROUGHCONDUCTOR, ROUGHCONDUCTOR_BECKMANN, TABULATED])
+# bounce_shade's routes for a kernel's lanes (route)
+FUSED, ATTACHED, PLAIN = "fused", "attached", "plain"
+
+
+def route(present, device_type, blends, grad_enabled, requires_grad, need_attached):
+    """bounce_shade's route for each present kernel's lanes, from what the
+    call can observe: kernel id -> FUSED, ATTACHED or PLAIN.
+
+    present: the table's kernel ids; device_type: the lanes' ("cuda" or
+    not); blends: the table has blends; grad_enabled: torch's grad mode;
+    requires_grad: the kernels whose parameter stack has a field that
+    requires grad; need_attached: the caller's (the detached estimator,
+    ad_mode).
+
+    FUSED (the CUDA kernels compute the lanes' six outputs): a kernel of
+    FUSED_KERNELS on CUDA lanes, in a scene without blends. The tabulated
+    kernel's gradient passes through K1 alone, so it fuses whatever
+    requires grad. An analytic kernel whose stack requires grad under grad
+    mode is ATTACHED with need_attached (wo, pdf_s, pdf_nee and is_delta
+    fused; f_nee and the weight from its plain eval calls, whose gradient
+    the attached estimator needs), else PLAIN. Everything else is PLAIN,
+    today's per-kernel code, which every CPU call runs.
+
+    The fused kernels hand no gradient to the lane inputs (wi, wo_nee, the
+    samples), as K1 hands none to its directions. The integrators
+    differentiate the BSDF in its parameters only: their hits are
+    detached, and the one lane input that can carry a graph, volpath's
+    NEE direction from a medium interaction, reaches no surface lane's
+    BSDF (a surface lane's NEE starts at its detached hit).
+    """
+    if blends or device_type != "cuda":
+        return {kid: PLAIN for kid in present}
+    out = {}
+    for kid in present:
+        if kid not in FUSED_KERNELS:
+            out[kid] = PLAIN
+        elif kid != TABULATED and grad_enabled and kid in requires_grad:
+            out[kid] = ATTACHED if need_attached else PLAIN
+        else:
+            out[kid] = FUSED
+    return out
+
+
+def _routes(table, wi, need_attached):
+    """route() for one bounce_shade call, counted in log.Statistics as
+    bsdf.<route>/<kernel name> (host counts)."""
+    grad = torch.is_grad_enabled()
+    requires = frozenset(
+        kid for kid in table.stacks
+        if grad and kid in FUSED_KERNELS - {TABULATED}
+        and any(f.requires_grad for f in table.stacks[kid]))
+    routes = route(table.present_kernels, wi.device.type, table.blend_a is not None, grad,
+                   requires, need_attached)
+    stats = log.Statistics.get()
+    for kid, r in routes.items():
+        stats.add(f"bsdf.{r}/{KERNEL_NAMES[kid]}")
+    return routes
+
+
 def bounce_shade(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None, uv=None,
                  need_attached=False, has_nee=True, *, active=None, nee_mask=None):
-    """All BSDF work of one path-tracer bounce in one dispatch pass.
-
-    Fuses {eval and pdf toward wo_nee, sample at (sample2, sample1)}; the
-    tabulated kernel runs its fused bounce_shade (one K2 pass + one K1
-    pass over both directions). Returns (f_nee, pdf_nee, wo, pdf_s,
+    """All BSDF work of one path-tracer bounce: eval and pdf toward wo_nee,
+    sample at (sample2, sample1). Returns (f_nee, pdf_nee, wo, pdf_s,
     weight, is_delta). need_attached (ad_mode): the weight of a non-delta
     lobe is the detached estimator's, eval at the sampled wo held fixed
     over the detached pdf (the same value; its gradient in the parameters
-    is the right one). nee_mask: lanes whose NEE sample is live and
-    unoccluded; the tabulated NEE eval skips the others (their f_nee /
-    pdf_nee come back 0). Null lanes come back 0 (pdf 0: the path ends).
+    is the right one); the caller then holds wo and the pdfs detached.
+    nee_mask: lanes whose NEE sample is live and unoccluded; the tabulated
+    NEE eval skips the others (their f_nee / pdf_nee come back 0). Null
+    lanes come back 0 (pdf 0: the path ends). uv: the lanes' texture
+    coordinates (integrator.texcoords), read by NEEDS_UV kernels.
 
-    A scene with blends takes the public sample / eval_pdf / eval instead
-    (the JAX package's fallback): every lane, blended or not. uv: the
-    lanes' texture coordinates (integrator.texcoords), read by NEEDS_UV
-    kernels.
+    Each present kernel's lanes take the route that route() picks:
+    - fused (CUDA lanes of the diffuse, rough-conductor and tabulated
+      kernels): _bounce_shade_fused, one launch of bsdf_shade_pre for all
+      of them, and for tabulated lanes K2, bsdf_shade_post, one K1 pass
+      over the halves wo_nee and wo_sampled and two multiplies.
+    - attached (under AD, an analytic kernel whose parameters require
+      grad): the fused route's wo and pdfs, f_nee and the weight from the
+      kernel's plain eval calls (_attach).
+    - plain: _bounce_shade_plain, the masked dispatch over the kernel's
+      lanes (the tabulated kernel's fused bounce_shade: one K2 pass + one
+      K1 pass over both halves). Every CPU call takes it, and every call
+      on a scene with blends takes the public sample / eval_pdf / eval
+      instead (the JAX package's fallback): every lane, blended or not.
     """
+    routes = _routes(table, wi, need_attached)
     if table.blend_a is not None:
         return _bounce_shade_blend(table, mat_id, wi, wo_nee, sample2, sample1, uv,
                                    need_attached, has_nee, active, nee_mask)
+    fused = [kid for kid, r in routes.items() if r != PLAIN]
+    out = None
+    if fused:
+        out = _bounce_shade_fused(table, fused, mat_id, wi, wo_nee, sample2, sample1,
+                                  has_nee, active, nee_mask)
+    plain = [kid for kid, r in routes.items() if r == PLAIN]
+    if plain or out is None:
+        out = _bounce_shade_plain(table, mat_id, wi, wo_nee, sample2, sample1, uv,
+                                  need_attached, has_nee, active=active, nee_mask=nee_mask,
+                                  kernels=plain, out=out)
+    attached = [kid for kid, r in routes.items() if r == ATTACHED]
+    if attached:
+        out = _attach(table, attached, mat_id, wi, wo_nee, uv, has_nee, active, out)
+    return out
+
+
+def _bounce_shade_fused(table, kernels, mat_id, wi, wo_nee, sample2, sample1, has_nee,
+                        active, nee_mask):
+    """bounce_shade's six outputs, on CUDA lanes, for the lanes of
+    `kernels` (of FUSED_KERNELS; others come back 0): bsdf_shade_pre,
+    then for the tabulated lanes K2, bsdf_shade_post, K1 and f = f2 *
+    scale (tabulated.bounce_shade_fused), the one step that carries the
+    table's gradient."""
+    def entry(kid):
+        return (kid, table.stacks[kid]) if kid in kernels else None
+
+    tab = table.stacks[TABULATED] if TABULATED in kernels else None
+    pre = bsdf_shade.shade_pre(
+        table.mat_type, table.mat_slot, mat_id, wi, wo_nee, sample2, sample1, active,
+        nee_mask, has_nee,
+        bsdf_shade.Fused(entry(DIFFUSE), entry(ROUGHCONDUCTOR),
+                         entry(ROUGHCONDUCTOR_BECKMANN),
+                         None if tab is None else (TABULATED, tab.sampling)))
+    f_nee, weight = pre.f_nee, pre.weight
+    if tab is not None:
+        f_nee, weight = tabulated.bounce_shade_fused(tab, pre, wi, wo_nee, sample2, sample1)
+    return f_nee, pre.pdf_nee, pre.wo, pre.pdf_s, weight, pre.is_delta
+
+
+def _attach(table, kernels, mat_id, wi, wo_nee, uv, has_nee, active, out):
+    """The attached estimator's f_nee and weight on the lanes of `kernels`
+    (analytic kernels whose parameters require grad): their plain eval
+    calls toward wo_nee and at the fused route's wo, over its pdf_s (both
+    detached). The fused kernels sample no delta lobe."""
+    f_nee, pdf_nee, wo, pdf_s, weight, is_delta = out
+    t = table.mat_type[mat_id]
+    slot = table.mat_slot[mat_id]
+    for kid in kernels:
+        mask = t == kid
+        if active is not None:
+            mask = mask & active
+        call = _kernel_fn(table, kid, torch.where(mask, slot, 0), mask, uv)
+        if has_nee:
+            f_nee = _where(mask, call("eval", wi, wo_nee), f_nee)
+        weight = _where(mask, m.safe_div(call("eval", wi, wo), pdf_s[..., None]), weight)
+    return f_nee, pdf_nee, wo, pdf_s, weight, is_delta
+
+
+def _bounce_shade_plain(table: BSDFTable, mat_id, wi, wo_nee, sample2, sample1=None,
+                        uv=None, need_attached=False, has_nee=True, *, active=None,
+                        nee_mask=None, kernels=None, out=None):
+    """bounce_shade's plain route, the masked dispatch: each kernel of
+    `kernels` (None: every present kernel) runs on its lanes and is merged
+    into `out` (None: zeros), the tabulated kernel through its fused
+    bounce_shade (one K2 pass + one K1 pass over the halves wo_nee and
+    wo_sampled), the others through sample, eval and pdf. The reference
+    of the fused route; see bounce_shade for the arguments."""
     t = table.mat_type[mat_id]
     slot = table.mat_slot[mat_id]
     shape = wi.shape[:-1]
-    out = None
-    for kid in table.present_kernels:
+    for kid in table.present_kernels if kernels is None else kernels:
         mod = _MODULES[kid]
         mask = t == kid
         if active is not None:

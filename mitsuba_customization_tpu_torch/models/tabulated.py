@@ -11,11 +11,16 @@ Marginal2D built from the table's luminance, mixed with a cosine lobe.
 
 eval_f runs kernel K1 (ops/merl_sorted) and bounce_shade runs kernel K2
 (ops/marginal_sorted) once, then K1 once over the two halves wo_nee and
-wo_sampled. The standalone eval and sample call K1 with one half; pdf
-and sample invert the Marginal2D CDFs in plain torch, as the JAX package
-does outside its fused bounce. A table that requires grad enters autograd
-once, through its GradSink: the K1 calls of a render, standalone ones
-too, all add their backward into one gradient buffer.
+wo_sampled: the plain route of models/bsdf.bounce_shade. On its fused
+route (CUDA lanes) bsdf_shade_pre (ops/bsdf_shade) computes what
+bounce_shade does before K2, and bounce_shade_fused runs K2,
+bsdf_shade_post (what it does between K2 and K1), K1 over both halves and
+f = f2 * scale, the one attached step. The standalone eval and sample
+call K1 with one half; pdf and sample invert the Marginal2D CDFs in plain
+torch, as the JAX package does outside its fused bounce. A table that
+requires grad enters autograd once, through its GradSink: the K1 calls of
+a render, standalone ones too, all add their backward into one gradient
+buffer.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from mitsuba_customization_tpu_torch.core.warp import (
     square_to_cosine_hemisphere,
     square_to_cosine_hemisphere_pdf,
 )
-from mitsuba_customization_tpu_torch.ops import marginal_sorted, merl_sorted
+from mitsuba_customization_tpu_torch.ops import bsdf_shade, marginal_sorted, merl_sorted
 
 HALF_PI = math.pi / 2.0
 
@@ -416,3 +421,26 @@ def bounce_shade(params: TabulatedBRDF, wi, wo_nee, sample2, sample1=None,
         weight,
         torch.zeros_like(valid_s),
     )
+
+
+def bounce_shade_fused(params: TabulatedBRDF, pre, wi, wo_nee, sample2, sample1=None):
+    """The tabulated lanes of the fused route (models/bsdf._bounce_shade_fused)
+    after bsdf_shade_pre (`pre`, ops/bsdf_shade.Pre): K2 on pre's indices,
+    bsdf_shade_post, K1 over the halves wo_nee and wo_sampled on pre's
+    masks, and f = f2 * scale: f_nee = f2[:n] max(cos wo_nee, 0) and the
+    weight f2[n:] max(cos wo, 0) / pdf_s, added to pre's f_nee and weight
+    (0 on these lanes, as the scales are 0 on the others). Returns (f_nee,
+    weight); pre's wo, pdf_s and pdf_nee hold the lanes' values after the
+    call. As in bounce_shade, only f_nee and the weight carry the table's
+    gradient, through K1."""
+    key, r_own, r_nee, c_nee, r_cos, c_cos, slot = pre.idx
+    cdf_cond = params.sampling.cdf_cond
+    k2 = marginal_sorted.cond_sample_pdf(
+        cdf_cond.reshape(-1, cdf_cond.shape[-2], cdf_cond.shape[-1]),
+        key, sample2[..., 1], r_own, r_nee, c_nee, r_cos, c_cos, pre.valid,
+    )
+    bsdf_shade.shade_post(pre, k2, sample2, sample1 is None)
+    f2 = eval_f(params, wi, wo_nee, slot, pre.masks[0], wo_b=pre.wo, mask_b=pre.masks[1])
+    n = wi.shape[0]
+    return (torch.addcmul(pre.f_nee, f2[:n], pre.scales[0][:, None]),
+            torch.addcmul(pre.weight, f2[n:], pre.scales[1][:, None]))

@@ -3,11 +3,11 @@
 The kernels have a plain C interface and are bound with ctypes, like
 mitsuba_customization_tpu/native.py binds native/. The library is built
 with nvcc for sm_90a at first use into build/torch_kernels/<hash>/ under
-the repository root, keyed by a hash of the sources and headers alone; a
-later call with the same sources loads the cached build. Each source is
-compiled by its own nvcc process, all started together, and the objects
-are linked into one shared library. A missing nvcc or a failed build
-raises: there is no fallback.
+the repository root, keyed by a hash of the sources, headers and
+per-source flags; a later call with the same sources loads the cached
+build. Each source is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library. A missing
+nvcc or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("merl_eval.cu", "merl_eval_bwd.cu", "cond_sample.cu",
            "cluster_closest.cu", "cluster_shadow.cu", "bvh_traverse.cu",
-           "medium_track.cu", "sdf_march.cu")
+           "medium_track.cu", "sdf_march.cu", "bsdf_shade.cu")
 HEADERS = ("merl_lane.cuh", "cluster_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libmct_torch_kernels.so"
@@ -33,6 +33,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
+# flags of one source beside NVCC_FLAGS: the BSDF stage rounds each product
+# and sum on its own, as the plain PyTorch code it stands for does
+SOURCE_FLAGS = {"bsdf_shade.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +63,8 @@ _SIGNATURES = {
     "mct_track_bwd": [_I, _P, _P, _P, _P, _P, _U32, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                       _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     "mct_sdf_march": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    "mct_bsdf_shade_pre": [_P, _P],  # ops/bsdf_shade._PreArgs by pointer, stream
+    "mct_bsdf_shade_post": [_P, _P],
 }
 
 _lib = None
@@ -68,6 +73,7 @@ build_seconds = None  # wall time of the build this process ran (None: cached)
 
 def _source_hash():
     h = hashlib.sha256()
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -99,7 +105,7 @@ def library_path():
     # a half-written library
     tmp_dir = tempfile.mkdtemp(dir=out_dir)
     objs = [os.path.join(tmp_dir, s + ".o") for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+    cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-c", "-o", obj, str(CSRC / src)]
             for src, obj in zip(SOURCES, objs)]
     tmp = os.path.join(tmp_dir, LIB_NAME)
     try:

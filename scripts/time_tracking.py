@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """T1 / T2, T1-bwd, T2-bwd and S1 in turns against a parent tree's
-kernels on the calls their frames and AD steps make (one CUDA GPU).
+kernels on the calls their frames and AD steps make, and the BSDF stage's
+fused route against its plain route (one CUDA GPU).
 
     python3 scripts/time_tracking.py --parent build/parent [--rounds 4]
-        [--kernels t1t2 t1bwd t2bwd s1] [--out build/time_tracking.json]
+        [--kernels t1t2 t1bwd t2bwd s1 bsdf] [--out build/time_tracking.json]
 
 The parent is a commit unpacked into the ignored build/ (`mkdir -p
 build/parent && git archive HEAD | tar -x -C build/parent`); its kernels
@@ -39,6 +40,17 @@ every other round:
   warp's most steps, warps in lane order as a grid of 128-thread blocks
   forms them).
 
+- bsdf: the BSDF stage (models/bsdf.bounce_shade) on bounce 0's call of
+  the 512x512, 8 spp, depth 8 matpreview frame (2,097,152 lanes, the
+  10-table stack; its recorded arguments), the fused route (bsdf_shade_pre
+  / post around K1 and K2) against the plain route (_bounce_shade_plain)
+  on the same tensors, after holding the fused outputs to the plain ones
+  (chip_smoke.check_bsdf_stage). Printed per route: the device ms
+  of the call split into bsdf_shade_pre, bsdf_shade_post, K1, K2 and the
+  rest, and its device operations; and the two kernels' logical bytes
+  (chip_smoke.bsdf_bytes) and their share of the bound at 3.35 TB/s. Needs no
+  --parent.
+
 Times are profiler device time (torch.profiler) per call, the mean of 3
 runs in a round; a variant's figure is the median over rounds of its sum
 over the calls, and its ratio to the parent's. Needs a CUDA GPU; imports
@@ -65,6 +77,7 @@ from mitsuba_customization_tpu_torch.render import medium, sdf  # noqa: E402
 
 # the frames and steps whose calls are timed: (res, spp, depth)
 VOLPATH_FRAME, VOLPATH_STEP, SHAPES_FRAME = (512, 8, 8), (256, 4, 6), (512, 8, 8)
+MATPREVIEW_FRAME = (512, 8, 8)
 DEV = "cuda"
 
 
@@ -463,23 +476,73 @@ def s1_section(a, pb):
             "busiest": busiest, "device_ms": res}
 
 
+BSDF_PARTS = (("pre", "bsdf_shade_pre_kernel"), ("post", "bsdf_shade_post_kernel"),
+              ("k1", "merl_eval_kernel"), ("k2", "cond_sample_kernel"))
+
+
+def _bsdf_split(names):
+    """{part: ms} of a BSDF-stage call: its two kernels, K1, K2, the rest."""
+    out = {"total": sum(names.values()), "ops": len(names)}
+    for part, key in BSDF_PARTS:
+        out[part] = sum(ms for op, ms in names.items() if key in op)
+    out["rest"] = out["total"] - sum(out[part] for part, _ in BSDF_PARTS)
+    return out
+
+
+def bsdf_section(a, pb):
+    """The BSDF stage on bounce 0 of the matpreview frame: fused against
+    plain on the recorded call's tensors, device time in turns."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.models import bsdf
+    from mitsuba_customization_tpu_torch.scenes import matpreview_dict
+
+    res, spp, depth = MATPREVIEW_FRAME
+    scene = mt.load_dict(matpreview_dict(res, spp, depth), DEV)
+    rec = chip_smoke.record_calls(lambda: mt.render(scene, spp=spp, seed=1), {
+        "shade": (bsdf, "bounce_shade", lambda args, kw: (args, kw))})
+    args, kw = rec["shade"][0]
+    lanes = args[2].shape[0]
+    fns = {"plain": lambda c: bsdf._bounce_shade_plain(*args, **kw),
+           "fused": lambda c: bsdf.bounce_shade(*args, **kw)}
+    agree = chip_smoke.check_bsdf_stage(fns["fused"](0), fns["plain"](0))
+    print(f"bsdf: bounce 0 of the {res}x{res}, {spp} spp frame, {lanes} lanes: the fused "
+          "route against the plain route (lanes past rtol, relative L1 gap, lanes not "
+          "equal): " + json.dumps(agree))
+    work = chip_smoke.bsdf_bytes(args[0], args[1], kw.get("active"))
+    print("bsdf logical work: " + json.dumps(work))
+    times = in_turns(fns, [0], a.rounds, _bsdf_split)
+    res_ = {}
+    for v, rounds in times.items():
+        res_[v] = {part: statistics.median(r[0][part] for r in rounds)
+                   for part in ("total", "pre", "post", "k1", "k2", "rest", "ops")}
+        print(f"bsdf {v}: " + "; ".join(f"{k} {x:.4f}" for k, x in res_[v].items())
+              + " (device ms a call, ops: device operations)")
+    print(f"bsdf fused / plain: x{res_['fused']['total'] / res_['plain']['total']:.4f}; "
+          f"roofline share pre {work['pre_bound_ms'] / res_['fused']['pre']:.3f}, post "
+          f"{work['post_bound_ms'] / res_['fused']['post']:.3f}")
+    return {"lanes": lanes, "work": work, "rounds": times, "median": res_}
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True)
+    ap.add_argument("--parent")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernels", nargs="+", default=["t1t2", "t1bwd", "t2bwd", "s1"],
-                    choices=["t1t2", "t1bwd", "t2bwd", "s1"])
+                    choices=["t1t2", "t1bwd", "t2bwd", "s1", "bsdf"])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "time_tracking.json"))
     a = ap.parse_args()
+    if set(a.kernels) - {"bsdf"} and not a.parent:
+        ap.error("--parent is needed for " + " ".join(sorted(set(a.kernels) - {"bsdf"})))
     if not torch.cuda.is_available():
         raise SystemExit("time_tracking.py needs a CUDA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
-    pb = parent_library(a.parent)
+    pb = parent_library(a.parent) if a.parent else None
     out = {"card": card, "rounds": a.rounds}
     sections = {"t1t2": t1t2_section, "t1bwd": lambda a, pb: bwd_section(a, pb, "delta"),
-                "t2bwd": lambda a, pb: bwd_section(a, pb, "ratio"), "s1": s1_section}
+                "t2bwd": lambda a, pb: bwd_section(a, pb, "ratio"), "s1": s1_section,
+                "bsdf": bsdf_section}
     for k in a.kernels:
         out[k] = sections[k](a, pb)
         torch.cuda.empty_cache()
