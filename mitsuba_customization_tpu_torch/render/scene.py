@@ -92,6 +92,7 @@ from mitsuba_customization_tpu_torch.render import sdf as sdf_mod
 from mitsuba_customization_tpu_torch.render import sensors as sensor_mod
 from mitsuba_customization_tpu_torch.render.film import FILTER_NAMES
 from mitsuba_customization_tpu_torch.utils.io import read_image
+from mitsuba_customization_tpu_torch.utils import log
 from mitsuba_customization_tpu_torch.utils.log import logger
 from mitsuba_customization_tpu_torch.utils.obj import read_obj
 from mitsuba_customization_tpu_torch.utils.ply import read_ply
@@ -610,7 +611,13 @@ def _add_emitter(t, val, em_rows, env, proj, const_row):
 
 def load_dict(d: dict, device="cuda") -> Scene:
     """Compile a mi.load_dict-style nested dict into a Scene on `device`
-    (the card unless the caller names another)."""
+    (the card unless the caller names another). The span scene.load holds
+    it, with scene.bvh_build and scene.cluster_build inside."""
+    with log.span("scene.load"):
+        return _load_dict(d, device)
+
+
+def _load_dict(d: dict, device) -> Scene:
     if d.get("type") != "scene":
         raise ValueError("root dict must have type='scene'")
     device = torch.device(device)
@@ -940,11 +947,15 @@ def load_dict(d: dict, device="cuda") -> Scene:
     arrays = gb.arrays()
     geometry = geometry_from_numpy(arrays, device)
     cfg.use_bvh = gb.count > BRUTE_FORCE_MAX_PRIMS
-    tree = bvh_mod.build(geo.Geometry(**arrays), device) if cfg.use_bvh else None
+    tree = None
+    if cfg.use_bvh:
+        with log.span("scene.bvh_build"):
+            tree = bvh_mod.build(geo.Geometry(**arrays), device)
     clusters = None
     if cfg.use_bvh and gb.count <= cl_mod.MAX_PRIMS:
         cfg.intersector = "cluster"
-        clusters = cl_mod.build(geo.Geometry(**arrays), device)
+        with log.span("scene.cluster_build"):
+            clusters = cl_mod.build(geo.Geometry(**arrays), device)
     elif cfg.use_bvh:
         cfg.intersector = "bvh"
         logger.warning(
@@ -960,7 +971,8 @@ def load_dict(d: dict, device="cuda") -> Scene:
                       e2=np.where(keep, arrays["e2"], 0.0).astype(np.float32))
         shadow_geometry = geometry_from_numpy(shadow, device)
         if clusters is not None:
-            shadow_clusters = cl_mod.build(geo.Geometry(**shadow), device)
+            with log.span("scene.cluster_build"):
+                shadow_clusters = cl_mod.build(geo.Geometry(**shadow), device)
     pack_bvh(cfg, tree, geometry, shadow_geometry)
 
     def stack_params(plist):

@@ -63,6 +63,11 @@ class Statistics:
     def add(self, name, value=1):
         self.counters[name] += int(value)
 
+    def set(self, name, value):
+        """A counter that holds a fact (a structure's size) rather than a
+        count of events."""
+        self.counters[name] = int(value)
+
     def add_time(self, name, seconds):
         self.timers[name] += float(seconds)
 

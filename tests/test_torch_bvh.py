@@ -178,7 +178,8 @@ def test_split_without_a_finite_cost_sorts_and_halves():
     bb_min = np.full((n, 3), -np.inf)
     bb_max = np.full((n, 3), np.inf)
     ids = rng.permutation(n)
-    out, n_left = tbvh._split_level(ids.copy(), np.array([n]), bb_min, bb_max, centroid)
+    out, n_left = tbvh._split_level(*(torch.tensor(a) for a in (ids, [n], bb_min, bb_max,
+                                                                 centroid)))
     order = ids[np.argsort(centroid[ids, 0], kind="stable")]
     np.testing.assert_array_equal(out, order)
     assert n_left.tolist() == [n // 2]

@@ -11,6 +11,8 @@
   without overlap, the checkpoint's recompute under "backward";
 - Statistics counts frame.captures, frame.replays and frame.evictions as
   the frame cache does;
+- load_dict records scene.load with scene.bvh_build and
+  scene.cluster_build nested in it, and the tree's counters;
 - the bounce counters a frame keeps (lanes run, live lanes, shadow rays)
   sum to render(..., return_stats=True)'s rays_traced, on a compacted
   matpreview frame and an uncompacted volpath frame.
@@ -175,6 +177,41 @@ def test_statistics_count_replays_and_evictions_as_the_cache_does():
     assert delta("frame.evictions") == 2 + 1
     assert delta("frame.call") == n + 2 and delta("frame.call/frame.key") == n + 2
     frame_graph.clear()
+
+
+@pytest.mark.parametrize("intersector", ["cluster", "bvh"])
+def test_load_records_the_scene_spans_and_the_tree_counters(monkeypatch, intersector):
+    """load_dict is the span scene.load, with scene.bvh_build around the
+    BVH build and scene.cluster_build around the cluster build nested in
+    it (none past clusters.MAX_PRIMS); the build sets the counters
+    bvh.prims, bvh.nodes and bvh.depth to the tree's (depth as the
+    kernels' node pack finds it)."""
+    from mitsuba_customization_tpu_torch.ops import clusters
+    from mitsuba_customization_tpu_torch.render import bvh
+
+    d = scenes.matpreview_dict(16, 2, 3, n_sub=2)
+    if intersector == "bvh":
+        monkeypatch.setattr(clusters, "MAX_PRIMS", 100)
+    before, _ = _stats()
+    log.RECORDS.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        scene = mt.load_dict(d, "cpu")
+    after, timers = _stats()
+    assert scene.config.intersector == intersector
+    nested = ["scene.load/scene.bvh_build"]
+    if intersector == "cluster":
+        nested.append("scene.load/scene.cluster_build")
+    assert [r[0] for r in log.RECORDS] == nested + ["scene.load"]
+    (load,) = [r for r in log.RECORDS if r[0] == "scene.load"]
+    assert all(load[2] <= r[2] <= r[3] <= load[3] for r in log.RECORDS)
+    for path in nested + ["scene.load"]:
+        assert after[path] - before.get(path, 0) == 1 and timers[path] > 0
+    assert "scene.load/scene.cluster_build" in nested or \
+        after.get("scene.load/scene.cluster_build", 0) == before.get(
+            "scene.load/scene.cluster_build", 0)
+    assert after["bvh.prims"] == scene.geometry.p0.shape[0] == 324
+    assert after["bvh.nodes"] == scene.bvh.n_nodes
+    assert after["bvh.depth"] == bvh.pack_nodes(scene.bvh).depth > 0
 
 
 @pytest.mark.parametrize("name", ["matpreview_probed", "volpath"])
