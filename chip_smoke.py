@@ -45,7 +45,17 @@ Phases, one printed line each; any failure raises (non-zero exit):
      the lanes, BSDF_REL_L1 summed) and timed against it, one line per
      bounce (lanes, the two kernels' device ms and bound ms, both routes'
      call ms and device ms and ops); the recorded calls must number the
-     frame's bsdf_shade_pre launches;
+     frame's bsdf_shade_pre launches; then one more render with recording
+     wrappers on render/emitters' hit_term, sample_nee and nee_term
+     (phase_emitter_stage): on each call, which must take the fused route
+     (one launch of emitter_hit, emitter_sample or emitter_nee), the
+     kernel's outputs are held to the plain route's same quantities
+     (masks, zero and infinity patterns equal, values within the BSDF_*
+     tolerances), an independent sampler's draws in the kernel to its
+     next_1d's bit for bit, and the call is timed on both routes, one line
+     per call (the kernel's device ms and bound ms, both routes' call ms
+     and device ms and ops); the recorded calls must number the frame's
+     launches of each kernel;
  11. the matpreview frame at 64x64, 4 spp, depth 4 with that schedule, on
      the card and on the CPU (plain kernels): per-channel means within 2 %;
  12. K1's backward (scatter-add of K1's cotangent into the table's
@@ -293,7 +303,10 @@ the recorded calls of phase 10, for K1's backward of phase 13 with the
 step's one buffer zeroing; K1's backward's `library_ms` is the index_add_
 yardstick of phase 12, the scatter part only, as its `library_note` says,
 to hold against its `ms_into`; the other kernels' null) and, last, the device
-JSON line. bsdf_shade_pre / bsdf_shade_post (the BSDF stage) carry phase
+JSON line. emitter_hit / emitter_sample / emitter_nee (the emitter stage)
+carry phase 10's numbers as the BSDF stage's kernels do, with the frame's
+calls' device ms on both routes (`frame_call_device_ms`,
+`frame_plain_device_ms`). bsdf_shade_pre / bsdf_shade_post (the BSDF stage) carry phase
 10's numbers: `ms` / `device_ms` the profiler's device time of the
 kernel on the first recorded call (bounce 0), `bound_ms` its logical
 bytes (bsdf_bytes) at 3.35 TB/s, `call_ms` / `plain_ms` the CUDA-event
@@ -1059,37 +1072,48 @@ BSDF_OUTPUTS = ("f_nee", "pdf_nee", "wo", "pdf_s", "weight", "is_delta")
 SH_TRACE_NAMES = {"SH-pre": "bsdf_shade_pre_kernel", "SH-post": "bsdf_shade_post_kernel"}
 
 
-def check_bsdf_stage(got, want):
-    """The fused route's six outputs `got` against the plain route's `want`
-    (BSDF_* above). Returns {output: (lanes past BSDF_RTOL, relative L1
-    gap, lanes not equal)}; raises where an output fails."""
+def _check_outputs(stage, names, got, want, infinite_ok=False):
+    """A fused route's outputs `got` against the plain route's `want`
+    (BSDF_* above): a bool output equal, each other output 0 on the same
+    lanes (and, with infinite_ok, infinite on the same lanes, else finite),
+    its values within BSDF_RTOL on all but BSDF_RARE of the lanes and
+    BSDF_REL_L1 summed. Returns {output: (lanes past BSDF_RTOL, relative
+    L1 gap, lanes not equal)}; raises where an output fails."""
     out = {}
-    for name, g, w in zip(BSDF_OUTPUTS, got, want):
+    for name, g, w in zip(names, got, want):
+        what = f"{stage}: {name}"
         if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"BSDF stage: {name} is {tuple(g.shape)} {g.dtype}, the "
-                                 f"plain route's {tuple(w.shape)} {w.dtype}")
+            raise AssertionError(f"{what} is {tuple(g.shape)} {g.dtype}, the plain route's "
+                                 f"{tuple(w.shape)} {w.dtype}")
         n = g.shape[0]
-        if name == "is_delta":
+        if g.dtype == torch.bool:
             if not torch.equal(g, w):
-                raise AssertionError(f"BSDF stage: is_delta differs on {int((g != w).sum())} "
-                                     "lanes")
+                raise AssertionError(f"{what} differs on {int((g != w).sum())} lanes")
             out[name] = (0, 0.0, 0)
             continue
         g, w = g.reshape(n, -1).double(), w.reshape(n, -1).double()
         if not torch.equal((g == 0).all(-1), (w == 0).all(-1)):
-            raise AssertionError(f"BSDF stage: {name} is 0 on other lanes than the plain "
-                                 "route's")
+            raise AssertionError(f"{what} is 0 on other lanes than the plain route's")
+        if infinite_ok and torch.equal(torch.isinf(g), torch.isinf(w)):
+            g, w = (torch.where(torch.isinf(w), 0.0, x) for x in (g, w))
         if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
-            raise AssertionError(f"BSDF stage: {name} is not finite")
+            raise AssertionError(f"{what} is not finite"
+                                 + (" where the plain route's is" if infinite_ok else ""))
         gap = (g - w).abs()
         off = int((gap.amax(-1) > BSDF_RTOL * w.abs().amax(-1) + 1e-7).sum())
         rel_l1 = float(gap.sum() / w.abs().sum().clamp(min=1e-30))
         if off > BSDF_RARE * n or rel_l1 > BSDF_REL_L1:
-            raise AssertionError(f"BSDF stage: {name} off on {off} of {n} lanes (at most "
+            raise AssertionError(f"{what} off on {off} of {n} lanes (at most "
                                  f"{BSDF_RARE * n:.0f}), relative L1 gap {rel_l1:.3e} (limit "
                                  f"{BSDF_REL_L1})")
         out[name] = (off, rel_l1, int((g != w).any(-1).sum()))
     return out
+
+
+def check_bsdf_stage(got, want):
+    """The fused route's six outputs `got` against the plain route's `want`
+    (_check_outputs)."""
+    return _check_outputs("BSDF stage", BSDF_OUTPUTS, got, want)
 
 
 def bsdf_bytes(table, mat_id, active):
@@ -1205,6 +1229,211 @@ def phase_bsdf_stage(scene, spp, seed=1, reps=5):
               f"{sum(dev_ms['plain'].values()):.4f} in {dev_ops['plain']}")
     print("BSDF stage frame sums over the recorded calls: " + ", ".join(
         f"{k} {v[0]:.4f} ms (bound {v[1]:.4f})" for k, v in frame.items()))
+    return first, {k: tuple(v) for k, v in frame.items()}
+
+
+# the emitter stage's fused route (ops/emitter_shade: emitter_hit,
+# emitter_sample, emitter_nee) against its plain route (render/emitters.py's
+# functions) on the same tensors (check_emitter_stage; phase 10 and
+# tests/test_torch_cuda_emitter.py): each kernel's outputs against the plain
+# route's same quantities (emitter_terms), the masks equal, each output's
+# zero and infinity patterns equal and its values within the BSDF stage's
+# tolerances (BSDF_*: the kernels round as torch's CUDA ops do, as the BSDF
+# stage's do); an independent sampler's draws made in the kernel equal to
+# its next_1d's (check_emitter_draws)
+EM_TRACE_NAMES = {"EM-hit": "emitter_hit_kernel", "EM-sample": "emitter_sample_kernel",
+                  "EM-nee": "emitter_nee_kernel"}
+EM_PARTS = {"EM-hit": "hit", "EM-sample": "sample", "EM-nee": "nee"}
+EM_FUNCTIONS = {"hit": "hit_term", "sample": "sample_nee", "nee": "nee_term"}
+EM_OUTPUTS = {"hit": ("e",), "nee": ("e",),
+              "sample": ("d", "dist", "pdf", "radiance", "delta", "p_area", "wo_local",
+                         "nee_ok")}
+
+
+def emitter_terms(part, args, fused, draws=None):
+    """What the kernel of the emitter stage's part ("hit", "sample" or
+    "nee") computes on one call of the part's function (render/emitters
+    hit_term, sample_nee, nee_term; `args` its positional arguments): the
+    kernel's outputs (fused) or the plain route's same quantities. hit: (rad
+    * w_mis where the mask holds,); sample: the DirectionSample's six
+    fields, wo_local, nee_ok; nee: (radiance * w_nee / pdf where vis,).
+    draws: "u3" hands the fused sample the sampler's own three draws in
+    place of its lane keys."""
+    from mitsuba_customization_tpu_torch.core import math as m
+    from mitsuba_customization_tpu_torch.core.sampler import IndependentSampler
+    from mitsuba_customization_tpu_torch.ops import emitter_shade
+    from mitsuba_customization_tpu_torch.render import emitters as em
+
+    if part == "hit":
+        table, geom, si, ray, _, _, prev_pdf, prev_delta, mask = args
+        if fused:
+            return (emitter_shade.hit(table, geom, si, ray.o, prev_pdf, prev_delta, mask),)
+        rad = torch.where(si.valid[..., None], em.eval_hit(table, si),
+                          em.eval_background(table, ray.d))
+        em_pdf = torch.where(si.valid, em.pdf_hit_direction(table, geom, si, ray.o),
+                             em.pdf_miss_direction(table, ray.d))
+        w = torch.where(prev_delta, 1.0, em.mis_weight(prev_pdf, em_pdf))
+        return (torch.where(mask[..., None], rad * w[..., None], 0.0),)
+    if part == "sample":
+        table, geom, si, p_ref, sampler, mask, depth_ok, refl_only = args
+        sampler = sampler.clone()
+        if not fused:
+            ds, wo, ok = em._sample_nee_plain(table, geom, si, p_ref, sampler, mask, depth_ok,
+                                              refl_only)
+            return (*ds, wo, ok)
+        if type(sampler) is IndependentSampler and draws != "u3":
+            kw = dict(lane_key=sampler._lane_key, dim=sampler.base_dim + sampler.dim)
+        else:
+            kw = dict(u3=torch.stack([sampler.next_1d() for _ in range(3)], -1))
+        ds, wo, ok = emitter_shade.sample(table, geom, si.frame, p_ref, mask, depth_ok,
+                                          refl_only, **kw)
+        return (*ds, wo, ok)
+    table, ds, pdf_nee, vis, _, _ = args
+    if fused:
+        return (emitter_shade.nee(ds.radiance, ds.pdf, ds.delta, pdf_nee, vis),)
+    w = torch.where(ds.delta, 1.0, em.mis_weight(ds.pdf, pdf_nee))
+    return (torch.where(vis[..., None], ds.radiance * m.safe_div(w, ds.pdf)[..., None], 0.0),)
+
+
+def check_emitter_stage(part, got, want):
+    """A part's kernel outputs `got` against the plain route's `want`
+    (emitter_terms; _check_outputs, sample's dist infinite on the same
+    lanes)."""
+    return _check_outputs(f"emitter stage {part}", EM_OUTPUTS[part], got, want,
+                          infinite_ok=True)
+
+
+def check_emitter_draws(args):
+    """emitter_sample with an independent sampler's lane keys (the kernel
+    draws) against the same kernel handed the sampler's own three next_1d
+    draws: every output bit-equal. Returns the lanes."""
+    keyed = emitter_terms("sample", args, True)
+    drawn = emitter_terms("sample", args, True, draws="u3")
+    for name, a, b in zip(EM_OUTPUTS["sample"], keyed, drawn):
+        if not torch.equal(a, b):
+            raise AssertionError(f"emitter stage sample: {name} from the kernel's draws differs "
+                                 "from the sampler's draws")
+    return keyed[0].shape[0]
+
+
+def emitter_bytes(part, args):
+    """Logical bytes of a part's kernel on a call: hit, every lane's mask
+    and output (13 B), a lane under the mask its hit flag, prev_delta and
+    prev_pdf (6 B) and, where it hit, its hit record and origin (100 B);
+    sample, every lane's point, frame, mask and draws in (8 B of lane key,
+    or 12 of draws) and its 50 B out; nee, every lane's vis and output (13
+    B), a visible lane's radiance, pdfs and delta (21 B). The tables stay in
+    L2 and are not counted."""
+    if part == "hit":
+        si, mask = args[2], args[8]
+        n = mask.shape[0]
+        b = n * 13 + int(mask.sum()) * 6 + int((mask & si.valid).sum()) * 100
+    elif part == "sample":
+        n = args[3].shape[0]
+        b = n * (12 + 36 + 1 + 50 + (8 if hasattr(args[4], "_lane_key") else 12))
+    else:
+        vis = args[3]
+        n = vis.shape[0]
+        b = n * 13 + int(vis.sum()) * 21
+    return {"lanes": n, "bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
+
+
+def _keep_emitter(args, kwargs):
+    """An emitter-stage call's positional arguments, the emitter table and
+    the geometry not copied, every lane tensor copied (a hit record, ray or
+    DirectionSample field by field, a sampler's lane arrays)."""
+    def keep(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return type(a)(*(keep(x) for x in a))
+        if hasattr(a, "ARRAYS"):
+            return a.with_lanes(**{k: getattr(a, k).clone() for k in a.ARRAYS})
+        return a
+
+    n_tables = 1 if len(args) == 6 else 2  # nee_term's table; hit_term's, sample_nee's and geometry
+    return args[:n_tables] + tuple(keep(a) for a in args[n_tables:])
+
+
+def phase_emitter_stage(scene, spp, seed=1, reps=5):
+    """Phase 10's emitter stage: one more render of `scene` with recording
+    wrappers on render/emitters' hit_term, sample_nee and nee_term keeps
+    every call's inputs; on each call, which must take the fused route
+    (one launch of its kernel), the kernel's outputs are held to the plain
+    route's (emitter_terms, check_emitter_stage), an independent sampler's
+    draws to its next_1d's (check_emitter_draws), and the whole call is
+    timed on both routes (CUDA events; the route's function and the plain
+    route's _*_plain) and traced (_device_trace: the kernel's device ms and
+    the call's), one line per call, beside the kernel's bound
+    (emitter_bytes). Returns ({"EM-hit" / "EM-sample" / "EM-nee": the first
+    call's numbers, with `calls`}, {the same keys: (frame ms of the
+    kernel, frame bound ms, frame device ms of the fused calls, of the
+    plain calls)})."""
+    import mitsuba_customization_tpu_torch as mt
+    from mitsuba_customization_tpu_torch.ops import emitter_shade
+    from mitsuba_customization_tpu_torch.render import emitters as em
+
+    rec = record_calls(lambda: mt.render(scene, spp=spp, seed=seed),
+                       {part: (em, fn, _keep_emitter) for part, fn in EM_FUNCTIONS.items()})
+    if not all(rec.values()):
+        raise AssertionError(f"emitter stage: calls {({k: len(v) for k, v in rec.items()})}")
+    first, frame = {}, {k: [0.0, 0.0, 0.0, 0.0] for k in EM_TRACE_NAMES}
+    for key, part in EM_PARTS.items():
+        fn = getattr(em, EM_FUNCTIONS[part])
+        plain_fn = getattr(em, f"_{EM_FUNCTIONS[part]}_plain")
+        for i, args in enumerate(rec[part]):
+            table = args[0]
+            if em.route(table.present, "cuda", torch.is_grad_enabled(), False) != em.FUSED:
+                raise AssertionError(f"emitter stage: {part} call {i} takes the plain route")
+            before = dict(emitter_shade.LAUNCHES)
+            got = emitter_terms(part, args, True)
+            want = emitter_terms(part, args, False)
+            torch.cuda.synchronize()
+            launched = {k: emitter_shade.LAUNCHES[k] - before[k] for k in before}
+            if launched != {k: int(k == part) for k in before}:
+                raise AssertionError(f"emitter stage: {part} call {i} launched {launched}")
+            agree = check_emitter_stage(part, got, want)
+            del got, want
+            drawn = check_emitter_draws(args) if part == "sample" else None
+            work = emitter_bytes(part, args)
+            # the plain sample draws with its sampler's next_1d: a fresh
+            # clone each call
+            def fresh(f, args=args):
+                return lambda: f(*(a.clone() if hasattr(a, "ARRAYS") else a for a in args))
+
+            call_ms = _time_ms(fresh(fn))
+            plain_ms = _time_ms(fresh(plain_fn))
+            dev_ms, dev_ops = {}, {}
+            for route, f in (("fused", fn), ("plain", plain_fn)):
+                events = _device_trace(reps, f, *args)
+                dev_ops[route] = round(len(events) / reps)
+                dev_ms[route] = _per_call_ms(events, reps)
+            ms = sum(v for op, v in dev_ms["fused"].items() if EM_TRACE_NAMES[key] in op)
+            if ms <= 0:
+                raise AssertionError(f"emitter stage: {part} call {i}'s trace holds no "
+                                     f"{EM_TRACE_NAMES[key]} ({sorted(dev_ms['fused'])[:20]})")
+            fused_dev, plain_dev = sum(dev_ms["fused"].values()), sum(dev_ms["plain"].values())
+            for j, v in enumerate((ms, work["bound_ms"], fused_dev, plain_dev)):
+                frame[key][j] += v
+            if i == 0:
+                first[key] = dict(ms=ms, device_ms=ms, bound_ms=work["bound_ms"],
+                                  bound_by="bytes", bytes=work["bytes"], calls=len(rec[part]),
+                                  lanes=work["lanes"], call_ms=call_ms, plain_ms=plain_ms,
+                                  call_device_ms=fused_dev, call_device_ops=dev_ops["fused"],
+                                  plain_device_ms=plain_dev, plain_device_ops=dev_ops["plain"],
+                                  max_rel_l1=max(a[1] for a in agree.values()),
+                                  lanes_off=max(a[0] for a in agree.values()))
+            print(f"emitter stage {part} call {i}: {work['lanes']} lanes; fused against plain: "
+                  + ", ".join(f"{n} {a[0]} past rtol, rel L1 {a[1]:.2e}, {a[2]} not equal"
+                              for n, a in agree.items())
+                  + ("" if drawn is None else f"; the kernel's draws equal on {drawn} lanes")
+                  + f"; kernel {ms:.4f} ms (bound {work['bound_ms']:.4f}); the call "
+                  f"{call_ms:.4f} ms fused against {plain_ms:.4f} plain (CUDA events), device "
+                  f"{fused_dev:.4f} ms in {dev_ops['fused']} device ops against "
+                  f"{plain_dev:.4f} in {dev_ops['plain']}")
+    print("emitter stage frame sums over the recorded calls: " + ", ".join(
+        f"{k} {v[0]:.4f} ms (bound {v[1]:.4f}), calls' device ms {v[2]:.4f} fused against "
+        f"{v[3]:.4f} plain" for k, v in frame.items()))
     return first, {k: tuple(v) for k, v in frame.items()}
 
 
@@ -1703,18 +1932,19 @@ def phase_optimize(setup, steps=5):
 
 
 def _launch_counts():
-    from mitsuba_customization_tpu_torch.ops import bsdf_shade
+    from mitsuba_customization_tpu_torch.ops import bsdf_shade, emitter_shade
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
 
     return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES,
             "K3": cl.LAUNCHES["closest"], "K4": cl.LAUNCHES["shadow"],
-            "SH-pre": bsdf_shade.LAUNCHES["pre"], "SH-post": bsdf_shade.LAUNCHES["post"]}
+            "SH-pre": bsdf_shade.LAUNCHES["pre"], "SH-post": bsdf_shade.LAUNCHES["post"],
+            **{k: emitter_shade.LAUNCHES[part] for k, part in EM_PARTS.items()}}
 
 
 def _reset_counts():
-    from mitsuba_customization_tpu_torch.ops import bsdf_shade
+    from mitsuba_customization_tpu_torch.ops import bsdf_shade, emitter_shade
     from mitsuba_customization_tpu_torch.ops import clusters as cl
     from mitsuba_customization_tpu_torch.ops import marginal_sorted as k2
     from mitsuba_customization_tpu_torch.ops import merl_sorted as k1
@@ -1729,6 +1959,8 @@ def _reset_counts():
     cl.LAUNCHES["shadow"] = 0
     bsdf_shade.LAUNCHES["pre"] = 0
     bsdf_shade.LAUNCHES["post"] = 0
+    for part in emitter_shade.LAUNCHES:
+        emitter_shade.LAUNCHES[part] = 0
     bvh.LAUNCHES["closest"] = 0
     bvh.LAUNCHES["any"] = 0
     medium.LAUNCHES["delta"] = 0
@@ -3835,7 +4067,7 @@ TRACE_NAMES = {"K1": "merl_eval_kernel", "K2": "cond_sample_kernel",
                "K3": "cluster_closest_kernel", "K4": "cluster_shadow_kernel",
                "B1": "bvh_closest_kernel", "B2": "bvh_any_kernel",
                "T1": "medium_delta_track_kernel", "T2": "medium_ratio_track_kernel",
-               "S1": "sdf_march_kernel", **SH_TRACE_NAMES}
+               "S1": "sdf_march_kernel", **SH_TRACE_NAMES, **EM_TRACE_NAMES}
 
 
 def _profiled(fn, names=TRACE_NAMES):
@@ -4263,6 +4495,11 @@ def main():
     if sh_stats["SH-pre"]["calls"] != mp_launches["SH-pre"]:
         raise AssertionError(f"recorded bounce_shade calls {sh_stats['SH-pre']['calls']} != "
                              f"launches {mp_launches}")
+    em_stats, em_frame = phase_emitter_stage(mp_scene, 8)
+    if any(em_stats[k]["calls"] != mp_launches[k] for k in EM_TRACE_NAMES):
+        raise AssertionError(f"recorded emitter-stage calls "
+                             f"{({k: v['calls'] for k, v in em_stats.items()})} != launches "
+                             f"{mp_launches}")
     phase_matpreview_cpu(dev, fracs)
     lap("7-11 matpreview")
 
@@ -4404,6 +4641,25 @@ def main():
             launches=mp_launches[key], **stats, share=stats["bound_ms"] / stats["ms"],
             library_ms=None, frame_ms=sh_frame[key][0], frame_bound_ms=sh_frame[key][1],
             frame_share=sh_frame[key][1] / sh_frame[key][0],
+            launches_by_phase=dict(matpreview=mp_launches[key], ad_step=ad_launches[key],
+                                   **by_phase(key))))
+    # emitter_hit / _sample / _nee (the emitter stage; no Pallas kernel:
+    # the JAX package leaves the stage to XLA): phase 10's first recorded
+    # call of each (bounce 0) and the frame's recorded calls, launches of
+    # the matpreview frame, phase 13's AD step and every phase
+    from mitsuba_customization_tpu_torch.ops import emitter_shade
+
+    for key, part in EM_PARTS.items():
+        stats, sums = em_stats[key], em_frame[key]
+        kernels.append(dict(
+            name=EM_TRACE_NAMES[key][:-len("_kernel")], route="cuda",
+            source=emitter_shade.SOURCE,
+            replaces="none: mitsuba_customization_tpu/render/emitters.py and the bounce bodies "
+                     "of render/integrator.py, XLA fusions, no Pallas kernel",
+            launches=mp_launches[key], **stats, share=stats["bound_ms"] / stats["ms"],
+            library_ms=None, frame_ms=sums[0], frame_bound_ms=sums[1],
+            frame_share=sums[1] / sums[0], frame_call_device_ms=sums[2],
+            frame_plain_device_ms=sums[3],
             launches_by_phase=dict(matpreview=mp_launches[key], ad_step=ad_launches[key],
                                    **by_phase(key))))
     # K1's backward: launches and in-frame times per AD step (phase 13)

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("merl_eval.cu", "merl_eval_bwd.cu", "cond_sample.cu",
            "cluster_closest.cu", "cluster_shadow.cu", "bvh_traverse.cu",
-           "medium_track.cu", "sdf_march.cu", "bsdf_shade.cu")
+           "medium_track.cu", "sdf_march.cu", "bsdf_shade.cu", "emitter_shade.cu")
 HEADERS = ("merl_lane.cuh", "cluster_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libmct_torch_kernels.so"
@@ -33,9 +33,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
-# flags of one source beside NVCC_FLAGS: the BSDF stage rounds each product
-# and sum on its own, as the plain PyTorch code it stands for does
-SOURCE_FLAGS = {"bsdf_shade.cu": ("-fmad=false",)}
+# flags of one source beside NVCC_FLAGS: the BSDF and emitter stages round
+# each product and sum on their own, as the plain PyTorch code they stand
+# for does
+SOURCE_FLAGS = {"bsdf_shade.cu": ("-fmad=false",), "emitter_shade.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +66,9 @@ _SIGNATURES = {
     "mct_sdf_march": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P],
     "mct_bsdf_shade_pre": [_P, _P],  # ops/bsdf_shade._PreArgs by pointer, stream
     "mct_bsdf_shade_post": [_P, _P],
+    "mct_emitter_hit": [_P, _P],  # ops/emitter_shade._HitArgs by pointer, stream
+    "mct_emitter_sample": [_P, _P],
+    "mct_emitter_nee": [_P, _P],
 }
 
 _lib = None

@@ -25,6 +25,11 @@ hit emitter point, and `DirectionSample.p_area` its NEE counterpart.
 Per-lane reads of the envmap and projector images gather from flat views
 with index_select (its backward is one index_add_). The 3x3 rotations are
 written out as sums of products, not matmuls (no TF32 on the card).
+
+The emitter stage of a bounce (`hit_term`, `sample_nee`, `nee_term`, which
+the integrators call) takes one of two routes a part (`route`): the CUDA
+kernels of ops/emitter_shade.py, or the functions above ("plain"), which
+are the reference and what every CPU call runs.
 """
 
 from __future__ import annotations
@@ -37,13 +42,16 @@ import torch
 from mitsuba_customization_tpu_torch.core import math as m
 from mitsuba_customization_tpu_torch.core.distr import DiscreteDistribution, Marginal2D
 from mitsuba_customization_tpu_torch.core.frame import Frame
+from mitsuba_customization_tpu_torch.core.sampler import IndependentSampler
 from mitsuba_customization_tpu_torch.core.spectrum import luminance
 from mitsuba_customization_tpu_torch.core.warp import (
     square_to_uniform_sphere,
     square_to_uniform_triangle,
 )
+from mitsuba_customization_tpu_torch.ops import emitter_shade
 from mitsuba_customization_tpu_torch.render import geometry as geo
 from mitsuba_customization_tpu_torch.render.records import DirectionSample
+from mitsuba_customization_tpu_torch.utils import log
 
 AREA = 0
 CONSTANT = 1
@@ -400,3 +408,132 @@ def eval_hit(table: EmitterTable, si):
     return torch.where(
         (valid & front & is_area)[..., None], table.radiance.index_select(0, em), 0.0
     )
+
+
+def mis_weight(pdf_a, pdf_b):
+    """Power heuristic (beta = 2)."""
+    a2 = pdf_a * pdf_a
+    w = m.safe_div(a2, a2 + pdf_b * pdf_b)
+    return torch.where(pdf_a > 0.0, w, 0.0)
+
+
+# --------------------------------------------------------------------------
+# The emitter stage of a bounce: its routes
+# --------------------------------------------------------------------------
+
+FUSED, PLAIN = "fused", "plain"
+FUSED_TYPES = frozenset([AREA, CONSTANT])
+
+
+def route(present, device_type, grad_enabled, requires_grad):
+    """The route of one part of a bounce's emitter stage (hit, sample or
+    nee), from what the call can observe: FUSED or PLAIN.
+
+    present: the table's emitter types; device_type: the lanes' ("cuda" or
+    not); grad_enabled: torch's grad mode; requires_grad: whether a tensor
+    input of the part requires grad.
+
+    FUSED (ops/emitter_shade's kernel for the part): CUDA lanes, a table of
+    FUSED_TYPES only, and no input requiring grad under grad mode, since
+    the kernels hand no gradient back. Everything else is PLAIN, the
+    functions above: every CPU call, the envmap and the delta emitters,
+    and an input that carries a graph (volpath's NEE point at a medium
+    interaction under ad_mode).
+    """
+    if (device_type == "cuda" and present <= FUSED_TYPES
+            and not (grad_enabled and requires_grad)):
+        return FUSED
+    return PLAIN
+
+
+def _route(table, part, lanes, inputs):
+    """route() for one call of a part, counted in log.Statistics as
+    emitter.<route>/<part> (host counts)."""
+    grad = torch.is_grad_enabled()
+    r = route(table.present, lanes.device.type, grad,
+              grad and any(t.requires_grad for t in inputs))
+    log.Statistics.get().add(f"emitter.{r}/{part}")
+    return r
+
+
+def hit_term(table, geom, si, ray, L, thr, prev_pdf, prev_delta, mask):
+    """L plus what the lanes under `mask` see at this bounce's end: the
+    radiance of an area emitter hit (its front) or of the sky an escaped
+    ray meets, times thr and the MIS weight against the previous bounce's
+    NEE (power heuristic of prev_pdf over NEE's density; 1 after a delta
+    lobe). The hit record, the ray origin and prev_pdf feed only that
+    weight, which is detached, and the front test, so their graphs
+    (volpath's, from a medium point) are cut first. The fused route reads
+    no ray direction (an envmap's radiance does, on the plain route): it
+    tests the radiance alone."""
+    si = si._replace(p=si.p.detach(), n=si.n.detach(), wi=si.wi.detach(),
+                     frame=Frame(*(v.detach() for v in si.frame)))
+    ray = ray._replace(o=ray.o.detach())
+    prev_pdf = prev_pdf.detach()
+    if _route(table, "hit", si.p, [table.radiance]) == FUSED:
+        e = emitter_shade.hit(table, geom, si, ray.o, prev_pdf, prev_delta, mask)
+        return torch.addcmul(L, thr, e)
+    return _hit_term_plain(table, geom, si, ray, L, thr, prev_pdf, prev_delta, mask)
+
+
+def _hit_term_plain(table, geom, si, ray, L, thr, prev_pdf, prev_delta, mask):
+    """hit_term's plain route."""
+    hit_rad = eval_hit(table, si)
+    hit_pdf = pdf_hit_direction(table, geom, si, ray.o)
+    bg_rad = eval_background(table, ray.d)
+    bg_pdf = pdf_miss_direction(table, ray.d)
+    rad = torch.where(si.valid[..., None], hit_rad, bg_rad)
+    em_pdf = torch.where(si.valid, hit_pdf, bg_pdf)
+    w_mis = torch.where(prev_delta, 1.0, mis_weight(prev_pdf, em_pdf)).detach()
+    return L + torch.where(mask[..., None], thr * rad * w_mis[..., None], 0.0)
+
+
+def sample_nee(table, geom, si, p_ref, sampler, mask, depth_ok, refl_only):
+    """The NEE sample of a bounce: (DirectionSample toward an emitter from
+    p_ref, its direction in si's shading frame, nee_ok: the lanes whose
+    shadow ray is traced, under `mask` with a positive pdf and depth_ok,
+    and with refl_only above the horizon). `sampler` sits at the NEE
+    draws (three: the emitter, reused for the prim and the sky direction,
+    and the position); on the fused route an independent sampler's draws
+    are made in the kernel."""
+    rows = [table.radiance, table.select.pmf, table.select.cdf, table.prim_dist.pmf,
+            table.prim_area, geom.p0, geom.e1, geom.e2]
+    if _route(table, "sample", p_ref, rows + [p_ref, *si.frame]) == FUSED:
+        if type(sampler) is IndependentSampler:
+            draws = dict(lane_key=sampler._lane_key, dim=sampler.base_dim + sampler.dim)
+        else:
+            draws = dict(u3=torch.stack([sampler.next_1d() for _ in range(3)], -1))
+        return emitter_shade.sample(table, geom, si.frame, p_ref, mask, depth_ok, refl_only,
+                                    **draws)
+    return _sample_nee_plain(table, geom, si, p_ref, sampler, mask, depth_ok, refl_only)
+
+
+def _sample_nee_plain(table, geom, si, p_ref, sampler, mask, depth_ok, refl_only):
+    """sample_nee's plain route."""
+    u3 = torch.stack([sampler.next_1d(), sampler.next_1d(), sampler.next_1d()], -1)
+    ds = sample_direction(table, geom, p_ref, u3)
+    wo_local = si.to_local(ds.d)
+    nee_ok = mask & (ds.pdf > 0.0) & depth_ok
+    if refl_only:
+        nee_ok = nee_ok & (m.cos_theta(wo_local) > 0.0)
+    return ds, wo_local, nee_ok
+
+
+def nee_term(table, ds, pdf_nee, vis, L, a):
+    """L plus the NEE term where the shadow ray is clear (vis): a (thr *
+    f_nee, or volpath's thr * f * transmittance) times the sample's
+    radiance over its pdf, weighted against the BSDF's pdf_nee (power
+    heuristic; 1 for a delta emitter). The weight over the pdf is
+    detached, so the pdfs' graphs are cut before the route's test."""
+    pdf = ds.pdf.detach()
+    if _route(table, "nee", pdf, (ds.radiance, pdf, pdf_nee.detach())) == FUSED:
+        e = emitter_shade.nee(ds.radiance, pdf, ds.delta, pdf_nee.detach(), vis)
+        return torch.addcmul(L, a, e)
+    return _nee_term_plain(table, ds, pdf_nee, vis, L, a)
+
+
+def _nee_term_plain(table, ds, pdf_nee, vis, L, a):
+    """nee_term's plain route (`table` unread: nee_term's signature)."""
+    w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_nee))
+    w = m.safe_div(w_nee, ds.pdf).detach()
+    return L + torch.where(vis[..., None], a * ds.radiance * w[..., None], 0.0)

@@ -81,13 +81,6 @@ def texcoords(scene, si):
     return torch.cat(parts, -1)
 
 
-def mis_weight(pdf_a, pdf_b):
-    """Power heuristic (beta = 2)."""
-    a2 = pdf_a * pdf_a
-    w = m.safe_div(a2, a2 + pdf_b * pdf_b)
-    return torch.where(pdf_a > 0.0, w, 0.0)
-
-
 def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
             ad_mode=False):
     """Bounce b of the path tracer over the lanes of `state` = (ray, thr,
@@ -114,17 +107,9 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
 
     # ---- emitter hits / escaped rays (MIS against the previous NEE) ----
     log.stage("emitter")
-    if has_emitters:
-        show = b > 0 or not hide_emitters
-        hit_rad = em_mod.eval_hit(scene.emitters, si)
-        hit_pdf = em_mod.pdf_hit_direction(scene.emitters, scene.geometry, si, ray.o)
-        bg_rad = em_mod.eval_background(scene.emitters, ray.d)
-        bg_pdf = em_mod.pdf_miss_direction(scene.emitters, ray.d)
-        rad = torch.where(si.valid[..., None], hit_rad, bg_rad)
-        em_pdf = torch.where(si.valid, hit_pdf, bg_pdf)
-        w_mis = torch.where(prev_delta, 1.0, mis_weight(prev_pdf, em_pdf)).detach()
-        if show:
-            L = L + torch.where(active[..., None], thr * rad * w_mis[..., None], 0.0)
+    if has_emitters and (b > 0 or not hide_emitters):
+        L = em_mod.hit_term(scene.emitters, scene.geometry, si, ray, L, thr, prev_pdf,
+                            prev_delta, active)
 
     active = active & si.valid
 
@@ -141,14 +126,9 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     nee_vis = shadow_n = None
     if do_nee:
         log.stage("emitter")
-        u3 = torch.stack(
-            [smp_nee.next_1d(), smp_nee.next_1d(), smp_nee.next_1d()], -1
-        )
-        ds = em_mod.sample_direction(scene.emitters, scene.geometry, si.p, u3)
-        wo_local = si.to_local(ds.d)
-        nee_ok = active & (ds.pdf > 0.0) & (b + 2 <= max_depth)
-        if refl_only:
-            nee_ok = nee_ok & (m.cos_theta(wo_local) > 0.0)
+        ds, wo_local, nee_ok = em_mod.sample_nee(scene.emitters, scene.geometry, si, si.p,
+                                                 smp_nee, active, b + 2 <= max_depth,
+                                                 refl_only)
         # shadow ray before shading: occluded lanes skip the tabulated
         # NEE eval (visibility does not depend on f)
         log.stage("shadow")
@@ -171,10 +151,7 @@ def _bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
 
     if do_nee:
         log.stage("emitter")
-        w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_nee))
-        contrib = (thr * f_nee * ds.radiance
-                   * m.safe_div(w_nee, ds.pdf).detach()[..., None])
-        L = L + torch.where(nee_vis[..., None], contrib, 0.0)
+        L = em_mod.nee_term(scene.emitters, ds, bsdf_pdf_nee, nee_vis, L, thr * f_nee)
 
     # ---- BSDF-sampled continuation ----
     log.stage("bsdf")
@@ -510,16 +487,9 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
 
     # ---- emitter hits / escaped rays, for lanes that reach the surface ----
     log.stage("emitter")
-    if has_emitters:
-        hit_rad = em_mod.eval_hit(scene.emitters, si)
-        hit_pdf = em_mod.pdf_hit_direction(scene.emitters, scene.geometry, si, ray.o)
-        bg_rad = em_mod.eval_background(scene.emitters, ray.d)
-        bg_pdf = em_mod.pdf_miss_direction(scene.emitters, ray.d)
-        rad = torch.where(si.valid[..., None], hit_rad, bg_rad)
-        em_pdf = torch.where(si.valid, hit_pdf, bg_pdf)
-        w_mis = torch.where(prev_delta, 1.0, mis_weight(prev_pdf, em_pdf)).detach()
-        if b > 0 or not hide_emitters:
-            L = L + torch.where(surf_event[..., None], thr * rad * w_mis[..., None], 0.0)
+    if has_emitters and (b > 0 or not hide_emitters):
+        L = em_mod.hit_term(scene.emitters, scene.geometry, si, ray, L, thr, prev_pdf,
+                            prev_delta, surf_event)
 
     active = active & (si.valid | med_event)
     surf_event = surf_event & si.valid
@@ -540,13 +510,10 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
     nee_vis = shadow_n = None
     if do_nee:
         log.stage("emitter")
-        u3 = torch.stack(
-            [smp_nee.next_1d(), smp_nee.next_1d(), smp_nee.next_1d()], -1
-        )
         p_ref = torch.where(med_event[..., None], p_med, si.p)
-        ds = em_mod.sample_direction(scene.emitters, scene.geometry, p_ref, u3)
-        wo_local = si.to_local(ds.d)
-        nee_ok = (med_event | real_surf) & (ds.pdf > 0.0) & (b + 2 <= max_depth)
+        ds, wo_local, nee_ok = em_mod.sample_nee(scene.emitters, scene.geometry, si, p_ref,
+                                                 smp_nee, med_event | real_surf,
+                                                 b + 2 <= max_depth, False)
         log.stage("shadow")
         shadow_o = torch.where(med_event[..., None], p_med, geo.spawn_ray(si, ds.d).o)
         maxt = torch.where(torch.isinf(ds.dist), _SHADOW_INF, ds.dist * (1.0 - 1e-3))
@@ -582,12 +549,10 @@ def _vol_bounce(scene, state, sampler, b, max_depth, rr_depth, hide_emitters,
         log.stage("shadow")
         shadow_n = nee_ok.sum()
         log.stage("emitter")
-        w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_scat))
         # the transmittance stays attached in ad_mode: its ratio-tracking
         # factors carry the extinction's gradient
-        contrib = (thr * f_scat * (tr if ad_mode else tr.detach()) * ds.radiance
-                   * m.safe_div(w_nee, ds.pdf).detach()[..., None])
-        L = L + torch.where(nee_vis[..., None], contrib, 0.0)
+        L = em_mod.nee_term(scene.emitters, ds, pdf_scat, nee_vis, L,
+                            thr * f_scat * (tr if ad_mode else tr.detach()))
 
     # ---- continuation: phase sample | BSDF sample | null pass-through ----
     log.stage("medium")
